@@ -1,8 +1,8 @@
 """Config system: frozen dataclasses + a registry keyed by --arch id.
 
 The port's own copy of ``repro.config`` (field for field, so a config
-compares equal across the two packages). Only the paper's basecaller
-family is registered here: the LM configs come with the LM slices.
+compares equal across the two packages). Registered: the paper's
+basecaller family and the LM configs ported so far (``LM_ARCHS``).
 Reduced ("smoke") variants are derived mechanically with
 :meth:`ModelConfig.smoke`.
 """
@@ -94,6 +94,12 @@ class ModelConfig:
     mtp_depth: int = 0
     source: str = ""              # provenance note
 
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
     def smoke(self) -> "ModelConfig":
         """Mechanically reduced config of the same family for CPU tests."""
         def cap(v, m):
@@ -146,6 +152,7 @@ class ModelConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 PAPER_ARCHS = ("rubicall", "bonito", "causalcall")
+LM_ARCHS = ("qwen1.5-4b",)
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -154,9 +161,10 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def _ensure_loaded() -> None:
-    for arch in PAPER_ARCHS:
+    for arch in PAPER_ARCHS + LM_ARCHS:
         if arch not in _REGISTRY:
-            importlib.import_module("repro_torch.configs." + arch)
+            importlib.import_module("repro_torch.configs." + arch.replace(
+                "-", "_").replace(".", "_"))
 
 
 def get_config(name: str) -> ModelConfig:

@@ -10,9 +10,33 @@ runs eagerly, so nothing is traced or compiled per plan and
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 PlanKey = Tuple[str, int, str]
+
+
+def chunk_buckets(chunk_tokens: int) -> Tuple[int, ...]:
+    """Mixed-tick width buckets: powers of two below ``chunk_tokens``,
+    plus the full width itself."""
+    if chunk_tokens < 1:
+        raise ValueError(f"chunk_tokens must be >= 1, got {chunk_tokens}")
+    buckets: List[int] = []
+    b = 1
+    while b < chunk_tokens:
+        buckets.append(b)
+        b *= 2
+    buckets.append(int(chunk_tokens))
+    return tuple(buckets)
+
+
+def round_chunk(n: int, buckets: Sequence[int]) -> int:
+    """Round a tick's widest chunk up to its covering bucket."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(
+        f"chunk width {n} exceeds the largest bucket {buckets[-1]} — "
+        f"the scheduler emitted a shape outside the warmed plan set")
 
 
 class PlanMissError(RuntimeError):
@@ -27,11 +51,15 @@ class PlanCache:
         self._warmed: set = set()
         self.hits = 0
         self.misses = 0
+        self.calls: Dict[PlanKey, int] = {}     # tick lookups per key
 
     def register(self, key: PlanKey, fn: Callable) -> None:
         if key in self._fns:
             raise ValueError(f"plan {key} registered twice")
         self._fns[key] = fn
+
+    def keys(self) -> List[PlanKey]:
+        return list(self._fns)
 
     def fn(self, key: PlanKey) -> Callable:
         """Raw access to a plan's callable (warmup)."""
@@ -47,6 +75,7 @@ class PlanCache:
             raise PlanMissError(
                 f"no plan registered for tick bucket {key}; registered: "
                 f"{sorted(self._fns)}")
+        self.calls[key] = self.calls.get(key, 0) + 1
         if key in self._warmed:
             self.hits += 1
         else:

@@ -66,6 +66,11 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         api.make_serving_engine(params, cfg, n_slots=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "rubicall", "--smoke", "--requests", "1"])
+    # the LM path too: its weights are drawn on the card by default
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen1.5-4b", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_params(0, get_config("qwen1.5-4b-smoke"))
     assert chip_smoke.main() != 0
     # asking for the CPU works, and serves a read there
     eng = api.make_serving_engine(params, cfg, device="cpu", n_slots=1)

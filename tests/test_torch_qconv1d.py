@@ -47,7 +47,7 @@ def test_qconv1d_block_matches_jax(T, C, k, relu):
                             relu=relu)
     assert got.shape == (2, T, C) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-3)
-    assert ops.launch_counts() == {"qconv1d_block": 0}   # CPU: plain version
+    assert set(ops.launch_counts().values()) == {0}      # CPU: plain version
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
