@@ -39,16 +39,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    versions on the same pool state.
 6. trace (LM) — host enqueue, device and wall time of one decode and
    one mixed tick, then the device busy share and top kernels under
-   torch.profiler.
+   torch.profiler. The qwen engine is then freed.
+7. kernel (MLA) — hold mla_paged (C = 1) and mla_paged_chunk (C = 16)
+   against their plain versions at deepseek-v3's widths (128 heads,
+   latent 512, rope 64, block_len 16; fp32, bf16, fp8 and int8 arenas;
+   holes, out-of-order blocks, pad rows) at 160 and 2048 positions,
+   then time kernel, plain version, library call and bound (bf16).
+8. serve (MLA) — full-width deepseek-v3-671b cut to 4 layers (3
+   mla_dense + 1 mla_moe with all 256 experts, top-8 and the shared
+   expert), seeded random weights drawn on the card and packed to int8
+   as they are drawn, a bf16 latent arena, the same engine settings and
+   traffic as phase 5. Checks as phase 5: every request finishes,
+   launches reconcile with the ticks (mla_paged on C = 1 ticks,
+   mla_paged_chunk on wider ones, 4 a tick; qmatmul per tick counted
+   from the projections), kernel vs plain ticks; peak device memory.
+9. trace (MLA) — as phase 6, for the deepseek ticks.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
-and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
+Prints each phase's seconds, the card's name and power limit, a
+``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
+"device": {...}}``. Exits non-zero
 without CUDA, and when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -66,13 +82,15 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.config import QuantPolicy, get_config  # noqa: E402
-from repro_torch.core.quant.policy import quantize_tensor  # noqa: E402
+from repro_torch.core.quant.policy import Packer, quantize_tensor  # noqa: E402
 from repro_torch.kernels import _build, ops, qconv1d, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import qmatmul as qmm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models.basecaller import model as bc  # noqa: E402
+from repro_torch.models.lm import common  # noqa: E402
+from repro_torch.models.lm import moe as moe_mod  # noqa: E402
 from repro_torch.models.lm import transformer as tfm  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
@@ -434,7 +452,8 @@ LM_TICK_FP32 = (0.02, 0.75)
 
 
 def paged_inputs(rs, b, hkv, group, c, fills, arena, *, holes=(),
-                 t_blocks=LM_CACHE // BLOCK, q_dtype=torch.bfloat16):
+                 t_blocks=LM_CACHE // BLOCK, q_dtype=torch.bfloat16,
+                 hd=HD):
     """Paged attention inputs on the card as the read sees them mid-tick:
     row i has positions [0, fills[i] + c) written (its c query tokens
     last) in arena blocks handed out in random order; every other byte
@@ -443,8 +462,8 @@ def paged_inputs(rs, b, hkv, group, c, fills, arena, *, holes=(),
     (int8 comes with its fp32 scale arenas)."""
     bl, T = BLOCK, t_blocks
     n_blocks = b * T + 3
-    k = torch.full((n_blocks, bl, hkv, HD), 99.0)
-    v = torch.full((n_blocks, bl, hkv, HD), 99.0)
+    k = torch.full((n_blocks, bl, hkv, hd), 99.0)
+    v = torch.full((n_blocks, bl, hkv, hd), 99.0)
     table = torch.full((b, T), -1, dtype=torch.int32)
     pos = torch.full((b, T * bl), pa.EMPTY_POS, dtype=torch.int32)
     free = list(rs.permutation(n_blocks))
@@ -455,9 +474,9 @@ def paged_inputs(rs, b, hkv, group, c, fills, arena, *, holes=(),
             table[i, j] = int(free.pop())
         p = torch.arange(n + c)
         blk, off = table[i, p // bl].long(), p % bl
-        k[blk, off] = torch.from_numpy(rs.randn(n + c, hkv, HD).astype(
+        k[blk, off] = torch.from_numpy(rs.randn(n + c, hkv, hd).astype(
             np.float32))
-        v[blk, off] = torch.from_numpy(rs.randn(n + c, hkv, HD).astype(
+        v[blk, off] = torch.from_numpy(rs.randn(n + c, hkv, hd).astype(
             np.float32))
         pos[i, :n + c] = p.to(torch.int32)
     for i, j in holes:
@@ -468,7 +487,7 @@ def paged_inputs(rs, b, hkv, group, c, fills, arena, *, holes=(),
         ks, vs = ks.cuda(), vs.cuda()
     else:
         k, v, ks, vs = k.to(arena), v.to(arena), None, None
-    q = torch.from_numpy(rs.randn(b, c, hkv * group, HD).astype(np.float32))
+    q = torch.from_numpy(rs.randn(b, c, hkv * group, hd).astype(np.float32))
     return dict(q=q.to("cuda", q_dtype), k=k.cuda(), v=v.cuda(), k_scale=ks,
                 v_scale=vs, pos=pos.cuda(), t=t.cuda(), table=table.cuda())
 
@@ -647,48 +666,35 @@ def phase_lm_kernel() -> dict:
     return {"err": err, "timing": timing}
 
 
-def lm_tick(runner, cfg, tok, t, last=None, fresh=None, plain=False):
-    """One step of the served model on the runner's pool, through the
-    kernels or (``plain``) with every kernel wrapper swapped for its
-    plain version; returns the live logits (B, V) in fp32."""
+def lm_tick(runner, cfg, tok, t, last=None, fresh=None, plain=False,
+            caches=None):
+    """One step of the served model on ``caches`` (the runner's pool by
+    default), through the kernels or (``plain``) with every kernel
+    wrapper swapped for its plain version; returns the live logits
+    (B, V) in fp32."""
     pool = runner.pool
+    caches = pool.caches if caches is None else caches
     swaps = ((qmm, "qmatmul_cuda", ref.qmatmul_ref),
              (pa, "gqa_paged_cuda", ref.gqa_paged_ref),
-             (pa, "gqa_paged_chunk_cuda", ref.gqa_paged_chunk_ref))
+             (pa, "gqa_paged_chunk_cuda", ref.gqa_paged_chunk_ref),
+             (pa, "mla_paged_cuda", ref.mla_paged_ref),
+             (pa, "mla_paged_chunk_cuda", ref.mla_paged_chunk_ref))
     with contextlib.ExitStack() as stack, torch.inference_mode():
         if plain:
             for mod, name, fn in swaps:
                 stack.enter_context(mock.patch.object(mod, name, fn))
         if fresh is not None:
-            pool.mask_fresh_rows(pool.caches, fresh)
+            pool.mask_fresh_rows(caches, fresh)
         logits, _ = tfm.decode_step_slots(
-            runner.params, pool.caches, tok, t, cfg, logits_at=last,
+            runner.params, caches, tok, t, cfg, logits_at=last,
             tables=pool.host_tables(), attn_backend=runner.attn_backend,
             layers=runner.layers)
     return logits[:, 0].float()
 
 
-def phase_lm_serve() -> dict:
-    cfg = replace(get_config(LM_ARCH), quant=QuantPolicy(8, 0))
-    t0 = time.perf_counter()
-    params = serve.quantize_for_serving(
-        api.init_params(0, cfg, device="cuda"), 8)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    engine = api.make_serving_engine(
-        params, cfg, device="cuda", n_slots=LM_SLOTS, cache_len=LM_CACHE,
-        prefill_chunk=LM_CHUNK, block_len=BLOCK,
-        cache_dtype=torch.bfloat16)
-    del params
-    runner = engine.runner
-    t0 = time.perf_counter()
-    engine.warmup()
-    print(f"[serve-lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.dtype}, int8 weights ({torch.cuda.memory_allocated() / 2**30:.2f}"
-          f" GiB on the card), {runner.attn_backend} attention over a "
-          f"{runner.pool.quant_policy.describe()} arena of "
-          f"{runner.pool.nbytes() / 2**30:.3f} GiB; drawn + packed in "
-          f"{t_init:.1f}s, warmup {time.perf_counter() - t0:.2f}s")
+def lm_requests(cfg):
+    """The LM phases' traffic: 8 greedy and 2 sampled requests of 32-128
+    random prompt tokens and 32 new tokens, all queued at once."""
     rs = np.random.RandomState(0)
     reqs = []
     for i in range(10):
@@ -698,6 +704,78 @@ def phase_lm_serve() -> dict:
               else SamplingParams(max_new_tokens=32))
         reqs.append(Request(rid=i, prompt=rs.randint(
             1, cfg.vocab_size, size=plen).tolist(), sampling=sp))
+    return reqs
+
+
+def qmatmul_per_tick(cfg) -> int:
+    """Projections of one tick that take the quantized-matmul kernel: the
+    packed ones (a group's stack holds ``min_size`` values or more, as
+    ``api.init_params(wbits=8)`` packs) whose (M, K, N) meet the
+    reference kernel's tiling contract (``common._qmatmul_tiles``, the
+    same at every M a tick makes: 4 to 64). wukv is dequantized, the
+    routed experts run dequantized rows, and neither is a projection."""
+    d, plan = cfg.d_model, tfm.layer_plan(cfg)
+    hd = cfg.resolved_head_dim
+    min_size = Packer(QuantPolicy(8, 0)).min_size
+    shapes = []
+    for kind, n in plan:
+        if kind in tfm.MLA_KINDS:
+            H, qr, kvr = cfg.n_heads, cfg.mla_q_lora_rank, \
+                cfg.mla_kv_lora_rank
+            nope, rope, vd = (cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim,
+                              cfg.mla_v_dim)
+            mix = [(d, qr), (qr, H * (nope + rope)), (d, kvr + rope),
+                   (H * vd, d)]
+        else:
+            mix = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+                   (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
+        if kind in tfm.MOE_KINDS:
+            ff = cfg.moe_d_ff or cfg.d_ff
+            sh = ff * cfg.n_shared_experts
+            ffn = [(d, cfg.n_experts)] + (
+                [(d, sh), (d, sh), (sh, d)] if sh else [])
+        else:
+            ff = (cfg.dense_d_ff or cfg.d_ff) if kind == "mla_dense" \
+                else cfg.d_ff
+            ffn = [(d, ff), (d, ff), (ff, d)]
+        shapes += [(k, nn) for k, nn in mix + ffn
+                   if n * k * nn >= min_size] * n
+    if not cfg.tie_embeddings and d * cfg.vocab_size >= min_size:
+        shapes.append((d, cfg.vocab_size))
+    return sum(common._qmatmul_tiles(LM_SLOTS, k, n, 8) for k, n in shapes)
+
+
+def phase_lm_serve(cfg, attn: tuple, bounds: tuple) -> dict:
+    """Serve ``cfg`` at full width, int8 weights drawn and packed on the
+    card, then one mixed and one decode tick through the kernels against
+    the plain versions. ``attn``: the (C == 1, C > 1) attention kernels
+    the path must launch once per layer and tick; ``bounds``: the (bf16,
+    fp32) tick bounds."""
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, device="cuda", wbits=8)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated()
+    engine = api.make_serving_engine(
+        params, cfg, device="cuda", n_slots=LM_SLOTS, cache_len=LM_CACHE,
+        prefill_chunk=LM_CHUNK, block_len=BLOCK,
+        cache_dtype=torch.bfloat16)
+    del params
+    runner = engine.runner
+    t0 = time.perf_counter()
+    engine.warmup()
+    print(f"[serve-lm] {cfg.name}: {cfg.n_layers} layers "
+          f"{[k for k, _ in tfm.layer_plan(cfg)]}, d {cfg.d_model}, "
+          f"{cfg.dtype}, int8 weights ({torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB on the card), {runner.attn_backend} attention over a "
+          f"{runner.pool.quant_policy.describe()} arena of "
+          f"{runner.pool.nbytes() / 2**30:.3f} GiB; drawn + packed in "
+          f"{t_init:.1f}s (peak {peak_init / 2**30:.2f} GiB, "
+          f"{before / 2**30:.2f} GiB held before), warmup "
+          f"{time.perf_counter() - t0:.2f}s")
+    reqs = lm_requests(cfg)
     ops.reset_launch_counts()
     runner.plans.calls.clear()
     for r in reqs:
@@ -714,29 +792,32 @@ def phase_lm_serve() -> dict:
                              f"{[(r.rid, r.status) for r in done.values()]}")
     ticks = sum(calls.values())
     narrow = sum(n for (_, w, _), n in calls.items() if w == 1)
-    per_tick = cfg.n_layers * 7 + 1
+    per_tick = qmatmul_per_tick(cfg)
     want = {"qmatmul": per_tick * ticks,
-            "gqa_paged": cfg.n_layers * narrow,
-            "gqa_paged_chunk": cfg.n_layers * (ticks - narrow)}
+            attn[0]: cfg.n_layers * narrow,
+            attn[1]: cfg.n_layers * (ticks - narrow)}
     for name, n in want.items():
         if counts[name] != n or n == 0:
             raise AssertionError(f"{name} launched {counts[name]} times in "
                                  f"{ticks} ticks ({calls}), want {n}")
+    others = {n: c for n, c in counts.items() if n not in want and c}
+    if others:
+        raise AssertionError(f"kernels off this path launched: {others}")
     st = engine.metrics.summary()
     decode_ticks = sum(n for (kind, _, _), n in calls.items()
                        if kind == "decode")
-    print(f"[serve-lm] {st['requests_done']} requests (8 greedy, 2 "
-          f"sampled), {st['generated_tokens']} tokens in "
+    print(f"[serve-lm] {cfg.name}: {st['requests_done']} requests (8 "
+          f"greedy, 2 sampled), {st['generated_tokens']} tokens in "
           f"{st['elapsed_s']:.3f}s: {st['tokens_per_s']:.1f} tok/s, decode "
           f"{st['decode_tokens_per_s']:.1f} tok/s, TTFT p50 "
           f"{st['ttft_p50_s'] * 1e3:.1f} ms, decode interval p50 "
           f"{st['decode_interval_p50_s'] * 1e3:.2f} ms, tick p50 "
           f"{st['tick_latency_p50_s'] * 1e3:.2f} ms")
-    print(f"[serve-lm] {ticks} ticks ({decode_ticks} decode-only, "
-          f"{ticks - decode_ticks} mixed, {narrow} of width 1): launches "
-          f"qmatmul {counts['qmatmul']} = {per_tick} x {ticks}, gqa_paged "
-          f"{counts['gqa_paged']} = {cfg.n_layers} x {narrow}, "
-          f"gqa_paged_chunk {counts['gqa_paged_chunk']} = {cfg.n_layers} x "
+    print(f"[serve-lm] {cfg.name}: {ticks} ticks ({decode_ticks} "
+          f"decode-only, {ticks - decode_ticks} mixed, {narrow} of width "
+          f"1): launches qmatmul {counts['qmatmul']} = {per_tick} x "
+          f"{ticks}, {attn[0]} {counts[attn[0]]} = {cfg.n_layers} x "
+          f"{narrow}, {attn[1]} {counts[attn[1]]} = {cfg.n_layers} x "
           f"{ticks - narrow}")
 
     # one mixed and one decode tick, kernels vs plain versions, on the
@@ -757,9 +838,14 @@ def phase_lm_serve() -> dict:
                 fresh=fresh)
     snap = {g: {n: a.clone() for n, a in tree.items()}
             for g, tree in pool.caches.items()}
+    # the fp32 comparison reads an fp32 copy of the arena, so no bf16
+    # rounding of the latent or of the MLA compute dtype is left in it
+    wide = {g: {n: a.float() if a.is_floating_point() else a.clone()
+                for n, a in tree.items()} for g, tree in snap.items()}
 
-    def restore():
-        for g, tree in pool.caches.items():
+    def restore(caches=None):
+        caches = pool.caches if caches is None else caches
+        for g, tree in caches.items():
             for n, a in tree.items():
                 a.copy_(snap[g][n])
     t_mixed = torch.full((LM_SLOTS, 16), -1, dtype=torch.int32)
@@ -772,29 +858,61 @@ def phase_lm_serve() -> dict:
     live = {"mixed": [0, 1, 2], "decode": [0, 1, 2, 3]}
     exact = replace(cfg, dtype="float32")
     agree = {}
-    for label, c, bound in (("bf16 as served", cfg, LM_TICK_BF16),
-                            ("fp32 compute", exact, LM_TICK_FP32)):
+    # Expert routing is a discrete choice: a rounding difference between
+    # the two paths that lands on a near-tie of two gates moves a token
+    # to another expert. The plain path replays the kernel path's routing
+    # (dispatch and combine weights), so the comparison measures the
+    # kernels; the tokens whose own routing would have differed are
+    # counted and printed.
+    real_dispatch = moe_mod._top_k_dispatch
+    routes, moved = [], [0, 0]
+
+    def record(*args, **kw):
+        out = real_dispatch(*args, **kw)
+        routes.append(out)
+        return out
+
+    def replay(*args, **kw):
+        own = real_dispatch(*args, **kw)[0].any(-1)     # (G, S, E)
+        rec = routes[moved[1]]
+        moved[0] += int((own != rec[0].any(-1)).any(-1).sum())
+        moved[1] += 1
+        return rec
+    for label, c, bound, caches in (
+            ("bf16 as served", cfg, bounds[0], pool.caches),
+            ("fp32 compute and arena", exact, bounds[1], wide)):
         for kind, (tok, t, last) in (("mixed", mixed), ("decode", decode)):
-            out = []
-            for plain in (False, True):
-                restore()
-                out.append(lm_tick(runner, c, tok, t, last, plain=plain))
+            out, routes[:], moved[:] = [], [], [0, 0]
+            for plain, hook in ((False, record), (True, replay)):
+                restore(caches)
+                with mock.patch.object(moe_mod, "_top_k_dispatch", hook):
+                    out.append(lm_tick(runner, c, tok, t, last, plain=plain,
+                                       caches=caches))
             lk, lp = (o[live[kind]] for o in out)
             if not bool(torch.isfinite(lk).all()):
                 raise AssertionError("LM tick: non-finite logits")
             d = float((lk - lp).abs().max())
             a = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
             agree[f"{kind}, {label}"] = (d, a)
-            print(f"[serve-lm] one {kind} tick kernel vs plain, {label}: "
-                  f"max|d logit| {d:.4g} (logit std "
+            routed = ""
+            if routes:
+                total = sum(int(r[0].any(-1).any(-1).sum()) for r in routes)
+                routed = (f"; routing replayed: {moved[0]} of {total} routed "
+                          f"tokens would have picked other experts")
+            print(f"[serve-lm] {cfg.name}: one {kind} tick kernel vs plain, "
+                  f"{label}: max|d logit| {d:.4g} (logit std "
                   f"{float(lk.std()):.3g}), argmax agree {a:.3f} over "
-                  f"{len(live[kind])} live rows")
+                  f"{len(live[kind])} live rows{routed}")
             if d > bound[0] or a < bound[1]:
                 raise AssertionError(f"served {kind} tick ({label}): kernel "
                                      f"path disagrees with the plain path")
+    del wide
     restore()
+    print(f"[serve-lm] {cfg.name}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"launches": counts, "runner": runner, "cfg": cfg,
-            "mixed": mixed, "decode": decode, "restore": restore}
+            "mixed": mixed, "decode": decode, "restore": restore,
+            "per_tick": per_tick}
 
 
 def phase_lm_trace(served: dict) -> dict:
@@ -814,9 +932,174 @@ def phase_lm_trace(served: dict) -> dict:
 
         def enqueue():
             return fn(*args, None)
-        out[kind] = trace(f"one {kind} tick (qwen1.5-4b, B={B}, C="
-                          f"{t.shape[1]})", enqueue)
+        out[kind] = trace(f"one {kind} tick ({served['cfg'].name}, B={B}, "
+                          f"C={t.shape[1]})", enqueue)
     return out
+
+
+# ---------------------------------------------------------------------------
+# MLA slice: full-width deepseek-v3-671b, cut to 4 layers
+
+DS_ARCH = "deepseek-v3-671b"
+# 3 mla_dense + 1 mla_moe layer: the least depth that keeps every kind
+# of layer (the published 61 layers are 3 + 58); widths, the 256 routed
+# experts, top-8 and the shared expert as published
+DS_LAYERS = 4
+KVR, ROPE, NOPE, DS_H = 512, 64, 128, 128
+MLA_SCALE = (NOPE + ROPE) ** -0.5
+MLA_POSITIONS = (160, 2048)
+# one served tick, kernel path vs plain path (bounds stated before the
+# first run on the card): the tick is 4 layers deep; bf16 as served
+# allows 0.5, fp32 compute (and an fp32 copy of the arena) 0.02: only
+# summation order differs. The MoE routing is replayed (phase_lm_serve).
+DS_TICK_BF16 = (0.5, 0.5)
+DS_TICK_FP32 = (0.02, 0.75)
+
+
+def latent_inputs(rs, b, c, fills, arena, *, holes=(), t_blocks,
+                  q_dtype=torch.bfloat16):
+    """MLA inputs on the card as the read sees them mid-tick: the arena
+    of :func:`paged_inputs` with one KV head of width 512 + 64, split
+    into the latent c (n_blocks, 16, 512) and kr (n_blocks, 16, 64) in
+    the storage dtype ``arena``; q_abs (b, c, 128, 512) and q_rope (b,
+    c, 128, 64)."""
+    x = paged_inputs(rs, b, 1, 1, c, fills, torch.float32, holes=holes,
+                     t_blocks=t_blocks, hd=KVR + ROPE)
+    lat = x["k"][:, :, 0]
+    cl, kr = lat[..., :KVR].contiguous(), lat[..., KVR:].contiguous()
+    if arena == torch.int8:
+        (cl, cs), (kr, krs) = pa.quantize_kv(cl), pa.quantize_kv(kr)
+    else:
+        cl, kr, cs, krs = cl.to(arena), kr.to(arena), None, None
+    qa = torch.from_numpy(rs.randn(b, c, DS_H, KVR).astype(np.float32))
+    qr = torch.from_numpy(rs.randn(b, c, DS_H, ROPE).astype(np.float32))
+    return dict(qa=qa.to("cuda", q_dtype), qr=qr.to("cuda", q_dtype),
+                c=cl, kr=kr, c_scale=cs, kr_scale=krs, pos=x["pos"],
+                t=x["t"], table=x["table"])
+
+
+def mla_call(x, fn_chunk, fn_single):
+    """(kernel-or-plain) call on ``latent_inputs``: the single-token
+    function for C == 1, the chunk function otherwise; returns o_lat
+    (B, C, H, kvr)."""
+    kw = dict(scale=MLA_SCALE, c_scale=x["c_scale"], kr_scale=x["kr_scale"])
+    if x["qa"].shape[1] == 1:
+        return fn_single(x["qa"][:, 0], x["qr"][:, 0], x["c"], x["kr"],
+                         x["pos"], x["t"][:, 0].contiguous(), x["table"],
+                         **kw)[:, None]
+    return fn_chunk(x["qa"], x["qr"], x["c"], x["kr"], x["pos"], x["t"],
+                    x["table"], **kw)
+
+
+def mla_kernel(x):
+    return mla_call(x, pa.mla_paged_chunk_cuda, pa.mla_paged_cuda)
+
+
+def mla_plain(x):
+    return mla_call(x, ref.mla_paged_chunk_ref, ref.mla_paged_ref)
+
+
+def mla_library(x):
+    """Gather + F.scaled_dot_product_attention with the validity mask,
+    the latent as one shared KV head (keys [c | kr], values c): the
+    same function from library calls, timed only, never used by the
+    port."""
+    qa, qr, c, kr, pos, t, table = (x[n] for n in ("qa", "qr", "c", "kr",
+                                                   "pos", "t", "table"))
+    B, Cq = qa.shape[:2]
+    L = table.shape[1] * BLOCK
+
+    def fn():
+        idx = table.long().clamp(min=0)
+        cr = c[idx].reshape(B, 1, L, KVR).to(qa.dtype)
+        krr = kr[idx].reshape(B, 1, L, ROPE).to(qa.dtype)
+        q = torch.cat([qa, qr], -1).transpose(1, 2)     # (B, H, C, 576)
+        mask = (pos[:, None, :] >= 0) & (pos[:, None, :] <= t[:, :, None])
+        return F.scaled_dot_product_attention(
+            q, torch.cat([cr, krr], -1), cr, attn_mask=mask[:, None],
+            scale=MLA_SCALE, enable_gqa=True)
+    return fn
+
+
+def mla_bound(x) -> tuple:
+    """Least time for one call on this run's data: each assigned block's
+    latent and rope rows (and scales, positions) read once, q_abs,
+    q_rope, t and the table read, the fp32 o_lat written; 2 (kvr + rope)
+    flops per query row and cached position for the scores and 2 kvr
+    for PV."""
+    qa, c = x["qa"], x["c"]
+    B, Cq, H, kvr = qa.shape
+    bl = c.shape[1]
+    blocks = int((x["table"] >= 0).sum())
+    lat = blocks * bl * (KVR + ROPE) * c.element_size()
+    if x["c_scale"] is not None:
+        lat += blocks * bl * 4 * 2
+    nbytes = (lat + blocks * bl * 4
+              + (qa.numel() + x["qr"].numel()) * qa.element_size()
+              + B * Cq * H * kvr * 4 + x["t"].numel() * 4
+              + x["table"].numel() * 4)
+    flops = 2 * blocks * bl * Cq * H * (2 * KVR + ROPE)
+    return bound_ms(nbytes, flops, torch.bfloat16)
+
+
+def phase_mla_kernel() -> dict:
+    """mla_paged / mla_paged_chunk vs their plain versions at
+    deepseek-v3's widths on every arena dtype, then timed."""
+    rs = np.random.RandomState(2)
+    err = {"mla_paged": 0.0, "mla_paged_chunk": 0.0}
+    for npos in MLA_POSITIONS:
+        T = npos // BLOCK
+        for arena in ATTN_TOL:
+            for c in (1, 16):
+                x = latent_inputs(
+                    rs, 4, c, [T * BLOCK - c, BLOCK - 1, 0, npos // 2],
+                    arena, holes=[(0, 5)], t_blocks=T,
+                    q_dtype=(torch.float32 if arena == torch.float32
+                             else torch.bfloat16))
+                x["t"][3, 1:] = -1         # a decode row padded to C
+                if c == 1:
+                    x["t"][2] = -1         # a free slot
+                got, want = mla_kernel(x), mla_plain(x)
+                torch.cuda.synchronize()
+                live = x["t"] >= 0
+                if got.shape != (4, c, DS_H, KVR) or \
+                        not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"mla_paged: {tuple(got.shape)} "
+                                         f"or non-finite output")
+                tol = ATTN_TOL[arena]
+                torch.testing.assert_close(got[live], want[live], rtol=tol,
+                                           atol=tol)
+                e = float((got - want)[live].abs().max())
+                name = "mla_paged" if c == 1 else "mla_paged_chunk"
+                if arena == torch.bfloat16 and npos == MLA_POSITIONS[0]:
+                    err[name] = max(err[name], e)
+                print(f"[kernel] {name} H={DS_H} kvr={KVR} rope={ROPE} "
+                      f"C={c} {str(arena)[6:]} positions {npos}: max|err| "
+                      f"{e:.3g} ok")
+    timing = {}
+    for npos in MLA_POSITIONS:
+        for c in (1, 16):
+            x = latent_inputs(rs, LM_SLOTS, c, [npos - c] * LM_SLOTS,
+                              torch.bfloat16, t_blocks=npos // BLOCK)
+            bms, by = mla_bound(x)
+            arena = x["c"].numel() * x["c"].element_size()
+            xs = [dict(x, c=x["c"].clone(), kr=x["kr"].clone())
+                  for _ in range(max(1, -(-(128 << 20) // arena)))]
+            row = {"ms": device_ms([functools.partial(mla_kernel, xi)
+                                    for xi in xs]),
+                   "plain_ms": device_ms([functools.partial(mla_plain, xi)
+                                          for xi in xs], reps=3),
+                   "library_ms": device_ms([mla_library(xi) for xi in xs]),
+                   "bound_ms": bms, "bound_by": by}
+            name = "mla_paged" if c == 1 else "mla_paged_chunk"
+            timing[(name, npos)] = row
+            print(f"[kernel] {name} bf16 B={LM_SLOTS} C={c} H={DS_H} "
+                  f"kvr={KVR} rope={ROPE} positions 0..{npos - 1}: kernel "
+                  f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
+                  f"library {row['library_ms']:.4f} ms | bound "
+                  f"{bms * 1e3:.2f} us ({by})")
+            del xs
+    return {"err": err, "timing": timing}
 
 
 def main() -> int:
@@ -830,12 +1113,32 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    phase_build()
-    kern = phase_kernel()
-    served = phase_serve()
-    lm_kern = phase_lm_kernel()
-    lm = phase_lm_serve()
-    phase_lm_trace(lm)
+    laps = {}
+
+    def lap(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        laps[name] = time.perf_counter() - t
+        print(f"[chip_smoke] phase {name}: {laps[name]:.1f}s")
+        return out
+    lap("build", phase_build)
+    kern = lap("kernel", phase_kernel)
+    served = lap("serve", phase_serve)
+    lm_kern = lap("kernel (LM)", phase_lm_kernel)
+    mla_kern = lap("kernel (MLA)", phase_mla_kernel)
+    qwen = replace(get_config(LM_ARCH), quant=QuantPolicy(8, 0))
+    lm = lap("serve (LM)", phase_lm_serve, qwen,
+             ("gqa_paged", "gqa_paged_chunk"), (LM_TICK_BF16, LM_TICK_FP32))
+    lap("trace (LM)", phase_lm_trace, lm)
+    lm_launches, lm_per_tick = lm["launches"], lm["per_tick"]
+    lm.clear()                             # free qwen's engine and weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_cfg = replace(get_config(DS_ARCH), n_layers=DS_LAYERS,
+                     quant=QuantPolicy(8, 0))
+    ds = lap("serve (MLA)", phase_lm_serve, ds_cfg,
+             ("mla_paged", "mla_paged_chunk"), (DS_TICK_BF16, DS_TICK_FP32))
+    lap("trace (MLA)", phase_lm_trace, ds)
     pk = kern["per_k"]
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
@@ -854,11 +1157,13 @@ def main() -> int:
                  f"B={B} T={T_MAIN} C={C} k={blocks_k}",
         "per_k": {str(k): v for k, v in pk.items()},
     }]
-    cfg = lm["cfg"]
     qt = lm_kern["timing"]["qmatmul"]
-    per_tick = {f"M=4 K={k} N={n}": cfg.n_layers * m
+    per_tick = {f"M=4 K={k} N={n}": qwen.n_layers * m
                 for (k, n), m in QWEN_PROJ.items()}
     per_tick[f"M=4 K={QWEN_HEAD[0]} N={QWEN_HEAD[1]}"] = 1
+    if sum(per_tick.values()) != lm_per_tick:
+        raise AssertionError(f"qmatmul timing covers {per_tick}, the "
+                             f"served tick launches {lm_per_tick}")
 
     def tick_sum(key):
         return sum(qt[s][key] * m for s, m in per_tick.items())
@@ -866,13 +1171,16 @@ def main() -> int:
         "name": "qmatmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
         "replaces": "src/repro/kernels/qmatmul.py:57",
-        "launches": lm["launches"]["qmatmul"],
+        "launches": lm_launches["qmatmul"] + ds["launches"]["qmatmul"],
         "max_abs_err": lm_kern["err"]["qmatmul"],
         "ms": tick_sum("ms"), "plain_ms": tick_sum("plain_ms"),
         "bound_ms": tick_sum("bound_ms"), "bound_by": "bytes",
         "library_ms": tick_sum("library_ms"),
-        "shape": f"sum over one decode tick's {sum(per_tick.values())} "
-                 f"launches, int8 weights, bf16 x, M={LM_SLOTS}",
+        "shape": f"sum over one qwen1.5-4b decode tick's "
+                 f"{sum(per_tick.values())} launches, int8 weights, bf16 "
+                 f"x, M={LM_SLOTS}; launches: both LM phases",
+        "launches_by_phase": {LM_ARCH: lm_launches["qmatmul"],
+                              DS_ARCH: ds["launches"]["qmatmul"]},
         "per_shape": qt})
     for name, replaces in (("gqa_paged", 260), ("gqa_paged_chunk", 492)):
         row = lm_kern["timing"]["attn"][name]
@@ -880,16 +1188,35 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{replaces}",
-            "launches": lm["launches"][name],
+            "launches": lm_launches[name],
             "max_abs_err": lm_kern["err"][name],
-            **{key: (row[key] * cfg.n_layers if key.endswith("ms")
+            **{key: (row[key] * qwen.n_layers if key.endswith("ms")
                      else row[key]) for key in row},
-            "shape": f"sum over one tick's {cfg.n_layers} launches, bf16 "
+            "shape": f"sum over one tick's {qwen.n_layers} launches, bf16 "
                      f"arena, B={LM_SLOTS} Hkv=20 hd={HD} block_len={BLOCK}"
                      f", positions 0..159, C="
                      f"{1 if name == 'gqa_paged' else 16}",
             "per_call": row})
-    print(f"[chip_smoke] all phases ok in {time.perf_counter() - t0:.1f}s")
+    for name, replaces in (("mla_paged", 372), ("mla_paged_chunk", 608)):
+        row = mla_kern["timing"][(name, MLA_POSITIONS[0])]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mla_paged_attention.cu",
+            "replaces": f"src/repro/kernels/paged_attention.py:{replaces}",
+            "launches": ds["launches"][name],
+            "max_abs_err": mla_kern["err"][name],
+            **{key: (row[key] * DS_LAYERS if key.endswith("ms")
+                     else row[key]) for key in row},
+            "shape": f"sum over one tick's {DS_LAYERS} launches, bf16 "
+                     f"latent arena, B={LM_SLOTS} H={DS_H} kvr={KVR} "
+                     f"rope={ROPE} block_len={BLOCK}, positions "
+                     f"0..{MLA_POSITIONS[0] - 1}, C="
+                     f"{1 if name == 'mla_paged' else 16}",
+            "per_call": row,
+            "per_call_2048_positions":
+                mla_kern["timing"][(name, MLA_POSITIONS[1])]})
+    print(f"[chip_smoke] all phases ok in {time.perf_counter() - t0:.1f}s "
+          f"({', '.join(f'{k} {v:.0f}s' for k, v in laps.items())})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

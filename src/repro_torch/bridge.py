@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quant.policy import PackedTensor
+from repro_torch.models.api import resolve_device
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -25,10 +26,12 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def from_numpy_tree(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def from_numpy_tree(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Nested dicts of numpy arrays (and PackedTensor-like nodes) ->
     the same structure of torch tensors / :class:`PackedTensor` on
-    ``device``."""
+    ``device``: CUDA unless the caller asks for the CPU, raising
+    without a card (:func:`repro_torch.models.api.resolve_device`)."""
+    device = resolve_device(device)
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if isinstance(v, dict):

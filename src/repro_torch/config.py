@@ -152,7 +152,7 @@ class ModelConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 PAPER_ARCHS = ("rubicall", "bonito", "causalcall")
-LM_ARCHS = ("qwen1.5-4b",)
+LM_ARCHS = ("qwen1.5-4b", "deepseek-v3-671b", "granite-moe-1b-a400m")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -87,17 +87,35 @@ def _walk(tree: Dict[str, Any], fn: Callable[[str, Any], Any],
             for k, v in tree.items()}
 
 
-def quantize_tree(params: Dict[str, Any], policy: QuantPolicy,
-                  min_size: int = 4096) -> Dict[str, Any]:
-    """Quantize matmul/conv kernels per the policy; leave the rest."""
-    def one(tag: str, leaf):
-        wb, _ = policy.bits_for(tag)
+@dataclasses.dataclass(frozen=True)
+class Packer:
+    """``quantize_tree``'s rule for one leaf: which leaves pack (matmul
+    and conv kernels with 4 or 8 weight bits under ``policy`` and at
+    least ``min_size`` values) and how. Calling it on ``(tag, leaf)``
+    packs a leaf, so a model can pack each leaf as it is drawn instead
+    of holding the whole float tree first."""
+    policy: QuantPolicy
+    min_size: int = 4096
+
+    def bits(self, tag: str, shape) -> int:
+        """Weight bits a leaf of this tag and shape packs with; 0 if it
+        stays as it is."""
+        wb, _ = self.policy.bits_for(tag)
         quantizable = ("kernel" in tag or tag.endswith("/dw")
                        or tag.endswith("/pw") or "head_pw" in tag
                        or tag.endswith(("/wi", "/wg", "/wo")))
-        if not (wb in (4, 8) and isinstance(leaf, torch.Tensor)
-                and leaf.ndim >= 2 and leaf.numel() >= min_size
-                and quantizable):
+        numel = 1
+        for n in shape:
+            numel *= n
+        ok = (wb in (4, 8) and len(shape) >= 2 and numel >= self.min_size
+              and quantizable)
+        return wb if ok else 0
+
+    def __call__(self, tag: str, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        wb = self.bits(tag, leaf.shape)
+        if not wb:
             return leaf
         conv = (tag.endswith("/dw") or tag.endswith("/pw")
                 or "head_pw" in tag or "skip_pw" in tag)
@@ -114,7 +132,17 @@ def quantize_tree(params: Dict[str, Any], policy: QuantPolicy,
             return PackedTensor(pt.data, pt.scale, pt.bits,
                                 tuple(leaf.shape))
         return quantize_tensor(leaf, wb)
-    return _walk(params, one)
+
+    def tree(self, tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+        """Pack every leaf of ``tree`` whose tag (``prefix`` + key path)
+        packs; PackedTensor leaves pass through."""
+        return _walk(tree, self, prefix)
+
+
+def quantize_tree(params: Dict[str, Any], policy: QuantPolicy,
+                  min_size: int = 4096) -> Dict[str, Any]:
+    """Quantize matmul/conv kernels per the policy; leave the rest."""
+    return Packer(policy, min_size).tree(params)
 
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor],

@@ -6,10 +6,12 @@ PyTorch version in :mod:`repro_torch.kernels.ref`, a CUDA tensor
 launches the hand-written kernel — or the call raises. There is no
 fallback from one to the other.
 
-Decode attention has two backends (:func:`decode_gqa`): ``gather``, the
+Decode attention has two backends (:func:`decode_gqa`, and
+:func:`decode_mla` for the latent arenas of MLA): ``gather``, the
 masked-dense reference over a gathered logical view, and ``cuda``, the
-paged kernels reading the block arena in place (``gqa_paged`` for
-single-token ticks, ``gqa_paged_chunk`` for C > 1 chunks).
+paged kernels reading the block arena in place (``gqa_paged`` /
+``mla_paged`` for single-token ticks, ``gqa_paged_chunk`` /
+``mla_paged_chunk`` for C > 1 chunks).
 """
 from __future__ import annotations
 
@@ -133,13 +135,71 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return pa.gqa_reference(q, k_read, v_read, pos, t, window=window)
 
 
+def _mla_paged(q_abs, *args, chunk: bool, **kw):
+    """MLA kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    if q_abs.is_cuda:
+        fn = pa.mla_paged_chunk_cuda if chunk else pa.mla_paged_cuda
+    elif q_abs.device.type == "cpu":
+        fn = ref.mla_paged_chunk_ref if chunk else ref.mla_paged_ref
+    else:
+        raise _no_kernel("mla_paged", q_abs.device)
+    return fn(q_abs, *args, **kw)
+
+
+def decode_mla(q_abs: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
+               k_rope: torch.Tensor, pos: torch.Tensor, t: torch.Tensor, *,
+               scale: float, table: torch.Tensor,
+               backend: Optional[str] = None,
+               c_scale: Optional[torch.Tensor] = None,
+               kr_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Absorbed-form MLA decode over the paged latent pool. q_abs: (B, C,
+    H, kvr); q_rope: (B, C, H, rope); c/k_rope: latent arenas (n_blocks,
+    block_len, kvr|rope); pos: (B, T*block_len); t: (B, C) (< 0 = pad
+    row); table: (B, T) (-1 = unassigned). Returns o_lat (B, C, H, kvr)
+    fp32; the caller applies the absorbed value projection.
+
+    ``backend`` ``gather``/None: the reference over the gathered logical
+    view. ``cuda``: single-token steps (C == 1) run ``mla_paged``, C > 1
+    chunks ``mla_paged_chunk``. ``c_scale``/``kr_scale``: int8 arena
+    scales (n_blocks, block_len)."""
+    B, C, H, kvr = q_abs.shape
+    if backend == "cuda":
+        if q_rope.dtype != q_abs.dtype:
+            # the kernel reads both in one dtype; widening is exact and it
+            # rounds each to the compute dtype itself
+            q_abs, q_rope = q_abs.float(), q_rope.float()
+        kw = dict(scale=scale, c_scale=c_scale, kr_scale=kr_scale)
+        tbl = table.to(torch.int32).contiguous()
+        pos, tq = pos.contiguous(), t.to(torch.int32)
+        if C == 1:
+            o = _mla_paged(q_abs[:, 0].contiguous(),
+                           q_rope[:, 0].contiguous(), c, k_rope, pos,
+                           tq[:, 0].contiguous(), tbl, chunk=False, **kw)
+            return o[:, None]
+        return _mla_paged(q_abs.contiguous(), q_rope.contiguous(), c,
+                          k_rope, pos, tq.contiguous(), tbl, chunk=True,
+                          **kw)
+    gidx = torch.clamp(table.long(), min=0)
+    Leff = table.shape[1] * c.shape[1]
+    c_read = pa.take_blocks(c, gidx).reshape(B, Leff, kvr)
+    kr_read = pa.take_blocks(k_rope, gidx).reshape(B, Leff,
+                                                   k_rope.shape[-1])
+    if c_scale is not None:
+        c_read = pa.dequantize_kv(c_read, c_scale[gidx].reshape(B, Leff))
+        kr_read = pa.dequantize_kv(kr_read, kr_scale[gidx].reshape(B, Leff))
+    return pa.mla_reference(q_abs, q_rope, c_read, kr_read, pos, t,
+                            scale=scale)
+
+
 # ---------------------------------------------------------------------------
 # Launch counters
 
 _COUNTED = {"qconv1d_block": qconv1d.qconv1d_block_cuda,
             "qmatmul": qmm.qmatmul_cuda,
             "gqa_paged": pa.gqa_paged_cuda,
-            "gqa_paged_chunk": pa.gqa_paged_chunk_cuda}
+            "gqa_paged_chunk": pa.gqa_paged_chunk_cuda,
+            "mla_paged": pa.mla_paged_cuda,
+            "mla_paged_chunk": pa.mla_paged_chunk_cuda}
 
 
 def launch_counts() -> dict:

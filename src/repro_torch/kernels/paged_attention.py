@@ -9,16 +9,23 @@ cached position participates iff ``pos >= 0 and pos <= t`` and, for ring
 groups, ``pos > t - window``; a recycled block is invisible to its new
 owner until written, because that owner's ``pos`` row is empty.
 
-Two read paths (``repro_torch.kernels.ops.decode_gqa`` picks one):
+Two read paths (``repro_torch.kernels.ops.decode_gqa`` and
+``decode_mla`` pick one):
 
-``gather``  :func:`gqa_reference` over each row's T blocks gathered into
-            a ``(B, T*block_len)`` logical view — the reference.
-``cuda``    :func:`gqa_paged_cuda` (decode, C == 1) and
-            :func:`gqa_paged_chunk_cuda` (chunked prefill, C > 1) read the
-            arena in place, one CUDA launch each; on a CPU tensor the
+``gather``  :func:`gqa_reference` / :func:`mla_reference` over each
+            row's T blocks gathered into a ``(B, T*block_len)`` logical
+            view — the reference.
+``cuda``    :func:`gqa_paged_cuda` / :func:`mla_paged_cuda` (decode,
+            C == 1) and :func:`gqa_paged_chunk_cuda` /
+            :func:`mla_paged_chunk_cuda` (chunked prefill, C > 1) read
+            the arena in place, one CUDA launch each; on a CPU tensor the
             same call runs their plain versions in
             :mod:`repro_torch.kernels.ref`, which walk the table exactly
             as the kernels do.
+
+MLA (DeepSeek-V3's latent attention, absorbed form) keeps one latent
+``c (n_blocks, block_len, kvr)`` and one rope key ``k_rope (n_blocks,
+block_len, rope)`` per cached position, shared by every head.
 
 Rows with no valid position (pad rows, ``t < 0``) are garbage in every
 path; callers ignore them.
@@ -148,6 +155,13 @@ def compute_dtype(arena_dtype: torch.dtype) -> torch.dtype:
     return torch.bfloat16 if arena_dtype.itemsize == 1 else arena_dtype
 
 
+def mla_compute_dtype(arena_dtype: torch.dtype) -> torch.dtype:
+    """The latent kernels' QK/PV input dtype (``_mla_kernel``): the
+    arena's own dtype, fp8 included; bf16 for int8, which dequantizes
+    to bf16."""
+    return torch.bfloat16 if arena_dtype == torch.int8 else arena_dtype
+
+
 # ---------------------------------------------------------------------------
 # Gather reference
 
@@ -174,6 +188,27 @@ def gqa_reference(q: torch.Tensor, k_read: torch.Tensor,
     return o.reshape(B, C, H * hd)
 
 
+def mla_reference(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                  c_read: torch.Tensor, kr_read: torch.Tensor,
+                  pos: torch.Tensor, t: torch.Tensor, *,
+                  scale: float) -> torch.Tensor:
+    """Masked-dense absorbed MLA over a logical latent view. q_abs: (B, C,
+    H, kvr); q_rope: (B, C, H, rope); c_read: (B, L, kvr); kr_read: (B,
+    L, rope) (int8 already dequantized to bf16); pos: (B, L); t: (B,
+    C). Returns o_lat (B, C, H, kvr) fp32. As the reference's einsums:
+    q_rope and the probabilities rounded to the latent views' dtypes,
+    q_abs taken as it comes, fp32 scores and products."""
+    s = torch.einsum("bchr,blr->bchl", q_abs.float(), c_read.float())
+    s = s + torch.einsum("bchp,blp->bchl",
+                         q_rope.to(kr_read.dtype).float(), kr_read.float())
+    s = s * scale
+    valid = valid_mask(pos, t)
+    s = torch.where(valid[:, :, None, :], s, torch.full_like(s, NEG_INF))
+    prob = torch.softmax(s, dim=-1)
+    return torch.einsum("bchl,blr->bchr", prob.to(c_read.dtype).float(),
+                        c_read.float())
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/paged_attention.cu)
 
@@ -197,17 +232,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, t, dtype, shape, device):
+def _check(name, t, dtype, shape, device, kernel="gqa_paged"):
     if dtype is not None and t.dtype != dtype:
-        raise TypeError(f"gqa_paged: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"gqa_paged: {name} must have shape "
+        raise ValueError(f"{kernel}: {name} must have shape "
                          f"{tuple(shape)}, got {tuple(t.shape)}")
     if t.device != device:
-        raise ValueError(f"gqa_paged: {name} is on {t.device}, q on "
+        raise ValueError(f"{kernel}: {name} is on {t.device}, q on "
                          f"{device}")
     if not t.is_contiguous():
-        raise ValueError(f"gqa_paged: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def _launch(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
@@ -302,3 +337,127 @@ def gqa_paged_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 gqa_paged_cuda.launches = 0
 gqa_paged_chunk_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# MLA CUDA kernel (csrc/mla_paged_attention.cu)
+
+
+@functools.cache
+def _mla_lib() -> ctypes.CDLL:
+    lib = _build.load("mla_paged_attention")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mla_paged_launch.argtypes = ([vp] * 10 + [ci] * 7 + [ctypes.c_float]
+                                     + [ci, ci, vp])
+    lib.mla_paged_launch.restype = ci
+    lib.mla_paged_smem_bytes.argtypes = [ci, ci, ci]
+    lib.mla_paged_smem_bytes.restype = ctypes.c_size_t
+    for name in ("mla_paged_max_kvr", "mla_paged_max_rope",
+                 "mla_paged_max_block_len"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
+    return lib
+
+
+def _mla_launch(q_abs: torch.Tensor, q_rope, c, kr, pos, t, table, scale,
+                c_scale, kr_scale) -> torch.Tensor:
+    """One launch over q_abs (B, C, H, kvr), q_rope (B, C, H, rope); t
+    (B, C). Returns o_lat (B, C, H, kvr) fp32."""
+    name = "mla_paged"
+    if not q_abs.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors")
+    if q_abs.dtype not in _Q_DTYPES:
+        raise TypeError(f"{name}: q_abs must be float32 or bfloat16, got "
+                        f"{q_abs.dtype}")
+    if q_abs.ndim != 4 or not q_abs.is_contiguous():
+        raise ValueError(f"{name}: q_abs must be a contiguous (B, C, H, kvr)")
+    B, C, H, kvr = q_abs.shape
+    if c.ndim != 3 or c.dtype not in _KV_DTYPES:
+        raise TypeError(f"{name}: latent arena must be (n_blocks, "
+                        f"block_len, kvr) in {list(_KV_DTYPES)}, got "
+                        f"{c.dtype} {tuple(c.shape)}")
+    nb, bl = c.shape[:2]
+    rd = kr.shape[-1] if kr.ndim == 3 else -1
+    T = table.shape[-1]
+    dev = q_abs.device
+    _check("q_rope", q_rope, q_abs.dtype, (B, C, H, rd), dev, name)
+    _check("c", c, None, (nb, bl, kvr), dev, name)
+    _check("k_rope", kr, c.dtype, (nb, bl, rd), dev, name)
+    _check("pos", pos, torch.int32, (B, T * bl), dev, name)
+    _check("t", t, torch.int32, (B, C), dev, name)
+    _check("table", table, torch.int32, (B, T), dev, name)
+    quantized = c.dtype == torch.int8
+    if quantized != (c_scale is not None) or (c_scale is None) != \
+            (kr_scale is None):
+        raise ValueError(f"{name}: int8 arenas need c_scale and kr_scale, "
+                         f"float arenas neither")
+    if quantized:
+        _check("c_scale", c_scale, torch.float32, (nb, bl), dev, name)
+        _check("kr_scale", kr_scale, torch.float32, (nb, bl), dev, name)
+    lib = _mla_lib()
+    limits = (lib.mla_paged_max_kvr(), lib.mla_paged_max_rope(),
+              lib.mla_paged_max_block_len())
+    if kvr > limits[0] or rd > limits[1] or bl > limits[2] or kvr % 4 \
+            or rd % 4:
+        raise ValueError(f"{name}: kvr {kvr}, rope {rd}, block_len {bl} "
+                         f"exceed the kernel's {limits} or are not "
+                         f"multiples of 4")
+    smem = lib.mla_paged_smem_bytes(bl, kvr, rd)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory "
+                         f"(> {SMEM_LIMIT})")
+    out = torch.empty((B, C, H, kvr), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mla_paged_launch(
+            q_abs.data_ptr(), q_rope.data_ptr(), c.data_ptr(), kr.data_ptr(),
+            c_scale.data_ptr() if quantized else None,
+            kr_scale.data_ptr() if quantized else None, pos.data_ptr(),
+            t.data_ptr(), table.data_ptr(), out.data_ptr(), B, C, H, kvr,
+            rd, bl, T, float(scale), _Q_DTYPES[q_abs.dtype],
+            _KV_DTYPES[c.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return out
+
+
+def mla_paged_cuda(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                   c: torch.Tensor, kr: torch.Tensor, pos: torch.Tensor,
+                   t: torch.Tensor, table: torch.Tensor, *, scale: float,
+                   c_scale: Optional[torch.Tensor] = None,
+                   kr_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-token paged absorbed-MLA decode (replaces ``mla_paged_p``).
+    q_abs: (B, H, kvr); q_rope: (B, H, rope), fp32 or bf16 (one dtype);
+    c/kr: latent arenas (n_blocks, block_len, kvr|rope) fp32/bf16/fp8/
+    int8 (+ fp32 per-token scale arenas (n_blocks, block_len) for
+    int8); pos: (B, T*block_len) int32; t: (B,) int32; table: (B, T)
+    int32. Returns o_lat (B, H, kvr) fp32. Launches on the current
+    stream without synchronising; counts one launch."""
+    B, H, kvr = q_abs.shape
+    out = _mla_launch(q_abs.reshape(B, 1, H, kvr),
+                      q_rope.reshape(B, 1, H, q_rope.shape[-1]), c, kr, pos,
+                      t.reshape(B, 1), table, scale, c_scale, kr_scale)
+    mla_paged_cuda.launches += 1
+    return out.reshape(B, H, kvr)
+
+
+def mla_paged_chunk_cuda(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                         c: torch.Tensor, kr: torch.Tensor,
+                         pos: torch.Tensor, t: torch.Tensor,
+                         table: torch.Tensor, *, scale: float,
+                         c_scale: Optional[torch.Tensor] = None,
+                         kr_scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """C > 1 chunked prefill over the latent arena (replaces
+    ``mla_paged_chunk_p``). q_abs: (B, C, H, kvr); q_rope: (B, C, H,
+    rope); t: (B, C) per-query positions (< 0 = pad); the rest as
+    :func:`mla_paged_cuda`. Returns o_lat (B, C, H, kvr) fp32; counts
+    one launch."""
+    out = _mla_launch(q_abs, q_rope, c, kr, pos, t, table, scale, c_scale,
+                      kr_scale)
+    mla_paged_chunk_cuda.launches += 1
+    return out
+
+
+mla_paged_cuda.launches = 0
+mla_paged_chunk_cuda.launches = 0

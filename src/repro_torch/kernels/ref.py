@@ -8,7 +8,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.paged_attention import (NEG_INF, compute_dtype,
-                                                 dequantize_kv, take_blocks)
+                                                 dequantize_kv,
+                                                 mla_compute_dtype,
+                                                 take_blocks)
 
 
 def qconv1d_block_ref(x, dw_q, pw_q, dw_scale, pw_scale, gamma, beta, *,
@@ -118,3 +120,73 @@ def gqa_paged_chunk_ref(q, k, v, pos, t, table, *, window: int = 0,
                     q.dtype)
     return (o.reshape(B, Hkv, C, group, hd).permute(0, 2, 1, 3, 4)
             .reshape(B, C, H * hd))
+
+
+def _mla_walk(qa: torch.Tensor, qr: torch.Tensor, c: torch.Tensor,
+              kr: torch.Tensor, pos: torch.Tensor, tq: torch.Tensor,
+              table: torch.Tensor, scale: float,
+              c_scale: Optional[torch.Tensor],
+              kr_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The MLA kernels' block walk over query rows qa (B, R, kvr), qr
+    (B, R, rope) with per-row positions tq (B, R): per table column j,
+    rows whose entry is assigned read latent block ``table[b, j]`` (int8
+    dequantized to bf16), score ``(qa . c + qr . kr) * scale``, mask and
+    fold into an fp32 online softmax; a -1 entry leaves the state
+    unchanged. q and p are rounded to the compute dtype as the kernels
+    round them. Returns o_lat (B, R, kvr) fp32."""
+    B, R, kvr = qa.shape
+    bl = c.shape[1]
+    T = table.shape[1]
+    cdt = mla_compute_dtype(c.dtype)
+    q, qrr = qa.to(cdt).float(), qr.to(cdt).float()
+    m = torch.full((B, R, 1), NEG_INF, dtype=torch.float32,
+                   device=qa.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, R, kvr), dtype=torch.float32, device=qa.device)
+    tqe = tq[:, :, None]                                  # (B, R, 1)
+    for j in range(T):
+        blk = table[:, j].long()
+        idx = blk.clamp(min=0)
+        cb, krb = take_blocks(c, idx), take_blocks(kr, idx)  # (B, bl, *)
+        if c_scale is not None:
+            cb = dequantize_kv(cb, c_scale[idx])
+            krb = dequantize_kv(krb, kr_scale[idx])
+        cb, krb = cb.float(), krb.float()
+        s = (q @ cb.transpose(-1, -2) + qrr @ krb.transpose(-1, -2)) * scale
+        p_pos = pos[:, j * bl:(j + 1) * bl][:, None, :]
+        valid = (p_pos >= 0) & (p_pos <= tqe)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * corr + p.to(cdt).float() @ cb
+        live = (blk >= 0)[:, None, None]
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+        acc = torch.where(live, acc_new, acc)
+    return acc / torch.clamp_min(l, 1e-30)
+
+
+def mla_paged_ref(q_abs, q_rope, c, kr, pos, t, table, *, scale: float,
+                  c_scale=None, kr_scale=None):
+    """Plain version of the single-token MLA kernel. q_abs: (B, H, kvr);
+    q_rope: (B, H, rope); t: (B,). Returns o_lat (B, H, kvr) fp32."""
+    B, H, _ = q_abs.shape
+    tq = t.reshape(B, 1).expand(B, H)
+    return _mla_walk(q_abs, q_rope, c, kr, pos, tq, table, scale, c_scale,
+                     kr_scale)
+
+
+def mla_paged_chunk_ref(q_abs, q_rope, c, kr, pos, t, table, *,
+                        scale: float, c_scale=None, kr_scale=None):
+    """Plain version of the MLA chunk kernel. q_abs: (B, C, H, kvr);
+    q_rope: (B, C, H, rope); t: (B, C). The chunk folds into query rows
+    c * H + h, each with its own position. Returns o_lat (B, C, H, kvr)
+    fp32."""
+    B, C, H, kvr = q_abs.shape
+    tq = t.repeat_interleave(H, dim=1)                    # (B, C*H)
+    o = _mla_walk(q_abs.reshape(B, C * H, kvr),
+                  q_rope.reshape(B, C * H, q_rope.shape[-1]), c, kr, pos,
+                  tq, table, scale, c_scale, kr_scale)
+    return o.reshape(B, C, H, kvr)

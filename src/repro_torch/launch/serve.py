@@ -16,8 +16,8 @@ stride-1 square blocks run the fused CUDA ``qconv1d`` kernel.
 ``--max-queue``/``--queue-timeout`` bound admission. The run ends with
 reads/s, bases/s and the tick-latency percentiles.
 
-Token LMs (the dense family)
-----------------------------
+Token LMs (the dense and moe families)
+--------------------------------------
 ``python -m repro_torch.launch.serve --arch qwen1.5-4b --wbits 8
 --warmup`` replays ``--requests`` prompts of up to ``--prompt-len``
 random tokens, each asking for up to ``--tokens`` new ones, arriving as
@@ -34,8 +34,11 @@ and the gather reference on the CPU. ``--temperature``/``--top-k``/
 carries those weight bits in the config's quantization policy, so every
 packed projection runs the CUDA ``qmatmul`` kernel (the JAX launcher's
 ``--wbits`` packs without the policy, so its projections dequantize on
-read). The run ends with tok/s, TTFT percentiles, the decode interval,
-pool utilisation, preemptions and the resolved attention backend.
+read); the weights are packed as they are drawn on the device. The
+moe family (``--arch deepseek-v3-671b``, MLA attention over a latent
+pool, or ``granite-moe-1b-a400m``) goes the same way. The run ends with
+tok/s, TTFT percentiles, the decode interval, pool utilisation,
+preemptions and the resolved attention backend.
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions on the
 CPU instead. Without a card and without ``--device cpu`` it raises.
@@ -153,9 +156,8 @@ def build_lm_engine(cfg, args, device):
     if args.wbits:
         cfg = replace(cfg, quant=QuantPolicy(weight_bits=args.wbits,
                                              act_bits=0))
-    params = api.init_params(0, cfg, device=device)
+    params = api.init_params(0, cfg, device=device, wbits=args.wbits)
     if args.wbits:
-        params = quantize_for_serving(params, args.wbits)
         print(f"[serve] weights quantized to int{args.wbits} (packed; "
               f"projections run the qmatmul kernel)")
     engine = api.make_serving_engine(

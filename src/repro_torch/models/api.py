@@ -1,4 +1,5 @@
-"""Model API of the port (the basecaller family and the dense LM):
+"""Model API of the port (the basecaller family and the LM families
+ported so far: ``dense`` and ``moe``, GQA or MLA):
 parameter init and the serving engine, on the device a caller names.
 
 Entry points run on CUDA unless the caller asks for the CPU
@@ -23,15 +24,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def init_params(gen, cfg: ModelConfig, *, device=None):
+def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0):
     """Parameters of ``cfg``.
 
     Basecaller: fp32 CPU parameters drawn from ``gen`` (a CPU
-    ``torch.Generator``). Dense LM: the layer-stacked tree in
-    ``cfg.dtype``, drawn on the device that draws it, never on the host
-    first: ``gen`` is a seed (drawn on ``device``, CUDA by default,
-    through a ``torch.Generator`` there) or a ``torch.Generator`` (drawn
-    on its device)."""
+    ``torch.Generator``). LM: the layer-stacked tree in ``cfg.dtype``,
+    drawn on the device that draws it, never on the host first: ``gen``
+    is a seed (drawn on ``device``, CUDA by default, through a
+    ``torch.Generator`` there) or a ``torch.Generator`` (drawn on its
+    device). ``wbits`` 8 or 4 packs the weights as they are drawn, leaf
+    by leaf and expert stacks a few experts at a time, so the float tree
+    never exists whole on the device; the result equals
+    ``quantize_tree(init_params(...), QuantPolicy(wbits, 0))``."""
     if cfg.family == "basecaller":
         from repro_torch.models.basecaller import model as bc
         return bc.init_params(gen, cfg)
@@ -42,7 +46,12 @@ def init_params(gen, cfg: ModelConfig, *, device=None):
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(
             int(gen))
-    return tfm.init_decoder(gen, cfg)
+    pack = None
+    if wbits:
+        from repro_torch.config import QuantPolicy
+        from repro_torch.core.quant.policy import Packer
+        pack = Packer(QuantPolicy(weight_bits=wbits, act_bits=0))
+    return tfm.init_decoder(gen, cfg, pack=pack)
 
 
 def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):

@@ -1,0 +1,173 @@
+"""Multi-head Latent Attention (DeepSeek-V3) for slot-batched serving over
+the paged latent pool (the port's counterpart of the serving half of
+``repro.models.lm.mla``).
+
+Decode uses the *absorbed* form: scores and values are computed in the
+(kv_lora_rank + rope) latent space, so each layer caches one latent
+``c (kvr,)`` and one rope key ``k_rope (rope,)`` per position, shared by
+every head, instead of per-head K/V. The latents live in shared block
+arenas ``(n_blocks, block_len, kvr|rope)`` addressed through the pool's
+block table, with positions per slot, as for GQA
+(``repro_torch.models.lm.attention``). The arenas are updated in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.ops import decode_mla
+from repro_torch.kernels.paged_attention import (EMPTY_POS, PagedWrites,
+                                                 paged_writes, put_rows,
+                                                 quantize_kv)
+from repro_torch.models.lm.common import (Params, dense, kernel_of,
+                                          make_dense_params,
+                                          make_rmsnorm_params, rmsnorm)
+from repro_torch.models.lm.rope import apply_rope
+
+
+def _dims(cfg: ModelConfig):
+    return (cfg.n_heads, cfg.mla_q_lora_rank, cfg.mla_kv_lora_rank,
+            cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, cfg.mla_v_dim)
+
+
+def make_mla_params(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                    dtype=torch.float32) -> Params:
+    d = cfg.d_model
+    H, qr, kvr, nope, rope_d, vd = _dims(cfg)
+    kw = dict(lead=lead, dtype=dtype)
+    norm = dict(lead=lead, dtype=dtype, device=gen.device)
+    return {
+        "wdq": make_dense_params(gen, d, qr, **kw),
+        "wuq": make_dense_params(gen, qr, H * (nope + rope_d), **kw),
+        "wdkv": make_dense_params(gen, d, kvr + rope_d, **kw),
+        "wukv": make_dense_params(gen, kvr, H * (nope + vd), **kw),
+        "wo": make_dense_params(gen, H * vd, d, **kw),
+        "q_norm": make_rmsnorm_params(qr, **norm),
+        "kv_norm": make_rmsnorm_params(kvr, **norm),
+    }
+
+
+def _project_q(p: Params, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig):
+    B, S, _ = x.shape
+    H, qr, kvr, nope, rope_d, vd = _dims(cfg)
+    cq = rmsnorm(p["q_norm"], dense(p["wdq"], x, cfg=cfg, tag="mla/wdq"),
+                 cfg.norm_eps)
+    q = dense(p["wuq"], cq, cfg=cfg, tag="mla/wuq").reshape(
+        B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, head_dim=rope_d,
+                        theta=cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _project_kv_latent(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                       cfg: ModelConfig):
+    H, qr, kvr, nope, rope_d, vd = _dims(cfg)
+    ckv = dense(p["wdkv"], x, cfg=cfg, tag="mla/wdkv")
+    c, k_rope = ckv[..., :kvr], ckv[..., kvr:]
+    c = rmsnorm(p["kv_norm"], c, cfg.norm_eps)
+    k_rope = apply_rope(k_rope, positions, head_dim=rope_d,
+                        theta=cfg.rope_theta)
+    return c, k_rope            # (B, S, kvr), (B, S, rope_d)
+
+
+def init_mla_cache_paged(cfg: ModelConfig, n_slots: int, cache_len: int,
+                         n_blocks: int, block_len: int, *,
+                         dtype=torch.bfloat16, lead=(), device=None) -> Dict:
+    """Empty paged latent cache: ``c (*lead, n_blocks, block_len, kvr)``
+    and ``k_rope (*lead, n_blocks, block_len, rope)`` in ``dtype`` (fp32,
+    bf16, fp16, fp8 e4m3 or int8 — int8 adds fp32 per-token scale arenas
+    ``c_scale``/``kr_scale (*lead, n_blocks, block_len)``: the latent has
+    no head axis), positions ``(*lead, n_slots, T * block_len)`` empty."""
+    _, _, kvr, _, rope_d, _ = _dims(cfg)
+    T = -(-cache_len // block_len)
+    blocks = (*lead, n_blocks, block_len)
+    cache = {
+        "c": torch.zeros((*blocks, kvr), dtype=dtype, device=device),
+        "k_rope": torch.zeros((*blocks, rope_d), dtype=dtype, device=device),
+        "pos": torch.full((*lead, n_slots, T * block_len), EMPTY_POS,
+                          dtype=torch.int32, device=device),
+    }
+    if dtype == torch.int8:
+        for name in ("c_scale", "kr_scale"):
+            cache[name] = torch.zeros(blocks, dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def mla_cache_reset_spec(quantized: bool = False) -> Dict[str, str]:
+    """Per-leaf slot-recycle action: latent bytes and their scales are
+    ``keep`` (stale but masked); positions are ``empty``."""
+    spec = {"c": "keep", "k_rope": "keep", "pos": "empty"}
+    if quantized:
+        spec.update({"c_scale": "keep", "kr_scale": "keep"})
+    return spec
+
+
+def mla_cache_slot_axes(quantized: bool = False) -> Dict[str, bool]:
+    """Which leaves carry a slot axis: positions do; the latent arenas
+    and their scales are shared across slots."""
+    axes = {"c": False, "k_rope": False, "pos": True}
+    if quantized:
+        axes.update({"c_scale": False, "kr_scale": False})
+    return axes
+
+
+def mla_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
+                     t: torch.Tensor, cfg: ModelConfig, *,
+                     table: torch.Tensor, attn_backend: Optional[str] = None,
+                     writes: Optional[PagedWrites] = None
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """Slot-batched absorbed-MLA step over the paged latent arena: row b's
+    C tokens sit at positions ``t[b]`` (< 0 = pad). x: (B, C, d); t:
+    (B, C) int32; table: (B, T) int32, both on x's device.
+
+    The tokens' latents (int8 arenas: quantized per token, the scale
+    written at the same index) and positions are written into ``cache``
+    in place before the read, so a chunk attends causally within itself;
+    pad tokens and tokens whose block is unassigned write nothing
+    (``writes``: those writes filtered on the host, as
+    ``attention.attn_decode_slots`` takes them). The read is
+    ``decode_mla`` with ``attn_backend``: ``q_abs = q_nope · W_uk``
+    scores against the latent, ``o = o_lat · W_uv`` then ``wo``, with
+    ``wukv`` dequantized in fp32 and cast to the compute dtype (bf16 for
+    1-byte arenas). Returns (out (B, C, d), cache)."""
+    B, C, _ = x.shape
+    H, qr, kvr, nope, rope_d, vd = _dims(cfg)
+    tq = t.clamp(min=0)
+    q_nope, q_rope = _project_q(p, x, tq, cfg)            # (B, C, H, *)
+    c_new, kr_new = _project_kv_latent(p, x, tq, cfg)     # (B, C, *)
+    Nb, bl = cache["c"].shape[:2]
+    if writes is None:
+        writes = paged_writes(table, t, Nb, bl)
+    w = writes
+    cn, krn = c_new[w.b, w.c], kr_new[w.b, w.c]           # (n, kvr|rope)
+    quantized = "c_scale" in cache
+    at = (w.blk, w.off)
+    if quantized:
+        (cq, cs), (krq, krs) = quantize_kv(cn), quantize_kv(krn)
+        put_rows(cache["c"], at, cq)
+        put_rows(cache["k_rope"], at, krq)
+        put_rows(cache["c_scale"], at, cs)
+        put_rows(cache["kr_scale"], at, krs)
+    else:
+        put_rows(cache["c"], at, cn)
+        put_rows(cache["k_rope"], at, krn)
+    put_rows(cache["pos"], (w.b, w.lw), t[w.b, w.c])
+
+    cdt = (torch.bfloat16 if cache["c"].dtype.itemsize == 1
+           else cache["c"].dtype)
+    wukv = kernel_of(p["wukv"], torch.float32).reshape(kvr, H, nope + vd)
+    w_uk, w_uv = wukv[..., :nope], wukv[..., nope:]
+    q_abs = torch.einsum("bchn,rhn->bchr", q_nope.to(cdt), w_uk.to(cdt))
+    o_lat = decode_mla(q_abs, q_rope, cache["c"], cache["k_rope"],
+                       cache["pos"], t, scale=(nope + rope_d) ** -0.5,
+                       table=table, backend=attn_backend,
+                       c_scale=cache.get("c_scale"),
+                       kr_scale=cache.get("kr_scale"))
+    o = torch.einsum("bchr,rhv->bchv", o_lat.to(cdt), w_uv.to(cdt))
+    o = o.reshape(B, C, H * vd).to(x.dtype)
+    return dense(p["wo"], o, cfg=cfg, tag="mla/wo"), cache

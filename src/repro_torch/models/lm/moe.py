@@ -1,0 +1,192 @@
+"""Mixture-of-Experts FFN — GShard-style token-choice top-k with capacity
+(the port's counterpart of ``repro.models.lm.moe``).
+
+Routing is the reference's, step for step: softmax gates, iterative
+top-1 x k (ties to the first expert), a per-(group, expert) capacity with
+overflow dropped, pad tokens excluded, combine weights renormalised over
+the chosen experts. The reference then runs every expert densely over a
+(E, G, capacity, d) dispatch tensor, dequantizing all of them; the port
+computes the same function over only the experts that received a token:
+it gathers those experts' rows, dequantizes each expert as ``kernel_of``
+does, and sums the outputs with the same dispatch and combine weights
+(an expert's empty capacity slots add zero in the reference).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.quant.policy import (Packer, PackedTensor, dequantize,
+                                           quantize_tensor)
+from repro_torch.models.lm.common import (Params, dense, make_dense_params,
+                                          make_mlp_params, mlp,
+                                          truncated_normal_init)
+
+# Experts drawn (and packed) at a time: one draw of a whole full-width
+# stack (256 x 7168 x 2048) would be 15 GB of fp32 before its cast.
+EXPERT_CHUNK = 8
+
+
+def _draw_experts(gen: torch.Generator, shape, dtype, pack: Optional[Packer],
+                  tag: str):
+    """An expert stack ``(*lead, E, a, b)`` drawn ``EXPERT_CHUNK`` experts
+    at a time, and packed chunk by chunk when ``pack`` packs the leaf.
+    Per-channel scales reduce over axis -2 only, so the packed stack is
+    bit-identical to packing the whole stack at once."""
+    E = shape[-3]
+    bits = pack.bits(tag, shape) if pack is not None else 0
+    parts, out = [], None
+    for e0 in range(0, E, EXPERT_CHUNK):
+        n = min(EXPERT_CHUNK, E - e0)
+        w = truncated_normal_init(gen, (*shape[:-3], n, *shape[-2:]),
+                                  dtype=dtype)
+        if not bits:
+            parts.append(w)
+            continue
+        pt = quantize_tensor(w, bits)
+        if out is None:
+            lead = tuple(shape[:-3]) + (E,)
+            out = PackedTensor(
+                torch.empty(lead + tuple(pt.data.shape[-2:]),
+                            dtype=pt.data.dtype, device=w.device),
+                torch.empty(lead + tuple(pt.scale.shape[-2:]),
+                            dtype=pt.scale.dtype, device=w.device),
+                bits, tuple(shape))
+        out.data[..., e0:e0 + n, :, :] = pt.data
+        out.scale[..., e0:e0 + n, :, :] = pt.scale
+        del w, pt
+    return out if bits else torch.cat(parts, dim=-3)
+
+
+def make_moe_params(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                    dtype=torch.float32, pack: Optional[Packer] = None,
+                    tag: str = "ffn") -> Params:
+    """Router, expert stacks ``wi``/``wg`` (E, d, ff) and ``wo`` (E, ff,
+    d), and the shared expert's MLP. ``pack`` packs the expert stacks as
+    they are drawn (``tag`` is their key path for its rule)."""
+    d, ff, E = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
+    p = {"router": make_dense_params(gen, d, E, stddev=0.006, lead=lead,
+                                     dtype=dtype)}
+    for name, (a, b) in (("wi", (d, ff)), ("wg", (d, ff)), ("wo", (ff, d))):
+        p[name] = _draw_experts(gen, (*lead, E, a, b), dtype, pack,
+                                f"{tag}/{name}")
+    if cfg.n_shared_experts:
+        p["shared"] = make_mlp_params(gen, d, ff * cfg.n_shared_experts,
+                                      lead=lead, dtype=dtype)
+    return p
+
+
+def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """gates: (G, S, E) softmax probs. Returns (dispatch (G, S, E, cap)
+    bool, combine (G, S, E, cap) fp32, aux load-balance loss).
+
+    ``mask`` (G, S), 0 for padding tokens: masked tokens are excluded
+    from routing — they take no expert capacity and do not shift other
+    tokens' slots."""
+    G, S, E = gates.shape
+    if mask is not None:
+        gates = gates * mask.to(gates.dtype)[..., None]
+    dev = gates.device
+    combine = torch.zeros((G, S, E, capacity), dtype=torch.float32,
+                          device=dev)
+    dispatch = torch.zeros((G, S, E, capacity), dtype=torch.bool, device=dev)
+    slots = torch.arange(capacity, device=dev)
+    remaining = gates
+    counts = torch.zeros((G, E), dtype=torch.int32, device=dev)
+    me = gates.mean(dim=1)                              # (G, E) mean prob
+    ce = torch.zeros((G, E), dtype=torch.float32, device=dev)
+    for _ in range(k):
+        idx = torch.argmax(remaining, dim=-1)           # ties: first index
+        onehot = F.one_hot(idx, E).float()
+        if mask is not None:
+            onehot = onehot * mask.to(onehot.dtype)[..., None]
+        prob = (gates * onehot).sum(dim=-1)             # (G, S)
+        pos = counts[:, None, :] + (torch.cumsum(onehot, dim=1) - onehot)
+        pos_tok = (pos * onehot).sum(dim=-1)            # (G, S)
+        fits = pos_tok < capacity
+        # one-hot of the slot; an overflowing slot (>= capacity) is all 0
+        pos_oh = (pos_tok.long()[..., None] == slots).float()
+        upd = ((onehot * (prob * fits)[..., None])[..., None]
+               * pos_oh[:, :, None, :])
+        combine = combine + upd
+        dispatch = dispatch | (upd > 0)
+        counts = counts + onehot.sum(dim=1).to(torch.int32)
+        ce = ce + onehot.mean(dim=1)
+        remaining = remaining * (1.0 - onehot)
+    denom = combine.sum(dim=(2, 3), keepdim=True)
+    combine = combine / torch.clamp_min(denom, 1e-9)
+    aux = (me * ce).sum(dim=-1).mean() * (E / k)
+    return dispatch, combine, aux
+
+
+def _expert(w, e: int, dtype) -> torch.Tensor:
+    """Expert ``e``'s weight in ``dtype``, dequantized as ``kernel_of``
+    dequantizes a packed stack."""
+    if isinstance(w, PackedTensor):
+        return dequantize(PackedTensor(w.data[e], w.scale[e], w.bits,
+                                       w.orig_shape), dtype)
+    return w[e].to(dtype)
+
+
+def _routed(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
+            combine: torch.Tensor) -> torch.Tensor:
+    """sum over the (token, expert) pairs of ``dispatch`` of
+    ``combine · expert(x)``, the expert a gated SiLU MLP in x's dtype;
+    combine weights rounded to x's dtype, the sum in fp32, rounded once.
+    x: (G, S, d). Returns (G, S, d)."""
+    G, S, d = x.shape
+    dt = x.dtype
+    # sync: the loop below runs on the host over the experts that
+    # received a token, so the routing is read back once per layer
+    nz = torch.nonzero(dispatch).cpu()                  # (n, 4) g, s, e, c
+    nz = nz[torch.argsort(nz[:, 2], stable=True)]
+    experts, counts = torch.unique_consecutive(nz[:, 2], return_counts=True)
+    idx = nz.to(x.device, non_blocking=True)
+    rows = idx[:, 0] * S + idx[:, 1]
+    w = combine[idx[:, 0], idx[:, 1], idx[:, 2], idx[:, 3]].to(dt).float()
+    xf = x.reshape(G * S, d)
+    y = torch.zeros((G * S, d), dtype=torch.float32, device=x.device)
+    off = 0
+    for e, n in zip(experts.tolist(), counts.tolist()):
+        r = rows[off:off + n]
+        xe = xf[r]
+        h = (F.silu(xe @ _expert(p["wg"], e, dt))
+             * (xe @ _expert(p["wi"], e, dt)))
+        ye = h @ _expert(p["wo"], e, dt)
+        y.index_add_(0, r, w[off:off + n, None] * ye.float())
+        off += n
+    return y.to(dt).reshape(G, S, d)
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+            capacity_factor: float = 1.25, decode: bool = False,
+            pad_mask: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss); the batch dim is the GShard group.
+    ``decode`` with S == 1 and B > 1 folds the batch into one group, so
+    capacity is provisioned for B tokens, not per token. ``pad_mask``
+    (B, S): False for pad tokens, which take no part in routing."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_tok
+    if decode and S == 1 and B > 1:
+        y, aux = moe_ffn(p, x.reshape(1, B, d), cfg,
+                         capacity_factor=capacity_factor, decode=True,
+                         pad_mask=None if pad_mask is None
+                         else pad_mask.reshape(1, B))
+        return y.reshape(B, S, d), aux
+    capacity = max(int(math.ceil(S * k / E * capacity_factor)), 4)
+    logits = dense(p["router"], x, cfg=cfg, tag="moe/router",
+                   quantize=False).float()
+    gates = torch.softmax(logits, dim=-1)
+    dispatch, combine, aux = _top_k_dispatch(gates, k, capacity,
+                                             mask=pad_mask)
+    y = _routed(p, x, dispatch, combine)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x, cfg=cfg, tag="moe/shared")
+    return y, aux.float()

@@ -3,8 +3,13 @@ counterpart of the serving half of ``repro.models.lm.transformer``).
 
 Layers form *groups* of identical blocks; a group's parameters and
 caches stack along a leading ``n_layers`` axis, and the port walks that
-axis in a Python loop where the reference scans. Ported so far: the
-``dense`` block kind (norm -> GQA attention -> norm -> gated SiLU MLP);
+axis in a Python loop where the reference scans. Ported block kinds:
+
+  dense       norm -> GQA attention -> norm -> gated SiLU MLP
+  moe         norm -> GQA attention -> norm -> MoE
+  mla_dense   norm -> MLA           -> norm -> gated SiLU MLP (dense_d_ff)
+  mla_moe     norm -> MLA           -> norm -> MoE
+
 every other kind raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
@@ -14,21 +19,36 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.quant.policy import PackedTensor
+from repro_torch.core.quant.policy import Packer, PackedTensor
 from repro_torch.kernels.paged_attention import paged_writes
 from repro_torch.models.lm import attention as attn_mod
+from repro_torch.models.lm import mla as mla_mod
+from repro_torch.models.lm import moe as moe_mod
 from repro_torch.models.lm.common import (Params, dense, make_dense_params,
                                           make_mlp_params,
                                           make_rmsnorm_params, mlp, rmsnorm,
                                           truncated_normal_init)
 
 # Layer kinds the slot-batched serving path covers in the port.
-SLOT_KINDS = ("dense",)
+SLOT_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+MLA_KINDS = ("mla_dense", "mla_moe")
+MOE_KINDS = ("moe", "mla_moe")
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    L = cfg.n_layers
     if cfg.family == "dense":
-        return [("dense", cfg.n_layers)]
+        return [("dense", L)]
+    if cfg.family == "moe":
+        if cfg.mla:
+            nd = min(cfg.n_dense_layers, L)
+            plan = []
+            if nd:
+                plan.append(("mla_dense", nd))
+            if L - nd:
+                plan.append(("mla_moe", L - nd))
+            return plan
+        return [("moe", L)]
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family's layers are not ported "
         f"(ported block kinds: {SLOT_KINDS})")
@@ -60,22 +80,42 @@ def _check_kind(kind: str) -> None:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, *,
-               lead=(), dtype=torch.float32) -> Params:
-    """One block's parameters, stacked over ``lead`` (e.g. (n_layers,))."""
+               lead=(), dtype=torch.float32, pack: Optional[Packer] = None,
+               tag: str = "") -> Params:
+    """One block's parameters, stacked over ``lead`` (e.g. (n_layers,)).
+    ``pack`` packs each leaf as it is drawn (``tag``: the block's key
+    path, e.g. ``groups/g0_dense/``)."""
     _check_kind(kind)
     d = cfg.d_model
     norm = dict(lead=lead, dtype=dtype, device=gen.device)
-    return {"ln1": make_rmsnorm_params(d, **norm),
-            "attn": attn_mod.make_attn_params(gen, cfg, lead=lead,
-                                              dtype=dtype),
-            "ln2": make_rmsnorm_params(d, **norm),
-            "ffn": make_mlp_params(gen, d, cfg.d_ff, lead=lead, dtype=dtype)}
+    kw = dict(lead=lead, dtype=dtype)
+    p: Params = {"ln1": make_rmsnorm_params(d, **norm)}
+    p["attn"] = (mla_mod.make_mla_params(gen, cfg, **kw) if kind in MLA_KINDS
+                 else attn_mod.make_attn_params(gen, cfg, **kw))
+    if pack is not None:
+        p["attn"] = pack.tree(p["attn"], tag + "attn/")
+    p["ln2"] = make_rmsnorm_params(d, **norm)
+    if kind in MOE_KINDS:
+        p["ffn"] = moe_mod.make_moe_params(gen, cfg, pack=pack,
+                                           tag=tag + "ffn", **kw)
+    else:
+        ff = (cfg.dense_d_ff or cfg.d_ff) if kind == "mla_dense" else cfg.d_ff
+        p["ffn"] = make_mlp_params(gen, d, ff, **kw)
+    if pack is not None:
+        p["ffn"] = pack.tree(p["ffn"], tag + "ffn/")
+    return p
 
 
-def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_decoder(gen: torch.Generator, cfg: ModelConfig,
+                 pack: Optional[Packer] = None) -> Params:
     """Layer-stacked decoder parameters in ``cfg.dtype``, drawn from
     ``gen`` on its device (truncated normal, std 0.02; norms ones,
-    biases zeros — the reference's init, other random numbers)."""
+    biases zeros — the reference's init, other random numbers).
+
+    ``pack`` packs each weight as soon as it is drawn, so the float tree
+    never exists whole; the result equals ``quantize_tree`` of the
+    unpacked tree bit for bit. The reference's multi-token-prediction
+    head (``mtp``) is left out: only its training loss reads it."""
     dtype = getattr(torch, cfg.dtype)
     d = cfg.d_model
     params: Params = {
@@ -85,10 +125,12 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
                                           device=gen.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = make_dense_params(gen, d, cfg.vocab_size,
-                                              dtype=dtype)
+        head = make_dense_params(gen, d, cfg.vocab_size, dtype=dtype)
+        params["lm_head"] = (pack.tree(head, "lm_head/") if pack is not None
+                             else head)
     params["groups"] = {
-        gname: init_block(gen, cfg, kind, lead=(n,), dtype=dtype)
+        gname: init_block(gen, cfg, kind, lead=(n,), dtype=dtype, pack=pack,
+                          tag=f"groups/{gname}/")
         for gname, kind, n in group_names(cfg)}
     return params
 
@@ -142,13 +184,20 @@ def block_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
     """One block of the slot-batched step; x: (B, C, d); t: (B, C)."""
     _check_kind(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    mix, cache = attn_mod.attn_decode_slots(p["attn"], h, cache, t, cfg,
-                                            table=table,
-                                            attn_backend=attn_backend,
-                                            writes=writes)
+    mixer = (mla_mod.mla_decode_slots if kind in MLA_KINDS
+             else attn_mod.attn_decode_slots)
+    mix, cache = mixer(p["attn"], h, cache, t, cfg, table=table,
+                       attn_backend=attn_backend, writes=writes)
     x = x + mix
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], h2, cfg=cfg, tag="mlp"), cache
+    if kind in MOE_KINDS:
+        # pad slots (t < 0) take no part in expert routing: a live
+        # request's routing must not depend on how many slots are free
+        y, _ = moe_mod.moe_ffn(p["ffn"], h2, cfg, decode=x.shape[1] == 1,
+                               pad_mask=t >= 0)
+    else:
+        y = mlp(p["ffn"], h2, cfg=cfg, tag="mlp")
+    return x + y, cache
 
 
 def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
@@ -182,7 +231,7 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
     for gname, kind, n in group_names(cfg):
         cstack = caches[gname]
         table = tables[gname]
-        Nb, bl = cstack["k"].shape[1:3]
+        Nb, bl = _arena(cstack).shape[1:3]
         writes = paged_writes(table, t, Nb, bl).to(dev)
         table_dev = table.to(dev, torch.int32, non_blocking=True)
         for i, (p, c) in enumerate(zip(layers[gname],
@@ -202,6 +251,12 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
 # The paged cache pool's per-group layout
 
 
+def _arena(cache: Dict) -> torch.Tensor:
+    """A group's (layer-stacked) block arena: latent ``c`` for MLA groups,
+    ``k`` for attention groups."""
+    return cache["c"] if "c" in cache else cache["k"]
+
+
 def paged_group_layout(cfg: ModelConfig, cache_len: int,
                        block_len: int) -> Dict[str, int]:
     """{group name: blocks per slot (T)} for every KV-bearing group."""
@@ -213,17 +268,19 @@ def init_caches_paged(cfg: ModelConfig, n_slots: int, cache_len: int,
                       n_blocks: Dict[str, int], block_len: int,
                       cache_dtype=torch.bfloat16, device=None) -> Dict:
     """Empty paged pool caches: per group, arenas ``(n_layers,
-    n_blocks[g], block_len, Hkv, hd)`` and positions ``(n_layers,
-    n_slots, T * block_len)``. ``cache_dtype`` is one storage dtype or a
+    n_blocks[g], block_len, Hkv, hd)`` (MLA groups: latent arenas
+    ``(n_layers, n_blocks[g], block_len, kvr|rope)``) and positions
+    ``(n_layers, n_slots, T * block_len)``. ``cache_dtype`` is one storage dtype or a
     ``{group: dtype}`` mapping (int8 groups grow fp32 scale arenas)."""
     caches: Dict[str, Any] = {}
     for gname, kind, n in group_names(cfg):
         _check_kind(kind)
         dt = (cache_dtype.get(gname, torch.bfloat16)
               if isinstance(cache_dtype, dict) else cache_dtype)
-        caches[gname] = attn_mod.init_attn_cache_paged(
-            cfg, n_slots, cache_len, n_blocks.get(gname, 0), block_len,
-            dtype=dt, lead=(n,), device=device)
+        init = (mla_mod.init_mla_cache_paged if kind in MLA_KINDS
+                else attn_mod.init_attn_cache_paged)
+        caches[gname] = init(cfg, n_slots, cache_len, n_blocks.get(gname, 0),
+                             block_len, dtype=dt, lead=(n,), device=device)
     return caches
 
 
@@ -235,13 +292,15 @@ def _quantized(cache_dtype, gname) -> bool:
 
 def caches_reset_specs(cfg: ModelConfig, cache_dtype=None) -> Dict:
     """Reset-spec tree matching :func:`init_caches_paged`."""
-    return {gname: attn_mod.attn_cache_reset_spec(
+    return {gname: (mla_mod.mla_cache_reset_spec if kind in MLA_KINDS
+                    else attn_mod.attn_cache_reset_spec)(
                 _quantized(cache_dtype, gname))
-            for gname, _, _ in group_names(cfg)}
+            for gname, kind, _ in group_names(cfg)}
 
 
 def caches_slot_axes(cfg: ModelConfig, cache_dtype=None) -> Dict:
     """Slot-axis tree matching :func:`init_caches_paged`."""
-    return {gname: attn_mod.attn_cache_slot_axes(
+    return {gname: (mla_mod.mla_cache_slot_axes if kind in MLA_KINDS
+                    else attn_mod.attn_cache_slot_axes)(
                 _quantized(cache_dtype, gname))
-            for gname, _, _ in group_names(cfg)}
+            for gname, kind, _ in group_names(cfg)}

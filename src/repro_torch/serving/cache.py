@@ -2,7 +2,9 @@
 port's counterpart of ``repro.serving.cache``).
 
 Per layer group, K/V bytes live in a shared block arena on the device
-(``(n_layers, n_blocks, block_len, Hkv, hd)`` leaves) and a host block
+(``(n_layers, n_blocks, block_len, Hkv, hd)`` leaves; an MLA group's
+latent ``c`` and ``k_rope`` are ``(n_layers, n_blocks, block_len,
+kvr|rope)``) and a host block
 table per group (``(n_slots, T)`` int32, -1 = free) maps each slot's
 logical block j to an arena block. Allocation is host bookkeeping (a
 LIFO free list per group, all-or-nothing ``alloc``); positions stay
@@ -234,7 +236,8 @@ class CachePool:
                     out["scales"] += nb
                 elif name == "pos":
                     out["pos"] += nb
-                elif g in self.layout and name in ("k", "v"):
+                elif g in self.layout and name in ("k", "v", "c",
+                                                   "k_rope"):
                     out["arena"] += nb
                 else:
                     out["state"] += nb

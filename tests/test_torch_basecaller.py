@@ -67,8 +67,9 @@ def models(name, *, quant=None, packed=False, seed=0):
     if packed:
         jp = jquantize_tree(jp, JQuantPolicy(8, 0), min_size=1)
     js = jbc.init_state(jcfg)
-    return (jcfg, tcfg, jp, js, bridge.from_numpy_tree(_np(jp)),
-            bridge.from_numpy_tree(_np(js)))
+    return (jcfg, tcfg, jp, js,
+            bridge.from_numpy_tree(_np(jp), device="cpu"),
+            bridge.from_numpy_tree(_np(js), device="cpu"))
 
 
 def _leaves(tree):

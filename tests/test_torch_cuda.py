@@ -1,11 +1,11 @@
-"""Card-only tests of the port's CUDA kernels (``-m gpu``; they skip
-without a card). This file imports neither JAX nor the JAX package, so
+"""Card-only tests of the port's CUDA kernels (qconv1d, qmatmul, the GQA
+and MLA paged attention; ``-m gpu``; they skip without a card). This file imports neither JAX nor the JAX package, so
 it runs on a GPU machine that has only the port's requirements:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 
-``mk_arena`` (numpy only) builds the paged-attention inputs that the
-CPU parity tests share.
+``mk_arena`` and ``mk_latent`` (numpy only) build the paged-attention
+inputs that the CPU parity tests share.
 """
 import numpy as np
 import pytest
@@ -54,6 +54,16 @@ def mk_arena(rs, B, Hkv, hd, bl, T, C, fills, *, poison=99.0, holes=()):
         table[b, j] = -1
         pos[b, j * bl:(j + 1) * bl] = pa.EMPTY_POS
     return k, v, pos, t, table
+
+
+def mk_latent(rs, B, kvr, rd, bl, T, C, fills, *, holes=()):
+    """:func:`mk_arena` for MLA's latent arenas: numpy (c, k_rope, pos,
+    t, table) with fp32 c (n_blocks, bl, kvr) and k_rope (n_blocks, bl,
+    rd), poisoned where unwritten."""
+    k, _, pos, t, table = mk_arena(rs, B, 1, kvr + rd, bl, T, C, fills,
+                                   holes=holes)
+    return (np.ascontiguousarray(k[:, :, 0, :kvr]),
+            np.ascontiguousarray(k[:, :, 0, kvr:]), pos, t, table)
 
 
 def arena_as(k, v, arena: str, device="cpu"):
@@ -204,3 +214,51 @@ def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, arena):
     tol = ATTN_TOL[arena]
     torch.testing.assert_close(got.float()[live], want.float()[live],
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", list(ARENAS))
+@pytest.mark.parametrize("H,kvr,rd,bl,C", [(128, 512, 64, 16, 1),
+                                           (128, 512, 64, 16, 16),
+                                           (4, 16, 8, 4, 3)])
+def test_cuda_mla_paged_matches_plain_version(H, kvr, rd, bl, C, arena):
+    """On a card: the MLA kernel (C == 1 decode, C > 1 chunk) against its
+    plain version at deepseek-v3's widths (128 heads, latent 512, rope
+    64, block_len 16) and a small ragged shape, a poisoned arena with
+    blocks handed out of order, a table hole and pad rows; live rows at
+    the reference tolerances; each wrapper call counts one launch."""
+    _cuda()
+    rs = np.random.RandomState(H + kvr + C)
+    B, T = 4, 16
+    fills = [T * bl - C, bl - 1, 0, 37 % (T * bl - C)]
+    c, kr, pos, t, table = mk_latent(rs, B, kvr, rd, bl, T, C, fills,
+                                     holes=[(0, 5)])
+    t[3, 1:] = -1
+    if C == 1:
+        t[2] = -1
+    cd, krd, cs, krs = arena_as(c, kr, arena, "cuda")
+    pos_d, t_d, tb_d = (torch.from_numpy(a).cuda() for a in (pos, t, table))
+    qdt = torch.float32 if arena == "fp32" else torch.bfloat16
+    qa = torch.from_numpy(rs.randn(B, C, H, kvr).astype(np.float32)).to(
+        "cuda", qdt)
+    qr = torch.from_numpy(rs.randn(B, C, H, rd).astype(np.float32)).to(
+        "cuda", qdt)
+    kw = dict(scale=(128 + rd) ** -0.5, c_scale=cs, kr_scale=krs)
+    fn = pa.mla_paged_cuda if C == 1 else pa.mla_paged_chunk_cuda
+    before = fn.launches
+    if C == 1:
+        args = (qa[:, 0].contiguous(), qr[:, 0].contiguous(), cd, krd,
+                pos_d, t_d[:, 0].contiguous(), tb_d)
+        got = fn(*args, **kw)[:, None]
+        want = ref.mla_paged_ref(*args, **kw)[:, None]
+    else:
+        got = fn(qa, qr, cd, krd, pos_d, t_d, tb_d, **kw)
+        want = ref.mla_paged_chunk_ref(qa, qr, cd, krd, pos_d, t_d, tb_d,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, C, H, kvr) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert fn.launches == before + 1
+    live = torch.from_numpy(t >= 0).cuda()
+    tol = ATTN_TOL[arena]
+    torch.testing.assert_close(got[live], want[live], rtol=tol, atol=tol)

@@ -71,6 +71,14 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         serve.main(["--arch", "qwen1.5-4b", "--smoke", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         api.init_params(0, get_config("qwen1.5-4b-smoke"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_params(0, get_config("deepseek-v3-671b-smoke"), wbits=8)
+    # weights bridged from numpy land on the card unless asked otherwise
+    from repro_torch import bridge
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bridge.from_numpy_tree({"w": np.zeros((2, 2), np.float32)})
+    assert bridge.from_numpy_tree({"w": np.zeros((2, 2), np.float32)},
+                                  device="cpu")["w"].device.type == "cpu"
     assert chip_smoke.main() != 0
     # asking for the CPU works, and serves a read there
     eng = api.make_serving_engine(params, cfg, device="cpu", n_slots=1)

@@ -61,7 +61,7 @@ def models(dtype="float32", min_size=256):
                                quant=QuantPolicy(*q))
     jp = jquantize_tree(japi.init_params(jax.random.key(0), jcfg),
                         JQuantPolicy(*q), min_size=min_size)
-    tp = bridge.from_numpy_tree(jax.tree.map(np.asarray, jp))
+    tp = bridge.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
 
 

@@ -40,7 +40,7 @@ def test_qconv1d_block_matches_jax(T, C, k, relu):
     want = np.asarray(jops.qconv1d_block(jnp.asarray(x), jdw, jpw,
                                          jnp.asarray(g), jnp.asarray(b),
                                          relu=relu))
-    packed = bridge.from_numpy_tree({"dw": jdw, "pw": jpw})
+    packed = bridge.from_numpy_tree({"dw": jdw, "pw": jpw}, device="cpu")
     ops.reset_launch_counts()
     got = ops.qconv1d_block(torch.from_numpy(x), packed["dw"], packed["pw"],
                             torch.from_numpy(g), torch.from_numpy(b),

@@ -31,7 +31,7 @@ def _inputs(M, K, N, bits, dtype):
     jw = jquantize_tensor(jnp.asarray(rs.randn(K, N), jnp.float32), bits)
     jx = jnp.asarray(x, dtype)
     tx = torch.from_numpy(x).to(getattr(torch, jnp.dtype(dtype).name))
-    return jx, jw, tx, bridge.from_numpy_tree({"w": jw})["w"]
+    return jx, jw, tx, bridge.from_numpy_tree({"w": jw}, device="cpu")["w"]
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -64,7 +64,7 @@ def test_quantize_tree_bitwise_rubicall_smoke():
     scales and conv layouts; tree sizes agree."""
     cfg = jget_config("rubicall-smoke")
     jparams = jbc.init_params(jax.random.key(0), cfg)
-    tparams = bridge.from_numpy_tree(_np_tree(jparams))
+    tparams = bridge.from_numpy_tree(_np_tree(jparams), device="cpu")
     jq = jpol.quantize_tree(jparams, JQuantPolicy(8, 0), min_size=1)
     tq = tpol.quantize_tree(tparams, QuantPolicy(8, 0), min_size=1)
     jflat = jax.tree_util.tree_flatten_with_path(
@@ -91,7 +91,7 @@ def test_bridge_keeps_dtypes_and_packed_nodes():
     tree = _np_tree({"a": {"q": jpol.quantize_tensor(jnp.asarray(w), 8),
                            "f": jnp.asarray(w),
                            "h": jnp.asarray(w, jnp.bfloat16)}})
-    out = bridge.from_numpy_tree(tree)
+    out = bridge.from_numpy_tree(tree, device="cpu")
     _assert_packed_equal(tree["a"]["q"], out["a"]["q"])
     assert out["a"]["f"].dtype == torch.float32
     np.testing.assert_array_equal(out["a"]["f"].numpy(), w)
