@@ -53,7 +53,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launches reconcile with the ticks (mla_paged on C = 1 ticks,
    mla_paged_chunk on wider ones, 4 a tick; qmatmul per tick counted
    from the projections), kernel vs plain ticks; peak device memory.
-9. trace (MLA) — as phase 6, for the deepseek ticks.
+9. trace (MLA) — as phase 6, for the deepseek ticks. The deepseek
+   engine is then freed.
+10. kernel (prefill) — hold flash_attention (qwen1.5-4b's 20 x 128
+   heads and a GQA case of group 8; causal and not; S 512, a ragged S
+   333 and Sq != Sk; fp32 at 1e-4, bf16 at one bf16 ulp) and ssd_scan
+   (mamba2-130m's 24 heads of 64, state 128, chunk 256; S 2048 and a
+   ragged 2000; y and the final state; fp32 at 5e-3, bf16 y at one bf16
+   ulp) against their plain versions, then time kernel, plain version,
+   library call (F.scaled_dot_product_attention for flash; none for the
+   SSD scan) and bound at the served shapes.
+11. static (mamba2) — full-width mamba2-130m (24 layers, no cut),
+   seeded bf16 weights drawn on the card, through launch/serve.py's
+   static path (run_static): 4 prompts of 2048 tokens, 32 greedy new
+   tokens. Checks ssd_scan launched 24 times in the prefill and never
+   in the decode (and nothing else), and that the prefill's
+   last-position logits and every layer's handed-off h/conv state
+   through the kernel agree with the same prefill through the plain
+   version, in fp32 and bf16; prints prefill ms, decode tok/s, peak
+   device memory and a trace of one prefill.
+12. static (qwen1.5-4b) — the same for full-width qwen1.5-4b (40
+   layers, no cut), weights drawn again on the card as int8 packed as
+   drawn and dequantized once to bf16 (``--static --wbits 8``), 4
+   prompts of 512 tokens: flash_attention launched 40 times in the
+   prefill, never in the decode.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -82,10 +105,13 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.config import QuantPolicy, get_config  # noqa: E402
-from repro_torch.core.quant.policy import Packer, quantize_tensor  # noqa: E402
+from repro_torch.core.quant.policy import (Packer, quantize_tensor,  # noqa: E402
+                                           tree_map)
 from repro_torch.kernels import _build, ops, qconv1d, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import qmatmul as qmm  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models.basecaller import model as bc  # noqa: E402
@@ -1102,6 +1128,268 @@ def phase_mla_kernel() -> dict:
     return {"err": err, "timing": timing}
 
 
+# ---------------------------------------------------------------------------
+# Prefill slice: the static path of full-width mamba2-130m and qwen1.5-4b
+
+SSM_ARCH = "mamba2-130m"
+STATIC_SLOTS = 4
+SSM_PROMPT = 2048             # mamba2 prompt tokens per row
+QWEN_PROMPT = 512             # qwen1.5-4b prompt tokens per row
+STATIC_NEW = 32               # greedy new tokens per row
+FLASH_TOL = {torch.float32: (1e-4, 1e-4),   # tests/test_kernels.py:44
+             torch.bfloat16: (2 ** -7, 1e-5)}
+# SSD: fp32 at tests/test_kernels.py:101's 5e-3; bf16 y at one bf16 ulp
+# (2^-7 relative) with atol 1e-3 for fp32 order noise on |y| up to ~50;
+# the fp32 state at 5e-3 in both
+SSD_TOL = {torch.float32: (5e-3, 5e-3), torch.bfloat16: (2 ** -7, 1e-3)}
+# One whole-prompt prefill through the kernel vs through its plain
+# version (bounds stated before the first run on the card): (max |d
+# logit| of the last position, max |d| / max |ref| of every layer's
+# handed-off state). fp32: only fp32 summation order differs. bf16 as
+# served: a one-ulp difference of a layer's bf16 output can start
+# anywhere and carry through 24 (mamba2) or 40 (qwen) residual layers.
+SSM_PREFILL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (0.25, 0.05)}
+QWEN_PREFILL = {torch.float32: (0.02, 1e-3), torch.bfloat16: (0.25, 0.05)}
+
+
+def flash_inputs(rs, b, s, h, hkv, dtype, d=HD):
+    return tuple(torch.from_numpy(rs.randn(b, s, n, d).astype(np.float32))
+                 .to("cuda", dtype) for n in (h, hkv, hkv))
+
+
+def flash_bound(b, sq, sk, h, hkv, d, esize, causal) -> tuple:
+    """q, k, v read once and out written once; 4 d flops per (query,
+    key) pair the mask keeps (k <= q when causal)."""
+    nbytes = esize * d * (2 * b * sq * h + 2 * b * sk * hkv)
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk)
+    return bound_ms(nbytes, 4 * d * pairs * b * h, torch.bfloat16)
+
+
+def ssd_inputs(rs, b, s, dtype, nh=24, hd=64, n=128):
+    """mamba2-130m's SSD shapes: dt from softplus of the smallest
+    dt_bias band, A across the model's -1..-16."""
+    x = torch.from_numpy(rs.randn(b, s, nh, hd).astype(np.float32))
+    dt = torch.from_numpy((rs.rand(b, s, nh) * 0.1).astype(np.float32))
+    bm = torch.from_numpy(rs.randn(b, s, n).astype(np.float32))
+    cm = torch.from_numpy(rs.randn(b, s, n).astype(np.float32))
+    D = torch.from_numpy(rs.rand(nh).astype(np.float32) + 0.5)
+    A = -torch.linspace(1.0, 16.0, nh)
+    return (x.to("cuda", dtype), dt.cuda(), A.cuda(), bm.to("cuda", dtype),
+            cm.to("cuda", dtype), D.cuda())
+
+
+def ssd_bound(b, s, nh, hd, n, esize, chunk=256) -> tuple:
+    """x, dt, B, C read once, y and the fp32 state written once; flops of
+    the chunked form at the reference's chunk: C.B^T once per batch row
+    and chunk (causal half), then per head M.x, C.h and the state
+    update."""
+    nbytes = (2 * b * s * nh * hd * esize + b * s * nh * 4
+              + 2 * b * s * n * esize + b * nh * hd * n * 4 + 2 * nh * 4)
+    tri = chunk * (chunk + 1) // 2
+    chunks = -(-s // chunk)
+    flops = 2 * b * chunks * (tri * n + nh * (tri * hd + 2 * chunk * n * hd))
+    return bound_ms(nbytes, flops, torch.bfloat16)
+
+
+def phase_prefill_kernel() -> dict:
+    """flash_attention and ssd_scan vs their plain versions at the
+    served shapes and ragged ones, then timed at the served shapes."""
+    rs = np.random.RandomState(3)
+    err = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, sk, h, hkv, causal in (
+                (STATIC_SLOTS, QWEN_PROMPT, QWEN_PROMPT, 20, 20, True),
+                (STATIC_SLOTS, QWEN_PROMPT, QWEN_PROMPT, 20, 20, False),
+                (2, 333, 333, 20, 20, True),
+                (2, QWEN_PROMPT, QWEN_PROMPT, 16, 2, True),
+                (2, 333, 333, 16, 2, True), (2, 200, 77, 16, 2, False)):
+            q, k, v = flash_inputs(rs, b, s, h, hkv, dtype)
+            k, v = (a[:, :sk].contiguous() for a in (k, v))
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if got.shape != q.shape or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash_attention {tuple(got.shape)} "
+                                     f"or non-finite")
+            rtol, atol = FLASH_TOL[dtype]
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)
+            e = float((got.float() - want.float()).abs().max())
+            if dtype == torch.bfloat16 and (s, h, causal) == (
+                    QWEN_PROMPT, 20, True):
+                err["flash_attention"] = e
+            print(f"[kernel] flash_attention {str(dtype)[6:]} B={b} Sq={s} "
+                  f"Sk={sk} H={h} Hkv={hkv} d={HD} causal={int(causal)}: "
+                  f"max|err| {e:.3g} ok")
+        for s in (SSM_PROMPT, 2000):
+            args = ssd_inputs(rs, STATIC_SLOTS, s, dtype)
+            y, h = ssd.ssd_scan_cuda(*args, chunk=256)
+            wy, wh = ref.ssd_chunked(*args, 256)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(y).all())
+                    and bool(torch.isfinite(h).all())):
+                raise AssertionError("ssd_scan: non-finite output")
+            rtol, atol = SSD_TOL[dtype]
+            torch.testing.assert_close(y.float(), wy.float(), rtol=rtol,
+                                       atol=atol)
+            torch.testing.assert_close(h, wh, rtol=5e-3, atol=5e-3)
+            ey = float((y.float() - wy.float()).abs().max())
+            eh = float((h - wh).abs().max())
+            if dtype == torch.bfloat16 and s == SSM_PROMPT:
+                err["ssd_scan"] = ey
+            print(f"[kernel] ssd_scan {str(dtype)[6:]} B={STATIC_SLOTS} "
+                  f"S={s} nh=24 hd=64 N=128 chunk=256: max|err| y {ey:.3g} "
+                  f"(max|y| {float(wy.float().abs().max()):.3g}), state "
+                  f"{eh:.3g} ok")
+    # device times at the served shapes (bf16), each call on its own copy
+    # of the inputs (>= 128 MB in all, from HBM)
+    timing = {}
+    b, s, h = STATIC_SLOTS, QWEN_PROMPT, 20
+    per = 4 * b * s * h * HD * 2
+    xs = [flash_inputs(rs, b, s, h, h, torch.bfloat16)
+          for _ in range(max(2, -(-(128 << 20) // per)))]
+    bms, by = flash_bound(b, s, s, h, h, HD, 2, True)
+    timing["flash_attention"] = {
+        "ms": device_ms([functools.partial(fa.flash_attention_cuda, *x,
+                                           causal=True) for x in xs]),
+        "plain_ms": device_ms([functools.partial(
+            ref.flash_attention_gqa_ref, *x, causal=True) for x in xs]),
+        "library_ms": device_ms([functools.partial(
+            F.scaled_dot_product_attention, *(a.transpose(1, 2) for a in x),
+            is_causal=True, enable_gqa=True) for x in xs]),
+        "bound_ms": bms, "bound_by": by,
+        "shape": f"bf16 B={b} S={s} H={h} Hkv={h} d={HD} causal"}
+    del xs
+    per = 2 * STATIC_SLOTS * SSM_PROMPT * 24 * 64 * 2
+    xs = [ssd_inputs(rs, STATIC_SLOTS, SSM_PROMPT, torch.bfloat16)
+          for _ in range(max(2, -(-(128 << 20) // per)))]
+    bms, by = ssd_bound(STATIC_SLOTS, SSM_PROMPT, 24, 64, 128, 2)
+    timing["ssd_scan"] = {
+        "ms": device_ms([functools.partial(ssd.ssd_scan_cuda, *x, chunk=256)
+                         for x in xs]),
+        "plain_ms": device_ms([functools.partial(ref.ssd_chunked, *x, 256)
+                               for x in xs], reps=3),
+        "library_ms": None,
+        "bound_ms": bms, "bound_by": by,
+        "shape": f"bf16 B={STATIC_SLOTS} S={SSM_PROMPT} nh=24 hd=64 N=128 "
+                 f"chunk=256"}
+    del xs
+    for name, row in timing.items():
+        lib = ("no single PyTorch call" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        print(f"[kernel] {name} {row['shape']}: kernel {row['ms']:.4f} ms | "
+              f"plain {row['plain_ms']:.4f} ms | library {lib} | bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+    return {"err": err, "timing": timing}
+
+
+def prefill_both_paths(params, cfg, tokens, swap, dtype):
+    """One whole-prompt prefill through the kernel and through its plain
+    version (``swap``: (module, wrapper name, plain function)) on the
+    same tokens, in ``dtype``; returns the max |d logit| of the last
+    position and the worst max |d| / max |ref| over the handed-off
+    cache leaves (every layer)."""
+    cfg = replace(cfg, dtype=str(dtype)[6:])
+    p = tree_map(lambda t: t.to(dtype), params)
+    out = []
+    for plain in (False, True):
+        ctx = (mock.patch.object(*swap) if plain
+               else contextlib.nullcontext())
+        with ctx, torch.no_grad():
+            out.append(tfm.prefill(p, tokens, cfg, cache_len=tokens.shape[1],
+                                   cache_dtype=dtype))
+    (lk, ck), (lp, cp) = out
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("prefill: non-finite logits")
+    d_logit = float((lk.float() - lp.float()).abs().max())
+    d_state = 0.0
+    for g, tree in cp.items():
+        for name, want in tree.items():
+            if not want.is_floating_point():
+                continue
+            got = ck[g][name].float()
+            scale = float(want.float().abs().max()) or 1.0
+            d_state = max(d_state, float((got - want.float()).abs().max())
+                          / scale)
+    return d_logit, d_state, float(lk.float().std())
+
+
+def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
+                 wbits: int = 0) -> dict:
+    """The static path at full width through ``launch/serve.py``'s
+    ``run_static``: seeded weights drawn on the card (``wbits``: packed
+    as drawn and dequantized once up front, as ``--static --wbits``
+    does), 4 prompts of ``prompt`` tokens, 32 greedy new tokens. Checks
+    ``kernel`` launched once per layer in the prefill and never in the
+    decode, and no other kernel; then the prefill through the kernel vs
+    its plain version in fp32 and bf16; then traces one prefill."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, device="cuda", wbits=wbits)
+    if wbits:
+        params = serve.dequantize_tree(params, getattr(torch, cfg.dtype))
+    torch.cuda.synchronize()
+    print(f"[static] {cfg.name}: {cfg.n_layers} layers "
+          f"{[k for k, _ in tfm.layer_plan(cfg)]}, d {cfg.d_model}, "
+          f"{cfg.dtype} weights ({torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB{', int8-packed as drawn, dequantized once' if wbits else ''}"
+          f") in {time.perf_counter() - t0:.1f}s")
+    args = types.SimpleNamespace(slots=STATIC_SLOTS, prompt_len=prompt,
+                                 tokens=STATIC_NEW, seed=0)
+    warm = types.SimpleNamespace(**{**vars(args), "tokens": 2, "seed": 1})
+    serve.run_static(params, cfg, warm, "cuda")
+    ops.reset_launch_counts()
+    r = serve.run_static(params, cfg, args, "cuda")
+    counts = ops.launch_counts()
+    want = {kernel: cfg.n_layers}
+    if r["launches_prefill"] != want or r["launches_decode"] or \
+            {k: c for k, c in counts.items() if c} != want:
+        raise AssertionError(f"{cfg.name}: launches prefill "
+                             f"{r['launches_prefill']}, decode "
+                             f"{r['launches_decode']}, want {want} and none")
+    toks = r["tokens"]
+    if toks.shape != (STATIC_SLOTS, STATIC_NEW) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: tokens {tuple(toks.shape)}")
+    n_dec = STATIC_SLOTS * (STATIC_NEW - 1)
+    row = {"prefill_ms": r["prefill_s"] * 1e3,
+           "decode_tok_s": n_dec / r["decode_s"],
+           "launches": counts[kernel]}
+    print(f"[static] {cfg.name}: prefill {STATIC_SLOTS}x{prompt} "
+          f"{row['prefill_ms']:.2f} ms, decode {n_dec} tokens "
+          f"{row['decode_tok_s']:.1f} tok/s; {kernel} launches "
+          f"{counts[kernel]} = {cfg.n_layers} x 1 prefill, 0 in "
+          f"{STATIC_NEW - 1} decode steps")
+    del r
+    tokens = api.make_smoke_batch(2, cfg, STATIC_SLOTS, prompt,
+                                  device="cuda")["tokens"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dl, ds, std = prefill_both_paths(params, cfg, tokens, swap, dtype)
+        print(f"[static] {cfg.name}: prefill kernel vs plain, "
+              f"{str(dtype)[6:]}: max|d logit| {dl:.4g} (logit std "
+              f"{std:.3g}), handed-off state max|d|/max|ref| {ds:.3g}")
+        if dl > bounds[dtype][0] or ds > bounds[dtype][1]:
+            raise AssertionError(f"{cfg.name} prefill ({dtype}): kernel "
+                                 f"path disagrees with the plain path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[static] {cfg.name}: peak device memory {row['peak_gib']:.2f} "
+          f"GiB")
+
+    def enqueue():
+        with torch.no_grad():
+            return tfm.prefill(params, tokens, cfg,
+                               cache_len=prompt + STATIC_NEW)[0]
+    row["trace"] = trace(f"one prefill ({cfg.name}, B={STATIC_SLOTS}, "
+                         f"S={prompt})", enqueue)
+    del params
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1139,6 +1427,16 @@ def main() -> int:
     ds = lap("serve (MLA)", phase_lm_serve, ds_cfg,
              ("mla_paged", "mla_paged_chunk"), (DS_TICK_BF16, DS_TICK_FP32))
     lap("trace (MLA)", phase_lm_trace, ds)
+    ds_launches = ds["launches"]
+    ds.clear()                             # free deepseek's engine
+    pre = lap("kernel (prefill)", phase_prefill_kernel)
+    ssm_run = lap("static (mamba2)", phase_static, get_config(SSM_ARCH),
+                  SSM_PROMPT, "ssd_scan", (ssd, "ssd_scan_cuda",
+                                           ref.ssd_chunked), SSM_PREFILL)
+    qwen_run = lap("static (qwen1.5-4b)", phase_static, get_config(LM_ARCH),
+                   QWEN_PROMPT, "flash_attention",
+                   (fa, "flash_attention_cuda", ref.flash_attention_gqa_ref),
+                   QWEN_PREFILL, 8)
     pk = kern["per_k"]
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
@@ -1171,7 +1469,7 @@ def main() -> int:
         "name": "qmatmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
         "replaces": "src/repro/kernels/qmatmul.py:57",
-        "launches": lm_launches["qmatmul"] + ds["launches"]["qmatmul"],
+        "launches": lm_launches["qmatmul"] + ds_launches["qmatmul"],
         "max_abs_err": lm_kern["err"]["qmatmul"],
         "ms": tick_sum("ms"), "plain_ms": tick_sum("plain_ms"),
         "bound_ms": tick_sum("bound_ms"), "bound_by": "bytes",
@@ -1180,7 +1478,7 @@ def main() -> int:
                  f"{sum(per_tick.values())} launches, int8 weights, bf16 "
                  f"x, M={LM_SLOTS}; launches: both LM phases",
         "launches_by_phase": {LM_ARCH: lm_launches["qmatmul"],
-                              DS_ARCH: ds["launches"]["qmatmul"]},
+                              DS_ARCH: ds_launches["qmatmul"]},
         "per_shape": qt})
     for name, replaces in (("gqa_paged", 260), ("gqa_paged_chunk", 492)):
         row = lm_kern["timing"]["attn"][name]
@@ -1203,7 +1501,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mla_paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{replaces}",
-            "launches": ds["launches"][name],
+            "launches": ds_launches[name],
             "max_abs_err": mla_kern["err"][name],
             **{key: (row[key] * DS_LAYERS if key.endswith("ms")
                      else row[key]) for key in row},
@@ -1215,6 +1513,25 @@ def main() -> int:
             "per_call": row,
             "per_call_2048_positions":
                 mla_kern["timing"][(name, MLA_POSITIONS[1])]})
+    for name, src, replaces, run, arch in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:68", qwen_run, LM_ARCH),
+            ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:62",
+             ssm_run, SSM_ARCH)):
+        row = pre["timing"][name]
+        n = run["launches"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": pre["err"][name],
+            **{key: (row[key] * n if key.endswith("ms") and row[key]
+                     is not None else row[key]) for key in row
+               if key != "shape"},
+            "shape": f"sum over one {arch} prefill's {n} launches, "
+                     f"{row['shape']}",
+            "per_call": row,
+            "static": {k: v for k, v in run.items() if k != "trace"}})
     print(f"[chip_smoke] all phases ok in {time.perf_counter() - t0:.1f}s "
           f"({', '.join(f'{k} {v:.0f}s' for k, v in laps.items())})")
     print(smi)

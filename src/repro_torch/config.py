@@ -152,7 +152,8 @@ class ModelConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 PAPER_ARCHS = ("rubicall", "bonito", "causalcall")
-LM_ARCHS = ("qwen1.5-4b", "deepseek-v3-671b", "granite-moe-1b-a400m")
+LM_ARCHS = ("qwen1.5-4b", "deepseek-v3-671b", "granite-moe-1b-a400m",
+            "mamba2-130m")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -6,6 +6,10 @@ PyTorch version in :mod:`repro_torch.kernels.ref`, a CUDA tensor
 launches the hand-written kernel — or the call raises. There is no
 fallback from one to the other.
 
+Whole-prompt prefill has two kernels: :func:`flash_attention` (the
+dense family's attention) and :func:`ssd_chunk_scan` (the Mamba-2 SSD
+scan).
+
 Decode attention has two backends (:func:`decode_gqa`, and
 :func:`decode_mla` for the latent arenas of MLA): ``gather``, the
 masked-dense reference over a gathered logical view, and ``cuda``, the
@@ -22,7 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.quant.policy import PackedTensor
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import qconv1d, qmatmul as qmm, ref
+from repro_torch.kernels import ssd_scan as ssd
 
 
 def _no_kernel(name: str, device) -> ValueError:
@@ -65,6 +71,40 @@ def qmatmul(x: torch.Tensor, w, scale=None, *, bits: int = 8
     else:
         raise _no_kernel("qmatmul", x.device)
     return out.reshape(lead + (out.shape[-1],))
+
+
+# ---------------------------------------------------------------------------
+# Whole-prompt prefill
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, d); k/v: (B, Sk, Hkv, d) -> (B, Sq, H, d) in q's
+    dtype. Query head h reads KV head h // (H // Hkv); any Sq, Sk."""
+    if q.is_cuda:
+        return fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal=causal)
+    if q.device.type == "cpu":
+        return ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+    raise _no_kernel("flash_attention", q.device)
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+                   chunk: int = 256):
+    """x: (B, S, nh, hd); dt: (B, S, nh); A/D: (nh,); Bm/Cm: (B, S, N),
+    shared by every head. Returns (y (B, S, nh, hd) in x's dtype, the
+    state after the last position (B, nh, hd, N) fp32). On the card dt,
+    A and D go to the kernel in fp32 (exact widenings) and B/C in x's
+    dtype."""
+    if x.is_cuda:
+        return ssd.ssd_scan_cuda(
+            x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+            Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(),
+            D.float().contiguous(), chunk=chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk)
+    raise _no_kernel("ssd_chunk_scan", x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +239,9 @@ _COUNTED = {"qconv1d_block": qconv1d.qconv1d_block_cuda,
             "gqa_paged": pa.gqa_paged_cuda,
             "gqa_paged_chunk": pa.gqa_paged_chunk_cuda,
             "mla_paged": pa.mla_paged_cuda,
-            "mla_paged_chunk": pa.mla_paged_chunk_cuda}
+            "mla_paged_chunk": pa.mla_paged_chunk_cuda,
+            "flash_attention": fa.flash_attention_cuda,
+            "ssd_scan": ssd.ssd_scan_cuda}
 
 
 def launch_counts() -> dict:

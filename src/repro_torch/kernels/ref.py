@@ -1,6 +1,11 @@
 """Plain PyTorch versions of the port's kernels (the allclose ground
 truth): the CPU path of every wrapper in :mod:`repro_torch.kernels.ops`
-and the oracle each CUDA kernel is held against on the card."""
+and the oracle each CUDA kernel is held against on the card.
+
+``flash_attention_ref`` and ``ssd_scan_ref`` are the twins of the
+reference's own oracles (heads folded into rows); ``flash_attention_gqa_ref``
+and ``ssd_chunked`` take the public layouts of the ``flash_attention``
+and ``ssd_scan`` kernels and are their plain versions."""
 from __future__ import annotations
 
 from typing import Optional
@@ -190,3 +195,96 @@ def mla_paged_chunk_ref(q_abs, q_rope, c, kr, pos, t, table, *,
                   q_rope.reshape(B, C * H, q_rope.shape[-1]), c, kr, pos,
                   tq, table, scale, c_scale, kr_scale)
     return o.reshape(B, C, H, kvr)
+
+
+# ---------------------------------------------------------------------------
+# Whole-prompt prefill: flash attention and the Mamba-2 SSD scan
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """q/k/v: (BH, S, d) -> (BH, Sq, d) in q's dtype: dense fp32 softmax
+    attention, scale d^-0.5, causal keys ``k <= q`` (index from the start
+    of both sequences) with the finite -1e30 mask."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * d ** -0.5
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        mask = (torch.arange(Sk, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_gqa_ref(q, k, v, *, causal: bool = True):
+    """Plain version of the ``flash_attention`` kernel. q: (B, Sq, H, d);
+    k/v: (B, Sk, Hkv, d); query head h reads KV head h // (H // Hkv).
+    Heads fold into rows and KV heads repeat per group, as the
+    reference's ``ops.flash_attention`` does. Returns (B, Sq, H, d)."""
+    B, Sq, H, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qf = q.transpose(1, 2).reshape(B * H, Sq, d)
+    kf = k.transpose(1, 2).repeat_interleave(g, dim=1).reshape(B * H, Sk, d)
+    vf = v.transpose(1, 2).repeat_interleave(g, dim=1).reshape(B * H, Sk, d)
+    o = flash_attention_ref(qf, kf, vf, causal=causal)
+    return o.reshape(B, H, Sq, d).transpose(1, 2)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, D):
+    """The exact SSD recurrence, one step at a time. x: (BH, S, hd); dt:
+    (BH, S); A/D: (BH,); Bm/Cm: (BH, S, N). Returns y (BH, S, hd) in
+    x's dtype."""
+    BH, S, hd = x.shape
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    h = torch.zeros((BH, hd, Bm.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A)
+        h = decay[:, None, None] * h + dtf[:, t, None, None] * (
+            xf[:, t, :, None] * Bf[:, t, None, :])
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]) + D[:, None] *
+                  xf[:, t])
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int, init_state=None):
+    """The chunked SSD algorithm (the reference model's
+    ``ssm.ssd_chunked``) and the plain version of the ``ssd_scan``
+    kernel. x: (B, S, nh, hd); dt: (B, S, nh); A/D: (nh,); Bm/Cm: (B, S,
+    N). The chunk shrinks to the largest divisor of S. Returns (y (B, S,
+    nh, hd) in x's dtype, final state (B, nh, hd, N) fp32)."""
+    Bsz, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    while S % Q:
+        Q -= 1
+    T = S // Q
+    xr = x.reshape(Bsz, T, Q, nh, hd).float()
+    dtr = dt.reshape(Bsz, T, Q, nh).float()
+    Br = Bm.reshape(Bsz, T, Q, N).float()
+    Cr = Cm.reshape(Bsz, T, Q, N).float()
+    cum = torch.cumsum(dtr * A.float(), dim=2)           # (B, T, Q, nh)
+    total = cum[:, :, -1]                                 # (B, T, nh)
+    # intra-chunk: M[t, s] = C_t.B_s exp(cum_t - cum_s) dt_s, s <= t
+    G = torch.einsum("btqn,btsn->btqs", Cr, Br)
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))
+    M = G[..., None] * decay * dtr[:, :, None, :, :]
+    M = torch.where(causal[None, None, :, :, None], M, torch.zeros_like(M))
+    y_intra = torch.einsum("btqsh,btshd->btqhd", M, xr)
+    # each chunk's contribution to the state, then the scan over chunks
+    w_state = torch.exp(total[:, :, None, :] - cum) * dtr
+    S_chunk = torch.einsum("btqh,btqn,btqhd->bthdn", w_state, Br, xr)
+    h = (torch.zeros((Bsz, nh, hd, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    h_prevs = []
+    for i in range(T):
+        h_prevs.append(h)
+        h = h * torch.exp(total[:, i])[:, :, None, None] + S_chunk[:, i]
+    y_inter = torch.einsum("btqn,btqh,bthdn->btqhd", Cr, torch.exp(cum),
+                           torch.stack(h_prevs, dim=1))
+    y = y_intra + y_inter + D.float()[None, None, None, :, None] * xr
+    return y.reshape(Bsz, S, nh, hd).to(x.dtype), h

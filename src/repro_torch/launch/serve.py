@@ -40,6 +40,20 @@ pool, or ``granite-moe-1b-a400m``) goes the same way. The run ends with
 tok/s, TTFT percentiles, the decode interval, pool utilisation,
 preemptions and the resolved attention backend.
 
+The static path (``--static``, token LMs of the dense and ssm families)
+--------------------------------------------------------------------------
+``python -m repro_torch.launch.serve --arch mamba2-130m --static
+--slots 4 --prompt-len 2048 --tokens 32`` runs the reference's legacy
+single-shot loop: one fixed batch of ``--slots`` random prompts of
+``--prompt-len`` tokens, one whole-prompt prefill into contiguous caches
+(the ``ssd_scan`` kernel for mamba2's SSD layers, ``flash_attention``
+for qwen1.5-4b's attention), then ``--tokens`` - 1 lockstep greedy
+decode steps. ``--wbits`` packs the weights as they are drawn and
+dequantizes them once, up front, as the reference's static path does.
+It prints the prefill time, decode tok/s and the kernel launches of
+each half. The continuous-batching engine does not serve the ssm
+family yet.
+
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions on the
 CPU instead. Without a card and without ``--device cpu`` it raises.
 """
@@ -53,12 +67,26 @@ import numpy as np
 import torch
 
 from repro_torch.config import QuantPolicy, get_config
-from repro_torch.core.quant.policy import quantize_tree
+from repro_torch.core.quant.policy import (PackedTensor, dequantize,
+                                           quantize_tree)
+from repro_torch.kernels import ops
 from repro_torch.models import api
 
 
 def quantize_for_serving(params, wbits: int):
     return quantize_tree(params, QuantPolicy(weight_bits=wbits, act_bits=0))
+
+
+def dequantize_tree(params, dtype):
+    """Every packed weight dequantized once, up front (the static path's
+    weights, as the reference's ``dequantize_tree``)."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = dequantize_tree(v, dtype)
+        else:
+            out[k] = dequantize(v, dtype) if isinstance(v, PackedTensor) else v
+    return out
 
 
 def build_reads(args, seed: int = 0):
@@ -226,6 +254,71 @@ def run_lm(cfg, args, device) -> None:
         print("[serve] sample:", done[min(done)].out_tokens[:16])
 
 
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def static_generate(params, cfg, tokens, n_new: int, *, cache_len=None,
+                    cache_dtype=torch.bfloat16) -> dict:
+    """The static loop over prompts ``tokens`` (B, S): whole-prompt
+    prefill, then ``n_new`` - 1 lockstep greedy decode steps (every row
+    at the same position). Returns the greedy tokens (B, n_new), the
+    prefill and decode seconds (host clock around work that ends in a
+    device synchronisation) and the kernel launches of each half."""
+    from repro_torch.models.lm import transformer as tfm
+    dev = tokens.device
+    B, S = tokens.shape
+    cache_len = cache_len or S + n_new
+    before = ops.launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():      # the caches stay writable for the caller
+        logits, caches = tfm.prefill(params, tokens, cfg,
+                                     cache_len=cache_len,
+                                     cache_dtype=cache_dtype)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        mid = ops.launch_counts()
+        out = [tok]
+        t0 = time.perf_counter()
+        for i in range(n_new - 1):
+            logits, caches = tfm.decode_step(params, caches, tok, S + i, cfg)
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            out.append(tok)
+        _sync(dev)
+        t_decode = time.perf_counter() - t0
+    after = ops.launch_counts()
+    return {"tokens": torch.cat(out, dim=1), "prefill_s": t_prefill,
+            "decode_s": t_decode, "caches": caches,
+            "launches_prefill": {k: mid[k] - before[k] for k in mid
+                                 if mid[k] - before[k]},
+            "launches_decode": {k: after[k] - mid[k] for k in after
+                                if after[k] - mid[k]}}
+
+
+def run_static(params, cfg, args, device) -> dict:
+    """The reference's legacy single-shot loop: ``--slots`` random
+    prompts of ``--prompt-len`` tokens (seeded by ``--seed``), ``--tokens``
+    greedy new tokens each; prints the prefill time, decode tok/s and
+    each half's kernel launches. Returns :func:`static_generate`'s
+    result."""
+    batch = api.make_smoke_batch(args.seed, cfg, args.slots,
+                                 args.prompt_len, device=device)
+    r = static_generate(params, cfg, batch["tokens"], args.tokens,
+                        cache_len=args.prompt_len + args.tokens)
+    print(f"[serve] prefill {args.slots}x{args.prompt_len} in "
+          f"{r['prefill_s'] * 1e3:.2f} ms; kernel launches "
+          f"{r['launches_prefill'] or 'none'}")
+    total = args.slots * (args.tokens - 1)
+    print(f"[serve] decoded {total} tokens in {r['decode_s']:.3f}s "
+          f"({total / max(r['decode_s'], 1e-9):.1f} tok/s); kernel "
+          f"launches {r['launches_decode'] or 'none'}")
+    print("[serve] sample:", r["tokens"][0, :16].tolist())
+    return r
+
+
 def print_tick_report(s, args) -> None:
     print(f"[serve] ticks ({'async' if args.async_dispatch else 'sync'}): "
           f"p50 {s['tick_latency_p50_s'] * 1e3:.2f}ms "
@@ -261,6 +354,9 @@ def main(argv=None) -> None:
     ap.add_argument("--queue-timeout", type=float, default=0.0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--static", action="store_true",
+                    help="token LMs: the single-shot static loop (one "
+                         "whole-prompt prefill, lockstep greedy decode)")
     # ---- token LMs ----
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32,
@@ -301,6 +397,16 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+    if args.static:
+        if cfg.family == "basecaller":
+            raise SystemExit("[serve] error: --static serves token LMs")
+        params = api.init_params(0, cfg, device=device, wbits=args.wbits)
+        if args.wbits:
+            params = dequantize_tree(params, getattr(torch, cfg.dtype))
+            print(f"[serve] weights packed to int{args.wbits} and "
+                  f"dequantized once, up front")
+        run_static(params, cfg, args, device)
+        return
     if cfg.family != "basecaller":
         run_lm(cfg, args, device)
         return

@@ -1,6 +1,8 @@
 """Model API of the port (the basecaller family and the LM families
-ported so far: ``dense`` and ``moe``, GQA or MLA):
-parameter init and the serving engine, on the device a caller names.
+ported so far: ``dense`` and ``moe``, GQA or MLA, through the serving
+engine; ``dense`` and ``ssm`` through the static path): parameter init,
+the serving engine, the whole-prompt prefill and lockstep decode steps
+and smoke batches, on the device a caller names.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they
@@ -40,9 +42,7 @@ def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0):
         from repro_torch.models.basecaller import model as bc
         return bc.init_params(gen, cfg)
     from repro_torch.models.lm import transformer as tfm
-    if not tfm.supports_slot_serving(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported")
+    tfm.layer_plan(cfg)          # raises for a family that is not ported
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(
             int(gen))
@@ -64,6 +64,49 @@ def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):
     ``quant_policy``, ``attn_backend``; for basecallers
     ``chunk_samples``, ``beam``."""
     from repro_torch.serving.engine import ServingEngine
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the slot (continuous-batching) path of the 'ssm' "
+            f"family is not ported; serve it through the static path "
+            f"(launch/serve.py --static)")
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev), params)
     return ServingEngine(params, cfg, device=dev, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The static path's steps and smoke batches
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> (last logits (B, 1, V), caches)``
+    over ``batch["tokens"]`` (B, S), caches of S positions."""
+    from repro_torch.models.lm import transformer as tfm
+
+    def prefill_step(params, batch):
+        return tfm.prefill(params, batch["tokens"], cfg)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``decode_step(params, caches, tokens (B, 1), t) -> (logits,
+    caches)``, every row at position ``t``; the caches update in place."""
+    from repro_torch.models.lm import transformer as tfm
+
+    def decode_step(params, caches, tokens, t):
+        return tfm.decode_step(params, caches, tokens, t, cfg)
+    return decode_step
+
+
+def make_smoke_batch(gen, cfg: ModelConfig, batch: int = 2,
+                     seq: int = 64, *, device=None):
+    """A random token-LM batch on ``device`` (CUDA by default) from
+    ``gen`` (a seed or a ``torch.Generator`` on that device): ``tokens``
+    and ``labels`` (B, seq) int32 in [0, vocab)."""
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(
+            int(gen))
+    return {name: torch.randint(0, cfg.vocab_size, (batch, seq),
+                                generator=gen, device=gen.device,
+                                dtype=torch.int32)
+            for name in ("tokens", "labels")}

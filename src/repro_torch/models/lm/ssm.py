@@ -1,0 +1,164 @@
+"""Mamba-2 (SSD: state-space duality) block: the whole-prompt forward and
+the one-token decode (the port's counterpart of
+``repro.models.lm.ssm``).
+
+Per head h with scalar decay A_h < 0:
+    state_t = exp(dt_t A_h) state_{t-1} + dt_t * B_t (x) x_t
+    y_t     = C_t . state_t + D_h x_t
+
+Routing, the port's own: :func:`ssm_forward` runs the scan through
+``ops.ssd_chunk_scan``, the hand-written CUDA ``ssd_scan`` kernel on a
+card, where the reference model calls its XLA ``ssd_chunked`` and never
+its Pallas twin (``ssd_scan_p``). The kernel is the TPU kernel's
+counterpart and the prompt's hot spot; it also returns the state after
+the last position, which the decode steps continue from, so the scan
+runs once. On the CPU the same call runs :func:`ssd_chunked` (the
+reference's algorithm, re-exported here), so the CPU path is the
+reference's. Decode keeps O(1) state per layer and runs no kernel.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_chunked  # noqa: F401 (the twin)
+from repro_torch.models.lm.common import (Params, dense, make_dense_params,
+                                          truncated_normal_init)
+
+
+def ssm_dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = d_in // cfg.ssm_headdim
+    N = cfg.ssm_state
+    conv_ch = d_in + 2 * N       # x, B, C go through the causal conv
+    return d_in, nh, N, conv_ch
+
+
+def make_ssm_params(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                    dtype=torch.float32) -> Params:
+    """The reference's init (other random numbers), stacked over
+    ``lead``: A_log = log(1..16) over the heads, D = 1, dt_bias the
+    inverse softplus of log-uniform [1e-3, 1e-1], conv taps std 0.1."""
+    d = cfg.d_model
+    d_in, nh, N, conv_ch = ssm_dims(cfg)
+    dev = gen.device
+    kw = dict(lead=lead, dtype=dtype)
+    in_proj = make_dense_params(gen, d, 2 * d_in + 2 * N + nh, **kw)
+    conv_w = truncated_normal_init(gen, (*lead, cfg.ssm_conv, conv_ch),
+                                   stddev=0.1, dtype=dtype)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt0 = torch.exp(lo + (hi - lo) * torch.rand((*lead, nh), generator=gen,
+                                                device=dev))
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=dev))
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((*lead, conv_ch), dtype=dtype, device=dev),
+        "A_log": a_log.expand(*lead, nh).to(dtype).contiguous(),
+        "D": torch.ones((*lead, nh), dtype=dtype, device=dev),
+        "dt_bias": torch.log(torch.expm1(dt0)).to(dtype),
+        "out_proj": make_dense_params(gen, d_in, d, **kw),
+    }
+
+
+def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
+    d_in, nh, N, _ = ssm_dims(cfg)
+    z = zxbcdt[..., :d_in]
+    x = zxbcdt[..., d_in:2 * d_in]
+    Bm = zxbcdt[..., 2 * d_in:2 * d_in + N]
+    Cm = zxbcdt[..., 2 * d_in + N:2 * d_in + 2 * N]
+    dt = zxbcdt[..., 2 * d_in + 2 * N:]
+    return z, x, Bm, Cm, dt
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor = None) -> torch.Tensor:
+    """Depthwise causal conv of width K, then SiLU. xbc: (B, S, C); w:
+    (K, C); ``state`` the K - 1 positions before xbc (zeros if None)."""
+    K = w.shape[0]
+    pad = (torch.zeros_like(xbc[:, :K - 1]) if state is None
+           else state.to(xbc.dtype))
+    xp = torch.cat([pad, xbc], dim=1)
+    S = xbc.shape[1]
+    out = sum(xp[:, i:i + S] * w[i].to(xbc.dtype) for i in range(K))
+    return F.silu(out + b.to(xbc.dtype))
+
+
+def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Dict]:
+    """Whole-prompt forward. x: (B, S, d). Returns (y (B, S, d), the
+    decode hand-off {"h": (B, nh, hd, N) fp32, "conv": the last K - 1
+    pre-conv positions (B, K - 1, conv_ch)})."""
+    B, S, _ = x.shape
+    d_in, nh, N, _ = ssm_dims(cfg)
+    zxbcdt = dense(p["in_proj"], x, cfg=cfg, tag="ssm/in_proj")
+    z, xs, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)
+    conv_state = xbc[:, -(cfg.ssm_conv - 1):].clone()  # not a view of xbc
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xs, Bm, Cm = (xbc[..., :d_in], xbc[..., d_in:d_in + N],
+                  xbc[..., d_in + N:])
+    dtv = F.softplus(dtr.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, h = ops.ssd_chunk_scan(xs.reshape(B, S, nh, cfg.ssm_headdim), dtv, A,
+                              Bm, Cm, p["D"], chunk=cfg.ssm_chunk)
+    y = y.reshape(B, S, d_in) * F.silu(z)
+    out = dense(p["out_proj"], y, cfg=cfg, tag="ssm/out_proj")
+    return out, {"h": h.float(), "conv": conv_state}
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                   device=None) -> Dict:
+    d_in, nh, N, conv_ch = ssm_dims(cfg)
+    return {"h": torch.zeros((batch, nh, cfg.ssm_headdim, N),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_ch),
+                                dtype=dtype, device=device)}
+
+
+def _ssm_step(p: Params, cfg: ModelConfig, h: torch.Tensor,
+              conv: torch.Tensor, xbc_t: torch.Tensor, dtr_t: torch.Tensor,
+              act_dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One recurrence step. h: (B, nh, hd, N) fp32; conv: (B, K - 1,
+    conv_ch); xbc_t: (B, conv_ch) pre-conv; dtr_t: (B, nh) raw dt.
+    Returns (h_new fp32, window (B, K, conv_ch) whose ``[:, 1:]`` is the
+    next conv state, y_t (B, nh, hd) fp32)."""
+    d_in, nh, N, _ = ssm_dims(cfg)
+    hd = cfg.ssm_headdim
+    B = xbc_t.shape[0]
+    window = torch.cat([conv.to(xbc_t.dtype), xbc_t[:, None]], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", window.float(),
+                            p["conv_w"].float()) + p["conv_b"]
+    conv_out = F.silu(conv_out).to(act_dtype)
+    xs_t = conv_out[..., :d_in].reshape(B, nh, hd)
+    Bm_t = conv_out[..., d_in:d_in + N]
+    Cm_t = conv_out[..., d_in + N:]
+    dtv = F.softplus(dtr_t.float() + p["dt_bias"])            # (B, nh)
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dtv * A[None, :])
+    h_new = h * decay[:, :, None, None] + torch.einsum(
+        "bh,bn,bhd->bhdn", dtv, Bm_t.float(), xs_t.float())
+    y_t = torch.einsum("bn,bhdn->bhd", Cm_t.float(), h_new) + \
+        p["D"][None, :, None] * xs_t.float()
+    return h_new, window, y_t
+
+
+def ssm_decode(p: Params, x: torch.Tensor, cache: Dict, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode with O(1) state. x: (B, 1, d). Returns (out,
+    new cache); the conv window returns in the cache's stored dtype."""
+    B = x.shape[0]
+    d_in = ssm_dims(cfg)[0]
+    zxbcdt = dense(p["in_proj"], x, cfg=cfg, tag="ssm/in_proj")
+    z, xs, Bm, Cm, dtr = _split_proj(zxbcdt[:, 0], cfg)
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)                  # (B, conv_ch)
+    h, window, y = _ssm_step(p, cfg, cache["h"], cache["conv"], xbc, dtr,
+                             x.dtype)
+    y = y.reshape(B, 1, d_in).to(x.dtype) * F.silu(z[:, None])
+    out = dense(p["out_proj"], y, cfg=cfg, tag="ssm/out_proj")
+    return out, {"h": h, "conv": window[:, 1:].to(cache["conv"].dtype)}

@@ -1,5 +1,8 @@
-"""Decoder-only transformer for slot-batched serving (the port's
-counterpart of the serving half of ``repro.models.lm.transformer``).
+"""Decoder-only transformer (the port's counterpart of
+``repro.models.lm.transformer``): the whole-prompt ``forward``/
+``prefill`` and the lockstep ``decode_step`` over contiguous caches (the
+static path), and the slot-batched step over the paged pool (the
+serving engine).
 
 Layers form *groups* of identical blocks; a group's parameters and
 caches stack along a leading ``n_layers`` axis, and the port walks that
@@ -9,8 +12,11 @@ axis in a Python loop where the reference scans. Ported block kinds:
   moe         norm -> GQA attention -> norm -> MoE
   mla_dense   norm -> MLA           -> norm -> gated SiLU MLP (dense_d_ff)
   mla_moe     norm -> MLA           -> norm -> MoE
+  ssm         norm -> Mamba-2 (no MLP)
 
-every other kind raises ``NotImplementedError`` naming it.
+The slot path serves ``SLOT_KINDS``; the static path (``prefill``,
+``decode_step``) runs ``STATIC_KINDS``. Every other kind, and a kind on
+a path that does not run it, raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -24,13 +30,18 @@ from repro_torch.kernels.paged_attention import paged_writes
 from repro_torch.models.lm import attention as attn_mod
 from repro_torch.models.lm import mla as mla_mod
 from repro_torch.models.lm import moe as moe_mod
+from repro_torch.models.lm import ssm as ssm_mod
 from repro_torch.models.lm.common import (Params, dense, make_dense_params,
                                           make_mlp_params,
                                           make_rmsnorm_params, mlp, rmsnorm,
                                           truncated_normal_init)
 
-# Layer kinds the slot-batched serving path covers in the port.
+# Layer kinds the slot-batched serving path covers in the port, the kinds
+# the static path (whole-prompt prefill + lockstep decode) covers, and
+# every kind whose parameters the port builds.
 SLOT_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+STATIC_KINDS = ("dense", "ssm")
+PARAM_KINDS = SLOT_KINDS + ("ssm",)
 MLA_KINDS = ("mla_dense", "mla_moe")
 MOE_KINDS = ("moe", "mla_moe")
 
@@ -49,9 +60,11 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
                 plan.append(("mla_moe", L - nd))
             return plan
         return [("moe", L)]
+    if cfg.family == "ssm":
+        return [("ssm", L)]
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family's layers are not ported "
-        f"(ported block kinds: {SLOT_KINDS})")
+        f"(ported block kinds: {PARAM_KINDS})")
 
 
 def group_names(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
@@ -69,10 +82,11 @@ def supports_slot_serving(cfg: ModelConfig) -> bool:
         return False
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in SLOT_KINDS:
+def _check_kind(kind: str, kinds=SLOT_KINDS, path: str = "slot") -> None:
+    if kind not in kinds:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported (ported: {SLOT_KINDS})")
+            f"block kind {kind!r} is not ported on the {path} path "
+            f"(ported: {kinds})")
 
 
 # ---------------------------------------------------------------------------
@@ -85,11 +99,16 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, *,
     """One block's parameters, stacked over ``lead`` (e.g. (n_layers,)).
     ``pack`` packs each leaf as it is drawn (``tag``: the block's key
     path, e.g. ``groups/g0_dense/``)."""
-    _check_kind(kind)
+    _check_kind(kind, PARAM_KINDS, "parameter")
     d = cfg.d_model
     norm = dict(lead=lead, dtype=dtype, device=gen.device)
     kw = dict(lead=lead, dtype=dtype)
     p: Params = {"ln1": make_rmsnorm_params(d, **norm)}
+    if kind == "ssm":
+        p["ssm"] = ssm_mod.make_ssm_params(gen, cfg, **kw)
+        if pack is not None:
+            p["ssm"] = pack.tree(p["ssm"], tag + "ssm/")
+        return p
     p["attn"] = (mla_mod.make_mla_params(gen, cfg, **kw) if kind in MLA_KINDS
                  else attn_mod.make_attn_params(gen, cfg, **kw))
     if pack is not None:
@@ -174,6 +193,149 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
     if cfg.tie_embeddings:
         return x @ params["embed"].to(x.dtype).T
     return dense(params["lm_head"], x, cfg=cfg, tag="lm_head")
+
+
+# ---------------------------------------------------------------------------
+# The static path: whole-prompt forward/prefill, lockstep decode over
+# contiguous caches
+
+
+def _mixer_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, kind: str):
+    """Token mixer over the whole prompt -> (y, cache hand-off)."""
+    if kind == "ssm":
+        return ssm_mod.ssm_forward(p["ssm"], x, cfg)
+    return attn_mod.attn_forward(p["attn"], x, positions, cfg)
+
+
+def block_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, kind: str) -> Tuple[torch.Tensor, Dict]:
+    """One block over the whole prompt. Returns (x_out, cache hand-off);
+    no static kind has an auxiliary loss."""
+    _check_kind(kind, STATIC_KINDS, "static")
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    mix, kv = _mixer_forward(p, h, positions, cfg, kind)
+    x = x + mix
+    if kind == "ssm":
+        return x, kv
+    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["ffn"], h2, cfg=cfg, tag="mlp"), kv
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    B, S = x.shape[:2]
+    return torch.arange(S, dtype=torch.int32,
+                        device=x.device)[None, :].expand(B, S)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-sequence forward -> (final-normed hidden (B, S, d),
+    aux_loss, 0 for the static kinds). tokens: (B, S)."""
+    x = embed_tokens(params, tokens, cfg)
+    positions = _positions(x)
+    for gname, kind, n in group_names(cfg):
+        for p in layer_views(params["groups"][gname], n):
+            x, _ = block_forward(p, x, positions, cfg, kind)
+    return (rmsnorm(params["final_norm"], x, cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
+                     cache_len: int, dtype=torch.bfloat16, lead=(),
+                     device=None) -> Dict:
+    """Empty contiguous cache of one block kind, stacked over ``lead``:
+    attention K/V in ``dtype``; SSM state fp32 (as the reference's
+    ``init_ssm_cache``)."""
+    _check_kind(kind, STATIC_KINDS, "static")
+    if kind == "ssm":
+        one = ssm_mod.init_ssm_cache(cfg, batch, device=device)
+    else:
+        one = attn_mod.init_attn_cache(cfg, batch, cache_len, dtype=dtype,
+                                       device=device)
+    return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
+
+
+def fill_block_cache(cfg: ModelConfig, kind: str, cache: Optional[Dict],
+                     kv: Dict) -> Dict:
+    """One layer's cache from its prefill hand-off: attention K/V are
+    written into ``cache`` in place; an SSM hand-off is the state itself
+    (h fp32, the conv window in the activation dtype), as the
+    reference returns it."""
+    if kind == "ssm":
+        return kv
+    return attn_mod.fill_cache_from_prefill(cache, kv)
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            cache_len: Optional[int] = None,
+            cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
+    """Run the prompt (B, S) and build per-group contiguous caches for
+    ``cache_len`` positions (default S), attention K/V in
+    ``cache_dtype``, each layer's filled as the layer runs. Returns
+    (last-position logits (B, 1, V), caches)."""
+    x = embed_tokens(params, tokens, cfg)
+    B, S, _ = x.shape
+    cache_len = cache_len or S
+    positions = _positions(x)
+    caches: Dict[str, Any] = {}
+    for gname, kind, n in group_names(cfg):
+        _check_kind(kind, STATIC_KINDS, "static")
+        cstack = (None if kind == "ssm" else
+                  init_block_cache(cfg, kind, B, cache_len,
+                                   dtype=cache_dtype, lead=(n,),
+                                   device=x.device))
+        cviews = [None] * n if cstack is None else layer_views(cstack, n)
+        filled = []
+        for p, c in zip(layer_views(params["groups"][gname], n), cviews):
+            x, kv = block_forward(p, x, positions, cfg, kind)
+            filled.append(fill_block_cache(cfg, kind, c, kv))
+        caches[gname] = (cstack if cstack is not None else
+                         {k: torch.stack([f[k] for f in filled])
+                          for k in filled[0]})
+    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return unembed(params, x, cfg), caches
+
+
+def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
+                 cfg: ModelConfig, kind: str) -> Tuple[torch.Tensor, Dict]:
+    """One block of the lockstep decode; x: (B, 1, d); t: the position."""
+    _check_kind(kind, STATIC_KINDS, "static")
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        mix, nc = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg)
+        return x + mix, nc
+    mix, nc = attn_mod.attn_decode(p["attn"], h, cache, t, cfg)
+    x = x + mix
+    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["ffn"], h2, cfg=cfg, tag="mlp"), nc
+
+
+def decode_step(params: Params, caches: Dict, tokens: torch.Tensor, t: int,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One token for the whole stack, every row at position ``t``.
+    tokens: (B, 1). The caches are updated in place and returned.
+    Returns (logits (B, 1, V), caches)."""
+    x = embed_tokens(params, tokens, cfg)
+    for gname, kind, n in group_names(cfg):
+        for p, c in zip(layer_views(params["groups"][gname], n),
+                        layer_views(caches[gname], n)):
+            x, nc = block_decode(p, x, c, t, cfg, kind)
+            for name, leaf in nc.items():
+                if leaf is not c[name]:      # SSM state comes back new
+                    c[name].copy_(leaf)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return unembed(params, x, cfg), caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                cache_dtype=torch.bfloat16, device=None) -> Dict:
+    """Empty contiguous caches of the static path, per group stacked
+    over its layers."""
+    return {gname: init_block_cache(cfg, kind, batch, cache_len,
+                                    dtype=cache_dtype, lead=(n,),
+                                    device=device)
+            for gname, kind, n in group_names(cfg)}
 
 
 def block_decode_slots(p: Params, x: torch.Tensor, cache: Dict,

@@ -1,5 +1,6 @@
 """Card-only tests of the port's CUDA kernels (qconv1d, qmatmul, the GQA
-and MLA paged attention; ``-m gpu``; they skip without a card). This file imports neither JAX nor the JAX package, so
+and MLA paged attention, flash attention and the SSD scan; ``-m gpu``;
+they skip without a card). This file imports neither JAX nor the JAX package, so
 it runs on a GPU machine that has only the port's requirements:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
@@ -12,8 +13,10 @@ import pytest
 import torch
 
 from repro_torch.core.quant.policy import quantize_tensor
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import qconv1d, qmatmul, ref
+from repro_torch.kernels import ssd_scan
 
 ARENAS = {"fp32": torch.float32, "bf16": torch.bfloat16,
           "fp8": torch.float8_e4m3fn, "int8": torch.int8}
@@ -262,3 +265,119 @@ def test_cuda_mla_paged_matches_plain_version(H, kvr, rd, bl, C, arena):
     live = torch.from_numpy(t >= 0).cuda()
     tol = ATTN_TOL[arena]
     torch.testing.assert_close(got[live], want[live], rtol=tol, atol=tol)
+
+
+# bf16 outputs: the kernel and its plain version both round an fp32 sum
+# to bf16 in other summation orders, so they may differ by one bf16 ulp
+# (at most 2^-7 relative); atol covers fp32 order noise near zero
+BF16_ULP = (2 ** -7, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,d,causal", [
+    (2, 512, 512, 20, 20, 128, True),        # qwen1.5-4b's heads
+    (2, 512, 512, 20, 20, 128, False),
+    (2, 333, 333, 16, 2, 128, True),         # GQA group 8, ragged S
+    (1, 200, 77, 8, 1, 64, False),           # Sq != Sk, d 64
+    (1, 130, 130, 4, 2, 64, True),
+    (2, 40, 40, 4, 2, 16, True),             # smoke width: d padded to 64
+    (1, 100, 100, 4, 4, 80, False)])         # d padded to 128
+def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, d,
+                                                    causal, dtype):
+    """On a card: the flash-attention kernel against its plain version,
+    causal and not, GQA by index, ragged lengths; fp32 at the reference
+    test's 1e-4, bf16 at one bf16 ulp; each call counts one launch."""
+    _cuda()
+    rs = np.random.RandomState(Sq + Sk + H + d)
+    q, k, v = (torch.from_numpy(rs.randn(B, S, h, d).astype(np.float32)).to(
+        "cuda", dtype) for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Sq, H, d) and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert fa.flash_attention_cuda.launches == before + 1
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else BF16_ULP
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,N,chunk", [
+    (2, 2048, 24, 64, 128, 256),             # mamba2-130m's heads
+    (2, 2000, 24, 64, 128, 256),             # ragged: 256 does not divide
+    (2, 256, 2, 32, 16, 64),                 # tests/test_kernels.py shapes
+    (2, 512, 4, 64, 32, 128),
+    (1, 77, 1, 32, 4, 256),
+    (2, 40, 8, 16, 16, 32),                  # smoke width: hd padded to 32
+    (1, 100, 3, 48, 6, 64)])                 # hd to 64, N to 8
+def test_cuda_ssd_scan_matches_plain_version(B, S, nh, hd, N, chunk, dtype):
+    """On a card: the SSD kernel against its plain version (the chunked
+    algorithm), y and the final state; A spans mamba2's -1..-16 so the
+    decay sums grow large; fp32 at the reference test's 5e-3, bf16 y at
+    one bf16 ulp (atol 1e-3 for fp32 order noise on |y| up to ~50), the
+    fp32 state at 5e-3; each call counts one launch."""
+    _cuda()
+    rs = np.random.RandomState(S + nh + N)
+    x = torch.from_numpy(rs.randn(B, S, nh, hd).astype(np.float32))
+    dt = torch.from_numpy((rs.rand(B, S, nh) * 0.1).astype(np.float32))
+    A = -torch.linspace(1.0, 16.0, nh)
+    Bm = torch.from_numpy(rs.randn(B, S, N).astype(np.float32))
+    Cm = torch.from_numpy(rs.randn(B, S, N).astype(np.float32))
+    D = torch.from_numpy(rs.rand(nh).astype(np.float32) + 0.5)
+    x, Bm, Cm = (a.to("cuda", dtype) for a in (x, Bm, Cm))
+    dt, A, D = (a.cuda() for a in (dt, A, D))
+    before = ssd_scan.ssd_scan_cuda.launches
+    y, h = ssd_scan.ssd_scan_cuda(x, dt, A, Bm, Cm, D, chunk=chunk)
+    wy, wh = ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk)
+    torch.cuda.synchronize()
+    assert y.shape == (B, S, nh, hd) and y.dtype == dtype
+    assert h.shape == (B, nh, hd, N) and h.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    assert ssd_scan.ssd_scan_cuda.launches == before + 1
+    rtol, atol = ((5e-3, 5e-3) if dtype == torch.float32
+                  else (BF16_ULP[0], 1e-3))
+    torch.testing.assert_close(y.float(), wy.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, wh, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "qwen1.5-4b-smoke"])
+def test_cuda_static_prefill_matches_the_cpu_path(arch):
+    """On a card: the static path at smoke width (the kernels through
+    their padded head dims) against the same prefill and decode steps on
+    the CPU (plain versions), fp32: logits and every cache leaf at 1e-4;
+    the prefill launches the slice's kernel once per layer."""
+    _cuda()
+    from repro_torch.config import get_config
+    from repro_torch.core.quant.policy import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.lm import transformer as tfm
+    cfg = get_config(arch)
+    params = api.init_params(0, cfg, device="cpu")
+    tok = torch.from_numpy(np.random.RandomState(0).randint(
+        1, cfg.vocab_size, (2, 45)).astype(np.int32))
+    out = []
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits, caches = tfm.prefill(p, tok.to(dev), cfg, cache_len=48,
+                                         cache_dtype=torch.float32)
+            counts = {k: c for k, c in ops.launch_counts().items() if c}
+            nxt = logits.argmax(-1).to(torch.int32)
+            step, caches = tfm.decode_step(p, caches, nxt, 45, cfg)
+        out.append((logits.cpu(), step.cpu(), caches, counts))
+    (lc, sc, cc, _), (lg, sg, cg, counts) = out
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    assert counts == {kernel: cfg.n_layers}
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sg, sc, rtol=1e-4, atol=1e-4)
+    for g, tree in cc.items():
+        for name, want in tree.items():
+            torch.testing.assert_close(cg[g][name].cpu(), want, rtol=1e-4,
+                                       atol=1e-4)

@@ -1,0 +1,112 @@
+"""The port's flash attention and whole-prompt attention layer against
+the JAX package's.
+
+Both packages get the same numpy inputs. The JAX side runs its Pallas
+``flash_attention_p`` in interpret mode (``ops.flash_attention``, heads
+folded into rows and KV heads repeated per group) or, where that kernel
+asserts S % 128 == 0, its dense oracle ``ref.flash_attention_ref``; the
+port runs, on CPU tensors, the plain version of its CUDA
+``flash_attention`` kernel (``ref.flash_attention_gqa_ref``, what
+``ops.flash_attention`` runs on the CPU). Tolerance: the reference
+test's 1e-4 (observed ≤ 8.3e-7). The layer test runs the port's
+``attn_forward`` (which calls ``ops.flash_attention``) against the JAX
+``attn_forward`` (which calls ``blockwise_attn``) with bridged
+``qwen1.5-4b-smoke`` weights in fp32 at 1e-5. The CUDA kernel itself is held to its plain version on a
+card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_config as jget_config
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import api as japi
+from repro.models.lm import attention as jattn
+from repro_torch import bridge
+from repro_torch.config import get_config
+from repro_torch.kernels import ops, ref
+from repro_torch.models.lm import attention as attn
+
+
+def _qkv(B, Sq, Sk, H, Hkv, d):
+    rng = np.random.RandomState(Sq + Sk + H + d)
+    return (rng.randn(B, Sq, H, d).astype(np.float32),
+            rng.randn(B, Sk, Hkv, d).astype(np.float32),
+            rng.randn(B, Sk, Hkv, d).astype(np.float32))
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), rtol=tol, atol=tol)
+
+
+# tests/test_kernels.py's shapes (causal only where Sq == Sk)
+@pytest.mark.parametrize("Sq,Sk,H,Hkv,d,causal", [
+    (128, 128, 4, 4, 64, True), (128, 128, 4, 4, 64, False),
+    (256, 256, 4, 2, 64, True), (256, 256, 4, 2, 64, False),
+    (128, 256, 8, 1, 128, False)])
+def test_plain_flash_matches_jax_pallas_kernel(Sq, Sk, H, Hkv, d, causal):
+    q, k, v = _qkv(2, Sq, Sk, H, Hkv, d)
+    want = jops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                causal=causal)
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal)
+    assert got.shape == (2, Sq, H, d)
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("Sq,Sk,H,Hkv,d,causal", [
+    (200, 200, 4, 2, 64, True), (77, 150, 8, 1, 128, False),
+    (150, 77, 4, 4, 32, True)])
+def test_plain_flash_matches_jax_oracle_at_ragged_lengths(Sq, Sk, H, Hkv, d,
+                                                          causal):
+    """Lengths the Pallas kernel cannot take (S % 128 != 0): the port's
+    plain version against the JAX dense oracle, GQA repeat done on the
+    JAX side as its ``ops.flash_attention`` does."""
+    q, k, v = _qkv(2, Sq, Sk, H, Hkv, d)
+    g = H // Hkv
+
+    def fold(a, rep):
+        a = jnp.asarray(a).transpose(0, 2, 1, 3)
+        a = jnp.repeat(a, rep, axis=1) if rep > 1 else a
+        return a.reshape(-1, a.shape[2], d)
+    want = jref.flash_attention_ref(fold(q, 1), fold(k, g), fold(v, g),
+                                    causal=causal)
+    want = want.reshape(2, H, Sq, d).transpose(0, 2, 1, 3)
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal)
+    _close(got, want, 1e-4)
+
+
+def test_flash_wrapper_refuses_a_device_without_a_kernel():
+    q = torch.zeros((1, 4, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("S", [48, 37])
+def test_attn_forward_matches_jax_blockwise(S):
+    """Layer 0's attention of qwen1.5-4b-smoke (QKV bias, rope, GQA 4:2)
+    over a whole prompt: the port's output and K/V hand-off against the
+    JAX layer's (``blockwise_attn``) at 1e-5."""
+    jcfg = jget_config("qwen1.5-4b-smoke")
+    tcfg = get_config("qwen1.5-4b-smoke")
+    jp = japi.init_params(jax.random.key(5), jcfg)
+    tp = bridge.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
+    j1 = jax.tree.map(lambda a: a[0], jp["groups"]["g0_dense"]["attn"])
+    t1 = {k: {kk: vv[0] for kk, vv in v.items()}
+          for k, v in tp["groups"]["g0_dense"]["attn"].items()}
+    x = np.random.RandomState(S).randn(2, S, tcfg.d_model).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
+    jy, jkv = jattn.attn_forward(j1, jnp.asarray(x), jnp.asarray(pos), jcfg)
+    ty, tkv = attn.attn_forward(t1, torch.from_numpy(x),
+                                torch.from_numpy(pos.copy()), tcfg)
+    _close(ty, jy, 1e-5)
+    for name in ("k", "v"):
+        _close(tkv[name], jkv[name], 1e-5)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        attn.attn_forward(t1, torch.from_numpy(x),
+                          torch.from_numpy(pos.copy()), tcfg, window=16)

@@ -1,0 +1,156 @@
+"""The port's static path (whole-prompt prefill + lockstep greedy decode,
+``launch/serve.py --static``) against the JAX package's.
+
+``qwen1.5-4b-smoke`` (dense: the flash-attention prefill) and
+``mamba2-130m-smoke`` (ssm: the SSD-scan prefill) with the JAX init
+bridged through numpy, fp32. On the CPU the port's kernel wrappers run
+their plain versions; the JAX package runs its model's own XLA paths
+(``blockwise_attn``, ``ssd_chunked``).
+
+- ``prefill``: last-position logits and every cache leaf (fp32 caches)
+  within 1e-5 of JAX ``tfm.prefill``; positions and windows exact.
+- The static loop as the reference launcher runs it (bf16 KV cache,
+  ``prompt + tokens`` capacity): greedy tokens identical.
+- mamba2 has no slot path in the port: the engine refuses it.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_config as jget_config
+from repro.models import api as japi
+from repro.models.lm import transformer as jtfm
+from repro_torch import bridge
+from repro_torch.config import get_config
+from repro_torch.launch import serve
+from repro_torch.models import api
+from repro_torch.models.lm import transformer as tfm
+
+ARCHS = ["qwen1.5-4b-smoke", "mamba2-130m-smoke"]
+
+
+@functools.lru_cache(maxsize=None)
+def models(arch):
+    """(jax cfg, port cfg, jax params, port params), fp32."""
+    jcfg, tcfg = jget_config(arch), get_config(arch)
+    jp = japi.init_params(jax.random.key(0), jcfg)
+    tp = bridge.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def _tokens(B, S, seed=0):
+    return np.random.RandomState(seed).randint(1, 256, (B, S)).astype(
+        np.int32)
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S", [40, 33])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_logits_and_caches_match_jax(arch, S):
+    """S = 33: neither the smoke SSD chunk (32) nor 128 divides it."""
+    jcfg, tcfg, jp, tp = models(arch)
+    tok = _tokens(2, S)
+    jl, jc = jtfm.prefill(jp, jnp.asarray(tok), jcfg, cache_len=48,
+                          cache_dtype=jnp.float32)
+    tl, tc = tfm.prefill(tp, torch.from_numpy(tok), tcfg, cache_len=48,
+                         cache_dtype=torch.float32)
+    assert tuple(tl.shape) == jl.shape == (2, 1, tcfg.vocab_size)
+    _close(tl, jl, 1e-5)
+    # the API's prefill step (caches of S positions, the ring branch of
+    # the cache fill) gives the same logits
+    sl, _ = api.make_prefill_step(tcfg)(tp, {"tokens": torch.from_numpy(tok)})
+    _close(sl, jl, 1e-5)
+    assert set(tc) == set(jc)
+    for g in jc:
+        assert set(tc[g]) == set(jc[g]), g
+        for name, want in jc[g].items():
+            got = tc[g][name]
+            assert tuple(got.shape) == want.shape, (g, name)
+            if got.dtype in (torch.int32, torch.int64):
+                np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            else:
+                _close(got, want, 1e-5)
+    # the whole-sequence forward's hidden states too
+    jh, _ = jtfm.forward(jp, jnp.asarray(tok), jcfg)
+    th, _ = tfm.forward(tp, torch.from_numpy(tok), tcfg)
+    _close(th, jh, 1e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_static_greedy_tokens_match_jax(arch):
+    """The reference launcher's ``run_static`` loop (bf16 KV cache of
+    prompt + tokens positions, argmax, ``decode_step`` at positions P,
+    P + 1, ...) and the port's ``serve.static_generate``: identical
+    greedy tokens; the decode steps through ``api.make_decode_step``
+    give the same logits as the loop's."""
+    jcfg, tcfg, jp, tp = models(arch)
+    P, n_new = 24, 10
+    tok = _tokens(3, P, seed=1)
+    logits, caches = jax.jit(
+        lambda p, t: jtfm.prefill(p, t, jcfg, cache_len=P + n_new))(
+            jp, jnp.asarray(tok))
+    step = jax.jit(lambda p, c, t, i: jtfm.decode_step(p, c, t, i, jcfg))
+    cur = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    want = [cur]
+    for i in range(n_new - 1):
+        logits, caches = step(jp, caches, cur, jnp.asarray(P + i, jnp.int32))
+        cur = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+        want.append(cur)
+    want = np.concatenate([np.asarray(w) for w in want], axis=1)
+    r = serve.static_generate(tp, tcfg, torch.from_numpy(tok), n_new)
+    np.testing.assert_array_equal(r["tokens"].numpy(), want)
+    assert r["launches_prefill"] == {} and r["launches_decode"] == {}
+    # one more step through the API's decode step, against JAX's
+    dstep = api.make_decode_step(tcfg)
+    tl, _ = dstep(tp, r["caches"], r["tokens"][:, -1:], P + n_new - 1)
+    jl, _ = step(jp, caches, cur, jnp.asarray(P + n_new - 1, jnp.int32))
+    _close(tl, jl, 2e-2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_empty_caches_match_jax_layout(arch):
+    """``init_caches`` (the empty static caches): the same groups, leaves,
+    shapes, dtypes and contents as the reference's."""
+    jcfg, tcfg, _, _ = models(arch)
+    jc = jtfm.init_caches(jcfg, 3, 20)
+    tc = tfm.init_caches(tcfg, 3, 20, device="cpu")
+    assert set(tc) == set(jc)
+    for g in jc:
+        assert set(tc[g]) == set(jc[g])
+        for name, want in jc[g].items():
+            got = tc[g][name]
+            assert tuple(got.shape) == want.shape, (g, name)
+            assert str(got.dtype)[6:] == str(want.dtype), (g, name)
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(want, np.float32))
+
+
+def test_mamba2_has_no_slot_path_in_the_port():
+    _, tcfg, _, tp = models("mamba2-130m-smoke")
+    assert not tfm.supports_slot_serving(tcfg)
+    with pytest.raises(NotImplementedError, match="'ssm' family"):
+        api.make_serving_engine(tp, tcfg, device="cpu", n_slots=2,
+                                cache_len=16, prefill_chunk=4,
+                                cache_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen1.5-4b"])
+def test_static_cli_runs_on_the_cpu_and_refuses_without_a_card(
+        arch, capsys, monkeypatch):
+    serve.main(["--arch", arch, "--smoke", "--static", "--device", "cpu",
+                "--slots", "2", "--prompt-len", "20", "--tokens", "4",
+                "--wbits", "8"])
+    out = capsys.readouterr().out
+    assert "prefill 2x20" in out and "decoded 6 tokens" in out
+    assert "dequantized once" in out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", arch, "--smoke", "--static"])
