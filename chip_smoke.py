@@ -7,7 +7,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build  — compile every CUDA source of the port with nvcc (one
    process per source, started together) and print the build seconds
-   and ptxas's register/shared-memory report.
+   and ptxas's register/shared-memory report; count the tensor-core
+   instructions (HGMMA in flash_tc_kernel, HMMA in gqa_chunk_tc_kernel)
+   in ``cuobjdump -sass`` of the built libraries, and fail on none.
 2. kernel — hold each kernel against its plain PyTorch version on the
    card at the main path's shapes (qconv1d_block: C=344, every RUBICALL
    k, B=4, T=2500 and a ragged T, ReLU on and off; fp32 with TF32 off
@@ -24,9 +26,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    projection shape, M = 4 and 64, a ragged shape) and the paged
    attention kernels (qwen1.5-4b's 20 x 128 heads and chatglm3-6b's 2
    KV heads x group 16; block_len 16; fp32, bf16, fp8 and int8 arenas;
-   holes, out-of-order blocks, pad rows, a ring window; C = 1, 4, 16)
-   against their plain versions, then time kernel, plain version,
-   library call and bound at the served shapes.
+   holes, out-of-order blocks, pad rows, a ring window; C = 1, 4, 16;
+   the chunk also at 2048 positions, where the tensor-core kernel
+   splits the walk across CTAs, at R = C * group = 4, 16 and 256)
+   against their plain versions, checking each call's route
+   (tensor-core for C > 1 over bf16, fp8 and int8 arenas, CUDA-core
+   otherwise), then time kernel, plain version, library call and bound
+   at the served shapes (the chunk at 160 and at 2048 positions).
 5. serve (LM) — full-width qwen1.5-4b (40 layers, d 2560, no depth
    cut), seeded random weights drawn on the card and packed to int8
    under QuantPolicy(8, 0), a bf16 paged arena (block_len 16), 4 slots,
@@ -34,9 +40,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prompt tokens and 32 new tokens. Checks every request finishes, the
    kernel launches reconcile with the ticks the plans ran (281 qmatmul
    per tick, 40 attention launches per tick: gqa_paged on C = 1 ticks,
-   gqa_paged_chunk on wider ones), and one mixed and one decode tick
-   through the kernels agree with the same ticks through the plain
-   versions on the same pool state.
+   gqa_paged_chunk on wider ones, every one of those on the
+   tensor-core route), and one mixed and one decode tick through the
+   kernels agree with the same ticks through the plain versions on the
+   same pool state (the bf16 chunk launches on the tensor-core route,
+   the fp32 comparison's on the CUDA-core route).
 6. trace (LM) — host enqueue, device and wall time of one decode and
    one mixed tick, then the device busy share and top kernels under
    torch.profiler. The qwen engine is then freed.
@@ -56,13 +64,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 9. trace (MLA) — as phase 6, for the deepseek ticks. The deepseek
    engine is then freed.
 10. kernel (prefill) — hold flash_attention (qwen1.5-4b's 20 x 128
-   heads and a GQA case of group 8; causal and not; S 512, a ragged S
-   333 and Sq != Sk; fp32 at 1e-4, bf16 at one bf16 ulp) and ssd_scan
+   heads and a GQA case of group 8; causal and not; S 512 and 2048,
+   ragged S 333 and 129 and Sq != Sk; fp32 at 1e-4 on the CUDA-core
+   route, bf16 at one bf16 ulp on the tensor-core route) and ssd_scan
    (mamba2-130m's 24 heads of 64, state 128, chunk 256; S 2048 and a
    ragged 2000; y and the final state; fp32 at 5e-3, bf16 y at one bf16
-   ulp) against their plain versions, then time kernel, plain version,
-   library call (F.scaled_dot_product_attention for flash; none for the
-   SSD scan) and bound at the served shapes.
+   ulp) against their plain versions, print the
+   error of P . V with p as one bf16 term and as the kernel's two, then
+   time kernel, plain version, library call
+   (F.scaled_dot_product_attention for flash; none for the SSD scan)
+   and bound at the served shapes.
 11. static (mamba2) — full-width mamba2-130m (24 layers, no cut),
    seeded bf16 weights drawn on the card, through launch/serve.py's
    static path (run_static): 4 prompts of 2048 tokens, 32 greedy new
@@ -76,7 +87,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layers, no cut), weights drawn again on the card as int8 packed as
    drawn and dequantized once to bf16 (``--static --wbits 8``), 4
    prompts of 512 tokens: flash_attention launched 40 times in the
-   prefill, never in the decode.
+   prefill, all on the tensor-core route, never in the decode.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -89,6 +100,7 @@ import contextlib
 import functools
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -239,6 +251,32 @@ def library_qconv(args):
                             w_pw, bias)
 
 
+# the tensor-core kernels: (library, kernel name, the SASS instruction
+# that shows the tensor cores at work)
+TENSOR_CORE_SASS = (("flash_attention", "flash_tc_kernel", "HGMMA"),
+                    ("paged_attention", "gqa_chunk_tc_kernel", "HMMA"))
+
+
+def sass_counts(lib: str, kernel: str, op: str) -> dict:
+    """{mangled function: count of ``op`` instructions} over the
+    functions of the built ``lib`` whose name holds ``kernel``, from
+    ``cuobjdump -sass``."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build._target(lib))],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(rf"\b{op}\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -248,6 +286,13 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    for lib, kernel, op in TENSOR_CORE_SASS:
+        counts = sass_counts(lib, kernel, op)
+        if not counts or min(counts.values()) == 0:
+            raise AssertionError(f"{kernel}: no {op} in the SASS of "
+                                 f"{lib}: {counts}")
+        print(f"[build] {lib}: {kernel}, {len(counts)} instantiations, "
+              f"{op} instructions {sorted(counts.values())}")
 
 
 def phase_kernel() -> dict:
@@ -369,8 +414,10 @@ def trace(label: str, enqueue) -> dict:
     print(f"[trace] {label} under torch.profiler: device kernels "
           f"{busy:.2f} ms in {sum(r[1] for r in rows)} launches, wall "
           f"{t_prof * 1e3:.2f} ms (device busy {busy / (t_prof * 1e3):.1%})")
-    for us, n, key in rows[:8]:
-        print(f"[trace]   {us / 1e3:8.3f} ms  {n:4d}x  {key[:90]}")
+    # the top 8, then the port's own kernels further down
+    for i, (us, n, key) in enumerate(rows):
+        if i < 8 or key.startswith("void (anonymous namespace)::"):
+            print(f"[trace]   {us / 1e3:8.3f} ms  {n:4d}x  {key[:90]}")
     return {"host_ms": t_host * 1e3, "device_ms": a.elapsed_time(b),
             "wall_ms": t_wall * 1e3, "busy_ms": busy}
 
@@ -475,6 +522,8 @@ QMM_TOL = 2e-2
 # summation order and the odd bf16 arena rounding that it moves.
 LM_TICK_BF16 = (0.25, 0.5)
 LM_TICK_FP32 = (0.02, 0.75)
+MIXED_POSITIONS = 160         # cached positions of a row in the timed tick
+LONG_POSITIONS = 2048         # a long row: the chunk walk split across CTAs
 
 
 def paged_inputs(rs, b, hkv, group, c, fills, arena, *, holes=(),
@@ -616,21 +665,34 @@ def phase_lm_kernel() -> dict:
         print(f"[kernel] qmatmul int{bits} {str(dt)[6:]} M={m} K={k} N={n}: "
               f"max|err| {e:.3g} ok")
     # ---- paged attention: qwen1.5-4b heads and chatglm3-6b's GQA
-    cases = [(hkv, group, c, arena, 0)
+    cases = [(hkv, group, c, arena, 0, LM_CACHE)
              for hkv, group in ((20, 1), (2, 16))
              for arena in ATTN_TOL for c in (1, 4, 16)]
-    cases.append((20, 1, 4, torch.bfloat16, 40))           # ring window
-    for hkv, group, c, arena, window in cases:
-        x = paged_inputs(rs, 4, hkv, group, c, [LM_CACHE - c, BLOCK - 1, 0,
+    cases.append((20, 1, 4, torch.bfloat16, 40, LM_CACHE))   # ring window
+    # 2048 positions: the tensor-core chunk kernel splits the walk across
+    # CTAs; R = C * group = 4, 16 and 256 query rows
+    cases += [(hkv, group, c, arena, 0, LONG_POSITIONS)
+              for hkv, group, c in ((20, 1, 4), (20, 1, 16), (2, 16, 16))
+              for arena in ATTN_TOL]
+    for hkv, group, c, arena, window, cache in cases:
+        x = paged_inputs(rs, 4, hkv, group, c, [cache - c, BLOCK - 1, 0,
                                                 159], arena,
-                         holes=[(0, 5)],
+                         holes=[(0, 5)], t_blocks=cache // BLOCK,
                          q_dtype=(torch.float32 if arena == torch.float32
                                   else torch.bfloat16))
         x["t"][3, 1:] = -1                 # a decode row padded to C
         if c == 1:
             x["t"][2] = -1                 # a free slot
         x["window"] = window
-        got, want = attn_kernel(x), attn_plain(x)
+        fn = pa.gqa_paged_cuda if c == 1 else pa.gqa_paged_chunk_cuda
+        route = ("tensor_core" if c > 1 and arena != torch.float32
+                 else "cuda_core")
+        before = dict(fn.routes)
+        got = attn_kernel(x)
+        if fn.routes != {**before, route: before[route] + 1}:
+            raise AssertionError(f"gqa_paged C={c} {arena}: routes "
+                                 f"{before} -> {fn.routes}, want {route}")
+        want = attn_plain(x)
         torch.cuda.synchronize()
         live = x["t"] >= 0
         if not bool(torch.isfinite(got).all()):
@@ -643,7 +705,8 @@ def phase_lm_kernel() -> dict:
         if (hkv, arena, window) == (20, torch.bfloat16, 0):
             err[name] = max(err[name], e)
         print(f"[kernel] {name} Hkv={hkv} group={group} C={c} "
-              f"{str(arena)[6:]} window={window}: max|err| {e:.3g} ok")
+              f"{str(arena)[6:]} window={window} positions {cache} "
+              f"({route}): max|err| {e:.3g} ok")
     # ---- device times at the served shapes (bf16, 4 slots), each call
     # on its own copy of the weights or arena (>= 128 MB in all, past L2)
     timing = {"qmatmul": {}, "attn": {}}
@@ -668,9 +731,10 @@ def phase_lm_kernel() -> dict:
                   f"library {row['library_ms']:.4f} ms | bound "
                   f"{bms * 1e3:.2f} us ({by})")
         del ws
-    for c in (1, 16):
-        x = paged_inputs(rs, LM_SLOTS, 20, 1, c, [159 - c + 1] * LM_SLOTS,
-                         torch.bfloat16)
+    for c, n in ((1, MIXED_POSITIONS), (16, MIXED_POSITIONS),
+                 (16, LONG_POSITIONS)):
+        x = paged_inputs(rs, LM_SLOTS, 20, 1, c, [n - c] * LM_SLOTS,
+                         torch.bfloat16, t_blocks=max(n, LM_CACHE) // BLOCK)
         x["window"] = 0
         bms, by = attn_bound(x)
         arena = x["k"].numel() * x["k"].element_size() * 2
@@ -683,9 +747,9 @@ def phase_lm_kernel() -> dict:
                "library_ms": device_ms([attn_library(xi) for xi in xs]),
                "bound_ms": bms, "bound_by": by}
         name = "gqa_paged" if c == 1 else "gqa_paged_chunk"
-        timing["attn"][name] = row
+        timing["attn"][name if n == MIXED_POSITIONS else f"{name}@{n}"] = row
         print(f"[kernel] {name} bf16 B={LM_SLOTS} C={c} Hkv=20 hd={HD} "
-              f"positions 0..159: kernel {row['ms']:.4f} ms | plain "
+              f"positions 0..{n - 1}: kernel {row['ms']:.4f} ms | plain "
               f"{row['plain_ms']:.4f} ms | library {row['library_ms']:.4f} "
               f"ms | bound {bms * 1e3:.2f} us ({by})")
         del xs
@@ -771,12 +835,26 @@ def qmatmul_per_tick(cfg) -> int:
     return sum(common._qmatmul_tiles(LM_SLOTS, k, n, 8) for k, n in shapes)
 
 
-def phase_lm_serve(cfg, attn: tuple, bounds: tuple) -> dict:
+def check_routes(routes: dict, tensor_core: tuple, where: str) -> None:
+    """Every launch in ``routes`` (``ops.launch_counts(routes=True)``) of
+    a kernel in ``tensor_core`` took the tensor-core route, every other
+    launch the CUDA-core one."""
+    for name, r in routes.items():
+        off = "cuda_core" if name in tensor_core else "tensor_core"
+        if r[off]:
+            raise AssertionError(f"{where}: {name} launched {r[off]} times "
+                                 f"on the {off} route: {r}")
+
+
+def phase_lm_serve(cfg, attn: tuple, bounds: tuple,
+                   tensor_core: tuple = ()) -> dict:
     """Serve ``cfg`` at full width, int8 weights drawn and packed on the
     card, then one mixed and one decode tick through the kernels against
     the plain versions. ``attn``: the (C == 1, C > 1) attention kernels
     the path must launch once per layer and tick; ``bounds``: the (bf16,
-    fp32) tick bounds."""
+    fp32) tick bounds; ``tensor_core``: the kernels whose served (bf16)
+    launches must all take the tensor-core route (fp32 ones the CUDA-core
+    route)."""
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -809,6 +887,8 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple) -> dict:
     engine.run()
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    by_route = ops.launch_counts(routes=True)
+    check_routes(by_route, tensor_core, f"{cfg.name} served")
     calls = dict(runner.plans.calls)
     done = engine.completed
     if len(done) != len(reqs) or any(r.status != "finished" or
@@ -844,7 +924,8 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple) -> dict:
           f"1): launches qmatmul {counts['qmatmul']} = {per_tick} x "
           f"{ticks}, {attn[0]} {counts[attn[0]]} = {cfg.n_layers} x "
           f"{narrow}, {attn[1]} {counts[attn[1]]} = {cfg.n_layers} x "
-          f"{ticks - narrow}")
+          f"{ticks - narrow}; routes "
+          f"{ {n: r for n, r in by_route.items() if counts[n]} }")
 
     # one mixed and one decode tick, kernels vs plain versions, on the
     # same pool state: rows 0-3 hold 48 positions written by the kernels
@@ -911,9 +992,14 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple) -> dict:
             out, routes[:], moved[:] = [], [], [0, 0]
             for plain, hook in ((False, record), (True, replay)):
                 restore(caches)
+                ops.reset_launch_counts()
                 with mock.patch.object(moe_mod, "_top_k_dispatch", hook):
                     out.append(lm_tick(runner, c, tok, t, last, plain=plain,
                                        caches=caches))
+                if not plain:
+                    check_routes(ops.launch_counts(routes=True),
+                                 tensor_core if c is cfg else (),
+                                 f"{cfg.name} {kind} tick, {label}")
             lk, lp = (o[live[kind]] for o in out)
             if not bool(torch.isfinite(lk).all()):
                 raise AssertionError("LM tick: non-finite logits")
@@ -936,7 +1022,8 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple) -> dict:
     restore()
     print(f"[serve-lm] {cfg.name}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"launches": counts, "runner": runner, "cfg": cfg,
+    return {"launches": counts, "routes": by_route, "runner": runner,
+            "cfg": cfg,
             "mixed": mixed, "decode": decode, "restore": restore,
             "per_tick": per_tick}
 
@@ -1192,6 +1279,42 @@ def ssd_bound(b, s, nh, hd, n, esize, chunk=256) -> tuple:
     return bound_ms(nbytes, flops, torch.bfloat16)
 
 
+def flash_p_terms(q, k, v) -> tuple:
+    """The bf16 tensor-core flash kernel's arithmetic in plain PyTorch on
+    the card (64-key tiles, online softmax, bf16 operands), causal, with
+    P . V taking p as one bf16 term and as the kernel's two (p_hi +
+    p_lo); returns the max |error| of each fp32 output against the
+    reference's fp32 p (``ref.flash_attention_gqa_ref``)."""
+    B, S, H, d = q.shape
+    qf, kf, vf = (a.float().transpose(1, 2) for a in (q, k, v))
+    want = ref.flash_attention_gqa_ref(*(a.float() for a in (q, k, v)),
+                                       causal=True).transpose(1, 2)
+    rows = torch.arange(S, device=q.device)[:, None]
+    errs = []
+    for terms in (1, 2):
+        m = torch.full((B, H, S, 1), -1e30, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qf)
+        for k0 in range(0, S, 64):
+            kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+            sc = (qf @ kt.transpose(-1, -2)) * d ** -0.5
+            keys = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+            sc = torch.where(keys[None] <= rows, sc,
+                             torch.full_like(sc, -1e30))
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            pr = torch.exp(sc - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + pr.sum(-1, keepdim=True)
+            hi = pr.to(torch.bfloat16).float()
+            pv = hi @ vt
+            if terms == 2:
+                pv = pv + (pr - hi).to(torch.bfloat16).float() @ vt
+            acc = acc * corr + pv
+            m = m_new
+        errs.append(float((acc / l - want).abs().max()))
+    return tuple(errs)
+
+
 def phase_prefill_kernel() -> dict:
     """flash_attention and ssd_scan vs their plain versions at the
     served shapes and ragged ones, then timed at the served shapes."""
@@ -1203,10 +1326,18 @@ def phase_prefill_kernel() -> dict:
                 (STATIC_SLOTS, QWEN_PROMPT, QWEN_PROMPT, 20, 20, False),
                 (2, 333, 333, 20, 20, True),
                 (2, QWEN_PROMPT, QWEN_PROMPT, 16, 2, True),
-                (2, 333, 333, 16, 2, True), (2, 200, 77, 16, 2, False)):
+                (2, 333, 333, 16, 2, True), (2, 200, 77, 16, 2, False),
+                (1, 2048, 2048, 20, 20, True), (2, 129, 129, 20, 20, True)):
             q, k, v = flash_inputs(rs, b, s, h, hkv, dtype)
             k, v = (a[:, :sk].contiguous() for a in (k, v))
+            route = fa.route(dtype)
+            before = dict(fa.flash_attention_cuda.routes)
             got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            if fa.flash_attention_cuda.routes != {
+                    **before, route: before[route] + 1}:
+                raise AssertionError(f"flash_attention {dtype}: routes "
+                                     f"{before} -> "
+                                     f"{fa.flash_attention_cuda.routes}")
             want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
             torch.cuda.synchronize()
             if got.shape != q.shape or not bool(torch.isfinite(got).all()):
@@ -1220,8 +1351,8 @@ def phase_prefill_kernel() -> dict:
                     QWEN_PROMPT, 20, True):
                 err["flash_attention"] = e
             print(f"[kernel] flash_attention {str(dtype)[6:]} B={b} Sq={s} "
-                  f"Sk={sk} H={h} Hkv={hkv} d={HD} causal={int(causal)}: "
-                  f"max|err| {e:.3g} ok")
+                  f"Sk={sk} H={h} Hkv={hkv} d={HD} causal={int(causal)} "
+                  f"({route}): max|err| {e:.3g} ok")
         for s in (SSM_PROMPT, 2000):
             args = ssd_inputs(rs, STATIC_SLOTS, s, dtype)
             y, h = ssd.ssd_scan_cuda(*args, chunk=256)
@@ -1242,6 +1373,16 @@ def phase_prefill_kernel() -> dict:
                   f"S={s} nh=24 hd=64 N=128 chunk=256: max|err| y {ey:.3g} "
                   f"(max|y| {float(wy.float().abs().max()):.3g}), state "
                   f"{eh:.3g} ok")
+    # P . V with the reference's fp32 p: one bf16 term against two, at
+    # the served shape (bf16-representable inputs, fp32 outputs)
+    q, k, v = flash_inputs(rs, STATIC_SLOTS, QWEN_PROMPT, 20, 20,
+                           torch.bfloat16)
+    one, two = flash_p_terms(q, k, v)
+    err["flash_p_terms"] = {"one": one, "two": two}
+    print(f"[kernel] flash_attention P . V, B={STATIC_SLOTS} S={QWEN_PROMPT}"
+          f" H=20 causal, fp32 output vs the reference's fp32 p: max|err| "
+          f"{one:.3g} with p as one bf16 term, {two:.3g} as p_hi + p_lo")
+    del q, k, v
     # device times at the served shapes (bf16), each call on its own copy
     # of the inputs (>= 128 MB in all, from HBM)
     timing = {}
@@ -1284,21 +1425,28 @@ def phase_prefill_kernel() -> dict:
     return {"err": err, "timing": timing}
 
 
-def prefill_both_paths(params, cfg, tokens, swap, dtype):
+def prefill_both_paths(params, cfg, tokens, swap, dtype, tensor_core=()):
     """One whole-prompt prefill through the kernel and through its plain
     version (``swap``: (module, wrapper name, plain function)) on the
     same tokens, in ``dtype``; returns the max |d logit| of the last
     position and the worst max |d| / max |ref| over the handed-off
-    cache leaves (every layer)."""
+    cache leaves (every layer). The kernel pass's launches of a kernel in
+    ``tensor_core`` take the tensor-core route in bf16, and every other
+    launch the CUDA-core route."""
     cfg = replace(cfg, dtype=str(dtype)[6:])
     p = tree_map(lambda t: t.to(dtype), params)
     out = []
     for plain in (False, True):
         ctx = (mock.patch.object(*swap) if plain
                else contextlib.nullcontext())
+        ops.reset_launch_counts()
         with ctx, torch.no_grad():
             out.append(tfm.prefill(p, tokens, cfg, cache_len=tokens.shape[1],
                                    cache_dtype=dtype))
+        if not plain:
+            check_routes(ops.launch_counts(routes=True),
+                         tensor_core if dtype == torch.bfloat16 else (),
+                         f"{cfg.name} prefill, {dtype}")
     (lk, ck), (lp, cp) = out
     if not bool(torch.isfinite(lk).all()):
         raise AssertionError("prefill: non-finite logits")
@@ -1316,7 +1464,7 @@ def prefill_both_paths(params, cfg, tokens, swap, dtype):
 
 
 def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
-                 wbits: int = 0) -> dict:
+                 wbits: int = 0, tensor_core: tuple = ()) -> dict:
     """The static path at full width through ``launch/serve.py``'s
     ``run_static``: seeded weights drawn on the card (``wbits``: packed
     as drawn and dequantized once up front, as ``--static --wbits``
@@ -1344,6 +1492,8 @@ def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
     ops.reset_launch_counts()
     r = serve.run_static(params, cfg, args, "cuda")
     counts = ops.launch_counts()
+    routes = ops.launch_counts(routes=True)
+    check_routes(routes, tensor_core, f"{cfg.name} static")
     want = {kernel: cfg.n_layers}
     if r["launches_prefill"] != want or r["launches_decode"] or \
             {k: c for k, c in counts.items() if c} != want:
@@ -1357,17 +1507,18 @@ def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
     n_dec = STATIC_SLOTS * (STATIC_NEW - 1)
     row = {"prefill_ms": r["prefill_s"] * 1e3,
            "decode_tok_s": n_dec / r["decode_s"],
-           "launches": counts[kernel]}
+           "launches": counts[kernel], "routes": routes[kernel]}
     print(f"[static] {cfg.name}: prefill {STATIC_SLOTS}x{prompt} "
           f"{row['prefill_ms']:.2f} ms, decode {n_dec} tokens "
           f"{row['decode_tok_s']:.1f} tok/s; {kernel} launches "
           f"{counts[kernel]} = {cfg.n_layers} x 1 prefill, 0 in "
-          f"{STATIC_NEW - 1} decode steps")
+          f"{STATIC_NEW - 1} decode steps; routes {routes[kernel]}")
     del r
     tokens = api.make_smoke_batch(2, cfg, STATIC_SLOTS, prompt,
                                   device="cuda")["tokens"]
     for dtype in (torch.float32, torch.bfloat16):
-        dl, ds, std = prefill_both_paths(params, cfg, tokens, swap, dtype)
+        dl, ds, std = prefill_both_paths(params, cfg, tokens, swap, dtype,
+                                         tensor_core)
         print(f"[static] {cfg.name}: prefill kernel vs plain, "
               f"{str(dtype)[6:]}: max|d logit| {dl:.4g} (logit std "
               f"{std:.3g}), handed-off state max|d|/max|ref| {ds:.3g}")
@@ -1416,9 +1567,11 @@ def main() -> int:
     mla_kern = lap("kernel (MLA)", phase_mla_kernel)
     qwen = replace(get_config(LM_ARCH), quant=QuantPolicy(8, 0))
     lm = lap("serve (LM)", phase_lm_serve, qwen,
-             ("gqa_paged", "gqa_paged_chunk"), (LM_TICK_BF16, LM_TICK_FP32))
+             ("gqa_paged", "gqa_paged_chunk"), (LM_TICK_BF16, LM_TICK_FP32),
+             ("gqa_paged_chunk",))
     lap("trace (LM)", phase_lm_trace, lm)
     lm_launches, lm_per_tick = lm["launches"], lm["per_tick"]
+    lm_routes = lm["routes"]
     lm.clear()                             # free qwen's engine and weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -1436,7 +1589,7 @@ def main() -> int:
     qwen_run = lap("static (qwen1.5-4b)", phase_static, get_config(LM_ARCH),
                    QWEN_PROMPT, "flash_attention",
                    (fa, "flash_attention_cuda", ref.flash_attention_gqa_ref),
-                   QWEN_PREFILL, 8)
+                   QWEN_PREFILL, 8, ("flash_attention",))
     pk = kern["per_k"]
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
@@ -1482,6 +1635,7 @@ def main() -> int:
         "per_shape": qt})
     for name, replaces in (("gqa_paged", 260), ("gqa_paged_chunk", 492)):
         row = lm_kern["timing"]["attn"][name]
+        long = lm_kern["timing"]["attn"].get(f"{name}@{LONG_POSITIONS}")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1494,7 +1648,10 @@ def main() -> int:
                      f"arena, B={LM_SLOTS} Hkv=20 hd={HD} block_len={BLOCK}"
                      f", positions 0..159, C="
                      f"{1 if name == 'gqa_paged' else 16}",
-            "per_call": row})
+            "launches_by_route": lm_routes[name],
+            "per_call": row,
+            **({f"per_call_{LONG_POSITIONS}_positions": long} if long
+               else {})})
     for name, replaces in (("mla_paged", 372), ("mla_paged_chunk", 608)):
         row = mla_kern["timing"][(name, MLA_POSITIONS[0])]
         kernels.append({
@@ -1530,8 +1687,11 @@ def main() -> int:
                if key != "shape"},
             "shape": f"sum over one {arch} prefill's {n} launches, "
                      f"{row['shape']}",
+            "launches_by_route": run["routes"],
             "per_call": row,
-            "static": {k: v for k, v in run.items() if k != "trace"}})
+            "static": {k: v for k, v in run.items() if k != "trace"},
+            **({"p_terms_max_abs_err": pre["err"]["flash_p_terms"]}
+               if name == "flash_attention" else {})})
     print(f"[chip_smoke] all phases ok in {time.perf_counter() - t0:.1f}s "
           f"({', '.join(f'{k} {v:.0f}s' for k, v in laps.items())})")
     print(smi)

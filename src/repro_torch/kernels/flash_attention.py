@@ -1,5 +1,6 @@
-"""Flash attention over a whole prompt: the hand-written CUDA kernel
-(``csrc/flash_attention.cu``) behind a checked wrapper.
+"""Flash attention over a whole prompt: the hand-written CUDA kernels
+(``csrc/flash_attention.cu``) behind a checked wrapper: bf16 on Hopper's
+tensor cores (wgmma fed by TMA), fp32 on the CUDA cores (:func:`route`).
 
 Replaces ``repro/kernels/flash_attention.py:flash_attention_p`` (the
 Pallas TPU kernel): softmax attention, causal or not, fp32 online
@@ -28,6 +29,12 @@ HEAD_DIMS = (64, 128)
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
 
 
+def route(dtype: torch.dtype) -> str:
+    """The kernel a dtype takes: bf16 the tensor-core kernel (wgmma, TMA),
+    fp32 the CUDA-core one (fp32 does not fit bf16 tensor cores)."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
@@ -35,7 +42,7 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_launch.argtypes = ([vp] * 4 + [ci] * 6
                                            + [ctypes.c_float, ci, ci, vp])
     lib.flash_attention_launch.restype = ci
-    lib.flash_attention_smem_bytes.argtypes = [ci]
+    lib.flash_attention_smem_bytes.argtypes = [ci, ci]
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -45,7 +52,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, H, d); k/v: (B, Sk, Hkv, d); one dtype, fp32 or bf16,
     contiguous CUDA tensors; d up to 128; H a multiple of Hkv. Returns
     (B, Sq, H, d) in q's dtype. Launches on the current stream without
-    synchronising; counts one launch in ``flash_attention_cuda.launches``."""
+    synchronising; counts one launch in ``flash_attention_cuda.launches``
+    and one in ``.routes`` under :func:`route`."""
     if not q.is_cuda:
         raise ValueError("flash_attention: the CUDA kernel needs CUDA "
                          "tensors")
@@ -86,7 +94,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
     out = torch.empty_like(q)
     lib = _lib()
-    if lib.flash_attention_smem_bytes(dk) > SMEM_LIMIT:
+    if lib.flash_attention_smem_bytes(dk, _DTYPES[q.dtype]) > SMEM_LIMIT:
         raise ValueError(f"flash_attention: head_dim {dk} needs more than "
                          f"{SMEM_LIMIT} bytes of shared memory")
     with torch.cuda.device(q.device):
@@ -98,7 +106,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.routes[route(q.dtype)] += 1
     return out[..., :d].contiguous() if dk != d else out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.routes = {"tensor_core": 0, "cuda_core": 0}

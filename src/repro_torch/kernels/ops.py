@@ -244,11 +244,20 @@ _COUNTED = {"qconv1d_block": qconv1d.qconv1d_block_cuda,
             "ssd_scan": ssd.ssd_scan_cuda}
 
 
-def launch_counts() -> dict:
-    """Kernel launches so far, by kernel (CPU calls launch nothing)."""
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+def launch_counts(routes: bool = False) -> dict:
+    """Kernel launches so far, by kernel (CPU calls launch nothing).
+    ``routes``: by kernel and route instead, ``{"tensor_core": n,
+    "cuda_core": m}``; a wrapper with one kernel counts on
+    ``cuda_core``."""
+    if not routes:
+        return {name: fn.launches for name, fn in _COUNTED.items()}
+    return {name: dict(getattr(fn, "routes", None)
+                       or {"tensor_core": 0, "cuda_core": fn.launches})
+            for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+        for route in getattr(fn, "routes", ()):
+            fn.routes[route] = 0

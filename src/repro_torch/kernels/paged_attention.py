@@ -18,10 +18,17 @@ Two read paths (``repro_torch.kernels.ops.decode_gqa`` and
 ``cuda``    :func:`gqa_paged_cuda` / :func:`mla_paged_cuda` (decode,
             C == 1) and :func:`gqa_paged_chunk_cuda` /
             :func:`mla_paged_chunk_cuda` (chunked prefill, C > 1) read
-            the arena in place, one CUDA launch each; on a CPU tensor the
-            same call runs their plain versions in
+            the arena in place, one counted launch each; on a CPU tensor
+            the same call runs their plain versions in
             :mod:`repro_torch.kernels.ref`, which walk the table exactly
             as the kernels do.
+
+``gqa_paged_chunk_cuda`` has two kernels, chosen by dtype and shape
+(:func:`chunk_route`): over bf16, fp8 and int8 arenas (bf16 compute) a
+tensor-core kernel that splits the KV walk across warps and CTAs as
+:func:`chunk_split_plan` says; over fp32 arenas the CUDA-core kernel
+that ``gqa_paged_cuda`` also runs. Each wrapper counts its launches in
+``.launches`` and by route in ``.routes``.
 
 MLA (DeepSeek-V3's latent attention, absorbed form) keeps one latent
 ``c (n_blocks, block_len, kvr)`` and one rope key ``k_rope (n_blocks,
@@ -245,9 +252,9 @@ def _check(name, t, dtype, shape, device, kernel="gqa_paged"):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _launch(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
-            v_scale) -> torch.Tensor:
-    """One launch over q (B, C, H, hd); t (B, C). Returns (B, C, H, hd)."""
+def _checked(q: torch.Tensor, k, v, pos, t, table, k_scale, v_scale):
+    """Validate one launch's operands; returns (B, C, H, hd, bl, Hkv,
+    T, quantized)."""
     if not q.is_cuda:
         raise ValueError("gqa_paged: the CUDA kernel needs CUDA tensors")
     if q.dtype not in _Q_DTYPES:
@@ -278,6 +285,15 @@ def _launch(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
     if quantized:
         _check("k_scale", k_scale, torch.float32, (nb, bl, Hkv), dev)
         _check("v_scale", v_scale, torch.float32, (nb, bl, Hkv), dev)
+    return B, C, H, hd, bl, Hkv, T, quantized
+
+
+def _launch(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
+            v_scale) -> torch.Tensor:
+    """One launch of the CUDA-core kernel over q (B, C, H, hd); t (B,
+    C). Returns (B, C, H, hd)."""
+    B, C, H, hd, bl, Hkv, T, quantized = _checked(q, k, v, pos, t, table,
+                                                  k_scale, v_scale)
     lib = _lib()
     if hd > lib.gqa_paged_max_head_dim():
         raise ValueError(f"gqa_paged: head_dim {hd} > "
@@ -287,7 +303,7 @@ def _launch(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
         raise ValueError(f"gqa_paged: block_len {bl}, head_dim {hd} need "
                          f"{smem} bytes of shared memory (> {SMEM_LIMIT})")
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gqa_paged_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -301,6 +317,124 @@ def _launch(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The chunk kernel on tensor cores and its split plan
+
+CHUNK_STEP = 16        # cached positions per mma step
+CHUNK_WARPS = 4        # warps of a CTA, each walking every 4th step
+CHUNK_MAX_STEPS = 64   # steps a CTA stages the positions of (1024)
+CHUNK_MAX_STAGES = 4   # cp.async ring depth a warp (head dim <= 128)
+SMS = 132              # H100 SXM streaming multiprocessors
+
+
+class ChunkPlan(NamedTuple):
+    """How the tensor-core chunk kernel cuts its work: ``row_tiles`` of
+    16 query rows, ``steps`` of 16 logical positions over the table,
+    ``splits`` CTAs per (batch row, KV head, row tile), each walking
+    ``per`` consecutive steps, each warp with a ring of ``stages``
+    steps' copies in flight."""
+    row_tiles: int
+    steps: int
+    splits: int
+    per: int
+    stages: int
+
+
+def chunk_split_plan(B: int, Hkv: int, R: int, T: int, block_len: int,
+                     *, hd: int = 128) -> ChunkPlan:
+    """The split of the KV walk that the card runs, from shapes alone.
+    A table short enough that every warp's steps fit its ring at once
+    (head dim up to 128) is walked by one CTA per row tile with all its
+    copies in flight, and needs no combine across CTAs. Otherwise, where
+    B * Hkv * row_tiles CTAs leave the card's SMs short (fewer than two
+    CTAs each), the steps are split across CTAs too, as long as every
+    warp of a CTA keeps a step, with a 2-stage ring; no CTA takes more
+    than ``CHUNK_MAX_STEPS``; no split is empty."""
+    row_tiles = -(-R // 16)
+    steps = max(1, -(-(T * block_len) // CHUNK_STEP))
+    per_warp = -(-steps // CHUNK_WARPS)
+    if per_warp <= CHUNK_MAX_STAGES and hd <= 128:
+        return ChunkPlan(row_tiles, steps, 1, steps, per_warp)
+    base = B * Hkv * row_tiles
+    splits = max(1, min(-(-2 * SMS // base), steps // CHUNK_WARPS))
+    splits = max(splits, -(-steps // CHUNK_MAX_STEPS))
+    per = -(-steps // splits)
+    return ChunkPlan(row_tiles, steps, -(-steps // per), per, 2)
+
+
+def chunk_shares(plan: ChunkPlan, split: int, warp: int) -> range:
+    """The steps that warp ``warp`` of split ``split`` walks: every
+    ``CHUNK_WARPS``-th of the split's range, from its own offset."""
+    start = split * plan.per
+    return range(start + warp, min(plan.steps, start + plan.per),
+                 CHUNK_WARPS)
+
+
+def chunk_route(kv_dtype: torch.dtype, C: int, hd: int) -> str:
+    """Which kernel ``gqa_paged_chunk_cuda`` launches, by dtype and shape:
+    ``tensor_core`` for C > 1 over an arena whose compute dtype is bf16
+    (bf16, fp8, int8) at a head dim that is a multiple of 16 up to 256;
+    ``cuda_core`` otherwise (fp32 arenas, other head dims)."""
+    if C > 1 and compute_dtype(kv_dtype) == torch.bfloat16 and \
+            hd % 16 == 0 and 16 <= hd <= 256:
+        return "tensor_core"
+    return "cuda_core"
+
+
+@functools.cache
+def _tc_lib() -> ctypes.CDLL:
+    lib = _lib()
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.gqa_paged_chunk_tc_launch.argtypes = (
+        [vp] * 10 + [ci] * 8 + [ctypes.c_float] + [ci] * 5 + [vp])
+    lib.gqa_paged_chunk_tc_launch.restype = ci
+    lib.gqa_paged_chunk_tc_smem_bytes.argtypes = [ci, ci, ci, ci]
+    lib.gqa_paged_chunk_tc_smem_bytes.restype = ctypes.c_size_t
+    lib.gqa_paged_chunk_tc_max_steps.argtypes = []
+    lib.gqa_paged_chunk_tc_max_steps.restype = ci
+    return lib
+
+
+def _launch_tc(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
+               v_scale) -> torch.Tensor:
+    """One launch of the tensor-core chunk kernel (and, when the plan
+    splits the walk across CTAs, its combine) over q (B, C, H, hd).
+    Returns (B, C, H, hd)."""
+    B, C, H, hd, bl, Hkv, T, quantized = _checked(q, k, v, pos, t, table,
+                                                  k_scale, v_scale)
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"gqa_paged_chunk: {name} must be 16-byte "
+                             f"aligned")
+    lib = _tc_lib()
+    plan = chunk_split_plan(B, Hkv, C * (H // Hkv), T, bl, hd=hd)
+    if plan.per > lib.gqa_paged_chunk_tc_max_steps():
+        raise ValueError(f"gqa_paged_chunk: plan {plan} exceeds the "
+                         f"kernel's steps per CTA")
+    smem = lib.gqa_paged_chunk_tc_smem_bytes(hd, k.element_size(), plan.per,
+                                             plan.stages)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gqa_paged_chunk: head_dim {hd} needs {smem} "
+                         f"bytes of shared memory (> {SMEM_LIMIT})")
+    out = torch.empty_like(q)
+    ws = (torch.empty(B * Hkv * plan.row_tiles * plan.splits * 16
+                      * (hd + 2), dtype=torch.float32, device=q.device)
+          if plan.splits > 1 else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gqa_paged_chunk_tc_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None, pos.data_ptr(),
+            t.data_ptr(), table.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, B, C, H, Hkv, hd, bl,
+            T, int(window), float(hd ** -0.5), _Q_DTYPES[q.dtype],
+            _KV_DTYPES[k.dtype], plan.splits, plan.per, plan.stages, stream)
+    if rc != 0:
+        raise RuntimeError(f"gqa_paged_chunk launch failed: CUDA error {rc}")
+    return out
+
+
 def gqa_paged_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    pos: torch.Tensor, t: torch.Tensor, table: torch.Tensor,
                    *, window: int = 0,
@@ -310,12 +444,14 @@ def gqa_paged_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group, hd); k/v: arenas (n_blocks, block_len, Hkv, hd) fp32/bf16/
     fp8/int8 (+ fp32 scale arenas (n_blocks, block_len, Hkv) for int8);
     pos: (B, T*block_len) int32; t: (B,) int32; table: (B, T) int32.
-    Returns (B, Hkv, group, hd) in q's dtype. Launches on the current
-    stream without synchronising; counts one launch."""
+    Returns (B, Hkv, group, hd) in q's dtype. Launches the CUDA-core
+    kernel on the current stream without synchronising; counts one
+    launch (route ``cuda_core``)."""
     B, Hkv, group, hd = q.shape
     out = _launch(q.reshape(B, 1, Hkv * group, hd), k, v, pos,
                   t.reshape(B, 1), table, window, k_scale, v_scale)
     gqa_paged_cuda.launches += 1
+    gqa_paged_cuda.routes["cuda_core"] += 1
     return out.reshape(B, Hkv, group, hd)
 
 
@@ -328,15 +464,23 @@ def gqa_paged_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """C > 1 chunked prefill over the arena (replaces
     ``gqa_paged_chunk_p``). q: (B, C, H, hd); t: (B, C) per-query
     positions (< 0 = pad); the rest as :func:`gqa_paged_cuda`. Returns
-    (B, C, H*hd) in q's dtype; counts one launch."""
+    (B, C, H*hd) in q's dtype. Launches the kernel that
+    :func:`chunk_route` names for the arena's dtype and the shape (no
+    fallback between them); counts one launch and one on that route."""
     B, C, H, hd = q.shape
-    out = _launch(q, k, v, pos, t, table, window, k_scale, v_scale)
+    route = chunk_route(k.dtype, C, hd)
+    fn = _launch_tc if route == "tensor_core" else _launch
+    out = fn(q, k, v, pos, t, table, window, k_scale, v_scale)
     gqa_paged_chunk_cuda.launches += 1
+    gqa_paged_chunk_cuda.routes[route] += 1
     return out.reshape(B, C, H * hd)
 
 
+ROUTES = ("tensor_core", "cuda_core")
 gqa_paged_cuda.launches = 0
 gqa_paged_chunk_cuda.launches = 0
+gqa_paged_cuda.routes = dict.fromkeys(ROUTES, 0)
+gqa_paged_chunk_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

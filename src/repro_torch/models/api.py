@@ -14,16 +14,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import tree_map
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> CUDA. Raises when CUDA is asked for but absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device available: pass device='cpu' (serve.py: "
-            "--device cpu) to run on the CPU")
-    return dev
+from repro_torch.device import resolve_device
 
 
 def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0):

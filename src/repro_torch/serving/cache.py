@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import resolve_attn_backend
 from repro_torch.kernels.paged_attention import EMPTY_POS
 from repro_torch.models.lm import transformer as tfm
@@ -110,15 +111,16 @@ class CachePool:
     blocks per group (0 = every slot fully backed; capped there).
     attn_backend : ``auto``/``gather``/``cuda``, resolved once here for
     ``device``. quant_policy : a :class:`CacheQuantPolicy` or its string
-    (None: the uniform ``cache_dtype``).
+    (None: the uniform ``cache_dtype``). device : CUDA unless the caller
+    asks for the CPU (``device="cpu"``); None without a card raises.
     """
 
     def __init__(self, cfg: ModelConfig, n_slots: int, cache_len: int,
                  cache_dtype=torch.bfloat16, block_len: int = 0,
                  n_blocks: int = 0, attn_backend: str = "auto",
-                 quant_policy=None, device="cpu"):
+                 quant_policy=None, device=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.attn_backend = resolve_attn_backend(attn_backend, self.device)
         self.n_slots = int(n_slots)
         self.cache_len = int(cache_len)

@@ -173,20 +173,24 @@ def test_cuda_qmatmul_matches_plain_version(M, K, N, dtype, bits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arena", list(ARENAS))
-@pytest.mark.parametrize("Hkv,group,C,window", [(20, 1, 1, 0), (2, 16, 1, 0),
-                                                (20, 1, 16, 0),
-                                                (2, 16, 4, 0),
-                                                (2, 16, 16, 0),
-                                                (4, 2, 4, 24)])
-def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, arena):
-    """On a card: the paged-attention kernel (C == 1 decode, C > 1
-    chunk) against its plain version at qwen1.5-4b's heads (20 x 128,
-    group 1) and chatglm3-6b's (2 KV heads, group 16), block_len 16, a
-    poisoned arena with blocks handed out of order, a table hole, pad
-    rows and a ring window; live rows at the reference tolerances."""
+@pytest.mark.parametrize("Hkv,group,C,window,bl,T", [
+    (20, 1, 1, 0, 16, 16), (2, 16, 1, 0, 16, 16), (20, 1, 16, 0, 16, 16),
+    (2, 16, 4, 0, 16, 16), (2, 16, 16, 0, 16, 16), (4, 2, 4, 24, 16, 16),
+    (20, 1, 16, 0, 16, 128),                 # 2048 positions: split across CTAs
+    (4, 2, 4, 0, 4, 16), (2, 16, 16, 0, 32, 16)])   # block_len 4 and 32
+def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, bl, T,
+                                              arena):
+    """On a card: the paged-attention kernels (C == 1 decode; C > 1
+    chunk, on tensor cores for bf16, fp8 and int8 arenas) against their
+    plain version at qwen1.5-4b's heads (20 x 128, group 1) and
+    chatglm3-6b's (2 KV heads, group 16), block_len 4, 16 and 32, 256
+    and 2048 positions, a poisoned arena with blocks handed out of
+    order, a table hole, pad rows and a ring window; live rows at the
+    reference tolerances; each call counts one launch on the route
+    its dtype and shape take."""
     _cuda()
-    rs = np.random.RandomState(Hkv * 7 + group + C + window)
-    B, hd, bl, T = 4, 128, 16, 16
+    rs = np.random.RandomState(Hkv * 7 + group + C + window + bl + T)
+    B, hd = 4, 128
     fills = [T * bl - C, bl - 1, 0, 37]
     k, v, pos, t, table = mk_arena(rs, B, Hkv, hd, bl, T, C, fills,
                                    holes=[(0, 5)])
@@ -201,6 +205,9 @@ def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, arena):
     q = torch.from_numpy(rs.randn(B, C, H, hd).astype(np.float32)).to(
         "cuda", torch.bfloat16 if arena != "fp32" else torch.float32)
     kw = dict(window=window, k_scale=ks, v_scale=vs)
+    fn = pa.gqa_paged_cuda if C == 1 else pa.gqa_paged_chunk_cuda
+    route = ("tensor_core" if C > 1 and arena != "fp32" else "cuda_core")
+    before = dict(fn.routes)
     if C == 1:
         qh = q.reshape(B, Hkv, group, hd)
         got = pa.gqa_paged_cuda(qh, kd, vd, pos_d, t_d[:, 0].contiguous(),
@@ -217,6 +224,7 @@ def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, arena):
     tol = ATTN_TOL[arena]
     torch.testing.assert_close(got.float()[live], want.float()[live],
                                rtol=tol, atol=tol)
+    assert fn.routes == {**before, route: before[route] + 1}
 
 
 @pytest.mark.gpu
@@ -282,23 +290,30 @@ BF16_ULP = (2 ** -7, 1e-5)
     (1, 200, 77, 8, 1, 64, False),           # Sq != Sk, d 64
     (1, 130, 130, 4, 2, 64, True),
     (2, 40, 40, 4, 2, 16, True),             # smoke width: d padded to 64
-    (1, 100, 100, 4, 4, 80, False)])         # d padded to 128
+    (1, 100, 100, 4, 4, 80, False),          # d padded to 128
+    (1, 2048, 2048, 4, 4, 128, True),        # a long prompt
+    (1, 129, 129, 4, 4, 128, True)])         # one row past a 128-row tile
 def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, d,
                                                     causal, dtype):
     """On a card: the flash-attention kernel against its plain version,
     causal and not, GQA by index, ragged lengths; fp32 at the reference
-    test's 1e-4, bf16 at one bf16 ulp; each call counts one launch."""
+    test's 1e-4, bf16 at one bf16 ulp; each call counts one launch, bf16
+    on the tensor-core route and fp32 on the CUDA-core one."""
     _cuda()
     rs = np.random.RandomState(Sq + Sk + H + d)
     q, k, v = (torch.from_numpy(rs.randn(B, S, h, d).astype(np.float32)).to(
         "cuda", dtype) for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
     before = fa.flash_attention_cuda.launches
+    routes = dict(fa.flash_attention_cuda.routes)
+    route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
     got = fa.flash_attention_cuda(q, k, v, causal=causal)
     want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.shape == (B, Sq, H, d) and got.dtype == dtype
     assert bool(torch.isfinite(got).all())
     assert fa.flash_attention_cuda.launches == before + 1
+    assert fa.flash_attention_cuda.routes == {**routes,
+                                              route: routes[route] + 1}
     rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else BF16_ULP
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)

@@ -8,7 +8,9 @@ asserts S % 128 == 0, its dense oracle ``ref.flash_attention_ref``; the
 port runs, on CPU tensors, the plain version of its CUDA
 ``flash_attention`` kernel (``ref.flash_attention_gqa_ref``, what
 ``ops.flash_attention`` runs on the CPU). Tolerance: the reference
-test's 1e-4 (observed ≤ 8.3e-7). The layer test runs the port's
+test's 1e-4 (observed ≤ 8.3e-7). A plain model of the bf16 kernel's
+tensor-core arithmetic (bf16 operands, 64-key tiles, P in two bf16
+terms) is held to the Pallas kernel at the same 1e-4. The layer test runs the port's
 ``attn_forward`` (which calls ``ops.flash_attention``) against the JAX
 ``attn_forward`` (which calls ``blockwise_attn``) with bridged
 ``qwen1.5-4b-smoke`` weights in fp32 at 1e-5. The CUDA kernel itself is held to its plain version on a
@@ -79,6 +81,69 @@ def test_plain_flash_matches_jax_oracle_at_ragged_lengths(Sq, Sk, H, Hkv, d,
     got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
                               causal=causal)
     _close(got, want, 1e-4)
+
+
+def _tensor_core_flash(q, k, v, causal, p_terms=2):
+    """Plain model of the bf16 tensor-core kernel's arithmetic: bf16 q, k
+    and v (widened exactly), fp32 scores scaled after the dot, 64-key
+    tiles with an online softmax (fp32 m, l over the unrounded p), and
+    P . V with p as ``p_terms`` bf16 terms (2: p_hi + p_lo, as the
+    kernel; 1: p rounded once). q (B, Sq, H, d), k/v (B, Sk, Hkv, d)."""
+    B, Sq, H, d = q.shape
+    Sk, g = k.shape[1], H // k.shape[2]
+
+    def heads(a, rep):
+        return (a.to(torch.bfloat16).float().transpose(1, 2)
+                .repeat_interleave(rep, dim=1))
+    qf, kf, vf = heads(q, 1), heads(k, g), heads(v, g)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, d))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        s = (qf @ kt.transpose(-1, -2)) * d ** -0.5
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(keys <= rows, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vt
+        if p_terms == 2:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).transpose(1, 2)
+
+
+# the Pallas shapes above; inputs rounded to bf16 first (the kernel's
+# inputs are bf16), handed to JAX as fp32
+@pytest.mark.parametrize("Sq,Sk,H,Hkv,d,causal", [
+    (128, 128, 4, 4, 64, True), (128, 128, 4, 4, 64, False),
+    (256, 256, 4, 2, 64, True), (256, 256, 4, 2, 128, False),
+    (128, 256, 8, 1, 128, False)])
+def test_tensor_core_flash_model_matches_jax_pallas_kernel(Sq, Sk, H, Hkv, d,
+                                                           causal):
+    """The tensor-core flash kernel's arithmetic (bf16 operands, 64-key
+    tiles, P as p_hi + p_lo) against the JAX Pallas kernel in interpret
+    mode on bf16-representable inputs, at the reference test's 1e-4.
+    The two-term P is also closer to the reference than a single bf16
+    P, which would not meet the tolerance on its own."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+               for a in _qkv(2, Sq, Sk, H, Hkv, d))
+    want = np.asarray(jops.flash_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=causal), np.float32)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    got = _tensor_core_flash(*args, causal)
+    assert got.shape == (2, Sq, H, d)
+    _close(got, want, 1e-4)
+    one = _tensor_core_flash(*args, causal, p_terms=1)
+    err2 = float(np.abs(got.numpy() - want).max())
+    err1 = float(np.abs(one.numpy() - want).max())
+    assert err2 < err1 and err1 > 1e-4
 
 
 def test_flash_wrapper_refuses_a_device_without_a_kernel():

@@ -87,3 +87,18 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     eng.submit(Request(rid=0, signal=np.random.RandomState(0).randn(
         500).astype(np.float32)))
     assert eng.run()[0].status == "finished"
+
+
+def test_cache_pool_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``CachePool`` without a device resolves to CUDA, and so raises
+    without a card; ``device="cpu"`` builds the pool on the CPU."""
+    from repro_torch.config import get_config
+    from repro_torch.serving.cache import CachePool
+    cfg = get_config("qwen1.5-4b-smoke")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CachePool(cfg, 2, 16, torch.float32, block_len=4)
+    pool = CachePool(cfg, 2, 16, torch.float32, block_len=4, device="cpu")
+    assert pool.device.type == "cpu"
+    assert all(a.device.type == "cpu" for tree in pool.caches.values()
+               for a in tree.values())

@@ -102,7 +102,8 @@ def test_decode_step_slots_matches_jax(dtype, min_size, backend, tol,
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     jpool = JCachePool(jcfg, 2, 16, jdt, block_len=4, attn_backend="xla")
-    pool = CachePool(tcfg, 2, 16, tdt, block_len=4, attn_backend=backend)
+    pool = CachePool(tcfg, 2, 16, tdt, block_len=4, attn_backend=backend,
+                     device="cpu")
     for slot in (0, 1):
         assert jpool.alloc(slot, 8) and pool.alloc(slot, 8)
     np.testing.assert_array_equal(pool.tables["g0_dense"],

@@ -82,7 +82,7 @@ def test_decode_step_slots_matches_jax(dtype, backend, cache, tol,
     jpool = JCachePool(jcfg, 2, 16, jnp.dtype(dtype), block_len=4,
                        attn_backend="xla", quant_policy=cache)
     pool = CachePool(tcfg, 2, 16, getattr(torch, dtype), block_len=4,
-                     attn_backend=backend, quant_policy=cache)
+                     attn_backend=backend, quant_policy=cache, device="cpu")
     for slot in (0, 1):
         assert jpool.alloc(slot, 8) and pool.alloc(slot, 8)
     assert sorted(pool.tables) == ["g0_mla_dense", "g1_mla_moe"]

@@ -173,3 +173,182 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 args[2], torch.from_numpy(t), args[4])
     assert pa.gqa_paged_cuda.launches == 0
     assert pa.gqa_paged_chunk_cuda.launches == 0
+
+
+# ----------------------------------------- the tensor-core chunk kernel
+
+
+def _walk_share(qf, kl, vl, posl, live, tq, steps, window):
+    """One warp's share of the tensor-core chunk kernel: fp32 online
+    softmax over its 16-position steps, bf16 p into P . V; a step with
+    no assigned block is skipped. Returns (m, l, acc) per (B, Hkv, R)."""
+    B, Hkv, R, hd = qf.shape
+    m = torch.full((B, Hkv, R, 1), pa.NEG_INF)
+    l = torch.zeros((B, Hkv, R, 1))
+    acc = torch.zeros((B, Hkv, R, hd))
+    tqe = tq[:, None, :, None]
+    for step in steps:
+        sl = slice(step * pa.CHUNK_STEP, (step + 1) * pa.CHUNK_STEP)
+        kb = kl[:, sl].permute(0, 2, 1, 3)                  # (B, Hkv, 16, hd)
+        vb = vl[:, sl].permute(0, 2, 1, 3)
+        s = (qf @ kb.transpose(-1, -2)) * qf.shape[-1] ** -0.5
+        p_pos = posl[:, sl][:, None, None, :]
+        ok = (p_pos >= 0) & (p_pos <= tqe)
+        if window > 0:
+            ok &= p_pos > tqe - window
+        s = torch.where(ok, s, torch.full_like(s, pa.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        step_live = live[:, sl].any(-1)[:, None, None, None]
+        m = torch.where(step_live, m_new, m)
+        l = torch.where(step_live, l * corr + p.sum(-1, keepdim=True), l)
+        acc = torch.where(step_live,
+                          acc * corr + p.to(torch.bfloat16).float() @ vb,
+                          acc)
+    return m, l, acc
+
+
+def _combine(parts):
+    """Partials (m, l, acc) weighted by exp(m_i - M), as the kernel's
+    in-CTA combine and its cross-CTA combine do."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    return (M, sum(wi * li for wi, (_, li, _) in zip(w, parts)),
+            sum(wi * ai for wi, (_, _, ai) in zip(w, parts)))
+
+
+def _tensor_core_chunk(q, k, v, pos, t, table, window, k_scale, v_scale,
+                       plan):
+    """Plain model of the tensor-core chunk kernel on the partition of
+    ``plan``: q rounded to bf16, the arena read per logical position
+    (dequantized to bf16; unassigned entries masked), every (split,
+    warp) share walked on its own, the warps' partials combined per
+    split, then the splits'. Returns (B, C, H*hd) fp32."""
+    B, C, H, hd = q.shape
+    n_blocks, bl, Hkv, _ = k.shape
+    T, group = table.shape[1], H // Hkv
+    L = plan.steps * pa.CHUNK_STEP
+    lpos = torch.arange(L)
+    col = torch.clamp(lpos // bl, max=T - 1)
+    blk = torch.where(lpos[None] < T * bl, table[:, col].long(),
+                      torch.full((B, L), -1))
+    live = blk >= 0
+    idx = (blk.clamp(min=0) * bl + (lpos % bl)[None]).reshape(-1)
+
+    def logical(a, sc):
+        rows = pa.take_blocks(a.reshape(n_blocks * bl, Hkv, hd), idx)
+        rows = (pa.dequantize_kv(rows, sc.reshape(-1, Hkv)[idx])
+                if sc is not None else rows.to(torch.bfloat16))
+        rows = rows.float().reshape(B, L, Hkv, hd)
+        return torch.where(live[..., None, None], rows, torch.zeros(()))
+    kl, vl = logical(k, k_scale), logical(v, v_scale)
+    posl = pos.new_full((B, L), -1)            # -1: never a valid position
+    posl[:, :T * bl] = torch.where(live[:, :T * bl], pos,
+                                   torch.full_like(pos, -1))
+    qf = (q.to(torch.bfloat16).float().reshape(B, C, Hkv, group, hd)
+          .permute(0, 2, 1, 3, 4).reshape(B, Hkv, C * group, hd))
+    tq = t.repeat_interleave(group, dim=1)
+    splits = [_combine([_walk_share(qf, kl, vl, posl, live, tq,
+                                    pa.chunk_shares(plan, sp, w), window)
+                        for w in range(pa.CHUNK_WARPS)])
+              for sp in range(plan.splits)]
+    _, l, acc = _combine(splits) if len(splits) > 1 else splits[0]
+    o = acc / torch.clamp_min(l, 1e-30)
+    return (o.reshape(B, Hkv, C, group, hd).permute(0, 2, 1, 3, 4)
+            .reshape(B, C, H * hd))
+
+
+@pytest.mark.parametrize("B,Hkv,R,T,bl", [(4, 20, 16, 16, 16),
+                                          (4, 20, 16, 128, 16),
+                                          (4, 2, 256, 16, 16),
+                                          (2, 2, 8, 16, 4), (1, 1, 4, 3, 5),
+                                          (1, 1, 16, 4096, 16)])
+def test_chunk_split_plan_partitions_every_step_once(B, Hkv, R, T, bl):
+    """Every 16-position step of the table is walked by exactly one
+    (split, warp) share; no CTA stages more than CHUNK_MAX_STEPS; the
+    grid fills the card where the table allows and no split is empty."""
+    plan = pa.chunk_split_plan(B, Hkv, R, T, bl)
+    assert plan.row_tiles == -(-R // 16)
+    assert plan.steps == -(-(T * bl) // pa.CHUNK_STEP)
+    walked = sorted(s for sp in range(plan.splits)
+                    for w in range(pa.CHUNK_WARPS)
+                    for s in pa.chunk_shares(plan, sp, w))
+    assert walked == list(range(plan.steps))
+    assert plan.per <= pa.CHUNK_MAX_STEPS
+    assert all(len(pa.chunk_shares(plan, sp, 0)) for sp in range(plan.splits))
+    ctas = B * Hkv * plan.row_tiles * plan.splits
+    assert 1 <= plan.stages <= pa.CHUNK_MAX_STAGES
+    # every warp's steps in flight at once in one CTA a row tile, or
+    # about two CTAs per SM (rounding to equal splits may leave a few
+    # short) unless the table is too short to give every warp a step
+    assert (plan.splits == 1 and plan.stages * pa.CHUNK_WARPS >= plan.steps
+            ) or ctas >= 1.9 * pa.SMS or plan.per < 2 * pa.CHUNK_WARPS
+    if (B, Hkv, R, T, bl) == (4, 20, 16, 16, 16):     # the served mixed tick
+        assert plan == pa.ChunkPlan(1, 16, 1, 16, 4)
+    if (B, Hkv, R, T, bl) == (4, 20, 16, 128, 16):    # 2048 positions
+        assert plan == pa.ChunkPlan(1, 128, 4, 32, 2)
+
+
+# (arena, T, bl, window, holes): 2, 3 and 4 shares in one CTA, 24
+# across six CTAs; a hole; a ring window that masks every position of
+# the first share; a hole that empties a whole share
+CHUNK_CASES = [(arena, T, bl, w, holes) for arena in ("bf16", "fp8", "int8")
+               for T, bl, w, holes in ((8, 4, 0, ((0, 2),)),
+                                       (12, 4, 0, ()),
+                                       (16, 4, 8, ((1, 1),)),
+                                       (24, 16, 0, ((0, 2),)),
+                                       (16, 4, 0, ((0, 0), (0, 1), (0, 2),
+                                                   (0, 3))))]
+
+
+@pytest.mark.parametrize("arena,T,bl,window,holes", CHUNK_CASES)
+def test_tensor_core_chunk_model_matches_jax_pallas_kernel(arena, T, bl,
+                                                           window, holes):
+    """The tensor-core chunk kernel's split walk and combine on
+    ``chunk_split_plan``'s partition (bf16 q, K, V and p; per-share
+    online softmax; exp(m_i - M) weights; a share with every position
+    masked weighs 0) against the JAX Pallas chunk kernel at ATTN_TOL on
+    live rows, with pad rows and a decode row padded to C."""
+    rs = np.random.RandomState(T * 10 + bl + window + len(holes))
+    B, Hkv, group, C, hd = 4, 2, 2, 4, 16
+    fills = [T * bl - C, bl - 1, 0, T * bl // 2]
+    k, v, pos, t, table = mk_arena(rs, B, Hkv, hd, bl, T, C, fills,
+                                   holes=holes)
+    t[3, 1:] = -1
+    t[2] = -1
+    q = rs.randn(B, C, Hkv * group, hd).astype(np.float32)
+    jk, jv, jks, jvs = _jax_arena(k, v, arena)
+    tk, tv, tks, tvs = arena_as(k, v, arena)
+    plan = pa.chunk_split_plan(B, Hkv, C * group, T, bl)
+    shares = sum(1 for sp in range(plan.splits)
+                 for w in range(pa.CHUNK_WARPS)
+                 if len(pa.chunk_shares(plan, sp, w)))
+    assert shares == {(8, 4): 2, (12, 4): 3, (16, 4): 4, (24, 16): 24}[T, bl]
+    assert pa.chunk_route(tk.dtype, C, hd) == "tensor_core"
+    want = jops.decode_gqa(jnp.asarray(q), jk, jv, jnp.asarray(pos),
+                           jnp.asarray(t), window=window,
+                           table=jnp.asarray(table), backend="pallas",
+                           k_scale=jks, v_scale=jvs)
+    got = _tensor_core_chunk(torch.from_numpy(q), tk, tv,
+                             torch.from_numpy(pos), torch.from_numpy(t),
+                             torch.from_numpy(table), window, tks, tvs, plan)
+    live = t >= 0
+    assert bool(torch.isfinite(got).all())
+    tol = ATTN_TOL[arena]
+    np.testing.assert_allclose(got.numpy()[live],
+                               np.asarray(want, np.float32)[live],
+                               rtol=tol, atol=tol)
+
+
+def test_chunk_route_is_by_dtype_and_shape():
+    """bf16-compute arenas at C > 1 and head dims 16..256 (multiples of
+    16) take the tensor-core kernel; fp32 arenas, C == 1 and other head
+    dims the CUDA-core one."""
+    for dt in (torch.bfloat16, torch.float8_e4m3fn, torch.int8):
+        assert pa.chunk_route(dt, 16, 128) == "tensor_core"
+        assert pa.chunk_route(dt, 2, 256) == "tensor_core"
+        assert pa.chunk_route(dt, 1, 128) == "cuda_core"
+        assert pa.chunk_route(dt, 16, 72) == "cuda_core"
+        assert pa.chunk_route(dt, 16, 288) == "cuda_core"
+    assert pa.chunk_route(torch.float32, 16, 128) == "cuda_core"
