@@ -8,31 +8,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. build  — compile every CUDA source of the port with nvcc (one
    process per source, started together) and print the build seconds
    and ptxas's register/shared-memory report; count the tensor-core
-   instructions (HGMMA in flash_tc_kernel, HMMA in gqa_chunk_tc_kernel)
-   in ``cuobjdump -sass`` of the built libraries, and fail on none.
+   instructions (HGMMA in flash_tc_kernel, HMMA in gqa_chunk_tc_kernel
+   and qconv1d_tc_kernel) in ``cuobjdump -sass`` of the built
+   libraries, and fail on none.
 2. kernel — hold each kernel against its plain PyTorch version on the
-   card at the main path's shapes (qconv1d_block: C=344, every RUBICALL
-   k, B=4, T=2500 and a ragged T, ReLU on and off; fp32 with TF32 off
-   at 1e-3, bf16 at one bf16 ulp), then time kernel, plain version,
-   the library composition and the computed bound at B=4, T=2500.
+   card at the main path's shapes (qconv1d_block on the unpadded
+   window, the plain version on the padded one: C=344, every RUBICALL
+   k, B=4, T=2500, a ragged T and T < k, ReLU on and off; fp32 on the
+   CUDA-core route with TF32 off at 1e-3, bf16 on the tensor-core route
+   at one bf16 ulp), then time each route's kernel, plain version, the
+   library composition (device time, host excluded, L2-warm) and the
+   computed bound at B=4, T=2500.
 3. serve  — full-width RUBICALL (28 blocks, C=344, bf16), random
    seeded weights packed to int8 as ``launch/serve.py --wbits 8`` does,
    served through the port's ServingEngine (4 slots, 1024-sample
    chunks, warmup) on 8 simulated reads. Checks every read finishes,
-   the kernel launched 19 times per forward, and one tick's log-probs
-   through the kernels agree with the same tick through the plain
-   versions on the card.
+   the kernel launched 19 times per forward, all on the tensor-core
+   route, and one tick's log-probs through the kernels agree with the
+   same tick through the plain versions on the card (bf16 on the
+   tensor-core route, fp32 on the CUDA-core route).
 4. kernel (LM) — hold qmatmul (int8 and int4 at every qwen1.5-4b
    projection shape, M = 4 and 64, a ragged shape) and the paged
    attention kernels (qwen1.5-4b's 20 x 128 heads and chatglm3-6b's 2
-   KV heads x group 16; block_len 16; fp32, bf16, fp8 and int8 arenas;
-   holes, out-of-order blocks, pad rows, a ring window; C = 1, 4, 16;
-   the chunk also at 2048 positions, where the tensor-core kernel
-   splits the walk across CTAs, at R = C * group = 4, 16 and 256)
-   against their plain versions, checking each call's route
-   (tensor-core for C > 1 over bf16, fp8 and int8 arenas, CUDA-core
-   otherwise), then time kernel, plain version, library call and bound
-   at the served shapes (the chunk at 160 and at 2048 positions).
+   KV heads x group 16; block_len 16; fp32, bf16, fp8, int8 and fp16
+   arenas; holes, out-of-order blocks, pad rows, a ring window; C = 1,
+   4, 16; also at 2048 positions, where the tensor-core kernel splits
+   the walk across CTAs, at R = C * group = 1, 4, 16 and 256) against
+   their plain versions, checking each call's route (tensor-core over
+   bf16, fp8, int8 and fp16 arenas at any C, CUDA-core over fp32),
+   then time kernel, plain version, library call and bound at the
+   served shapes (the decode at 160, 256 and 2048 positions and on its
+   fp32 route, the chunk at 160 and 2048).
 5. serve (LM) — full-width qwen1.5-4b (40 layers, d 2560, no depth
    cut), seeded random weights drawn on the card and packed to int8
    under QuantPolicy(8, 0), a bf16 paged arena (block_len 16), 4 slots,
@@ -40,17 +46,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prompt tokens and 32 new tokens. Checks every request finishes, the
    kernel launches reconcile with the ticks the plans ran (281 qmatmul
    per tick, 40 attention launches per tick: gqa_paged on C = 1 ticks,
-   gqa_paged_chunk on wider ones, every one of those on the
-   tensor-core route), and one mixed and one decode tick through the
-   kernels agree with the same ticks through the plain versions on the
-   same pool state (the bf16 chunk launches on the tensor-core route,
-   the fp32 comparison's on the CUDA-core route).
+   gqa_paged_chunk on wider ones, every one of both on the tensor-core
+   route), and one mixed and one decode tick through the kernels agree
+   with the same ticks through the plain versions on the same pool
+   state: bf16 as served, over an fp16 copy of the arena (both on the
+   tensor-core route) and in fp32 (the CUDA-core route).
 6. trace (LM) — host enqueue, device and wall time of one decode and
    one mixed tick, then the device busy share and top kernels under
    torch.profiler. The qwen engine is then freed.
 7. kernel (MLA) — hold mla_paged (C = 1) and mla_paged_chunk (C = 16)
    against their plain versions at deepseek-v3's widths (128 heads,
-   latent 512, rope 64, block_len 16; fp32, bf16, fp8 and int8 arenas;
+   latent 512, rope 64, block_len 16; fp32, bf16, fp8, int8 and fp16
+   arenas;
    holes, out-of-order blocks, pad rows) at 160 and 2048 positions,
    then time kernel, plain version, library call and bound (bf16).
 8. serve (MLA) — full-width deepseek-v3-671b cut to 4 layers (3
@@ -60,7 +67,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    traffic as phase 5. Checks as phase 5: every request finishes,
    launches reconcile with the ticks (mla_paged on C = 1 ticks,
    mla_paged_chunk on wider ones, 4 a tick; qmatmul per tick counted
-   from the projections), kernel vs plain ticks; peak device memory.
+   from the projections), kernel vs plain ticks (bf16, fp16 arena,
+   fp32); peak device memory.
 9. trace (MLA) — as phase 6, for the deepseek ticks. The deepseek
    engine is then freed.
 10. kernel (prefill) — hold flash_attention (qwen1.5-4b's 20 x 128
@@ -179,29 +187,13 @@ def bound_ms(nbytes: int, flops: int, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` (L2 warm, as inside a forward)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def device_ms(calls, reps: int = 5) -> float:
     """Median device time of one call of ``calls`` run back to back with
     the host out of the way: a sleep kernel holds the stream while the
     host enqueues every call, and the CUDA events bracket device work
-    only. ``calls`` read distinct copies of their weights or arenas, so
-    these come from HBM, as on the served path, not from L2."""
+    only. The LM phases' ``calls`` read distinct copies of their weights
+    or arenas, so these come from HBM, as on the served path; the
+    qconv1d calls repeat one window, L2-warm, as inside a forward."""
     for fn in calls[:2]:
         fn()
     torch.cuda.synchronize()
@@ -227,9 +219,9 @@ def device_ms(calls, reps: int = 5) -> float:
 
 
 def qconv_inputs(rs: np.random.RandomState, b: int, t: int, k: int, dtype):
-    """Padded x and packed weights for one kernel call, on the card."""
+    """Unpadded x and packed weights for one kernel call, on the card."""
     dev = "cuda"
-    x = torch.from_numpy(rs.randn(b, t + k - 1, C).astype(np.float32))
+    x = torch.from_numpy(rs.randn(b, t, C).astype(np.float32))
     dw = quantize_tensor(torch.from_numpy(rs.randn(k, C).astype(np.float32)), 8)
     pw = quantize_tensor(torch.from_numpy(rs.randn(C, C).astype(np.float32)), 8)
     g = torch.from_numpy(rs.rand(1, C).astype(np.float32))
@@ -238,23 +230,36 @@ def qconv_inputs(rs: np.random.RandomState, b: int, t: int, k: int, dtype):
             dw.scale.to(dev), pw.scale.to(dev), g.to(dev), bt.to(dev))
 
 
+def qconv_plain(x, *w, relu=True):
+    """The plain version on the unpadded window: the halo padded as
+    ``ops.qconv1d_block`` pads it on the CPU, then
+    ``ref.qconv1d_block_ref`` (the JAX kernel's signature)."""
+    k = w[0].shape[0]
+    pad = (k - 1) // 2
+    return ref.qconv1d_block_ref(F.pad(x, (0, 0, pad, k - 1 - pad)), *w,
+                                 relu=relu)
+
+
 def library_qconv(args):
     """The same function (no ReLU, as RUBICALL's blocks call it) from
     library calls, timed only and never used by the port: cuDNN
-    depthwise conv + cuBLAS linear with beta as bias."""
-    xp, dw_q, pw_q, dws, pws, g, bt = args
-    w_dw = (dw_q.float() * dws).t().unsqueeze(1).to(xp.dtype)   # (C, 1, k)
-    w_pw = (pw_q.float() * pws * g).t().contiguous().to(xp.dtype)
-    xc = xp.transpose(1, 2).contiguous()                       # (B, C, Tp)
-    bias = bt.reshape(-1).to(xp.dtype)
-    return lambda: F.linear(F.conv1d(xc, w_dw, groups=C).transpose(1, 2),
-                            w_pw, bias)
+    depthwise conv (its own zero padding; every k is odd) + cuBLAS
+    linear with beta as bias."""
+    x, dw_q, pw_q, dws, pws, g, bt = args
+    k = dw_q.shape[0]
+    w_dw = (dw_q.float() * dws).t().unsqueeze(1).to(x.dtype)    # (C, 1, k)
+    w_pw = (pw_q.float() * pws * g).t().contiguous().to(x.dtype)
+    xc = x.transpose(1, 2).contiguous()                        # (B, C, T)
+    bias = bt.reshape(-1).to(x.dtype)
+    return lambda: F.linear(F.conv1d(xc, w_dw, padding=(k - 1) // 2,
+                                     groups=C).transpose(1, 2), w_pw, bias)
 
 
 # the tensor-core kernels: (library, kernel name, the SASS instruction
 # that shows the tensor cores at work)
 TENSOR_CORE_SASS = (("flash_attention", "flash_tc_kernel", "HGMMA"),
-                    ("paged_attention", "gqa_chunk_tc_kernel", "HMMA"))
+                    ("paged_attention", "gqa_chunk_tc_kernel", "HMMA"),
+                    ("qconv1d", "qconv1d_tc_kernel", "HMMA"))
 
 
 def sass_counts(lib: str, kernel: str, op: str) -> dict:
@@ -295,18 +300,28 @@ def phase_build() -> None:
               f"{op} instructions {sorted(counts.values())}")
 
 
+QCONV_ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+
+
 def phase_kernel() -> dict:
-    """Kernel vs plain version at every shape, then the timings."""
+    """Kernel vs plain version at every shape, on the route each dtype
+    takes, then each route's timings."""
     rs = np.random.RandomState(0)
     err_main = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    fn = qconv1d.qconv1d_block_cuda
+    for dtype, route in QCONV_ROUTES.items():
         rtol, atol = TOL[dtype]
         for k in KS:
-            for t in (T_MAIN, T_RAGGED):
+            for t in (T_MAIN, T_RAGGED, k // 2):     # k // 2: T < k
                 args = qconv_inputs(rs, B, t, k, dtype)
                 for relu in (True, False):
-                    got = qconv1d.qconv1d_block_cuda(*args, relu=relu)
-                    want = ref.qconv1d_block_ref(*args, relu=relu)
+                    before = dict(fn.routes)
+                    got = fn(*args, relu=relu)
+                    if fn.routes != {**before, route: before[route] + 1}:
+                        raise AssertionError(f"qconv1d {dtype} k={k}: "
+                                             f"routes {before} -> "
+                                             f"{fn.routes}, want {route}")
+                    want = qconv_plain(*args, relu=relu)
                     torch.cuda.synchronize()
                     if got.shape != (B, t, C) or got.dtype != dtype:
                         raise AssertionError(f"qconv1d {tuple(got.shape)} "
@@ -315,29 +330,36 @@ def phase_kernel() -> dict:
                                                rtol=rtol, atol=atol)
                     err = float((got.float() - want.float()).abs().max())
                     print(f"[kernel] qconv1d_block {str(dtype)[6:]} k={k} "
-                          f"T={t} relu={int(relu)}: max|err| {err:.3g} ok")
+                          f"T={t} relu={int(relu)} ({route}): max|err| "
+                          f"{err:.3g} ok")
                     if dtype == torch.bfloat16 and t == T_MAIN:
                         err_main = max(err_main, err)
-    per_k = {}
-    for k in KS:
-        args = qconv_inputs(rs, B, T_MAIN, k, torch.bfloat16)
-        nb = qconv1d_bytes(B, T_MAIN, C, k, 2)
-        bms, by = bound_ms(nb, qconv1d_flops(B, T_MAIN, C, k), torch.bfloat16)
-        # relu=False: each RUBICALL block has one repeat, and sep_conv
-        # calls the kernel without ReLU for a block's last repeat
-        row = {
-            "ms": median_ms(lambda: qconv1d.qconv1d_block_cuda(
-                *args, relu=False)),
-            "plain_ms": median_ms(lambda: ref.qconv1d_block_ref(
-                *args, relu=False), iters=5),
-            "library_ms": median_ms(library_qconv(args)),
-            "bound_ms": bms, "bound_by": by}
-        per_k[k] = row
-        print(f"[kernel] qconv1d_block bf16 B={B} T={T_MAIN} C={C} k={k}: "
-              f"kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms "
-              f"| library {row['library_ms']:.4f} ms | bound "
-              f"{bms * 1e3:.2f} us ({by})")
-    return {"err_main": err_main, "per_k": per_k}
+    per_route = {}
+    for dtype, route in QCONV_ROUTES.items():
+        per_k = per_route[route] = {}
+        for k in KS:
+            args = qconv_inputs(rs, B, T_MAIN, k, dtype)
+            esize = torch.finfo(dtype).bits // 8
+            nb = qconv1d_bytes(B, T_MAIN, C, k, esize)
+            bms, by = bound_ms(nb, qconv1d_flops(B, T_MAIN, C, k), dtype)
+            # relu=False: each RUBICALL block has one repeat, and sep_conv
+            # calls the kernel without ReLU for a block's last repeat.
+            # Device time with the host out of the way, the same call back
+            # to back: L2-warm, as a block reads the window the block
+            # before it just wrote
+            row = {
+                "ms": device_ms([lambda: fn(*args, relu=False)] * 20),
+                "plain_ms": device_ms(
+                    [lambda: qconv_plain(*args, relu=False)] * 5, reps=3),
+                "library_ms": device_ms([library_qconv(args)] * 20),
+                "bound_ms": bms, "bound_by": by}
+            per_k[k] = row
+            print(f"[kernel] qconv1d_block {str(dtype)[6:]} ({route}) B={B} "
+                  f"T={T_MAIN} C={C} k={k}: kernel {row['ms']:.4f} ms | "
+                  f"plain {row['plain_ms']:.4f} ms | library "
+                  f"{row['library_ms']:.4f} ms | bound {bms * 1e3:.2f} us "
+                  f"({by})")
+    return {"err_main": err_main, "per_route": per_route}
 
 
 def unit_gain(params) -> None:
@@ -358,14 +380,15 @@ def unit_gain(params) -> None:
 
 def tick_both_paths(runner, cfg, window):
     """One batched window forward through the kernels and through the
-    plain versions (the kernel wrapper swapped for its plain version),
-    on the card; checks the log-probs' shape and finiteness."""
+    plain versions (the kernel wrapper swapped for its plain version on
+    the unpadded window), on the card; checks the log-probs' shape and
+    finiteness."""
     wins, start, rlen = (torch.from_numpy(a).to(runner.device)
                          for a in window)
     out = []
     for plain in (False, True):
         swap = (mock.patch.object(qconv1d, "qconv1d_block_cuda",
-                                  ref.qconv1d_block_ref)
+                                  qconv_plain)
                 if plain else contextlib.nullcontext())
         with torch.inference_mode(), swap:
             out.append(bc.forward_window(runner.params, runner.state, wins,
@@ -445,6 +468,8 @@ def phase_serve() -> dict:
     engine.run()
     torch.cuda.synchronize()
     launches = ops.launch_counts()["qconv1d_block"]
+    routes = ops.launch_counts(routes=True)
+    check_routes(routes, ("qconv1d_block",), "rubicall served")
     st = engine.metrics.summary()
     forwards = st["bucket_hits"] + st["bucket_misses"]
     done = engine.completed
@@ -463,7 +488,8 @@ def phase_serve() -> dict:
           f"{st['tokens_per_s']:.0f} bases/s | {forwards} forwards, "
           f"tick p50 {st['tick_latency_p50_s'] * 1e3:.2f} ms mean "
           f"{1e3 * sum(ticks) / len(ticks):.2f} ms | qconv1d_block "
-          f"launches {launches} = {len(KERNEL_BLOCKS)} x {forwards}")
+          f"launches {launches} = {len(KERNEL_BLOCKS)} x {forwards}, "
+          f"routes {routes['qconv1d_block']}")
 
     # one tick, kernel path vs the plain versions on the card: as served
     # (bf16, activation fake-quant on), then in fp32 with the activation
@@ -477,7 +503,16 @@ def phase_serve() -> dict:
                               cfg.quant.overrides)))
     for name, c, bound in (("bf16 as served", cfg, TICK_BF16),
                            ("fp32, no act-quant", exact, TICK_FP32)):
+        ops.reset_launch_counts()
         lp_k, lp_p = tick_both_paths(runner, c, window)
+        r = ops.launch_counts(routes=True)
+        check_routes(r, ("qconv1d_block",) if c is cfg else (),
+                     f"rubicall tick, {name}")
+        if r["qconv1d_block"] != {
+                QCONV_ROUTES[getattr(torch, c.dtype)]: len(KERNEL_BLOCKS),
+                "tensor_core" if c is exact else "cuda_core": 0}:
+            raise AssertionError(f"rubicall tick, {name}: routes "
+                                 f"{r['qconv1d_block']}")
         d = (lp_k - lp_p).abs()
         agree = float((lp_k.argmax(-1) == lp_p.argmax(-1)).float().mean())
         print(f"[serve] one tick kernel vs plain, {name}: mean|d logp| "
@@ -489,7 +524,7 @@ def phase_serve() -> dict:
                                  f"disagrees with the plain path")
     fwd = runner.plans.fn(runner._plan_key)
     trace("one tick", lambda: runner._forward(fwd, *window))
-    return {"launches": launches}
+    return {"launches": launches, "routes": routes["qconv1d_block"]}
 
 # ---------------------------------------------------------------------------
 # LM slice: full-width qwen1.5-4b
@@ -505,9 +540,10 @@ HD = 128                      # head_dim (qwen1.5-4b and chatglm3-6b)
 QWEN_PROJ = {(2560, 2560): 4, (2560, 6912): 2, (6912, 2560): 1}
 QWEN_HEAD = (2560, 151936)
 # the reference tests' tolerances: fp32 arenas 1e-5; bf16, fp8 and int8
-# arenas (bf16 compute) and qmatmul 2e-2
+# arenas (bf16 compute), fp16 arenas (fp16 compute) and qmatmul 2e-2
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2,
-            torch.float8_e4m3fn: 2e-2, torch.int8: 2e-2}
+            torch.float8_e4m3fn: 2e-2, torch.int8: 2e-2,
+            torch.float16: 2e-2}
 QMM_TOL = 2e-2
 # One served tick, kernel path vs plain path on the same pool state:
 # (largest |d logit| of a live row, least share of live rows whose
@@ -523,7 +559,8 @@ QMM_TOL = 2e-2
 LM_TICK_BF16 = (0.25, 0.5)
 LM_TICK_FP32 = (0.02, 0.75)
 MIXED_POSITIONS = 160         # cached positions of a row in the timed tick
-LONG_POSITIONS = 2048         # a long row: the chunk walk split across CTAs
+FULL_POSITIONS = 256          # a row's whole table at LM_CACHE
+LONG_POSITIONS = 2048         # a long row: the walk split across CTAs
 
 
 def paged_inputs(rs, b, hkv, group, c, fills, arena, *, holes=(),
@@ -632,7 +669,8 @@ def attn_bound(x) -> tuple:
     nbytes = (kv + blocks * bl * 4 + 2 * q.numel() * q.element_size()
               + x["t"].numel() * 4 + x["table"].numel() * 4)
     flops = 4 * blocks * bl * Cq * H * hd
-    return bound_ms(nbytes, flops, torch.bfloat16)
+    return bound_ms(nbytes, flops, torch.float32 if k.dtype == torch.float32
+                    else torch.bfloat16)
 
 
 def phase_lm_kernel() -> dict:
@@ -669,10 +707,11 @@ def phase_lm_kernel() -> dict:
              for hkv, group in ((20, 1), (2, 16))
              for arena in ATTN_TOL for c in (1, 4, 16)]
     cases.append((20, 1, 4, torch.bfloat16, 40, LM_CACHE))   # ring window
-    # 2048 positions: the tensor-core chunk kernel splits the walk across
-    # CTAs; R = C * group = 4, 16 and 256 query rows
+    # 2048 positions: the tensor-core kernel splits the walk across CTAs;
+    # R = C * group = 1, 4, 16 and 256 query rows
     cases += [(hkv, group, c, arena, 0, LONG_POSITIONS)
-              for hkv, group, c in ((20, 1, 4), (20, 1, 16), (2, 16, 16))
+              for hkv, group, c in ((20, 1, 1), (20, 1, 4), (20, 1, 16),
+                                    (2, 16, 16))
               for arena in ATTN_TOL]
     for hkv, group, c, arena, window, cache in cases:
         x = paged_inputs(rs, 4, hkv, group, c, [cache - c, BLOCK - 1, 0,
@@ -685,8 +724,7 @@ def phase_lm_kernel() -> dict:
             x["t"][2] = -1                 # a free slot
         x["window"] = window
         fn = pa.gqa_paged_cuda if c == 1 else pa.gqa_paged_chunk_cuda
-        route = ("tensor_core" if c > 1 and arena != torch.float32
-                 else "cuda_core")
+        route = "tensor_core" if arena != torch.float32 else "cuda_core"
         before = dict(fn.routes)
         got = attn_kernel(x)
         if fn.routes != {**before, route: before[route] + 1}:
@@ -731,10 +769,18 @@ def phase_lm_kernel() -> dict:
                   f"library {row['library_ms']:.4f} ms | bound "
                   f"{bms * 1e3:.2f} us ({by})")
         del ws
-    for c, n in ((1, MIXED_POSITIONS), (16, MIXED_POSITIONS),
-                 (16, LONG_POSITIONS)):
+    # the decode on both routes (fp32 arena: CUDA cores) at the served
+    # fill, the whole table and 2048 positions; the chunk at 160 and 2048
+    for c, n, kv in ((1, MIXED_POSITIONS, torch.bfloat16),
+                     (1, MIXED_POSITIONS, torch.float32),
+                     (1, FULL_POSITIONS, torch.bfloat16),
+                     (1, LONG_POSITIONS, torch.bfloat16),
+                     (16, MIXED_POSITIONS, torch.bfloat16),
+                     (16, LONG_POSITIONS, torch.bfloat16)):
         x = paged_inputs(rs, LM_SLOTS, 20, 1, c, [n - c] * LM_SLOTS,
-                         torch.bfloat16, t_blocks=max(n, LM_CACHE) // BLOCK)
+                         kv, t_blocks=max(n, LM_CACHE) // BLOCK,
+                         q_dtype=(torch.float32 if kv == torch.float32
+                                  else torch.bfloat16))
         x["window"] = 0
         bms, by = attn_bound(x)
         arena = x["k"].numel() * x["k"].element_size() * 2
@@ -747,11 +793,15 @@ def phase_lm_kernel() -> dict:
                "library_ms": device_ms([attn_library(xi) for xi in xs]),
                "bound_ms": bms, "bound_by": by}
         name = "gqa_paged" if c == 1 else "gqa_paged_chunk"
-        timing["attn"][name if n == MIXED_POSITIONS else f"{name}@{n}"] = row
-        print(f"[kernel] {name} bf16 B={LM_SLOTS} C={c} Hkv=20 hd={HD} "
-              f"positions 0..{n - 1}: kernel {row['ms']:.4f} ms | plain "
-              f"{row['plain_ms']:.4f} ms | library {row['library_ms']:.4f} "
-              f"ms | bound {bms * 1e3:.2f} us ({by})")
+        key = name if n == MIXED_POSITIONS else f"{name}@{n}"
+        if kv == torch.float32:
+            key = f"{name}/cuda_core"
+        timing["attn"][key] = row
+        print(f"[kernel] {name} {str(kv)[6:]} B={LM_SLOTS} C={c} Hkv=20 "
+              f"hd={HD} positions 0..{n - 1}: kernel {row['ms']:.4f} ms | "
+              f"plain {row['plain_ms']:.4f} ms | library "
+              f"{row['library_ms']:.4f} ms | bound {bms * 1e3:.2f} us "
+              f"({by})")
         del xs
     return {"err": err, "timing": timing}
 
@@ -949,6 +999,10 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple,
     # rounding of the latent or of the MLA compute dtype is left in it
     wide = {g: {n: a.float() if a.is_floating_point() else a.clone()
                 for n, a in tree.items()} for g, tree in snap.items()}
+    # an fp16 arena (a served storage mode, ``--cache-dtype fp16``): the
+    # bf16 state rounded to fp16, the kernels computing in fp16
+    half = {g: {n: a.half() if a.dtype == torch.bfloat16 else a.clone()
+                for n, a in tree.items()} for g, tree in snap.items()}
 
     def restore(caches=None):
         caches = pool.caches if caches is None else caches
@@ -987,6 +1041,7 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple,
         return rec
     for label, c, bound, caches in (
             ("bf16 as served", cfg, bounds[0], pool.caches),
+            ("fp16 arena", cfg, bounds[0], half),
             ("fp32 compute and arena", exact, bounds[1], wide)):
         for kind, (tok, t, last) in (("mixed", mixed), ("decode", decode)):
             out, routes[:], moved[:] = [], [], [0, 0]
@@ -1018,7 +1073,7 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple,
             if d > bound[0] or a < bound[1]:
                 raise AssertionError(f"served {kind} tick ({label}): kernel "
                                      f"path disagrees with the plain path")
-    del wide
+    del wide, half
     restore()
     print(f"[serve-lm] {cfg.name}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1568,7 +1623,7 @@ def main() -> int:
     qwen = replace(get_config(LM_ARCH), quant=QuantPolicy(8, 0))
     lm = lap("serve (LM)", phase_lm_serve, qwen,
              ("gqa_paged", "gqa_paged_chunk"), (LM_TICK_BF16, LM_TICK_FP32),
-             ("gqa_paged_chunk",))
+             ("gqa_paged", "gqa_paged_chunk"))
     lap("trace (LM)", phase_lm_trace, lm)
     lm_launches, lm_per_tick = lm["launches"], lm["per_tick"]
     lm_routes = lm["routes"]
@@ -1590,23 +1645,30 @@ def main() -> int:
                    QWEN_PROMPT, "flash_attention",
                    (fa, "flash_attention_cuda", ref.flash_attention_gqa_ref),
                    QWEN_PREFILL, 8, ("flash_attention",))
-    pk = kern["per_k"]
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
-    def total(key):
-        return sum(pk[k][key] for k in blocks_k)
+    def forward_sum(pk):
+        """One forward's 19 launches summed, per timed quantity."""
+        out = {key: sum(pk[k][key] for k in blocks_k)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        out["bound_by"] = pk[max(blocks_k)]["bound_by"]
+        return out
+    routes = {r: {**forward_sum(pk),
+                  "per_k": {str(k): v for k, v in pk.items()}}
+              for r, pk in kern["per_route"].items()}
     kernels = [{
         "name": "qconv1d_block", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qconv1d.cu",
         "replaces": "src/repro/kernels/qconv1d.py:38",
         "launches": served["launches"], "max_abs_err": kern["err_main"],
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": pk[max(blocks_k)]["bound_by"],
-        "library_ms": total("library_ms"),
+        **forward_sum(kern["per_route"]["tensor_core"]),
         "shape": f"sum over one forward's {len(blocks_k)} launches, bf16 "
-                 f"B={B} T={T_MAIN} C={C} k={blocks_k}",
-        "per_k": {str(k): v for k, v in pk.items()},
+                 f"(qconv1d_tc_kernel) B={B} T={T_MAIN} C={C} k={blocks_k}",
+        "launches_by_route": served["routes"],
+        "routes": {"tensor_core": {"kernel": "qconv1d_tc_kernel", "x": "bf16",
+                                   **routes["tensor_core"]},
+                   "cuda_core": {"kernel": "qconv1d_block_kernel",
+                                 "x": "fp32", **routes["cuda_core"]}},
     }]
     qt = lm_kern["timing"]["qmatmul"]
     per_tick = {f"M=4 K={k} N={n}": qwen.n_layers * m
@@ -1633,9 +1695,16 @@ def main() -> int:
         "launches_by_phase": {LM_ARCH: lm_launches["qmatmul"],
                               DS_ARCH: ds_launches["qmatmul"]},
         "per_shape": qt})
+    attn = lm_kern["timing"]["attn"]
     for name, replaces in (("gqa_paged", 260), ("gqa_paged_chunk", 492)):
-        row = lm_kern["timing"]["attn"][name]
-        long = lm_kern["timing"]["attn"].get(f"{name}@{LONG_POSITIONS}")
+        row = attn[name]
+        extra = {f"per_call_{n}_positions": attn[f"{name}@{n}"]
+                 for n in (FULL_POSITIONS, LONG_POSITIONS)
+                 if f"{name}@{n}" in attn}
+        if f"{name}/cuda_core" in attn:
+            extra["routes"] = {
+                "tensor_core": {"arena": "bf16", **row},
+                "cuda_core": {"arena": "fp32", **attn[f"{name}/cuda_core"]}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1649,9 +1718,7 @@ def main() -> int:
                      f", positions 0..159, C="
                      f"{1 if name == 'gqa_paged' else 16}",
             "launches_by_route": lm_routes[name],
-            "per_call": row,
-            **({f"per_call_{LONG_POSITIONS}_positions": long} if long
-               else {})})
+            "per_call": row, **extra})
     for name, replaces in (("mla_paged", 372), ("mla_paged_chunk", 608)):
         row = mla_kern["timing"][(name, MLA_POSITIONS[0])]
         kernels.append({

@@ -12,9 +12,9 @@
 // pos[p] >= 0 and pos[p] <= tq. q_abs is (B, C, H, kvr) and q_rope
 // (B, C, H, rope) in fp32 or bf16 (both the same type); the arenas c
 // (n_blocks, block_len, kvr) and kr (n_blocks, block_len, rope) are
-// fp32, bf16, fp8 e4m3 or int8 (then with fp32 per-token scale arenas
-// (n_blocks, block_len)); pos is (B, T * block_len) int32, t (B, C)
-// int32 and the block table (B, T) int32 with -1 for an unassigned
+// fp32, bf16, fp16, fp8 e4m3 or int8 (then with fp32 per-token scale
+// arenas (n_blocks, block_len)); pos is (B, T * block_len) int32, t (B,
+// C) int32 and the block table (B, T) int32 with -1 for an unassigned
 // block. The C tokens and H heads of a row fold into R = C * H query
 // rows, row c * H + h with position t[b, c]. Output o_lat (B, C, H, kvr)
 // fp32. C == 1 is the decode tick, C > 1 the chunked prefill of a mixed
@@ -65,6 +65,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
 
@@ -89,6 +90,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) {
   return static_cast<float>(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -108,6 +110,11 @@ template <> struct Cdt<__nv_bfloat16> {
 template <> struct Cdt<__nv_fp8_e4m3> {
   static __device__ __forceinline__ float round(float v) {
     return static_cast<float>(__nv_fp8_e4m3(v));
+  }
+};
+template <> struct Cdt<__half> {
+  static __device__ __forceinline__ float round(float v) {
+    return __half2float(__float2half_rn(v));
   }
 };
 template <> struct Cdt<int8_t> {
@@ -415,6 +422,9 @@ int launch_kv(int kv_dtype, const void* qa, const void* qr, const void* c,
     case 3:
       return launch<Q, int8_t, true>(qa, qr, c, kr, cs, krs, pos, t, table,
                                      out, B, C, H, kvr, rd, bl, T, scale, s);
+    case 4:
+      return launch<Q, __half, false>(qa, qr, c, kr, cs, krs, pos, t, table,
+                                      out, B, C, H, kvr, rd, bl, T, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -435,7 +445,7 @@ int mla_paged_max_block_len() { return BL_MAX; }
 
 // q_dtype: 0 = fp32, 1 = bf16 (q_abs and q_rope); kv_dtype: 0 = fp32,
 // 1 = bf16, 2 = fp8 e4m3, 3 = int8 (then cs/krs are the fp32 scale
-// arenas). out is fp32. Returns the cudaError_t of the launch (0 on
+// arenas), 4 = fp16. out is fp32. Returns the cudaError_t of the launch (0 on
 // success); launches on `stream` and does not synchronise.
 int mla_paged_launch(const void* qa, const void* qr, const void* c,
                      const void* kr, const void* cs, const void* krs,

@@ -32,21 +32,23 @@
 //     accumulator are fp32; the accumulator lives in registers, the
 //     scores and per-row stats in shared memory;
 //   * the rounding mirrors the reference exactly: the compute dtype is
-//     bf16 for 1-byte arenas (fp8, int8) and the arena's dtype
-//     otherwise; q is rounded to it; int8 is dequantized as fp32
-//     value * scale, then rounded to bf16; p is rounded to it before
-//     the PV product; l sums the unrounded p; out = acc / max(l, 1e-30);
+//     bf16 for 1-byte arenas (fp8, int8) and the arena's dtype otherwise
+//     (fp32, bf16, fp16); q is rounded to it; int8 is dequantized as fp32
+//     value * scale, then rounded to bf16; p is rounded to it before the
+//     PV product; l sums the unrounded p; out = acc / max(l, 1e-30);
 //   * masked scores are the reference's finite -1e30, so a tile with
 //     every position masked gives exp(0) = 1: finite garbage that the
 //     correction factor erases once a valid block arrives (-inf would
 //     give NaN). Rows with no valid position at all (pad rows, t < 0)
 //     are garbage, as in the reference.
 //
-// That kernel, gqa_paged_kernel, serves every C == 1 decode, fp32 arenas
-// and head dims the tensor-core kernel does not take; C > 1 chunks over
-// bf16-compute arenas (bf16, fp8, int8) take gqa_chunk_tc_kernel, whose
-// comment below says how it tiles and splits the walk. The wrapper
-// routes by dtype and shape (paged_attention.py:chunk_route).
+// That kernel, gqa_paged_kernel, serves fp32 arenas and head dims the
+// tensor-core kernel does not take. Every other launch -- the C == 1
+// decode and C > 1 chunks alike, over bf16-compute arenas (bf16, fp8,
+// int8) and fp16 arenas -- takes gqa_chunk_tc_kernel, whose comment below
+// says how it tiles and splits the walk; at C == 1 the `group` query rows
+// of a KV head fill part of one m16 tile. The wrapper routes by dtype and
+// shape (paged_attention.py:decode_route and chunk_route).
 //
 // What bounds it on an H100: the function must read each valid block's
 // K and V once (2 * block_len * Hkv * hd * bytes per block) plus q and
@@ -55,14 +57,17 @@
 // thread block per (b, h, 16 rows) -- 80 blocks for a qwen1.5-4b tick at
 // 4 slots, fewer than the 132 SMs -- and walks the blocks serially with
 // four barriers each, so it is latency-bound far above that bound; the
-// tensor-core chunk kernel splits the walk across warps and CTAs and
-// keeps every step's copies in flight at the served lengths, so its
-// floor is a few memory round trips and its launches.
+// tensor-core kernel splits the walk across warps and CTAs and keeps
+// every step's copies in flight at the served lengths, so its floor is a
+// few memory round trips and its launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,9 +83,16 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) {
   return static_cast<float>(v);          // exact in bf16 too
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+// compute dtype codes: 0 = fp32 (no rounding), 1 = bf16, 2 = fp16
+__device__ __forceinline__ float cdt_round(float v, int cdt) {
+  if (cdt == 1) return bf16_round(v);
+  if (cdt == 2) return __half2float(__float2half_rn(v));
+  return v;
 }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
@@ -104,7 +116,7 @@ gqa_paged_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
                  const float* __restrict__ vs, const int* __restrict__ pos,
                  const int* __restrict__ t, const int* __restrict__ table,
                  Q* __restrict__ out, int C, int H, int Hkv, int hd, int bl,
-                 int T, int window, float scale, int cdt_bf16, int rt) {
+                 int T, int window, float scale, int cdt, int rt) {
   extern __shared__ float sm[];
   const int hdp = hd + 1;
   float* qs = sm;                          // (rt, hdp)
@@ -131,7 +143,7 @@ gqa_paged_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
     if (rr < nr) {
       const int r = r0 + rr, c = r / group, g = r % group;
       val = to_f(q[(((size_t)b * C + c) * H + h * group + g) * hd + d]);
-      if (cdt_bf16) val = bf16_round(val);
+      val = cdt_round(val, cdt);
     }
     qs[rr * hdp + d] = val;
   }
@@ -185,7 +197,7 @@ gqa_paged_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
       for (int p = 0; p < bl; ++p) {
         const float e = expf(ps[rr * bl + p] - m_new);
         sum += e;
-        ps[rr * bl + p] = cdt_bf16 ? bf16_round(e) : e;
+        ps[rr * bl + p] = cdt_round(e, cdt);
       }
       const float corr = expf(m_prev - m_new);
       lrow[rr] = lrow[rr] * corr + sum;
@@ -226,7 +238,7 @@ template <typename Q, typename KV, bool QUANT>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, const int* pos, const int* t, const int* table,
            void* out, int B, int C, int H, int Hkv, int hd, int bl, int T,
-           int window, float scale, int cdt_bf16, cudaStream_t stream) {
+           int window, float scale, int cdt, cudaStream_t stream) {
   const int R = C * (H / Hkv);
   const int rt = R < RT ? R : RT;
   const size_t smem = smem_bytes(rt, bl, hd);
@@ -238,7 +250,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   gqa_paged_kernel<Q, KV, QUANT><<<grid, NT, smem, stream>>>(
       static_cast<const Q*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), ks, vs, pos, t, table, static_cast<Q*>(out),
-      C, H, Hkv, hd, bl, T, window, scale, cdt_bf16, rt);
+      C, H, Hkv, hd, bl, T, window, scale, cdt, rt);
   return (int)cudaGetLastError();
 }
 
@@ -265,23 +277,30 @@ int launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
       return launch<Q, int8_t, true>(q, k, v, ks, vs, pos, t, table, out, B,
                                      C, H, Hkv, hd, bl, T, window, scale, 1,
                                      s);
+    case 4:
+      return launch<Q, __half, false>(q, k, v, ks, vs, pos, t, table, out, B,
+                                      C, H, Hkv, hd, bl, T, window, scale, 2,
+                                      s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 
 // ---------------------------------------------------------------------------
-// The chunk kernel on tensor cores (C > 1, bf16 compute: bf16, fp8 e4m3
-// and int8 arenas). A warp owns one 16-row tile of the R = C * group
-// query rows and walks its share of the row's cached positions in steps
-// of 16 with mma.sync.m16n8k16 (bf16 in, fp32 accumulate):
+// The tensor-core kernel (the C == 1 decode and C > 1 chunks; bf16
+// compute over bf16, fp8 e4m3 and int8 arenas, fp16 compute over fp16
+// arenas). A warp owns one 16-row tile of the R = C * group query rows
+// (at C == 1, the group rows of one KV head, padded to 16) and walks its
+// share of the row's cached positions in steps of 16 with
+// mma.sync.m16n8k16 (bf16 or fp16 in, fp32 accumulate):
 //
-//   * q is rounded to bf16 once and held as the A fragments of Q.K^T;
-//     K comes from shared memory by ldmatrix, V by ldmatrix.trans, and
-//     the score fragment, rounded to bf16, is PV's A fragment in
-//     registers (the reference rounds p to the compute dtype too), so
-//     the tensor cores compute exactly the reference's products; l sums
-//     the unrounded p;
+//   * q is rounded to the compute dtype once and held as the A fragments
+//     of Q.K^T; K comes from shared memory by ldmatrix, V by
+//     ldmatrix.trans (16-bit elements either way), and the score
+//     fragment, rounded to the compute dtype, is PV's A fragment in
+//     registers (the reference rounds p to the compute dtype too), so the
+//     tensor cores compute exactly the reference's products; l sums the
+//     unrounded p;
 //   * a step's 16 positions are 16 logical positions of the row's table
 //     (one block at block_len 16, several at smaller block_len, part of
 //     one at larger); positions of a -1 entry are masked and not read,
@@ -311,13 +330,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-// q[d], q[d + 1] (d even) rounded to bf16 and packed, in one load
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// lo, hi rounded to the compute dtype (fp16 when F16, else bf16), packed
+template <bool F16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return F16 ? pack_f16(lo, hi) : pack_bf16(lo, hi);
+}
+// q[d], q[d + 1] (d even) rounded to the compute dtype and packed, in one
+// load (a bf16 q into bf16 compute is taken as it is)
+template <bool F16>
 __device__ __forceinline__ uint32_t q_pair(const float* p) {
   const float2 v = *reinterpret_cast<const float2*>(p);
-  return pack_bf16(v.x, v.y);
+  return pack2<F16>(v.x, v.y);
 }
+template <bool F16>
 __device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+  const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+  if (!F16) return raw;
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&raw);
+  return pack_f16(__low2float(v), __high2float(v));
 }
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -351,14 +385,23 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
-// d += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
-                 "r"(b1));
+// d += a (16x16, row) . b (16x8, col), bf16 (or, F16, fp16) in, fp32
+// accumulate
+template <bool F16>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if (F16)
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+                 "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                   "r"(b1));
+  else
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                 "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                   "r"(b1));
 }
 
 // Shared memory of one warp: `stages` stages, then (1-byte arenas) the
@@ -408,6 +451,7 @@ gqa_chunk_tc_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
   constexpr int KB = HDMAX / 16;       // 16-wide k chunks of q . k
   constexpr int NB = HDMAX / 8;        // n8 tiles of the output
   constexpr int KVS = (int)sizeof(KV);
+  constexpr bool F16 = std::is_same<KV, __half>::value;   // fp16 compute
   extern __shared__ __align__(16) unsigned char tsm[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int group = H / Hkv, R = C * group;
@@ -455,7 +499,8 @@ gqa_chunk_tc_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
     }
   }
 
-  // q rows r0 + qr and r0 + qr + 8 as A fragments, rounded to bf16
+  // q rows r0 + qr and r0 + qr + 8 as A fragments, rounded to the
+  // compute dtype
   const int qr = lane >> 2, qc = (lane & 3) * 2;
   const int ra = r0 + qr, rb = r0 + qr + 8;
   const Q* qa_row = nullptr;
@@ -476,10 +521,10 @@ gqa_chunk_tc_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
   for (int kk = 0; kk < KB; ++kk) {
     const int d0 = kk * 16 + qc;
     const bool in = kk * 16 < hd;
-    qf[kk][0] = in && qa_row ? q_pair(qa_row + d0) : 0u;
-    qf[kk][1] = in && qb_row ? q_pair(qb_row + d0) : 0u;
-    qf[kk][2] = in && qa_row ? q_pair(qa_row + d0 + 8) : 0u;
-    qf[kk][3] = in && qb_row ? q_pair(qb_row + d0 + 8) : 0u;
+    qf[kk][0] = in && qa_row ? q_pair<F16>(qa_row + d0) : 0u;
+    qf[kk][1] = in && qb_row ? q_pair<F16>(qb_row + d0) : 0u;
+    qf[kk][2] = in && qa_row ? q_pair<F16>(qa_row + d0 + 8) : 0u;
+    qf[kk][3] = in && qb_row ? q_pair<F16>(qb_row + d0 + 8) : 0u;
   }
   __syncthreads();               // srow / spos staged
 
@@ -546,6 +591,7 @@ gqa_chunk_tc_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
     __syncwarp();
     if (!live(i)) continue;
     unsigned char* st = wb + (i % stages) * tc_stage_bytes(hd, KVS);
+    // 16-bit tiles (bf16, or fp16 when F16): only their addresses are used
     const __nv_bfloat16* kt;
     const __nv_bfloat16* vt;
     if (KVS == 2) {
@@ -589,8 +635,8 @@ gqa_chunk_tc_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
         if (kk * 16 < hd) {
           uint32_t bk[4];
           ldsm_x4(kaddr + kk * 32, bk);
-          mma_bf16(s[0], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[1], qf[kk], bk[2], bk[3]);
+          mma16<F16>(s[0], qf[kk], bk[0], bk[1]);
+          mma16<F16>(s[1], qf[kk], bk[2], bk[3]);
         }
       }
     }
@@ -615,7 +661,8 @@ gqa_chunk_tc_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
       mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, off));
     }
     const float mna = fmaxf(m0, mxa), mnb = fmaxf(m1, mxb);
-    // __expf (ex2.approx, ~2^-21 relative): p is rounded to bf16 next
+    // __expf (ex2.approx, ~2^-21 relative): p is rounded to the compute
+    // dtype next
     const float ca = __expf(m0 - mna), cb = __expf(m1 - mnb);
     float suma = 0.f, sumb = 0.f;
 #pragma unroll
@@ -630,8 +677,10 @@ gqa_chunk_tc_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
     l1 = l1 * cb + sumb;
     m0 = mna;
     m1 = mnb;
-    uint32_t pf[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                      pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    uint32_t pf[4] = {pack2<F16>(s[0][0], s[0][1]),
+                      pack2<F16>(s[0][2], s[0][3]),
+                      pack2<F16>(s[1][0], s[1][1]),
+                      pack2<F16>(s[1][2], s[1][3])};
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       o[j][0] *= ca; o[j][1] *= ca; o[j][2] *= cb; o[j][3] *= cb;
@@ -646,8 +695,8 @@ gqa_chunk_tc_kernel(const Q* __restrict__ q, const KV* __restrict__ k,
         if (np * 16 < hd) {
           uint32_t bv[4];
           ldsm_x4_t(vaddr + np * 32, bv);
-          mma_bf16(o[2 * np], pf, bv[0], bv[1]);
-          mma_bf16(o[2 * np + 1], pf, bv[2], bv[3]);
+          mma16<F16>(o[2 * np], pf, bv[0], bv[1]);
+          mma16<F16>(o[2 * np + 1], pf, bv[2], bv[3]);
         }
       }
     }
@@ -820,6 +869,10 @@ int launch_tc_kv(int kv_dtype, const void* q, const void* k, const void* v,
       return launch_tc_hd<Q, int8_t, true>(
           q, k, v, ks, vs, pos, t, table, out, ws, B, C, H, Hkv, hd, bl, T,
           window, scale, splits, per, stages, s);
+    case 4:
+      return launch_tc_hd<Q, __half, false>(
+          q, k, v, ks, vs, pos, t, table, out, ws, B, C, H, Hkv, hd, bl, T,
+          window, scale, splits, per, stages, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -835,7 +888,8 @@ size_t gqa_paged_smem_bytes(int rows, int bl, int hd) {
 int gqa_paged_max_head_dim() { return NT * MAXACC / RT; }
 
 // q_dtype: 0 = fp32, 1 = bf16 (q and out); kv_dtype: 0 = fp32, 1 = bf16,
-// 2 = fp8 e4m3, 3 = int8 (then ks/vs are the fp32 scale arenas). Returns
+// 2 = fp8 e4m3, 3 = int8 (then ks/vs are the fp32 scale arenas), 4 = fp16
+// (fp16 compute). Returns
 // the cudaError_t of the launch (0 on success); launches on `stream` and
 // does not synchronise.
 int gqa_paged_launch(const void* q, const void* k, const void* v,
@@ -872,7 +926,8 @@ size_t gqa_paged_chunk_tc_smem_bytes(int hd, int kv_size, int per,
 
 int gqa_paged_chunk_tc_max_steps() { return TC_MAX_STEPS; }
 
-// C > 1 on tensor cores: kv_dtype 1 = bf16, 2 = fp8 e4m3, 3 = int8 (bf16
+// On tensor cores, any C (R = C * group rows in 16-row tiles): kv_dtype
+// 1 = bf16, 2 = fp8 e4m3, 3 = int8 (bf16 compute), 4 = fp16 (fp16
 // compute); hd a multiple of 16 up to 256; the split plan (splits CTAs
 // of `per` steps for each row tile, a ring of `stages` copies a warp)
 // from chunk_split_plan; ws: fp32

@@ -1,10 +1,10 @@
 """Public wrappers around the port's kernels.
 
-A wrapper owns the layout glue (halo padding, PackedTensor unwrapping,
-GQA head folding) and routes by device: a CPU tensor runs the plain
-PyTorch version in :mod:`repro_torch.kernels.ref`, a CUDA tensor
-launches the hand-written kernel — or the call raises. There is no
-fallback from one to the other.
+A wrapper owns the layout glue (the plain versions' halo padding,
+PackedTensor unwrapping, GQA head folding) and routes by device: a CPU
+tensor runs the plain PyTorch version in :mod:`repro_torch.kernels.ref`,
+a CUDA tensor launches the hand-written kernel — or the call raises.
+There is no fallback from one to the other.
 
 Whole-prompt prefill has two kernels: :func:`flash_attention` (the
 dense family's attention) and :func:`ssd_chunk_scan` (the Mamba-2 SSD
@@ -39,19 +39,20 @@ def qconv1d_block(x: torch.Tensor, dw, pw, gamma: torch.Tensor,
                   beta: torch.Tensor, *, relu: bool = True) -> torch.Tensor:
     """x: (B, T, C); dw/pw: int8 PackedTensor (dw packed (k, C), pw
     (C, C)); gamma/beta: (C,) folded BatchNorm. Fused RUBICALL block:
-    non-causal ``(k-1)//2`` left / ``k-1-pad`` right zero halo."""
+    non-causal ``(k-1)//2`` left / ``k-1-pad`` right zero halo, which the
+    kernel makes itself; the plain version takes the padded window."""
     k = dw.orig_shape[0]
-    pad = (k - 1) // 2
-    xp = F.pad(x, (0, 0, pad, k - 1 - pad))
-    args = (xp, dw.data.reshape(k, -1), pw.data,
-            dw.scale.float().reshape(1, -1).contiguous(),
-            pw.scale.float().reshape(1, -1).contiguous(),
-            gamma.float().reshape(1, -1).contiguous(),
-            beta.float().reshape(1, -1).contiguous())
+    w = (dw.data.reshape(k, -1), pw.data,
+         dw.scale.float().reshape(1, -1).contiguous(),
+         pw.scale.float().reshape(1, -1).contiguous(),
+         gamma.float().reshape(1, -1).contiguous(),
+         beta.float().reshape(1, -1).contiguous())
     if x.is_cuda:
-        return qconv1d.qconv1d_block_cuda(*args, relu=relu)
+        return qconv1d.qconv1d_block_cuda(x.contiguous(), *w, relu=relu)
     if x.device.type == "cpu":
-        return ref.qconv1d_block_ref(*args, relu=relu)
+        pad = (k - 1) // 2
+        return ref.qconv1d_block_ref(F.pad(x, (0, 0, pad, k - 1 - pad)), *w,
+                                     relu=relu)
     raise _no_kernel("qconv1d_block", x.device)
 
 

@@ -23,12 +23,13 @@ Two read paths (``repro_torch.kernels.ops.decode_gqa`` and
             :mod:`repro_torch.kernels.ref`, which walk the table exactly
             as the kernels do.
 
-``gqa_paged_chunk_cuda`` has two kernels, chosen by dtype and shape
-(:func:`chunk_route`): over bf16, fp8 and int8 arenas (bf16 compute) a
-tensor-core kernel that splits the KV walk across warps and CTAs as
-:func:`chunk_split_plan` says; over fp32 arenas the CUDA-core kernel
-that ``gqa_paged_cuda`` also runs. Each wrapper counts its launches in
-``.launches`` and by route in ``.routes``.
+``gqa_paged_cuda`` and ``gqa_paged_chunk_cuda`` each have two kernels,
+chosen by dtype and shape (:func:`decode_route`, :func:`chunk_route`):
+over bf16, fp8 and int8 arenas (bf16 compute) and fp16 arenas (fp16
+compute) a tensor-core kernel that splits the KV walk across warps and
+CTAs as :func:`chunk_split_plan` says; over fp32 arenas a CUDA-core
+kernel. Each wrapper counts its launches in ``.launches`` and by route
+in ``.routes``.
 
 MLA (DeepSeek-V3's latent attention, absorbed form) keeps one latent
 ``c (n_blocks, block_len, kvr)`` and one rope key ``k_rope (n_blocks,
@@ -221,7 +222,7 @@ def mla_reference(q_abs: torch.Tensor, q_rope: torch.Tensor,
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
-              torch.int8: 3}
+              torch.int8: 3, torch.float16: 4}
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
 
 
@@ -318,7 +319,7 @@ def _launch(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
 
 
 # ---------------------------------------------------------------------------
-# The chunk kernel on tensor cores and its split plan
+# The tensor-core kernel (decode and chunk) and its split plan
 
 CHUNK_STEP = 16        # cached positions per mma step
 CHUNK_WARPS = 4        # warps of a CTA, each walking every 4th step
@@ -328,11 +329,11 @@ SMS = 132              # H100 SXM streaming multiprocessors
 
 
 class ChunkPlan(NamedTuple):
-    """How the tensor-core chunk kernel cuts its work: ``row_tiles`` of
-    16 query rows, ``steps`` of 16 logical positions over the table,
-    ``splits`` CTAs per (batch row, KV head, row tile), each walking
-    ``per`` consecutive steps, each warp with a ring of ``stages``
-    steps' copies in flight."""
+    """How the tensor-core kernel (decode and chunk) cuts its work:
+    ``row_tiles`` of 16 query rows, ``steps`` of 16 logical positions
+    over the table, ``splits`` CTAs per (batch row, KV head, row tile),
+    each walking ``per`` consecutive steps, each warp with a ring of
+    ``stages`` steps' copies in flight."""
     row_tiles: int
     steps: int
     splits: int
@@ -370,15 +371,21 @@ def chunk_shares(plan: ChunkPlan, split: int, warp: int) -> range:
                  CHUNK_WARPS)
 
 
-def chunk_route(kv_dtype: torch.dtype, C: int, hd: int) -> str:
-    """Which kernel ``gqa_paged_chunk_cuda`` launches, by dtype and shape:
-    ``tensor_core`` for C > 1 over an arena whose compute dtype is bf16
-    (bf16, fp8, int8) at a head dim that is a multiple of 16 up to 256;
-    ``cuda_core`` otherwise (fp32 arenas, other head dims)."""
-    if C > 1 and compute_dtype(kv_dtype) == torch.bfloat16 and \
+def decode_route(kv_dtype: torch.dtype, hd: int) -> str:
+    """Which kernel ``gqa_paged_cuda`` (C == 1) launches, by dtype and
+    shape: ``tensor_core`` over an arena whose compute dtype is bf16
+    (bf16, fp8, int8) or fp16 at a head dim that is a multiple of 16 up
+    to 256; ``cuda_core`` otherwise (fp32 arenas, other head dims)."""
+    if compute_dtype(kv_dtype) in (torch.bfloat16, torch.float16) and \
             hd % 16 == 0 and 16 <= hd <= 256:
         return "tensor_core"
     return "cuda_core"
+
+
+def chunk_route(kv_dtype: torch.dtype, C: int, hd: int) -> str:
+    """Which kernel ``gqa_paged_chunk_cuda`` launches: :func:`decode_route`
+    for C > 1; ``cuda_core`` for a chunk of one token."""
+    return decode_route(kv_dtype, hd) if C > 1 else "cuda_core"
 
 
 @functools.cache
@@ -397,25 +404,25 @@ def _tc_lib() -> ctypes.CDLL:
 
 def _launch_tc(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
                v_scale) -> torch.Tensor:
-    """One launch of the tensor-core chunk kernel (and, when the plan
-    splits the walk across CTAs, its combine) over q (B, C, H, hd).
+    """One launch of the tensor-core kernel (and, when the plan splits
+    the walk across CTAs, its combine) over q (B, C, H, hd), C >= 1.
     Returns (B, C, H, hd)."""
     B, C, H, hd, bl, Hkv, T, quantized = _checked(q, k, v, pos, t, table,
                                                   k_scale, v_scale)
+    kernel = "gqa_paged" if C == 1 else "gqa_paged_chunk"
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.data_ptr() % 16:
-            raise ValueError(f"gqa_paged_chunk: {name} must be 16-byte "
-                             f"aligned")
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
     lib = _tc_lib()
     plan = chunk_split_plan(B, Hkv, C * (H // Hkv), T, bl, hd=hd)
     if plan.per > lib.gqa_paged_chunk_tc_max_steps():
-        raise ValueError(f"gqa_paged_chunk: plan {plan} exceeds the "
-                         f"kernel's steps per CTA")
+        raise ValueError(f"{kernel}: plan {plan} exceeds the kernel's "
+                         f"steps per CTA")
     smem = lib.gqa_paged_chunk_tc_smem_bytes(hd, k.element_size(), plan.per,
                                              plan.stages)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"gqa_paged_chunk: head_dim {hd} needs {smem} "
-                         f"bytes of shared memory (> {SMEM_LIMIT})")
+        raise ValueError(f"{kernel}: head_dim {hd} needs {smem} bytes of "
+                         f"shared memory (> {SMEM_LIMIT})")
     out = torch.empty_like(q)
     ws = (torch.empty(B * Hkv * plan.row_tiles * plan.splits * 16
                       * (hd + 2), dtype=torch.float32, device=q.device)
@@ -431,7 +438,7 @@ def _launch_tc(q: torch.Tensor, k, v, pos, t, table, window, k_scale,
             T, int(window), float(hd ** -0.5), _Q_DTYPES[q.dtype],
             _KV_DTYPES[k.dtype], plan.splits, plan.per, plan.stages, stream)
     if rc != 0:
-        raise RuntimeError(f"gqa_paged_chunk launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
     return out
 
 
@@ -442,16 +449,19 @@ def gqa_paged_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token paged decode (replaces ``gqa_paged_p``). q: (B, Hkv,
     group, hd); k/v: arenas (n_blocks, block_len, Hkv, hd) fp32/bf16/
-    fp8/int8 (+ fp32 scale arenas (n_blocks, block_len, Hkv) for int8);
-    pos: (B, T*block_len) int32; t: (B,) int32; table: (B, T) int32.
-    Returns (B, Hkv, group, hd) in q's dtype. Launches the CUDA-core
-    kernel on the current stream without synchronising; counts one
-    launch (route ``cuda_core``)."""
+    fp16/fp8/int8 (+ fp32 scale arenas (n_blocks, block_len, Hkv) for
+    int8); pos: (B, T*block_len) int32; t: (B,) int32; table: (B, T)
+    int32. Returns (B, Hkv, group, hd) in q's dtype. Launches the kernel
+    that :func:`decode_route` names (no fallback between them) on the
+    current stream without synchronising; counts one launch and one on
+    that route."""
     B, Hkv, group, hd = q.shape
-    out = _launch(q.reshape(B, 1, Hkv * group, hd), k, v, pos,
-                  t.reshape(B, 1), table, window, k_scale, v_scale)
+    route = decode_route(k.dtype, hd)
+    fn = _launch_tc if route == "tensor_core" else _launch
+    out = fn(q.reshape(B, 1, Hkv * group, hd), k, v, pos, t.reshape(B, 1),
+             table, window, k_scale, v_scale)
     gqa_paged_cuda.launches += 1
-    gqa_paged_cuda.routes["cuda_core"] += 1
+    gqa_paged_cuda.routes[route] += 1
     return out.reshape(B, Hkv, group, hd)
 
 
@@ -572,8 +582,8 @@ def mla_paged_cuda(q_abs: torch.Tensor, q_rope: torch.Tensor,
                    kr_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token paged absorbed-MLA decode (replaces ``mla_paged_p``).
     q_abs: (B, H, kvr); q_rope: (B, H, rope), fp32 or bf16 (one dtype);
-    c/kr: latent arenas (n_blocks, block_len, kvr|rope) fp32/bf16/fp8/
-    int8 (+ fp32 per-token scale arenas (n_blocks, block_len) for
+    c/kr: latent arenas (n_blocks, block_len, kvr|rope) fp32/bf16/fp16/
+    fp8/int8 (+ fp32 per-token scale arenas (n_blocks, block_len) for
     int8); pos: (B, T*block_len) int32; t: (B,) int32; table: (B, T)
     int32. Returns o_lat (B, H, kvr) fp32. Launches on the current
     stream without synchronising; counts one launch."""

@@ -19,10 +19,12 @@ from repro_torch.kernels import qconv1d, qmatmul, ref
 from repro_torch.kernels import ssd_scan
 
 ARENAS = {"fp32": torch.float32, "bf16": torch.bfloat16,
-          "fp8": torch.float8_e4m3fn, "int8": torch.int8}
+          "fp8": torch.float8_e4m3fn, "int8": torch.int8,
+          "fp16": torch.float16}
 # the reference tests' tolerances: fp32 attention 1e-5; bf16, fp8 and
-# int8 arenas (bf16 compute) and qmatmul 2e-2
-ATTN_TOL = {"fp32": 1e-5, "bf16": 2e-2, "fp8": 2e-2, "int8": 2e-2}
+# int8 arenas (bf16 compute), fp16 arenas (fp16 compute) and qmatmul 2e-2
+ATTN_TOL = {"fp32": 1e-5, "bf16": 2e-2, "fp8": 2e-2, "int8": 2e-2,
+            "fp16": 2e-2}
 
 
 def mk_arena(rs, B, Hkv, hd, bl, T, C, fills, *, poison=99.0, holes=()):
@@ -83,31 +85,44 @@ def arena_as(k, v, arena: str, device="cpu"):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-3, 1e-3)),
                                        (torch.bfloat16, (2 ** -7, 1e-2))])
-@pytest.mark.parametrize("T,k", [(2500, 75), (1001, 25), (37, 5)])
-def test_cuda_kernel_matches_plain_version(T, k, dtype, tol):
-    """On a card: the CUDA kernel against its plain version at C=344,
-    ragged T, both ReLU settings; each wrapper call counts one launch.
-    bf16 tolerance: one bf16 ulp (both round an fp32 sum to bf16)."""
+@pytest.mark.parametrize("T,k,C", [(2500, 75, 344), (1001, 25, 344),
+                                   (37, 5, 344),
+                                   (20, 75, 344),     # halo wider than T
+                                   (129, 31, 96),     # a half-width slab
+                                   (300, 9, 100)])    # C % 8: CUDA cores
+def test_cuda_kernel_matches_plain_version(T, k, C, dtype, tol):
+    """On a card: the CUDA kernel on the unpadded window against its
+    plain version on the padded one, ragged T, T < k, both ReLU
+    settings; each wrapper call counts one launch on the route its dtype
+    and shape take (bf16 at C % 8 == 0 on tensor cores). bf16
+    tolerance: one bf16 ulp (both round an fp32 sum to bf16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    rs = np.random.RandomState(k)
-    C = 344
-    xp = torch.from_numpy(rs.randn(3, T + k - 1, C).astype(np.float32))
+    rs = np.random.RandomState(k + C)
+    x = torch.from_numpy(rs.randn(3, T, C).astype(np.float32))
     dw = quantize_tensor(torch.from_numpy(rs.randn(k, C).astype(np.float32)), 8)
     pw = quantize_tensor(torch.from_numpy(rs.randn(C, C).astype(np.float32)), 8)
     g = torch.from_numpy(rs.rand(1, C).astype(np.float32))
     b = torch.from_numpy(rs.randn(1, C).astype(np.float32))
-    args = [t.cuda() for t in (xp.to(dtype), dw.data, pw.data, dw.scale,
+    args = [t.cuda() for t in (x.to(dtype), dw.data, pw.data, dw.scale,
                                pw.scale, g, b)]
+    pad = (k - 1) // 2
+    xp = torch.nn.functional.pad(args[0], (0, 0, pad, k - 1 - pad))
+    route = qconv1d.route(dtype, C, k)
+    assert route == ("tensor_core" if dtype == torch.bfloat16 and C % 8 == 0
+                     else "cuda_core")
     before = qconv1d.qconv1d_block_cuda.launches
+    routes = dict(qconv1d.qconv1d_block_cuda.routes)
     for relu in (True, False):
         got = qconv1d.qconv1d_block_cuda(*args, relu=relu)
-        want = ref.qconv1d_block_ref(*args, relu=relu)
+        want = ref.qconv1d_block_ref(xp, *args[1:], relu=relu)
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == (3, T, C)
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=tol[0], atol=tol[1])
     assert qconv1d.qconv1d_block_cuda.launches == before + 2
+    assert qconv1d.qconv1d_block_cuda.routes == {**routes,
+                                                 route: routes[route] + 2}
 
 
 @pytest.mark.gpu
@@ -177,12 +192,13 @@ def test_cuda_qmatmul_matches_plain_version(M, K, N, dtype, bits):
     (20, 1, 1, 0, 16, 16), (2, 16, 1, 0, 16, 16), (20, 1, 16, 0, 16, 16),
     (2, 16, 4, 0, 16, 16), (2, 16, 16, 0, 16, 16), (4, 2, 4, 24, 16, 16),
     (20, 1, 16, 0, 16, 128),                 # 2048 positions: split across CTAs
+    (20, 1, 1, 0, 16, 128), (2, 16, 1, 8, 16, 128),   # 2048, decode
     (4, 2, 4, 0, 4, 16), (2, 16, 16, 0, 32, 16)])   # block_len 4 and 32
 def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, bl, T,
                                               arena):
-    """On a card: the paged-attention kernels (C == 1 decode; C > 1
-    chunk, on tensor cores for bf16, fp8 and int8 arenas) against their
-    plain version at qwen1.5-4b's heads (20 x 128, group 1) and
+    """On a card: the paged-attention kernels (C == 1 decode and C > 1
+    chunk, on tensor cores for bf16, fp8, int8 and fp16 arenas) against
+    their plain version at qwen1.5-4b's heads (20 x 128, group 1) and
     chatglm3-6b's (2 KV heads, group 16), block_len 4, 16 and 32, 256
     and 2048 positions, a poisoned arena with blocks handed out of
     order, a table hole, pad rows and a ring window; live rows at the
@@ -206,7 +222,7 @@ def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, bl, T,
         "cuda", torch.bfloat16 if arena != "fp32" else torch.float32)
     kw = dict(window=window, k_scale=ks, v_scale=vs)
     fn = pa.gqa_paged_cuda if C == 1 else pa.gqa_paged_chunk_cuda
-    route = ("tensor_core" if C > 1 and arena != "fp32" else "cuda_core")
+    route = "tensor_core" if arena != "fp32" else "cuda_core"
     before = dict(fn.routes)
     if C == 1:
         qh = q.reshape(B, Hkv, group, hd)

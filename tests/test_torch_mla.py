@@ -34,7 +34,7 @@ from repro_torch.models.lm import mla
 from test_torch_cuda import ARENAS, ATTN_TOL, mk_latent
 
 _JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16,
-        "fp8": jnp.float8_e4m3fn}
+        "fp8": jnp.float8_e4m3fn, "fp16": jnp.float16}
 
 
 def _jax_latent(c, kr, arena):
@@ -53,7 +53,8 @@ def _torch_latent(c, kr, arena):
     return ct.to(ARENAS[arena]), krt.to(ARENAS[arena]), None, None
 
 
-CASES = [(arena, C, qr_dtype) for arena in ("fp32", "bf16", "fp8", "int8")
+CASES = [(arena, C, qr_dtype)
+         for arena in ("fp32", "bf16", "fp8", "int8", "fp16")
          for C in (1, 3) for qr_dtype in ("same",)] + [
     ("bf16", 1, "fp32"), ("int8", 3, "fp32")]
 

@@ -7,10 +7,10 @@ its Pallas kernels (``gqa_paged_p``, ``gqa_paged_chunk_p``) in interpret
 mode and its XLA gather reference; the port runs, on CPU tensors, the
 plain versions of its CUDA kernels (which walk the block table as the
 kernels do) and its gather reference. Tolerances are the reference
-tests': fp32 arenas 1e-5, bf16/fp8/int8 arenas (bf16 compute) 2e-2, on
-live rows (pad rows are garbage in both packages). The CUDA kernels
-themselves are held to the plain versions on a card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+tests': fp32 arenas 1e-5, bf16/fp8/int8 arenas (bf16 compute) and fp16
+arenas (fp16 compute) 2e-2, on live rows (pad rows are garbage in both
+packages). The CUDA kernels themselves are held to the plain versions on
+a card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +21,10 @@ from repro.kernels import ops as jops
 from repro.kernels import paged_attention as jpa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
-from test_torch_cuda import ATTN_TOL, arena_as, mk_arena
+from test_torch_cuda import ARENAS, ATTN_TOL, arena_as, mk_arena
 
 _JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16,
-        "fp8": jnp.float8_e4m3fn}
+        "fp8": jnp.float8_e4m3fn, "fp16": jnp.float16}
 
 
 def _jax_arena(k, v, arena):
@@ -109,7 +109,7 @@ CASES = [  # (arena, group, C, window, holes, pads)
     ("fp32", 1, 3, 5, ((0, 2),), True),
     ("fp32", 2, 4, 0, (), True),
 ] + [(arena, 2, C, 0, ((0, 2),), True)
-     for arena in ("bf16", "fp8", "int8") for C in (1, 4)]
+     for arena in ("bf16", "fp8", "int8", "fp16") for C in (1, 4)]
 
 
 @pytest.mark.parametrize("arena,group,C,window,holes,pads", CASES)
@@ -178,10 +178,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 # ----------------------------------------- the tensor-core chunk kernel
 
 
-def _walk_share(qf, kl, vl, posl, live, tq, steps, window):
-    """One warp's share of the tensor-core chunk kernel: fp32 online
-    softmax over its 16-position steps, bf16 p into P . V; a step with
-    no assigned block is skipped. Returns (m, l, acc) per (B, Hkv, R)."""
+def _walk_share(qf, kl, vl, posl, live, tq, steps, window, cdt):
+    """One warp's share of the tensor-core kernel: fp32 online softmax
+    over its 16-position steps, p rounded to the compute dtype ``cdt``
+    into P . V; a step with no assigned block is skipped. Returns (m, l,
+    acc) per (B, Hkv, R)."""
     B, Hkv, R, hd = qf.shape
     m = torch.full((B, Hkv, R, 1), pa.NEG_INF)
     l = torch.zeros((B, Hkv, R, 1))
@@ -204,7 +205,7 @@ def _walk_share(qf, kl, vl, posl, live, tq, steps, window):
         m = torch.where(step_live, m_new, m)
         l = torch.where(step_live, l * corr + p.sum(-1, keepdim=True), l)
         acc = torch.where(step_live,
-                          acc * corr + p.to(torch.bfloat16).float() @ vb,
+                          acc * corr + p.to(cdt).float() @ vb,
                           acc)
     return m, l, acc
 
@@ -220,13 +221,15 @@ def _combine(parts):
 
 def _tensor_core_chunk(q, k, v, pos, t, table, window, k_scale, v_scale,
                        plan):
-    """Plain model of the tensor-core chunk kernel on the partition of
-    ``plan``: q rounded to bf16, the arena read per logical position
-    (dequantized to bf16; unassigned entries masked), every (split,
-    warp) share walked on its own, the warps' partials combined per
-    split, then the splits'. Returns (B, C, H*hd) fp32."""
+    """Plain model of the tensor-core kernel on the partition of
+    ``plan``: q rounded to the compute dtype (bf16, or fp16 for fp16
+    arenas), the arena read per logical position (int8 dequantized to
+    bf16; unassigned entries masked), every (split, warp) share walked
+    on its own, the warps' partials combined per split, then the
+    splits'. Returns (B, C, H*hd) fp32."""
     B, C, H, hd = q.shape
     n_blocks, bl, Hkv, _ = k.shape
+    cdt = pa.compute_dtype(k.dtype)
     T, group = table.shape[1], H // Hkv
     L = plan.steps * pa.CHUNK_STEP
     lpos = torch.arange(L)
@@ -239,18 +242,19 @@ def _tensor_core_chunk(q, k, v, pos, t, table, window, k_scale, v_scale,
     def logical(a, sc):
         rows = pa.take_blocks(a.reshape(n_blocks * bl, Hkv, hd), idx)
         rows = (pa.dequantize_kv(rows, sc.reshape(-1, Hkv)[idx])
-                if sc is not None else rows.to(torch.bfloat16))
+                if sc is not None else rows.to(cdt))
         rows = rows.float().reshape(B, L, Hkv, hd)
         return torch.where(live[..., None, None], rows, torch.zeros(()))
     kl, vl = logical(k, k_scale), logical(v, v_scale)
     posl = pos.new_full((B, L), -1)            # -1: never a valid position
     posl[:, :T * bl] = torch.where(live[:, :T * bl], pos,
                                    torch.full_like(pos, -1))
-    qf = (q.to(torch.bfloat16).float().reshape(B, C, Hkv, group, hd)
+    qf = (q.to(cdt).float().reshape(B, C, Hkv, group, hd)
           .permute(0, 2, 1, 3, 4).reshape(B, Hkv, C * group, hd))
     tq = t.repeat_interleave(group, dim=1)
     splits = [_combine([_walk_share(qf, kl, vl, posl, live, tq,
-                                    pa.chunk_shares(plan, sp, w), window)
+                                    pa.chunk_shares(plan, sp, w), window,
+                                    cdt)
                         for w in range(pa.CHUNK_WARPS)])
               for sp in range(plan.splits)]
     _, l, acc = _combine(splits) if len(splits) > 1 else splits[0]
@@ -263,7 +267,10 @@ def _tensor_core_chunk(q, k, v, pos, t, table, window, k_scale, v_scale,
                                           (4, 20, 16, 128, 16),
                                           (4, 2, 256, 16, 16),
                                           (2, 2, 8, 16, 4), (1, 1, 4, 3, 5),
-                                          (1, 1, 16, 4096, 16)])
+                                          (1, 1, 16, 4096, 16),
+                                          (4, 20, 1, 16, 16),     # decode
+                                          (4, 20, 1, 128, 16),
+                                          (4, 2, 16, 128, 16)])
 def test_chunk_split_plan_partitions_every_step_once(B, Hkv, R, T, bl):
     """Every 16-position step of the table is walked by exactly one
     (split, warp) share; no CTA stages more than CHUNK_MAX_STEPS; the
@@ -288,12 +295,20 @@ def test_chunk_split_plan_partitions_every_step_once(B, Hkv, R, T, bl):
         assert plan == pa.ChunkPlan(1, 16, 1, 16, 4)
     if (B, Hkv, R, T, bl) == (4, 20, 16, 128, 16):    # 2048 positions
         assert plan == pa.ChunkPlan(1, 128, 4, 32, 2)
+    # the qwen1.5-4b decode (R = group = 1): at 256 positions one CTA a
+    # (row, KV head), every step in flight, no combine; at 2048 the walk
+    # splits across CTAs with a 2-stage ring
+    if (B, Hkv, R, T, bl) == (4, 20, 1, 16, 16):
+        assert plan == pa.ChunkPlan(1, 16, 1, 16, 4)
+    if (B, Hkv, R, T, bl) == (4, 20, 1, 128, 16):
+        assert plan == pa.ChunkPlan(1, 128, 4, 32, 2)
 
 
 # (arena, T, bl, window, holes): 2, 3 and 4 shares in one CTA, 24
 # across six CTAs; a hole; a ring window that masks every position of
 # the first share; a hole that empties a whole share
-CHUNK_CASES = [(arena, T, bl, w, holes) for arena in ("bf16", "fp8", "int8")
+CHUNK_CASES = [(arena, T, bl, w, holes)
+               for arena in ("bf16", "fp8", "int8", "fp16")
                for T, bl, w, holes in ((8, 4, 0, ((0, 2),)),
                                        (12, 4, 0, ()),
                                        (16, 4, 8, ((1, 1),)),
@@ -341,11 +356,66 @@ def test_tensor_core_chunk_model_matches_jax_pallas_kernel(arena, T, bl,
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("arena,T,bl,window,holes", [
+    (arena, T, bl, w, holes) for arena in ("bf16", "fp8", "int8", "fp16")
+    for T, bl, w, holes in ((16, 16, 0, ((0, 5),)),    # 16 steps, 1 CTA
+                            (128, 16, 24, ((0, 5),)))])   # split, ring
+def test_tensor_core_decode_model_matches_jax_pallas_kernel(arena, T, bl,
+                                                            window, holes):
+    """The C == 1 decode on the tensor-core kernel: its split walk and
+    combine on ``chunk_split_plan``'s partition for R = 1 query row a KV
+    head (qwen1.5-4b's MHA, padded to an m16 tile) at 256 and 2048
+    positions against the JAX Pallas decode kernel (``gqa_paged_p``) at
+    ATTN_TOL on live rows, with a free slot."""
+    rs = np.random.RandomState(T + bl + window + len(arena))
+    B, Hkv, group, hd = 4, 4, 1, 16
+    fills = [T * bl - 1, bl - 1, 0, T * bl // 2]
+    k, v, pos, t, table = mk_arena(rs, B, Hkv, hd, bl, T, 1, fills,
+                                   holes=holes)
+    t[2] = -1
+    q = rs.randn(B, 1, Hkv * group, hd).astype(np.float32)
+    jk, jv, jks, jvs = _jax_arena(k, v, arena)
+    tk, tv, tks, tvs = arena_as(k, v, arena)
+    plan = pa.chunk_split_plan(B, Hkv, group, T, bl)
+    assert (plan.splits == 1) == (T * bl <= 256)
+    assert pa.decode_route(tk.dtype, hd) == "tensor_core"
+    want = jops.decode_gqa(jnp.asarray(q), jk, jv, jnp.asarray(pos),
+                           jnp.asarray(t), window=window,
+                           table=jnp.asarray(table), backend="pallas",
+                           k_scale=jks, v_scale=jvs)
+    got = _tensor_core_chunk(torch.from_numpy(q), tk, tv,
+                             torch.from_numpy(pos), torch.from_numpy(t),
+                             torch.from_numpy(table), window, tks, tvs, plan)
+    live = t >= 0
+    tol = ATTN_TOL[arena]
+    np.testing.assert_allclose(got.numpy()[live],
+                               np.asarray(want, np.float32)[live],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arena", ["fp32", "bf16", "fp8", "int8", "fp16"])
+def test_decode_route_is_by_dtype_and_shape(arena):
+    """The C == 1 decode takes the tensor-core kernel over bf16-compute
+    arenas (bf16, fp8, int8) and fp16 arenas at head dims 16..256
+    (multiples of 16); fp32 arenas and other head dims the CUDA-core one.
+    Every arena dtype has a kernel dtype code (no refusal of fp16)."""
+    dt = ARENAS[arena]
+    assert dt in pa._KV_DTYPES
+    want = "cuda_core" if arena == "fp32" else "tensor_core"
+    for hd in (16, 64, 128, 256):
+        assert pa.decode_route(dt, hd) == want
+        assert pa.chunk_route(dt, 4, hd) == want
+        assert pa.chunk_route(dt, 1, hd) == "cuda_core"
+    for hd in (8, 72, 288):
+        assert pa.decode_route(dt, hd) == "cuda_core"
+
+
 def test_chunk_route_is_by_dtype_and_shape():
-    """bf16-compute arenas at C > 1 and head dims 16..256 (multiples of
-    16) take the tensor-core kernel; fp32 arenas, C == 1 and other head
-    dims the CUDA-core one."""
-    for dt in (torch.bfloat16, torch.float8_e4m3fn, torch.int8):
+    """bf16-compute arenas and fp16 arenas at C > 1 and head dims
+    16..256 (multiples of 16) take the tensor-core kernel; fp32 arenas,
+    C == 1 and other head dims the CUDA-core one."""
+    for dt in (torch.bfloat16, torch.float8_e4m3fn, torch.int8,
+               torch.float16):
         assert pa.chunk_route(dt, 16, 128) == "tensor_core"
         assert pa.chunk_route(dt, 2, 256) == "tensor_core"
         assert pa.chunk_route(dt, 1, 128) == "cuda_core"
