@@ -8,9 +8,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. build  — compile every CUDA source of the port with nvcc (one
    process per source, started together) and print the build seconds
    and ptxas's register/shared-memory report; count the tensor-core
-   instructions (HGMMA in flash_tc_kernel, HMMA in gqa_chunk_tc_kernel
-   and qconv1d_tc_kernel) in ``cuobjdump -sass`` of the built
-   libraries, and fail on none.
+   instructions (HGMMA in flash_tc_kernel, HMMA in gqa_chunk_tc_kernel,
+   qconv1d_tc_kernel, ssd_state_tc_kernel and ssd_chunk_tc_kernel, HMMA
+   or HGMMA in each qmatmul_tc_kernel: HGMMA at 64 rows) in ``cuobjdump
+   -sass`` of the built libraries, and fail on none.
 2. kernel — hold each kernel against its plain PyTorch version on the
    card at the main path's shapes (qconv1d_block on the unpadded
    window, the plain version on the padded one: C=344, every RUBICALL
@@ -28,7 +29,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    same tick through the plain versions on the card (bf16 on the
    tensor-core route, fp32 on the CUDA-core route).
 4. kernel (LM) — hold qmatmul (int8 and int4 at every qwen1.5-4b
-   projection shape, M = 4 and 64, a ragged shape) and the paged
+   projection shape, M = 4 and 64, ragged shapes; each call on the
+   route the wrapper picks, asserted: bf16 tensor-core, fp32 CUDA-core)
+   and the paged
    attention kernels (qwen1.5-4b's 20 x 128 heads and chatglm3-6b's 2
    KV heads x group 16; block_len 16; fp32, bf16, fp8, int8 and fp16
    arenas; holes, out-of-order blocks, pad rows, a ring window; C = 1,
@@ -37,8 +40,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    their plain versions, checking each call's route (tensor-core over
    bf16, fp8, int8 and fp16 arenas at any C, CUDA-core over fp32),
    then time kernel, plain version, library call and bound at the
-   served shapes (the decode at 160, 256 and 2048 positions and on its
-   fp32 route, the chunk at 160 and 2048).
+   served shapes (qmatmul on both routes at M = 4 and 64, summed over
+   one qwen1.5-4b decode and one mixed tick; the decode at 160, 256 and
+   2048 positions and on its fp32 route, the chunk at 160 and 2048).
 5. serve (LM) — full-width qwen1.5-4b (40 layers, d 2560, no depth
    cut), seeded random weights drawn on the card and packed to int8
    under QuantPolicy(8, 0), a bf16 paged arena (block_len 16), 4 slots,
@@ -46,8 +50,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prompt tokens and 32 new tokens. Checks every request finishes, the
    kernel launches reconcile with the ticks the plans ran (281 qmatmul
    per tick, 40 attention launches per tick: gqa_paged on C = 1 ticks,
-   gqa_paged_chunk on wider ones, every one of both on the tensor-core
-   route), and one mixed and one decode tick through the kernels agree
+   gqa_paged_chunk on wider ones, every one of both and every qmatmul
+   launch on the tensor-core route), and one mixed and one decode tick
+   through the kernels agree
    with the same ticks through the plain versions on the same pool
    state: bf16 as served, over an fp16 copy of the arena (both on the
    tensor-core route) and in fp32 (the CUDA-core route).
@@ -67,8 +72,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    traffic as phase 5. Checks as phase 5: every request finishes,
    launches reconcile with the ticks (mla_paged on C = 1 ticks,
    mla_paged_chunk on wider ones, 4 a tick; qmatmul per tick counted
-   from the projections), kernel vs plain ticks (bf16, fp16 arena,
-   fp32); peak device memory.
+   from the projections, every one on the tensor-core route), kernel vs
+   plain ticks (bf16, fp16 arena, fp32); peak device memory.
 9. trace (MLA) — as phase 6, for the deepseek ticks. The deepseek
    engine is then freed.
 10. kernel (prefill) — hold flash_attention (qwen1.5-4b's 20 x 128
@@ -76,21 +81,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ragged S 333 and 129 and Sq != Sk; fp32 at 1e-4 on the CUDA-core
    route, bf16 at one bf16 ulp on the tensor-core route) and ssd_scan
    (mamba2-130m's 24 heads of 64, state 128, chunk 256; S 2048 and a
-   ragged 2000; y and the final state; fp32 at 5e-3, bf16 y at one bf16
-   ulp) against their plain versions, print the
-   error of P . V with p as one bf16 term and as the kernel's two, then
-   time kernel, plain version, library call
+   ragged 2000; y and the final state; fp32 at 5e-3 on the CUDA-core
+   route, bf16 y at one bf16 ulp on both routes, the route asserted)
+   against their plain versions, print the error of P . V with p as one
+   bf16 term and as the kernel's two, then time kernel (ssd_scan on both
+   routes), plain version, library call
    (F.scaled_dot_product_attention for flash; none for the SSD scan)
    and bound at the served shapes.
 11. static (mamba2) — full-width mamba2-130m (24 layers, no cut),
    seeded bf16 weights drawn on the card, through launch/serve.py's
    static path (run_static): 4 prompts of 2048 tokens, 32 greedy new
-   tokens. Checks ssd_scan launched 24 times in the prefill and never
-   in the decode (and nothing else), and that the prefill's
+   tokens. Checks ssd_scan launched 24 times in the prefill, all on the
+   tensor-core route, and never in the decode (and nothing else), and
+   that the prefill's
    last-position logits and every layer's handed-off h/conv state
    through the kernel agree with the same prefill through the plain
    version, in fp32 and bf16; prints prefill ms, decode tok/s, peak
-   device memory and a trace of one prefill.
+   device memory and a trace of one prefill with ssd_scan's share.
 12. static (qwen1.5-4b) — the same for full-width qwen1.5-4b (40
    layers, no cut), weights drawn again on the card as int8 packed as
    drawn and dequantized once to bf16 (``--static --wbits 8``), 4
@@ -255,11 +262,14 @@ def library_qconv(args):
                                      groups=C).transpose(1, 2), w_pw, bias)
 
 
-# the tensor-core kernels: (library, kernel name, the SASS instruction
-# that shows the tensor cores at work)
+# the tensor-core kernels: (library, kernel name, the SASS instructions
+# that show the tensor cores at work, as a regex alternation)
 TENSOR_CORE_SASS = (("flash_attention", "flash_tc_kernel", "HGMMA"),
                     ("paged_attention", "gqa_chunk_tc_kernel", "HMMA"),
-                    ("qconv1d", "qconv1d_tc_kernel", "HMMA"))
+                    ("qconv1d", "qconv1d_tc_kernel", "HMMA"),
+                    ("qmatmul", "qmatmul_tc_kernel", "HMMA|HGMMA"),
+                    ("ssd_scan", "ssd_state_tc_kernel", "HMMA"),
+                    ("ssd_scan", "ssd_chunk_tc_kernel", "HMMA"))
 
 
 def sass_counts(lib: str, kernel: str, op: str) -> dict:
@@ -277,7 +287,7 @@ def sass_counts(lib: str, kernel: str, op: str) -> dict:
             fn = m.group(1) if kernel in m.group(1) else None
             if fn:
                 counts[fn] = 0
-        elif fn and re.search(rf"\b{op}\b", line):
+        elif fn and re.search(rf"\b(?:{op})\b", line):
             counts[fn] += 1
     return counts
 
@@ -402,13 +412,14 @@ def tick_both_paths(runner, cfg, window):
     return out
 
 
-def trace(label: str, enqueue) -> dict:
+def trace(label: str, enqueue, share: tuple = ()) -> dict:
     """Where one served tick's time goes. ``enqueue()`` enqueues the
     tick and returns its output on the card. Without the profiler: host
     time to enqueue, device time from the first enqueue to the last
     kernel (CUDA events), and wall time to the readback. Under
     torch.profiler (CUPTI): the device time of every kernel, summed and
-    by kernel."""
+    by kernel, and the share of the kernels whose names hold one of
+    ``share``."""
     from torch.profiler import ProfilerActivity, profile
     enqueue()
     torch.cuda.synchronize()
@@ -441,8 +452,15 @@ def trace(label: str, enqueue) -> dict:
     for i, (us, n, key) in enumerate(rows):
         if i < 8 or key.startswith("void (anonymous namespace)::"):
             print(f"[trace]   {us / 1e3:8.3f} ms  {n:4d}x  {key[:90]}")
-    return {"host_ms": t_host * 1e3, "device_ms": a.elapsed_time(b),
-            "wall_ms": t_wall * 1e3, "busy_ms": busy}
+    out = {"host_ms": t_host * 1e3, "device_ms": a.elapsed_time(b),
+           "wall_ms": t_wall * 1e3, "busy_ms": busy}
+    if share:
+        mine = [r for r in rows if any(k in r[2] for k in share)]
+        out["share_ms"] = sum(r[0] for r in mine) / 1e3
+        print(f"[trace] {label}: {'/'.join(share)} {out['share_ms']:.3f} ms "
+              f"in {sum(r[1] for r in mine)} launches, "
+              f"{out['share_ms'] / busy:.1%} of the device kernels")
+    return out
 
 
 def phase_serve() -> dict:
@@ -545,6 +563,7 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2,
             torch.float8_e4m3fn: 2e-2, torch.int8: 2e-2,
             torch.float16: 2e-2}
 QMM_TOL = 2e-2
+QMM_ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 # One served tick, kernel path vs plain path on the same pool state:
 # (largest |d logit| of a live row, least share of live rows whose
 # argmax agrees). Bounds stated before the first run on the card. With
@@ -655,6 +674,23 @@ def library_qmatmul(x, w_q, scale):
     return torch.matmul(x, w_q.to(x.dtype)) * scale
 
 
+def qwen_qmatmul_plan() -> dict:
+    """{(K, N): launches} of one qwen1.5-4b tick: each layer's
+    projections and the head."""
+    layers = get_config(LM_ARCH).n_layers
+    return {**{kn: layers * m for kn, m in QWEN_PROJ.items()}, QWEN_HEAD: 1}
+
+
+def qmatmul_tick(timing: dict, m: int) -> dict:
+    """The qmatmul timings of one qwen1.5-4b tick at M = ``m``: each
+    timed quantity summed over the tick's launches."""
+    plan = qwen_qmatmul_plan()
+    return {key: sum(timing[(m, k, n)][key] * c for (k, n), c in
+                     plan.items())
+            for key in (*qmm.ROUTES, "ms", "plain_ms", "library_ms",
+                        "bound_ms")}
+
+
 def attn_bound(x) -> tuple:
     """Least time for one call on this run's data: each assigned block's
     K and V (and positions) read once, q and t read, out written; 4 flops
@@ -687,10 +723,19 @@ def phase_lm_kernel() -> dict:
               for m in (4, 64) for bits in (8, 4)]
     shapes += [(5, 37, 50, 4, torch.float32), (130, 301, 200, 8,
                                                 torch.bfloat16)]
+    fn = qmm.qmatmul_cuda
     for m, k, n, bits, dt in shapes:
         w = quantize_tensor(randn(k, n), bits)
         x = randn(m, k).to(dt)
-        got = qmm.qmatmul_cuda(x, w.data, w.scale, bits=bits)
+        route = QMM_ROUTES[dt]
+        if qmm.route(dt, m) != route:
+            raise AssertionError(f"qmatmul {dt} M={m}: route "
+                                 f"{qmm.route(dt, m)}, want {route}")
+        before = dict(fn.routes)
+        got = fn(x, w.data, w.scale, bits=bits)
+        if fn.routes != {**before, route: before[route] + 1}:
+            raise AssertionError(f"qmatmul {dt} M={m}: routes {before} -> "
+                                 f"{fn.routes}, want {route}")
         want = ref.qmatmul_ref(x, w.data, w.scale, bits=bits)
         torch.cuda.synchronize()
         if got.shape != (m, n) or got.dtype != dt:
@@ -700,8 +745,8 @@ def phase_lm_kernel() -> dict:
         e = float((got.float() - want.float()).abs().max())
         if dt == torch.bfloat16 and bits == 8 and (k, n) != (301, 200):
             err["qmatmul"] = max(err["qmatmul"], e)
-        print(f"[kernel] qmatmul int{bits} {str(dt)[6:]} M={m} K={k} N={n}: "
-              f"max|err| {e:.3g} ok")
+        print(f"[kernel] qmatmul int{bits} {str(dt)[6:]} M={m} K={k} N={n} "
+              f"({route}): max|err| {e:.3g} ok")
     # ---- paged attention: qwen1.5-4b heads and chatglm3-6b's GQA
     cases = [(hkv, group, c, arena, 0, LM_CACHE)
              for hkv, group in ((20, 1), (2, 16))
@@ -755,20 +800,31 @@ def phase_lm_kernel() -> dict:
             x = randn(m, k).to(torch.bfloat16)
             nbytes = k * n + 4 * n + 2 * m * k + 2 * m * n
             bms, by = bound_ms(nbytes, 2 * m * k * n, torch.bfloat16)
-            row = {
-                "ms": device_ms([functools.partial(
-                    qmm.qmatmul_cuda, x, w.data, w.scale) for w in ws]),
+            row = {path: device_ms([functools.partial(
+                qmm.qmatmul_cuda, x, w.data, w.scale, path=path)
+                for w in ws]) for path in qmm.ROUTES}
+            row.update({
+                "ms": row[qmm.route(torch.bfloat16, m)],
                 "plain_ms": device_ms([functools.partial(
                     ref.qmatmul_ref, x, w.data, w.scale) for w in ws]),
                 "library_ms": device_ms([functools.partial(
                     library_qmatmul, x, w.data, w.scale) for w in ws]),
-                "bound_ms": bms, "bound_by": by}
-            timing["qmatmul"][f"M={m} K={k} N={n}"] = row
-            print(f"[kernel] qmatmul int8 bf16 M={m} K={k} N={n}: kernel "
-                  f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
-                  f"library {row['library_ms']:.4f} ms | bound "
+                "bound_ms": bms, "bound_by": by})
+            timing["qmatmul"][(m, k, n)] = row
+            print(f"[kernel] qmatmul int8 bf16 M={m} K={k} N={n}: "
+                  f"tensor_core {row['tensor_core']:.4f} ms | cuda_core "
+                  f"{row['cuda_core']:.4f} ms | plain {row['plain_ms']:.4f} "
+                  f"ms | library {row['library_ms']:.4f} ms | bound "
                   f"{bms * 1e3:.2f} us ({by})")
         del ws
+    for m, kind in ((LM_SLOTS, "decode"), (LM_SLOTS * LM_CHUNK, "mixed")):
+        tick = qmatmul_tick(timing["qmatmul"], m)
+        print(f"[kernel] qmatmul over one qwen1.5-4b {kind} tick (M={m}, "
+              f"{sum(qwen_qmatmul_plan().values())} launches): tensor_core "
+              f"{tick['tensor_core']:.4f} ms | cuda_core "
+              f"{tick['cuda_core']:.4f} ms | plain {tick['plain_ms']:.4f} ms "
+              f"| library {tick['library_ms']:.4f} ms | bound "
+              f"{tick['bound_ms']:.4f} ms")
     # the decode on both routes (fp32 arena: CUDA cores) at the served
     # fill, the whole table and 2048 positions; the chunk at 160 and 2048
     for c, n, kv in ((1, MIXED_POSITIONS, torch.bfloat16),
@@ -959,6 +1015,11 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple,
     others = {n: c for n, c in counts.items() if n not in want and c}
     if others:
         raise AssertionError(f"kernels off this path launched: {others}")
+    # every served bf16 qmatmul launch the plans imply, on tensor cores
+    if "qmatmul" in tensor_core and by_route["qmatmul"] != {
+            "tensor_core": want["qmatmul"], "cuda_core": 0}:
+        raise AssertionError(f"qmatmul routes {by_route['qmatmul']}, want "
+                             f"{want['qmatmul']} on tensor_core")
     st = engine.metrics.summary()
     decode_ticks = sum(n for (kind, _, _), n in calls.items()
                        if kind == "decode")
@@ -1408,9 +1469,19 @@ def phase_prefill_kernel() -> dict:
             print(f"[kernel] flash_attention {str(dtype)[6:]} B={b} Sq={s} "
                   f"Sk={sk} H={h} Hkv={hkv} d={HD} causal={int(causal)} "
                   f"({route}): max|err| {e:.3g} ok")
-        for s in (SSM_PROMPT, 2000):
+        # bf16 on both routes (the tensor-core route is the one routed),
+        # fp32 on the CUDA-core route
+        paths = (("tensor_core", "cuda_core") if dtype == torch.bfloat16
+                 else ("cuda_core",))
+        for s, path in ((s, p) for s in (SSM_PROMPT, 2000) for p in paths):
             args = ssd_inputs(rs, STATIC_SLOTS, s, dtype)
-            y, h = ssd.ssd_scan_cuda(*args, chunk=256)
+            fn = ssd.ssd_scan_cuda
+            before = dict(fn.routes)
+            routed = ssd.route(dtype, 64, 128) == path
+            y, h = fn(*args, chunk=256, path=None if routed else path)
+            if fn.routes != {**before, path: before[path] + 1}:
+                raise AssertionError(f"ssd_scan {dtype}: routes {before} -> "
+                                     f"{fn.routes}, want {path}")
             wy, wh = ref.ssd_chunked(*args, 256)
             torch.cuda.synchronize()
             if not (bool(torch.isfinite(y).all())
@@ -1422,10 +1493,11 @@ def phase_prefill_kernel() -> dict:
             torch.testing.assert_close(h, wh, rtol=5e-3, atol=5e-3)
             ey = float((y.float() - wy.float()).abs().max())
             eh = float((h - wh).abs().max())
-            if dtype == torch.bfloat16 and s == SSM_PROMPT:
+            if dtype == torch.bfloat16 and s == SSM_PROMPT and routed:
                 err["ssd_scan"] = ey
             print(f"[kernel] ssd_scan {str(dtype)[6:]} B={STATIC_SLOTS} "
-                  f"S={s} nh=24 hd=64 N=128 chunk=256: max|err| y {ey:.3g} "
+                  f"S={s} nh=24 hd=64 N=128 chunk=256 ({path}"
+                  f"{'' if routed else ', named'}): max|err| y {ey:.3g} "
                   f"(max|y| {float(wy.float().abs().max()):.3g}), state "
                   f"{eh:.3g} ok")
     # P . V with the reference's fp32 p: one bf16 term against two, at
@@ -1464,6 +1536,9 @@ def phase_prefill_kernel() -> dict:
     timing["ssd_scan"] = {
         "ms": device_ms([functools.partial(ssd.ssd_scan_cuda, *x, chunk=256)
                          for x in xs]),
+        "cuda_core_ms": device_ms([functools.partial(
+            ssd.ssd_scan_cuda, *x, chunk=256, path="cuda_core")
+            for x in xs]),
         "plain_ms": device_ms([functools.partial(ref.ssd_chunked, *x, 256)
                                for x in xs], reps=3),
         "library_ms": None,
@@ -1474,9 +1549,11 @@ def phase_prefill_kernel() -> dict:
     for name, row in timing.items():
         lib = ("no single PyTorch call" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
-        print(f"[kernel] {name} {row['shape']}: kernel {row['ms']:.4f} ms | "
-              f"plain {row['plain_ms']:.4f} ms | library {lib} | bound "
-              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+        other = (f" | cuda_core route {row['cuda_core_ms']:.4f} ms"
+                 if "cuda_core_ms" in row else "")
+        print(f"[kernel] {name} {row['shape']}: kernel {row['ms']:.4f} ms"
+              f"{other} | plain {row['plain_ms']:.4f} ms | library {lib} | "
+              f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     return {"err": err, "timing": timing}
 
 
@@ -1519,7 +1596,8 @@ def prefill_both_paths(params, cfg, tokens, swap, dtype, tensor_core=()):
 
 
 def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
-                 wbits: int = 0, tensor_core: tuple = ()) -> dict:
+                 wbits: int = 0, tensor_core: tuple = (),
+                 share: tuple = ()) -> dict:
     """The static path at full width through ``launch/serve.py``'s
     ``run_static``: seeded weights drawn on the card (``wbits``: packed
     as drawn and dequantized once up front, as ``--static --wbits``
@@ -1591,7 +1669,7 @@ def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
             return tfm.prefill(params, tokens, cfg,
                                cache_len=prompt + STATIC_NEW)[0]
     row["trace"] = trace(f"one prefill ({cfg.name}, B={STATIC_SLOTS}, "
-                         f"S={prompt})", enqueue)
+                         f"S={prompt})", enqueue, share)
     del params
     return row
 
@@ -1623,7 +1701,7 @@ def main() -> int:
     qwen = replace(get_config(LM_ARCH), quant=QuantPolicy(8, 0))
     lm = lap("serve (LM)", phase_lm_serve, qwen,
              ("gqa_paged", "gqa_paged_chunk"), (LM_TICK_BF16, LM_TICK_FP32),
-             ("gqa_paged", "gqa_paged_chunk"))
+             ("gqa_paged", "gqa_paged_chunk", "qmatmul"))
     lap("trace (LM)", phase_lm_trace, lm)
     lm_launches, lm_per_tick = lm["launches"], lm["per_tick"]
     lm_routes = lm["routes"]
@@ -1633,18 +1711,20 @@ def main() -> int:
     ds_cfg = replace(get_config(DS_ARCH), n_layers=DS_LAYERS,
                      quant=QuantPolicy(8, 0))
     ds = lap("serve (MLA)", phase_lm_serve, ds_cfg,
-             ("mla_paged", "mla_paged_chunk"), (DS_TICK_BF16, DS_TICK_FP32))
+             ("mla_paged", "mla_paged_chunk"), (DS_TICK_BF16, DS_TICK_FP32),
+             ("qmatmul",))
     lap("trace (MLA)", phase_lm_trace, ds)
-    ds_launches = ds["launches"]
+    ds_launches, ds_routes = ds["launches"], ds["routes"]
     ds.clear()                             # free deepseek's engine
     pre = lap("kernel (prefill)", phase_prefill_kernel)
     ssm_run = lap("static (mamba2)", phase_static, get_config(SSM_ARCH),
                   SSM_PROMPT, "ssd_scan", (ssd, "ssd_scan_cuda",
-                                           ref.ssd_chunked), SSM_PREFILL)
+                                           ref.ssd_chunked), SSM_PREFILL,
+                  0, ("ssd_scan",), ("ssd_",))
     qwen_run = lap("static (qwen1.5-4b)", phase_static, get_config(LM_ARCH),
                    QWEN_PROMPT, "flash_attention",
                    (fa, "flash_attention_cuda", ref.flash_attention_gqa_ref),
-                   QWEN_PREFILL, 8, ("flash_attention",))
+                   QWEN_PREFILL, 8, ("flash_attention",), ("flash_",))
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
     def forward_sum(pk):
@@ -1671,30 +1751,39 @@ def main() -> int:
                                  "x": "fp32", **routes["cuda_core"]}},
     }]
     qt = lm_kern["timing"]["qmatmul"]
-    per_tick = {f"M=4 K={k} N={n}": qwen.n_layers * m
-                for (k, n), m in QWEN_PROJ.items()}
-    per_tick[f"M=4 K={QWEN_HEAD[0]} N={QWEN_HEAD[1]}"] = 1
-    if sum(per_tick.values()) != lm_per_tick:
-        raise AssertionError(f"qmatmul timing covers {per_tick}, the "
-                             f"served tick launches {lm_per_tick}")
-
-    def tick_sum(key):
-        return sum(qt[s][key] * m for s, m in per_tick.items())
+    plan = qwen_qmatmul_plan()
+    if sum(plan.values()) != lm_per_tick:
+        raise AssertionError(f"qmatmul timing covers {plan}, the served "
+                             f"tick launches {lm_per_tick}")
+    decode = qmatmul_tick(qt, LM_SLOTS)
+    mixed = qmatmul_tick(qt, LM_SLOTS * LM_CHUNK)
     kernels.append({
         "name": "qmatmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
         "replaces": "src/repro/kernels/qmatmul.py:57",
         "launches": lm_launches["qmatmul"] + ds_launches["qmatmul"],
         "max_abs_err": lm_kern["err"]["qmatmul"],
-        "ms": tick_sum("ms"), "plain_ms": tick_sum("plain_ms"),
-        "bound_ms": tick_sum("bound_ms"), "bound_by": "bytes",
-        "library_ms": tick_sum("library_ms"),
+        **{key: decode[key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms")},
+        "bound_by": "bytes",
         "shape": f"sum over one qwen1.5-4b decode tick's "
-                 f"{sum(per_tick.values())} launches, int8 weights, bf16 "
-                 f"x, M={LM_SLOTS}; launches: both LM phases",
+                 f"{sum(plan.values())} launches, int8 weights, bf16 x, "
+                 f"M={LM_SLOTS} (qmatmul_tc_kernel); launches: both LM "
+                 f"phases",
+        "mixed_tick": {**mixed, "M": LM_SLOTS * LM_CHUNK},
         "launches_by_phase": {LM_ARCH: lm_launches["qmatmul"],
                               DS_ARCH: ds_launches["qmatmul"]},
-        "per_shape": qt})
+        "launches_by_route": {
+            r: lm_routes["qmatmul"][r] + ds_routes["qmatmul"][r]
+            for r in qmm.ROUTES},
+        "routes": {r: {"kernel": kern, "x": "bf16 (timed); served: "
+                       + x, "decode_tick_ms": decode[r],
+                       "mixed_tick_ms": mixed[r]}
+                   for r, kern, x in (
+                       ("tensor_core", "qmatmul_tc_kernel", "bf16"),
+                       ("cuda_core", "qmatmul_kernel", "fp32"))},
+        "per_shape": {f"M={m} K={k} N={n}": row
+                      for (m, k, n), row in qt.items()}})
     attn = lm_kern["timing"]["attn"]
     for name, replaces in (("gqa_paged", 260), ("gqa_paged_chunk", 492)):
         row = attn[name]
@@ -1757,6 +1846,7 @@ def main() -> int:
             "launches_by_route": run["routes"],
             "per_call": row,
             "static": {k: v for k, v in run.items() if k != "trace"},
+            "prefill_trace": run["trace"],
             **({"p_terms_max_abs_err": pre["err"]["flash_p_terms"]}
                if name == "flash_attention" else {})})
     print(f"[chip_smoke] all phases ok in {time.perf_counter() - t0:.1f}s "

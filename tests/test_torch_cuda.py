@@ -187,6 +187,64 @@ def test_cuda_qmatmul_matches_plain_version(M, K, N, dtype, bits):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(4, 2560, 2560), (64, 2560, 2560),
+                                   (64, 2560, 6912), (64, 6912, 2560),
+                                   (64, 2560, 151936), (16, 7168, 256),
+                                   (1, 64, 16), (33, 777, 136),
+                                   (65, 520, 272), (200, 96, 48)])
+def test_cuda_qmatmul_routes_and_values(M, K, N, dtype, bits):
+    """On a card: each call takes the route ``qmatmul.route`` names
+    (bf16 on tensor cores at the decode's M = 4, the mixed tick's M = 64
+    and ragged M/N/K, fp32 on CUDA cores), counted once on that route,
+    and matches the plain version at 2e-2."""
+    _cuda()
+    rs = np.random.RandomState(M + K + N + bits + 1)
+    w = quantize_tensor(torch.from_numpy(rs.randn(K, N).astype(np.float32)),
+                        bits)
+    x = torch.from_numpy(rs.randn(M, K).astype(np.float32)).to("cuda", dtype)
+    wq, sc = w.data.cuda(), w.scale.cuda()
+    route = qmatmul.route(dtype, M)
+    assert route == ("tensor_core" if dtype == torch.bfloat16
+                     else "cuda_core")
+    before = dict(qmatmul.qmatmul_cuda.routes)
+    got = qmatmul.qmatmul_cuda(x, wq, sc, bits=bits)
+    want = ref.qmatmul_ref(x, wq, sc, bits=bits)
+    torch.cuda.synchronize()
+    assert qmatmul.qmatmul_cuda.routes == {**before,
+                                           route: before[route] + 1}
+    assert got.shape == (M, N) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["tensor_core", "cuda_core"])
+@pytest.mark.parametrize("M", [4, 64])
+def test_cuda_qmatmul_bf16_on_either_route(M, path):
+    """bf16 x on either kernel when the route is named (the timing rows
+    of chip_smoke.py compare both), 2e-2 against the plain version; the
+    tensor-core kernel refuses fp32 x."""
+    _cuda()
+    rs = np.random.RandomState(M)
+    w = quantize_tensor(torch.from_numpy(rs.randn(2560, 6912).astype(
+        np.float32)), 8)
+    x = torch.from_numpy(rs.randn(M, 2560).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    wq, sc = w.data.cuda(), w.scale.cuda()
+    before = dict(qmatmul.qmatmul_cuda.routes)
+    got = qmatmul.qmatmul_cuda(x, wq, sc, path=path)
+    want = ref.qmatmul_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    assert qmatmul.qmatmul_cuda.routes == {**before, path: before[path] + 1}
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    with pytest.raises(TypeError, match="bf16"):
+        qmatmul.qmatmul_cuda(x.float(), wq, sc, path="tensor_core")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arena", list(ARENAS))
 @pytest.mark.parametrize("Hkv,group,C,window,bl,T", [
     (20, 1, 1, 0, 16, 16), (2, 16, 1, 0, 16, 16), (20, 1, 16, 0, 16, 16),
@@ -369,6 +427,51 @@ def test_cuda_ssd_scan_matches_plain_version(B, S, nh, hd, N, chunk, dtype):
     assert h.shape == (B, nh, hd, N) and h.dtype == torch.float32
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     assert ssd_scan.ssd_scan_cuda.launches == before + 1
+    rtol, atol = ((5e-3, 5e-3) if dtype == torch.float32
+                  else (BF16_ULP[0], 1e-3))
+    torch.testing.assert_close(y.float(), wy.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, wh, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,N", [
+    (4, 2048, 24, 64, 128),                  # mamba2-130m's prefill
+    (2, 2000, 24, 64, 128),                  # ragged last chunk
+    (1, 128, 5, 64, 128),                    # one chunk; heads not of 4
+    (1, 129, 3, 64, 64),                     # 128 + 1 positions
+    (2, 256, 2, 32, 16),                     # padded to 64 and 64
+    (2, 40, 8, 16, 16),
+    (1, 100, 3, 48, 6),
+    (1, 77, 2, 128, 128)])                   # hd 128: CUDA cores
+def test_cuda_ssd_scan_routes_and_values(B, S, nh, hd, N, dtype):
+    """On a card: each call takes the route ``ssd_scan.route`` names
+    (bf16 on the tensor-core state and chunk passes up to hd 64 and N
+    128, fp32 and wider on the CUDA-core walk), counted once on that
+    route, with y and the final state at the plain version's existing
+    tolerances (fp32 5e-3; bf16 y one bf16 ulp with atol 1e-3; state
+    5e-3)."""
+    _cuda()
+    rs = np.random.RandomState(B + S + nh + hd + N)
+    x = torch.from_numpy(rs.randn(B, S, nh, hd).astype(np.float32))
+    dt = torch.from_numpy((rs.rand(B, S, nh) * 0.1).astype(np.float32))
+    A = -torch.linspace(1.0, 16.0, nh)
+    Bm = torch.from_numpy(rs.randn(B, S, N).astype(np.float32))
+    Cm = torch.from_numpy(rs.randn(B, S, N).astype(np.float32))
+    D = torch.from_numpy(rs.rand(nh).astype(np.float32) + 0.5)
+    x, Bm, Cm = (a.to("cuda", dtype) for a in (x, Bm, Cm))
+    dt, A, D = (a.cuda() for a in (dt, A, D))
+    route = ssd_scan.route(dtype, hd, N)
+    assert (route == "tensor_core") == (dtype == torch.bfloat16
+                                        and hd <= 64)
+    before = dict(ssd_scan.ssd_scan_cuda.routes)
+    y, h = ssd_scan.ssd_scan_cuda(x, dt, A, Bm, Cm, D, chunk=256)
+    wy, wh = ref.ssd_chunked(x, dt, A, Bm, Cm, D, 256)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan_cuda.routes == {**before,
+                                             route: before[route] + 1}
+    assert y.shape == (B, S, nh, hd) and h.shape == (B, nh, hd, N)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     rtol, atol = ((5e-3, 5e-3) if dtype == torch.float32
                   else (BF16_ULP[0], 1e-3))
     torch.testing.assert_close(y.float(), wy.float(), rtol=rtol, atol=atol)

@@ -98,3 +98,65 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         qmatmul.qmatmul_cuda(x, torch.zeros(16, 8, dtype=torch.int8),
                              torch.ones(1, 8))
     assert qmatmul.qmatmul_cuda.launches == 0
+
+
+@pytest.mark.parametrize("dtype,M,want", [
+    (torch.bfloat16, 4, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 130, "tensor_core"), (torch.float32, 4, "cuda_core"),
+    (torch.float32, 64, "cuda_core")])
+def test_route_is_by_dtype(dtype, M, want):
+    """bf16 x (every served projection, decode and mixed ticks) takes the
+    tensor-core kernel; fp32 x keeps the reference's fp32 sum on the CUDA
+    cores."""
+    assert qmatmul.route(dtype, M) == want
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (64, 2560, 6912, (640, 4)), (64, 2560, 2560, (320, 8)),
+    (4, 6912, 2560, (896, 8)), (4, 2560, 151936, (2560, 1)),
+    (64, 1536, 24576, (1536, 1)), (5, 37, 50, (64, 1)),
+    (130, 301, 200, (64, 5))])
+def test_tensor_core_plan_splits_k_over_one_cluster(M, K, N, want):
+    """``tc_plan``: splits of whole 64-row multiples, at most 8 (the CTAs
+    of one cluster), every split non-empty, and a grid of at most two
+    CTAs per SM (one wave) unless one split already exceeds it."""
+    kr, splits = qmatmul.tc_plan(M, K, N)
+    assert (kr, splits) == want
+    assert kr % qmatmul.TC_KS == 0 and 1 <= splits <= qmatmul.TC_MAX_SPLITS
+    assert kr * (splits - 1) < K <= kr * splits
+    tiles = -(-N // qmatmul.TC_BN) * -(-M // qmatmul.TC_MMAX)
+    assert splits == 1 or tiles * splits <= 2 * qmatmul.SMS
+
+
+def _tensor_core_model(x, w_q, scale, bits):
+    """The tensor-core kernel's arithmetic: bf16 x times the exact bf16
+    of each int8/int4 weight (an exact fp32 product), summed in fp32
+    over each K split of ``tc_plan``, the splits' partial sums added in
+    split order, the scale after the sum, one rounding to bf16."""
+    from repro_torch.core.quant.policy import unpack_int4
+    M, K = x.shape
+    w = (unpack_int4(w_q)[:K] if bits == 4 else w_q).float()
+    assert torch.equal(w.to(torch.bfloat16).float(), w)   # exact in bf16
+    xf = x.to(torch.bfloat16).float()
+    kr, splits = qmatmul.tc_plan(M, K, w.shape[1])
+    acc = torch.zeros((M, w.shape[1]), dtype=torch.float32)
+    for s in range(splits):
+        acc = acc + xf[:, s * kr:(s + 1) * kr] @ w[s * kr:(s + 1) * kr]
+    return (acc * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N", [(64, 512, 256), (4, 1024, 256),
+                                   (64, 256, 384)])
+def test_tensor_core_model_matches_the_pallas_kernel(M, K, N, bits):
+    """The tensor-core arithmetic (bf16 x, exact bf16 weights, fp32 sums
+    over up to 8 K splits added in order) against the JAX Pallas kernel
+    in interpret mode, at the reference's 2e-2, at the mixed tick's M =
+    64 and the decode's M = 4."""
+    jx, jw, tx, tw = _inputs(M, K, N, bits, jnp.bfloat16)
+    assert qmatmul.tc_plan(M, K, N)[1] > 1 or K <= 256
+    want = np.asarray(jops.qmatmul(jx, jw), np.float32)
+    got = _tensor_core_model(tx, tw.data, tw.scale.float().reshape(1, -1),
+                             bits)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL,
+                               atol=TOL)

@@ -26,7 +26,7 @@ from repro.models import api as japi
 from repro.models.lm import ssm as jssm
 from repro_torch import bridge
 from repro_torch.config import get_config
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.models.lm import ssm
 
 # tests/test_kernels.py's shapes, then lengths that 64 does not divide
@@ -138,3 +138,99 @@ def test_ssm_forward_and_decode_match_jax(ssm_layer, S):
         _close(ty, jy, 1e-5)
         _close(tst["h"], jst["h"], 1e-5)
         _close(tst["conv"], jst["conv"], 1e-5)
+
+
+@pytest.mark.parametrize("dtype,hd,N,want", [
+    (torch.bfloat16, 64, 128, "tensor_core"),   # mamba2-130m
+    (torch.bfloat16, 16, 8, "tensor_core"),     # padded to 64 and 64
+    (torch.bfloat16, 128, 128, "cuda_core"),
+    (torch.bfloat16, 64, 256, "cuda_core"),
+    (torch.float32, 64, 128, "cuda_core")])
+def test_route_is_by_dtype_and_shape(dtype, hd, N, want):
+    assert ssd_scan.route(dtype, hd, N) == want
+    if want == "tensor_core":
+        assert ssd_scan.tc_state_width(N) == (64 if N <= 64 else 128)
+
+
+def _split(v):
+    """An fp32 operand as the kernel feeds it to the tensor cores: bf16
+    hi + bf16 lo, both widened back."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def _two_pass_model(x, dt, A, Bm, Cm, D, Q=ssd_scan.TC_CHUNK):
+    """The tensor-core route's arithmetic in chunks of Q (zero-padded past
+    S). State pass: per chunk the state before it is kept as hi + lo, then
+    h = exp(total) h + (x w)^T B with x w as hi + lo. Chunk pass: G = C
+    B^T, the causal M = G exp(cum_t - cum_s) dt_s as hi + lo times x,
+    plus exp(cum_t) C (h_prev hi + lo)^T, plus D x. x, B, C are bf16
+    values; all sums fp32. Returns (y fp32, final state)."""
+    Bsz, S, nh, hd = x.shape
+    N = Bm.shape[-1]
+    T = -(-S // Q)
+    pad = T * Q - S
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    Bf = torch.nn.functional.pad(Bm.float(), (0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(Cm.float(), (0, 0, 0, pad))
+    xr = xf.reshape(Bsz, T, Q, nh, hd)
+    dtr = dtf.reshape(Bsz, T, Q, nh)
+    Br, Cr = Bf.reshape(Bsz, T, Q, N), Cf.reshape(Bsz, T, Q, N)
+    cum = torch.cumsum(dtr * A.float(), dim=2)            # (B, T, Q, nh)
+    total = cum[:, :, -1]                                 # (B, T, nh)
+    # state pass
+    h = torch.zeros((Bsz, nh, hd, N))
+    h_prev = []
+    for c in range(T):
+        h_prev.append(_split(h))
+        w = torch.exp(total[:, c, None] - cum[:, c]) * dtr[:, c]
+        xw = _split(xr[:, c] * w[..., None])              # (B, Q, nh, hd)
+        h = h * torch.exp(total[:, c])[:, :, None, None] + torch.einsum(
+            "bqhd,bqn->bhdn", xw, Br[:, c])
+    # chunk pass
+    G = torch.einsum("btqn,btsn->btqs", Cr, Br)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, T, t, s, nh)
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                                  torch.full_like(diff, -torch.inf)))
+    M = _split(G[..., None] * decay * dtr[:, :, None, :, :])
+    y = torch.einsum("btqsh,btshd->btqhd", M, xr)
+    y = y + torch.exp(cum)[..., None] * torch.einsum(
+        "btqn,bthdn->btqhd", Cr, torch.stack(h_prev, dim=1))
+    y = y + D.float()[None, None, None, :, None] * xr
+    return y.reshape(Bsz, T * Q, nh, hd)[:, :S], h
+
+
+def _bf16_inputs(S, nh, hd, N, seed):
+    """``_inputs`` with x, B and C rounded to bf16 values (what the
+    tensor-core route reads), kept as fp32 arrays for both packages."""
+    x, dt, A, Bm, Cm, D = _inputs(S, nh, hd, N, seed=seed)
+    rnd = [torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+           for a in (x, Bm, Cm)]
+    return rnd[0], dt, A, rnd[1], rnd[2], D
+
+
+@pytest.mark.parametrize("S,nh,hd,N,chunk", SHAPES)
+def test_two_pass_model_matches_jax_pallas_kernel(S, nh, hd, N, chunk):
+    """The tensor-core route's two-pass arithmetic (Q = 128, fp32
+    operands as bf16 hi + lo) against the JAX Pallas kernel in interpret
+    mode at the reference's chunk, at 5e-3."""
+    args = _bf16_inputs(S, nh, hd, N, seed=3)
+    want = jops.ssd_chunk_scan(*(jnp.asarray(a) for a in args), chunk=chunk)
+    got, _ = _two_pass_model(*(torch.from_numpy(a) for a in args))
+    _close(got, want, 5e-3)
+
+
+@pytest.mark.parametrize("S,nh,hd,N,chunk", SHAPES + RAGGED)
+def test_two_pass_model_and_state_match_jax_model_chunked(S, nh, hd, N,
+                                                          chunk):
+    """y and the final state of the two-pass model against the JAX
+    model's ``ssd_chunked``, ragged lengths (the last chunk zero-padded)
+    included, at 5e-3."""
+    args = _bf16_inputs(S, nh, hd, N, seed=4)
+    wy, wh = jssm.ssd_chunked(*(jnp.asarray(a) for a in args), chunk)
+    gy, gh = _two_pass_model(*(torch.from_numpy(a) for a in args))
+    assert gy.shape == (2, S, nh, hd) and gh.shape == (2, nh, hd, N)
+    _close(gy, wy, 5e-3)
+    _close(gh, wh, 5e-3)
