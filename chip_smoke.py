@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    process per source, started together) and print the build seconds
    and ptxas's register/shared-memory report; count the tensor-core
    instructions (HGMMA in flash_tc_kernel, HMMA in gqa_chunk_tc_kernel,
-   qconv1d_tc_kernel, ssd_state_tc_kernel and ssd_chunk_tc_kernel, HMMA
-   or HGMMA in each qmatmul_tc_kernel: HGMMA at 64 rows) in ``cuobjdump
-   -sass`` of the built libraries, and fail on none.
+   mla_tc_kernel, qconv1d_tc_kernel, ssd_state_tc_kernel and
+   ssd_chunk_tc_kernel, HMMA or HGMMA in each qmatmul_tc_kernel: HGMMA
+   at 64 rows) in ``cuobjdump -sass`` of the built libraries, and fail
+   on none.
 2. kernel — hold each kernel against its plain PyTorch version on the
    card at the main path's shapes (qconv1d_block on the unpadded
    window, the plain version on the padded one: C=344, every RUBICALL
@@ -62,9 +63,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. kernel (MLA) — hold mla_paged (C = 1) and mla_paged_chunk (C = 16)
    against their plain versions at deepseek-v3's widths (128 heads,
    latent 512, rope 64, block_len 16; fp32, bf16, fp8, int8 and fp16
-   arenas;
-   holes, out-of-order blocks, pad rows) at 160 and 2048 positions,
-   then time kernel, plain version, library call and bound (bf16).
+   arenas; holes, out-of-order blocks, pad rows) at 160 and 2048
+   positions, checking each call's route (tensor-core over bf16, fp8,
+   int8 and fp16 arenas, CUDA-core over fp32), then time both routes
+   (``path=``), plain version, library call and bound (bf16): the
+   decode at 160, 256 and 2048 positions, the chunk at 160 and 2048.
 8. serve (MLA) — full-width deepseek-v3-671b cut to 4 layers (3
    mla_dense + 1 mla_moe with all 256 experts, top-8 and the shared
    expert), seeded random weights drawn on the card and packed to int8
@@ -72,8 +75,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    traffic as phase 5. Checks as phase 5: every request finishes,
    launches reconcile with the ticks (mla_paged on C = 1 ticks,
    mla_paged_chunk on wider ones, 4 a tick; qmatmul per tick counted
-   from the projections, every one on the tensor-core route), kernel vs
-   plain ticks (bf16, fp16 arena, fp32); peak device memory.
+   from the projections; every one of the three on the tensor-core
+   route), kernel vs plain ticks (bf16 and the fp16 arena on the
+   tensor-core route, fp32 on the CUDA-core one); peak device memory.
 9. trace (MLA) — as phase 6, for the deepseek ticks. The deepseek
    engine is then freed.
 10. kernel (prefill) — hold flash_attention (qwen1.5-4b's 20 x 128
@@ -266,6 +270,7 @@ def library_qconv(args):
 # that show the tensor cores at work, as a regex alternation)
 TENSOR_CORE_SASS = (("flash_attention", "flash_tc_kernel", "HGMMA"),
                     ("paged_attention", "gqa_chunk_tc_kernel", "HMMA"),
+                    ("mla_paged_attention", "mla_tc_kernel", "HMMA"),
                     ("qconv1d", "qconv1d_tc_kernel", "HMMA"),
                     ("qmatmul", "qmatmul_tc_kernel", "HMMA|HGMMA"),
                     ("ssd_scan", "ssd_state_tc_kernel", "HMMA"),
@@ -1207,11 +1212,12 @@ def latent_inputs(rs, b, c, fills, arena, *, holes=(), t_blocks,
                 t=x["t"], table=x["table"])
 
 
-def mla_call(x, fn_chunk, fn_single):
+def mla_call(x, fn_chunk, fn_single, **kw):
     """(kernel-or-plain) call on ``latent_inputs``: the single-token
     function for C == 1, the chunk function otherwise; returns o_lat
     (B, C, H, kvr)."""
-    kw = dict(scale=MLA_SCALE, c_scale=x["c_scale"], kr_scale=x["kr_scale"])
+    kw.update(scale=MLA_SCALE, c_scale=x["c_scale"],
+              kr_scale=x["kr_scale"])
     if x["qa"].shape[1] == 1:
         return fn_single(x["qa"][:, 0], x["qr"][:, 0], x["c"], x["kr"],
                          x["pos"], x["t"][:, 0].contiguous(), x["table"],
@@ -1220,8 +1226,10 @@ def mla_call(x, fn_chunk, fn_single):
                     x["table"], **kw)
 
 
-def mla_kernel(x):
-    return mla_call(x, pa.mla_paged_chunk_cuda, pa.mla_paged_cuda)
+def mla_kernel(x, path=None):
+    """The kernel call; ``path`` names a route (timing only)."""
+    return mla_call(x, pa.mla_paged_chunk_cuda, pa.mla_paged_cuda,
+                    path=path)
 
 
 def mla_plain(x):
@@ -1288,7 +1296,21 @@ def phase_mla_kernel() -> dict:
                 x["t"][3, 1:] = -1         # a decode row padded to C
                 if c == 1:
                     x["t"][2] = -1         # a free slot
-                got, want = mla_kernel(x), mla_plain(x)
+                name = "mla_paged" if c == 1 else "mla_paged_chunk"
+                fn = getattr(pa, f"{name}_cuda")
+                route = ("cuda_core" if arena == torch.float32
+                         else "tensor_core")
+                picked = pa.mla_route(arena, KVR, ROPE, BLOCK, npos)
+                if picked != route:
+                    raise AssertionError(f"{name} {arena}: route {picked}, "
+                                         f"want {route}")
+                before = dict(fn.routes)
+                got = mla_kernel(x)
+                if fn.routes != {**before, route: before[route] + 1}:
+                    raise AssertionError(f"{name} C={c} {arena}: routes "
+                                         f"{before} -> {fn.routes}, want "
+                                         f"{route}")
+                want = mla_plain(x)
                 torch.cuda.synchronize()
                 live = x["t"] >= 0
                 if got.shape != (4, c, DS_H, KVR) or \
@@ -1299,35 +1321,41 @@ def phase_mla_kernel() -> dict:
                 torch.testing.assert_close(got[live], want[live], rtol=tol,
                                            atol=tol)
                 e = float((got - want)[live].abs().max())
-                name = "mla_paged" if c == 1 else "mla_paged_chunk"
                 if arena == torch.bfloat16 and npos == MLA_POSITIONS[0]:
                     err[name] = max(err[name], e)
                 print(f"[kernel] {name} H={DS_H} kvr={KVR} rope={ROPE} "
-                      f"C={c} {str(arena)[6:]} positions {npos}: max|err| "
-                      f"{e:.3g} ok")
+                      f"C={c} {str(arena)[6:]} positions {npos} ({route}): "
+                      f"max|err| {e:.3g} ok")
+    # both routes (path=, timing only) of the decode at the served fill,
+    # the whole table and 2048 positions, and of the chunk at 160 and
+    # 2048; bf16 arena, the route the wrapper picks is the "ms"
     timing = {}
-    for npos in MLA_POSITIONS:
-        for c in (1, 16):
-            x = latent_inputs(rs, LM_SLOTS, c, [npos - c] * LM_SLOTS,
-                              torch.bfloat16, t_blocks=npos // BLOCK)
-            bms, by = mla_bound(x)
-            arena = x["c"].numel() * x["c"].element_size()
-            xs = [dict(x, c=x["c"].clone(), kr=x["kr"].clone())
-                  for _ in range(max(1, -(-(128 << 20) // arena)))]
-            row = {"ms": device_ms([functools.partial(mla_kernel, xi)
-                                    for xi in xs]),
-                   "plain_ms": device_ms([functools.partial(mla_plain, xi)
-                                          for xi in xs], reps=3),
-                   "library_ms": device_ms([mla_library(xi) for xi in xs]),
-                   "bound_ms": bms, "bound_by": by}
-            name = "mla_paged" if c == 1 else "mla_paged_chunk"
-            timing[(name, npos)] = row
-            print(f"[kernel] {name} bf16 B={LM_SLOTS} C={c} H={DS_H} "
-                  f"kvr={KVR} rope={ROPE} positions 0..{npos - 1}: kernel "
-                  f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
-                  f"library {row['library_ms']:.4f} ms | bound "
-                  f"{bms * 1e3:.2f} us ({by})")
-            del xs
+    for c, npos in ((1, MLA_POSITIONS[0]), (1, FULL_POSITIONS),
+                    (1, MLA_POSITIONS[1]), (16, MLA_POSITIONS[0]),
+                    (16, MLA_POSITIONS[1])):
+        x = latent_inputs(rs, LM_SLOTS, c, [npos - c] * LM_SLOTS,
+                          torch.bfloat16, t_blocks=npos // BLOCK)
+        bms, by = mla_bound(x)
+        arena = x["c"].numel() * x["c"].element_size()
+        xs = [dict(x, c=x["c"].clone(), kr=x["kr"].clone())
+              for _ in range(max(1, -(-(128 << 20) // arena)))]
+        row = {path: device_ms([functools.partial(mla_kernel, xi, path)
+                                for xi in xs]) for path in pa.ROUTES}
+        row.update({
+            "ms": row[pa.mla_route(torch.bfloat16, KVR, ROPE, BLOCK, npos)],
+            "plain_ms": device_ms([functools.partial(mla_plain, xi)
+                                   for xi in xs], reps=3),
+            "library_ms": device_ms([mla_library(xi) for xi in xs]),
+            "bound_ms": bms, "bound_by": by})
+        name = "mla_paged" if c == 1 else "mla_paged_chunk"
+        timing[(name, npos)] = row
+        print(f"[kernel] {name} bf16 B={LM_SLOTS} C={c} H={DS_H} "
+              f"kvr={KVR} rope={ROPE} positions 0..{npos - 1}: tensor_core "
+              f"{row['tensor_core']:.4f} ms | cuda_core "
+              f"{row['cuda_core']:.4f} ms | plain {row['plain_ms']:.4f} ms "
+              f"| library {row['library_ms']:.4f} ms | bound "
+              f"{bms * 1e3:.2f} us ({by})")
+        del xs
     return {"err": err, "timing": timing}
 
 
@@ -1712,7 +1740,7 @@ def main() -> int:
                      quant=QuantPolicy(8, 0))
     ds = lap("serve (MLA)", phase_lm_serve, ds_cfg,
              ("mla_paged", "mla_paged_chunk"), (DS_TICK_BF16, DS_TICK_FP32),
-             ("qmatmul",))
+             ("qmatmul", "mla_paged", "mla_paged_chunk"))
     lap("trace (MLA)", phase_lm_trace, ds)
     ds_launches, ds_routes = ds["launches"], ds["routes"]
     ds.clear()                             # free deepseek's engine
@@ -1817,15 +1845,23 @@ def main() -> int:
             "launches": ds_launches[name],
             "max_abs_err": mla_kern["err"][name],
             **{key: (row[key] * DS_LAYERS if key.endswith("ms")
-                     else row[key]) for key in row},
+                     else row[key]) for key in row if key not in pa.ROUTES},
             "shape": f"sum over one tick's {DS_LAYERS} launches, bf16 "
                      f"latent arena, B={LM_SLOTS} H={DS_H} kvr={KVR} "
                      f"rope={ROPE} block_len={BLOCK}, positions "
                      f"0..{MLA_POSITIONS[0] - 1}, C="
                      f"{1 if name == 'mla_paged' else 16}",
+            "launches_by_route": ds_routes[name],
             "per_call": row,
-            "per_call_2048_positions":
-                mla_kern["timing"][(name, MLA_POSITIONS[1])]})
+            **{f"per_call_{n}_positions": mla_kern["timing"][(name, n)]
+               for n in (FULL_POSITIONS, MLA_POSITIONS[1])
+               if (name, n) in mla_kern["timing"]},
+            "routes": {r: {"kernel": k, "arena": "bf16 (timed); served: "
+                           + a, "per_call_ms": row[r]}
+                       for r, k, a in (
+                           ("tensor_core", "mla_tc_kernel",
+                            "bf16, fp16, fp8, int8"),
+                           ("cuda_core", "mla_paged_kernel", "fp32"))}})
     for name, src, replaces, run, arch in (
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:68", qwen_run, LM_ARCH),

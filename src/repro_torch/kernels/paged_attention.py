@@ -34,6 +34,11 @@ in ``.routes``.
 MLA (DeepSeek-V3's latent attention, absorbed form) keeps one latent
 ``c (n_blocks, block_len, kvr)`` and one rope key ``k_rope (n_blocks,
 block_len, rope)`` per cached position, shared by every head.
+``mla_paged_cuda`` and ``mla_paged_chunk_cuda`` likewise have two
+kernels (``csrc/mla_paged_attention.cu``), chosen by :func:`mla_route`:
+over bf16, fp16, fp8 and int8 latent arenas a tensor-core kernel that
+splits the decode's walk across a cluster as :func:`mla_split_plan`
+says; over fp32 arenas a CUDA-core kernel.
 
 Rows with no valid position (pad rows, ``t < 0``) are garbage in every
 path; callers ignore them.
@@ -494,7 +499,99 @@ gqa_paged_chunk_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
-# MLA CUDA kernel (csrc/mla_paged_attention.cu)
+# MLA CUDA kernels (csrc/mla_paged_attention.cu): the tensor-core kernel
+# (decode and chunk) and its split plan; the CUDA-core kernel for fp32
+
+MLA_STEP = 32          # cached positions per mma step
+MLA_GROUP = 16         # query rows of a row group (4 warps)
+MLA_MAX_STEPS = 64     # steps a CTA stages the positions of (2048)
+MLA_MAX_SPLITS = 8     # CTAs of a split walk: one cluster (portable size)
+MLA_SPLIT_CTAS = 80    # CTAs of a split walk's grid (clusters at once)
+
+
+class MlaPlan(NamedTuple):
+    """How the MLA tensor-core kernel cuts its work: CTAs of ``groups``
+    row groups (16 query rows each), ``steps`` of 32 logical positions
+    over the table, ``splits`` CTAs (one cluster) a row tile of 16 *
+    groups rows, split s walking steps [s * per, (s + 1) * per) through
+    a ring of ``stages``, one online-softmax update every ``sub``
+    positions."""
+    groups: int
+    steps: int
+    splits: int
+    per: int
+    stages: int
+    sub: int
+
+
+def mla_split_plan(B: int, R: int, T: int, block_len: int, *,
+                   exact: bool = False) -> MlaPlan:
+    """The split of the MLA walk that the card runs, from shapes alone.
+    Where B * row_tiles CTAs of 64 query rows (4 row groups) fill half
+    the card, as the chunk's do (R = C * H = 2048 at deepseek-v3's
+    widths: 128 CTAs), the walk is not split (its partials would be
+    fp32 o_lat-sized) unless the table outgrows ``MLA_MAX_STEPS``.
+    Otherwise (the decode, R = H) the walk splits over up to
+    ``MLA_MAX_SPLITS`` CTAs of one cluster, at most ``MLA_SPLIT_CTAS``
+    CTAs in all (more clusters of 8 do not run at once), in CTAs of 32
+    or 64 rows, whichever leaves a CTA fewer steps (32 on a tie); no
+    split is empty. A 3-stage ring where a CTA walks 3 or more steps
+    and its positions' rows fit beside it (at most 16 steps of 64
+    rows), else 2 stages. One softmax update a step; ``exact`` (fp8
+    arenas: block_len 16 or 32) keeps the reference's walk instead, one
+    update an arena block and no split, because p rounded to e4m3 (3
+    mantissa bits) depends on the running max it is taken against."""
+    steps = max(1, -(-(T * block_len) // MLA_STEP))
+    need = -(-steps // MLA_MAX_STEPS)
+    if exact and (need > 1 or block_len not in (16, MLA_STEP)):
+        raise ValueError(f"mla_paged: the reference's walk over "
+                         f"{T} blocks of {block_len} does not fit one CTA "
+                         f"of {MLA_MAX_STEPS} steps of {MLA_STEP}")
+    if need > MLA_MAX_SPLITS:
+        raise ValueError(f"mla_paged: {T * block_len} positions need "
+                         f"{need} splits of {MLA_MAX_STEPS} steps "
+                         f"(> {MLA_MAX_SPLITS})")
+
+    def tiles(g):
+        return -(-R // (MLA_GROUP * g))
+
+    def splits_for(g):
+        if exact:
+            return 1
+        cap = max(1, MLA_SPLIT_CTAS // (B * tiles(g)))
+        return max(need, min(MLA_MAX_SPLITS, steps, cap))
+    if B * tiles(4) >= SMS // 2:
+        groups, splits = 4, need
+    else:
+        groups = min((2, 4), key=lambda g: -(-steps // splits_for(g)))
+        splits = splits_for(groups)
+    per = -(-steps // splits)
+    stages = 3 if 3 <= per and (groups == 2 or per <= 16) else 2
+    return MlaPlan(groups, steps, -(-steps // per), per, stages,
+                   block_len if exact else MLA_STEP)
+
+
+def mla_route(kv_dtype: torch.dtype, kvr: int, rope: int,
+              block_len: int = 16, positions: int = 0) -> str:
+    """Which kernel ``mla_paged_cuda`` and ``mla_paged_chunk_cuda``
+    launch, by dtype and shape: ``tensor_core`` over bf16, fp16, fp8 and
+    int8 arenas at a latent width that is a multiple of 64 and a rope
+    width that is a multiple of 16 from 16, together at most 576 (what
+    a CTA's shared memory holds; deepseek-v3: 512 and 64), for tables of
+    up to ``MLA_MAX_SPLITS * MLA_MAX_STEPS`` steps of positions; fp8 at
+    block_len 16 or 32 and up to ``MLA_MAX_STEPS`` steps (the kernel
+    then keeps the reference's per-block softmax in one CTA,
+    :func:`mla_split_plan`); ``cuda_core`` otherwise (fp32 arenas, other
+    widths, longer tables)."""
+    fp8 = kv_dtype == torch.float8_e4m3fn
+    steps = MLA_MAX_STEPS * (1 if fp8 else MLA_MAX_SPLITS)
+    if kv_dtype in (torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+                    torch.int8) and kvr % 64 == 0 and 64 <= kvr \
+            and rope % 16 == 0 and 16 <= rope and kvr + rope <= 576 \
+            and positions <= steps * MLA_STEP \
+            and (not fp8 or block_len in (16, 32)):
+        return "tensor_core"
+    return "cuda_core"
 
 
 @functools.cache
@@ -506,6 +603,11 @@ def _mla_lib() -> ctypes.CDLL:
     lib.mla_paged_launch.restype = ci
     lib.mla_paged_smem_bytes.argtypes = [ci, ci, ci]
     lib.mla_paged_smem_bytes.restype = ctypes.c_size_t
+    lib.mla_paged_tc_launch.argtypes = ([vp] * 10 + [ci] * 7
+                                        + [ctypes.c_float] + [ci] * 7 + [vp])
+    lib.mla_paged_tc_launch.restype = ci
+    lib.mla_paged_tc_smem_bytes.argtypes = [ci] * 6
+    lib.mla_paged_tc_smem_bytes.restype = ctypes.c_size_t
     for name in ("mla_paged_max_kvr", "mla_paged_max_rope",
                  "mla_paged_max_block_len"):
         getattr(lib, name).argtypes = []
@@ -514,10 +616,11 @@ def _mla_lib() -> ctypes.CDLL:
 
 
 def _mla_launch(q_abs: torch.Tensor, q_rope, c, kr, pos, t, table, scale,
-                c_scale, kr_scale) -> torch.Tensor:
+                c_scale, kr_scale, path: Optional[str],
+                name: str) -> tuple:
     """One launch over q_abs (B, C, H, kvr), q_rope (B, C, H, rope); t
-    (B, C). Returns o_lat (B, C, H, kvr) fp32."""
-    name = "mla_paged"
+    (B, C), on the kernel ``path`` names (default :func:`mla_route`'s).
+    Returns (o_lat (B, C, H, kvr) fp32, the route taken)."""
     if not q_abs.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors")
     if q_abs.dtype not in _Q_DTYPES:
@@ -548,50 +651,79 @@ def _mla_launch(q_abs: torch.Tensor, q_rope, c, kr, pos, t, table, scale,
     if quantized:
         _check("c_scale", c_scale, torch.float32, (nb, bl), dev, name)
         _check("kr_scale", kr_scale, torch.float32, (nb, bl), dev, name)
+    path = path or mla_route(c.dtype, kvr, rd, bl, T * bl)
+    if path not in ROUTES:
+        raise ValueError(f"{name}: route {path!r} not in {ROUTES}")
     lib = _mla_lib()
-    limits = (lib.mla_paged_max_kvr(), lib.mla_paged_max_rope(),
-              lib.mla_paged_max_block_len())
-    if kvr > limits[0] or rd > limits[1] or bl > limits[2] or kvr % 4 \
-            or rd % 4:
-        raise ValueError(f"{name}: kvr {kvr}, rope {rd}, block_len {bl} "
-                         f"exceed the kernel's {limits} or are not "
-                         f"multiples of 4")
-    smem = lib.mla_paged_smem_bytes(bl, kvr, rd)
+    if path == "tensor_core":
+        if mla_route(c.dtype, kvr, rd, bl, T * bl) != "tensor_core":
+            raise ValueError(f"{name}: the tensor-core kernel does not take "
+                             f"a {c.dtype} arena at kvr {kvr}, rope {rd}, "
+                             f"{T} blocks of {bl}")
+        for n, a in (("q_abs", q_abs), ("q_rope", q_rope), ("c", c),
+                     ("k_rope", kr)):
+            if a.data_ptr() % 16:
+                raise ValueError(f"{name}: {n} must be 16-byte aligned")
+        plan = mla_split_plan(B, C * H, T, bl,
+                              exact=c.dtype == torch.float8_e4m3fn)
+        smem = lib.mla_paged_tc_smem_bytes(plan.groups, kvr, rd,
+                                           c.element_size(), plan.per,
+                                           plan.stages)
+    else:
+        limits = (lib.mla_paged_max_kvr(), lib.mla_paged_max_rope(),
+                  lib.mla_paged_max_block_len())
+        if kvr > limits[0] or rd > limits[1] or bl > limits[2] or kvr % 4 \
+                or rd % 4:
+            raise ValueError(f"{name}: kvr {kvr}, rope {rd}, block_len "
+                             f"{bl} exceed the kernel's {limits} or are not "
+                             f"multiples of 4")
+        smem = lib.mla_paged_smem_bytes(bl, kvr, rd)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} bytes of shared memory "
                          f"(> {SMEM_LIMIT})")
     out = torch.empty((B, C, H, kvr), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mla_paged_launch(
-            q_abs.data_ptr(), q_rope.data_ptr(), c.data_ptr(), kr.data_ptr(),
+    args = (q_abs.data_ptr(), q_rope.data_ptr(), c.data_ptr(), kr.data_ptr(),
             c_scale.data_ptr() if quantized else None,
             kr_scale.data_ptr() if quantized else None, pos.data_ptr(),
             t.data_ptr(), table.data_ptr(), out.data_ptr(), B, C, H, kvr,
             rd, bl, T, float(scale), _Q_DTYPES[q_abs.dtype],
-            _KV_DTYPES[c.dtype], stream)
+            _KV_DTYPES[c.dtype])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == "tensor_core":
+            rc = lib.mla_paged_tc_launch(*args, plan.groups, plan.splits,
+                                         plan.per, plan.stages, plan.sub,
+                                         stream)
+        else:
+            rc = lib.mla_paged_launch(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return out
+    return out, path
 
 
 def mla_paged_cuda(q_abs: torch.Tensor, q_rope: torch.Tensor,
                    c: torch.Tensor, kr: torch.Tensor, pos: torch.Tensor,
                    t: torch.Tensor, table: torch.Tensor, *, scale: float,
                    c_scale: Optional[torch.Tensor] = None,
-                   kr_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   kr_scale: Optional[torch.Tensor] = None,
+                   path: Optional[str] = None) -> torch.Tensor:
     """Single-token paged absorbed-MLA decode (replaces ``mla_paged_p``).
     q_abs: (B, H, kvr); q_rope: (B, H, rope), fp32 or bf16 (one dtype);
     c/kr: latent arenas (n_blocks, block_len, kvr|rope) fp32/bf16/fp16/
     fp8/int8 (+ fp32 per-token scale arenas (n_blocks, block_len) for
     int8); pos: (B, T*block_len) int32; t: (B,) int32; table: (B, T)
-    int32. Returns o_lat (B, H, kvr) fp32. Launches on the current
-    stream without synchronising; counts one launch."""
+    int32. Returns o_lat (B, H, kvr) fp32. Launches the kernel that
+    ``path`` names, by default the one :func:`mla_route` picks (no
+    fallback between them; ``path`` is for timing), on the current
+    stream without synchronising; counts one launch in ``.launches``
+    and one on that route in ``.routes``."""
     B, H, kvr = q_abs.shape
-    out = _mla_launch(q_abs.reshape(B, 1, H, kvr),
-                      q_rope.reshape(B, 1, H, q_rope.shape[-1]), c, kr, pos,
-                      t.reshape(B, 1), table, scale, c_scale, kr_scale)
+    out, route = _mla_launch(q_abs.reshape(B, 1, H, kvr),
+                             q_rope.reshape(B, 1, H, q_rope.shape[-1]), c,
+                             kr, pos, t.reshape(B, 1), table, scale, c_scale,
+                             kr_scale, path, "mla_paged")
     mla_paged_cuda.launches += 1
+    mla_paged_cuda.routes[route] += 1
     return out.reshape(B, H, kvr)
 
 
@@ -600,18 +732,21 @@ def mla_paged_chunk_cuda(q_abs: torch.Tensor, q_rope: torch.Tensor,
                          pos: torch.Tensor, t: torch.Tensor,
                          table: torch.Tensor, *, scale: float,
                          c_scale: Optional[torch.Tensor] = None,
-                         kr_scale: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         kr_scale: Optional[torch.Tensor] = None,
+                         path: Optional[str] = None) -> torch.Tensor:
     """C > 1 chunked prefill over the latent arena (replaces
     ``mla_paged_chunk_p``). q_abs: (B, C, H, kvr); q_rope: (B, C, H,
     rope); t: (B, C) per-query positions (< 0 = pad); the rest as
     :func:`mla_paged_cuda`. Returns o_lat (B, C, H, kvr) fp32; counts
-    one launch."""
-    out = _mla_launch(q_abs, q_rope, c, kr, pos, t, table, scale, c_scale,
-                      kr_scale)
+    one launch and one on its route."""
+    out, route = _mla_launch(q_abs, q_rope, c, kr, pos, t, table, scale,
+                             c_scale, kr_scale, path, "mla_paged_chunk")
     mla_paged_chunk_cuda.launches += 1
+    mla_paged_chunk_cuda.routes[route] += 1
     return out
 
 
 mla_paged_cuda.launches = 0
 mla_paged_chunk_cuda.launches = 0
+mla_paged_cuda.routes = dict.fromkeys(ROUTES, 0)
+mla_paged_chunk_cuda.routes = dict.fromkeys(ROUTES, 0)

@@ -301,20 +301,14 @@ def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, bl, T,
     assert fn.routes == {**before, route: before[route] + 1}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("arena", list(ARENAS))
-@pytest.mark.parametrize("H,kvr,rd,bl,C", [(128, 512, 64, 16, 1),
-                                           (128, 512, 64, 16, 16),
-                                           (4, 16, 8, 4, 3)])
-def test_cuda_mla_paged_matches_plain_version(H, kvr, rd, bl, C, arena):
-    """On a card: the MLA kernel (C == 1 decode, C > 1 chunk) against its
-    plain version at deepseek-v3's widths (128 heads, latent 512, rope
-    64, block_len 16) and a small ragged shape, a poisoned arena with
-    blocks handed out of order, a table hole and pad rows; live rows at
-    the reference tolerances; each wrapper call counts one launch."""
-    _cuda()
-    rs = np.random.RandomState(H + kvr + C)
-    B, T = 4, 16
+def _mla_case(H, kvr, rd, bl, T, C, arena, qdt=None):
+    """One MLA kernel call (C == 1 decode, C > 1 chunk) against its plain
+    version on a poisoned latent arena with blocks handed out of order,
+    a table hole and pad rows; live rows at the reference tolerances;
+    the call counts one launch, on the route ``mla_route`` names. q in
+    ``qdt`` (default: fp32 over fp32 arenas, else bf16)."""
+    rs = np.random.RandomState(H + kvr + C + T + bl)
+    B = 4
     fills = [T * bl - C, bl - 1, 0, 37 % (T * bl - C)]
     c, kr, pos, t, table = mk_latent(rs, B, kvr, rd, bl, T, C, fills,
                                      holes=[(0, 5)])
@@ -323,14 +317,15 @@ def test_cuda_mla_paged_matches_plain_version(H, kvr, rd, bl, C, arena):
         t[2] = -1
     cd, krd, cs, krs = arena_as(c, kr, arena, "cuda")
     pos_d, t_d, tb_d = (torch.from_numpy(a).cuda() for a in (pos, t, table))
-    qdt = torch.float32 if arena == "fp32" else torch.bfloat16
+    qdt = qdt or (torch.float32 if arena == "fp32" else torch.bfloat16)
     qa = torch.from_numpy(rs.randn(B, C, H, kvr).astype(np.float32)).to(
         "cuda", qdt)
     qr = torch.from_numpy(rs.randn(B, C, H, rd).astype(np.float32)).to(
         "cuda", qdt)
     kw = dict(scale=(128 + rd) ** -0.5, c_scale=cs, kr_scale=krs)
     fn = pa.mla_paged_cuda if C == 1 else pa.mla_paged_chunk_cuda
-    before = fn.launches
+    route = pa.mla_route(cd.dtype, kvr, rd, bl, T * bl)
+    before, routes = fn.launches, dict(fn.routes)
     if C == 1:
         args = (qa[:, 0].contiguous(), qr[:, 0].contiguous(), cd, krd,
                 pos_d, t_d[:, 0].contiguous(), tb_d)
@@ -344,9 +339,66 @@ def test_cuda_mla_paged_matches_plain_version(H, kvr, rd, bl, C, arena):
     assert got.shape == (B, C, H, kvr) and got.dtype == torch.float32
     assert bool(torch.isfinite(got).all())
     assert fn.launches == before + 1
+    assert fn.routes == {**routes, route: routes[route] + 1}
     live = torch.from_numpy(t >= 0).cuda()
     tol = ATTN_TOL[arena]
     torch.testing.assert_close(got[live], want[live], rtol=tol, atol=tol)
+    return route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", list(ARENAS))
+@pytest.mark.parametrize("H,kvr,rd,bl,C", [(128, 512, 64, 16, 1),
+                                           (128, 512, 64, 16, 16),
+                                           (4, 16, 8, 4, 3)])
+def test_cuda_mla_paged_matches_plain_version(H, kvr, rd, bl, C, arena):
+    """On a card: the MLA kernels (C == 1 decode, C > 1 chunk) against
+    their plain version at deepseek-v3's widths (128 heads, latent 512,
+    rope 64, block_len 16) and a small ragged shape, a poisoned arena
+    with blocks handed out of order, a table hole and pad rows; live rows
+    at the reference tolerances; each wrapper call counts one launch on
+    the route ``mla_route`` names: at deepseek's widths the tensor-core
+    kernel over every arena but fp32."""
+    _cuda()
+    route = _mla_case(H, kvr, rd, bl, 16, C, arena)
+    if kvr == 512:
+        assert route == ("cuda_core" if arena == "fp32" else "tensor_core")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", list(ARENAS))
+@pytest.mark.parametrize("H,kvr,rd,bl,T,C", [
+    (128, 512, 64, 16, 128, 1),     # 2048 positions: the decode splits
+    (128, 512, 64, 16, 128, 16),    # the chunk walks 64 steps in one CTA
+    (128, 512, 64, 4, 64, 1),       # block_len 4: 8 blocks a step
+    (128, 512, 64, 32, 8, 16),      # block_len 32: one block a step
+    (40, 512, 64, 16, 16, 3),       # R = 120: a ragged row tile
+    (40, 512, 64, 32, 64, 1),       # R = 40, 2048 positions, split
+    (16, 256, 32, 16, 10, 2)])      # narrower widths, R = 32
+def test_cuda_mla_tensor_core_long_tables_and_ragged_rows(H, kvr, rd, bl, T,
+                                                          C, arena):
+    """On a card: the MLA kernels at 2048 positions (the decode's walk
+    split across a cluster, the chunk's 64 steps in one CTA), block_len 4
+    and 32, ragged row tiles and narrower widths, against their plain
+    version as ``test_cuda_mla_paged_matches_plain_version`` holds them;
+    fp8 at block_len 4 takes the CUDA-core kernel."""
+    _cuda()
+    route = _mla_case(H, kvr, rd, bl, T, C, arena)
+    assert route == ("cuda_core" if arena == "fp32" or (
+        arena == "fp8" and bl not in (16, 32)) else "tensor_core")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", ["bf16", "fp8", "int8", "fp16"])
+@pytest.mark.parametrize("C", [1, 16])
+def test_cuda_mla_tensor_core_takes_fp32_queries(C, arena):
+    """On a card: fp32 q_abs and q_rope (``decode_mla`` widens both when
+    their dtypes differ) over every tensor-core arena at deepseek-v3's
+    widths, rounded to the compute dtype in the kernel as in the plain
+    version, at the reference tolerance."""
+    _cuda()
+    assert _mla_case(128, 512, 64, 16, 16, C, arena,
+                     qdt=torch.float32) == "tensor_core"
 
 
 # bf16 outputs: the kernel and its plain version both round an fp32 sum
