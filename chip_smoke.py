@@ -107,6 +107,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    drawn and dequantized once to bf16 (``--static --wbits 8``), 4
    prompts of 512 tokens: flash_attention launched 40 times in the
    prefill, all on the tensor-core route, never in the decode.
+13. stream — full-width RUBICALL as phase 3 serves it, fed LIVE reads
+   through ``launch/serve.py``'s ``run_streamed``: 8 reads of 1000-2000
+   bases (9k-18k samples; a frame is stable only once 3237 samples past
+   it have arrived), Poisson starts at 4 reads/s, appended at PORE_HZ
+   on the wall clock. Under qos ``accuracy`` and ``latency``: every
+   read finishes, qconv1d_block launches 19 times per forward, all on
+   the tensor-core route, and no idle tick reaches the runner; prints
+   emit-latency p50/p99, forwards and windows per read, tick p50. Then,
+   with the activation quantizers off (still bf16, same route), the
+   streamed ``accuracy`` bases of 4 reads equal the same reads served
+   whole, token for token. Then read-until: the classifier trained on
+   the card by ``make_read_until`` (32 windows a class of 7500
+   samples, 150 steps), 8 reads at ``--target-frac 0.5``, ejecting
+   after 2 windows: every read finishes or is ejected, each ejected
+   read after at most 2 x 1026 samples; prints ejections, off-target
+   rejected, on-target lost, samples saved. One read-until tick is
+   traced (the classifier's kernels and their share; its one readback
+   of log-probs and logits). Last, forced verdicts on a replayed append
+   schedule: threshold +1e9 ejects every read after 2 windows, -1e9
+   none, with the bases of the same schedule served without
+   read-until.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -145,11 +166,13 @@ from repro_torch.kernels import qmatmul as qmm  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models.basecaller import classifier as rc  # noqa: E402
 from repro_torch.models.basecaller import model as bc  # noqa: E402
 from repro_torch.models.lm import common  # noqa: E402
 from repro_torch.models.lm import moe as moe_mod  # noqa: E402
 from repro_torch.models.lm import transformer as tfm  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
+from repro_torch.serving import runner as runner_mod  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and FLOP/s
@@ -417,15 +440,16 @@ def tick_both_paths(runner, cfg, window):
     return out
 
 
-def trace(label: str, enqueue, share: tuple = ()) -> dict:
+def trace(label: str, enqueue, share: tuple = (), fetch=None) -> dict:
     """Where one served tick's time goes. ``enqueue()`` enqueues the
-    tick and returns its output on the card. Without the profiler: host
-    time to enqueue, device time from the first enqueue to the last
-    kernel (CUDA events), and wall time to the readback. Under
-    torch.profiler (CUPTI): the device time of every kernel, summed and
-    by kernel, and the share of the kernels whose names hold one of
-    ``share``."""
+    tick and returns its output on the card; ``fetch(out)`` reads it
+    back (default ``out.cpu()``). Without the profiler: host time to
+    enqueue, device time from the first enqueue to the last kernel (CUDA
+    events), and wall time to the readback. Under torch.profiler
+    (CUPTI): the device time of every kernel, summed and by kernel, and
+    the share of the kernels whose names hold one of ``share``."""
     from torch.profiler import ProfilerActivity, profile
+    fetch = fetch or (lambda out: out.cpu())
     enqueue()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -435,7 +459,7 @@ def trace(label: str, enqueue, share: tuple = ()) -> dict:
     out = enqueue()
     b.record()
     t_host = time.perf_counter() - t0
-    out.cpu()
+    fetch(out)
     t_wall = time.perf_counter() - t0
     print(f"[trace] {label}: host enqueue {t_host * 1e3:.2f} ms, device "
           f"{a.elapsed_time(b):.2f} ms from first enqueue to last kernel, "
@@ -443,7 +467,7 @@ def trace(label: str, enqueue, share: tuple = ()) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        enqueue().cpu()
+        fetch(enqueue())
         t_prof = time.perf_counter() - t0
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
@@ -459,6 +483,7 @@ def trace(label: str, enqueue, share: tuple = ()) -> dict:
             print(f"[trace]   {us / 1e3:8.3f} ms  {n:4d}x  {key[:90]}")
     out = {"host_ms": t_host * 1e3, "device_ms": a.elapsed_time(b),
            "wall_ms": t_wall * 1e3, "busy_ms": busy}
+    out["launches"] = sum(r[1] for r in rows)
     if share:
         mine = [r for r in rows if any(k in r[2] for k in share)]
         out["share_ms"] = sum(r[0] for r in mine) / 1e3
@@ -468,11 +493,24 @@ def trace(label: str, enqueue, share: tuple = ()) -> dict:
     return out
 
 
-def phase_serve() -> dict:
+def rubicall_served():
+    """Full-width RUBICALL as phase 3 serves it: seeded weights at unit
+    gain, packed to int8 as ``launch/serve.py --wbits 8`` does."""
     cfg = get_config("rubicall")
     params = api.init_params(torch.Generator().manual_seed(0), cfg)
     unit_gain(params)
-    params = serve.quantize_for_serving(params, 8)
+    return cfg, serve.quantize_for_serving(params, 8)
+
+
+def no_act_quant(cfg):
+    """``cfg`` with its activation quantizers off and its weight bits
+    kept (the same blocks take the kernel)."""
+    return replace(cfg, quant=QuantPolicy(8, 0, overrides=tuple(
+        (p, (w, 0)) for p, (w, _) in cfg.quant.overrides)))
+
+
+def phase_serve() -> dict:
+    cfg, params = rubicall_served()
     engine = api.make_serving_engine(params, cfg, device="cuda", n_slots=B,
                                      chunk_samples=1024)
     runner = engine.runner
@@ -521,9 +559,7 @@ def phase_serve() -> dict:
     window = (np.stack([c[0] for c in chunks]),
               np.array([c[3] for c in chunks], np.int32),
               np.array([c[4] for c in chunks], np.int32))
-    exact = replace(cfg, dtype="float32", quant=QuantPolicy(
-        8, 0, overrides=tuple((p, (w, 0)) for p, (w, _) in
-                              cfg.quant.overrides)))
+    exact = replace(no_act_quant(cfg), dtype="float32")
     for name, c, bound in (("bf16 as served", cfg, TICK_BF16),
                            ("fp32, no act-quant", exact, TICK_FP32)):
         ops.reset_launch_counts()
@@ -1702,6 +1738,364 @@ def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
     return row
 
 
+# ---------------------------------------------------------------------------
+# Streaming slice: live reads and read-until on full-width RUBICALL
+
+# reads of 1000-2000 bases (9k-18k samples, 2.3-4.5 s at PORE_HZ): a
+# frame is stable only once (g+1)*3 + 3237 samples have arrived, so the
+# launcher's default 300-base reads (< one halo) would emit every base
+# at finish() and measure nothing
+STREAM = dict(requests=8, rate=4.0, read_bases=2000, seed=0,
+              chunk_samples=1024, eject_after_chunks=2, target_frac=0.5,
+              async_dispatch=False, read_until=False)
+EXACT_READS = 4
+REPLAY_DT = 0.1               # pore seconds per loop of a replayed schedule
+
+
+class PoreClock:
+    """A clock that advances ``dt`` seconds each time it is read: with a
+    no-op sleep, ``serve.stream_reads`` replays one append schedule
+    exactly, however fast the card runs."""
+
+    def __init__(self, dt: float):
+        self.t, self.dt = 0.0, dt
+
+    def __call__(self) -> float:
+        self.t += self.dt
+        return self.t
+
+
+def replayed() -> dict:
+    return {"clock": PoreClock(REPLAY_DT), "sleep": lambda s: None}
+
+
+def stream_engine(params, cfg, **kw):
+    engine = api.make_serving_engine(params, cfg, device="cuda", n_slots=B,
+                                     chunk_samples=STREAM["chunk_samples"],
+                                     **kw)
+    engine.warmup()
+    return engine
+
+
+def streamed_run(engine, args, where: str, **kw) -> dict:
+    """``serve.run_streamed`` with the kernel's launches counted from 0
+    just before and read just after. Checks that every runner call had
+    work (idle ticks never reach the runner), one call per forward, 19
+    qconv1d_block launches per forward, all on the tensor-core route.
+    Times each forward tick's host enqueue (``dispatch``) and its
+    readback and CTC merge (``collect``) on the host clock."""
+    runner = engine.runner
+    calls = {"calls": 0, "windows": 0, "step_s": [], "dispatch_s": [],
+             "collect_s": []}
+    step, dispatch, collect = runner.step, runner.dispatch, runner.collect
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            calls[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def counted(works):
+        n = sum(w is not None for w in works)
+        if not n:
+            raise AssertionError(f"{where}: an idle tick reached the runner")
+        calls["calls"] += 1
+        calls["windows"] += n
+        return step(works)
+    runner.dispatch = timed(dispatch, "dispatch_s")
+    runner.collect = timed(collect, "collect_s")     # ends in the readback
+    runner.step = timed(counted, "step_s")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.run_streamed(engine, types.SimpleNamespace(**args), **kw)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    launches = ops.launch_counts()["qconv1d_block"]
+    routes = ops.launch_counts(routes=True)
+    check_routes(routes, ("qconv1d_block",), where)
+    s = out["summary"]
+    forwards = s["bucket_hits"] + s["bucket_misses"]
+    if forwards < 1 or launches != len(KERNEL_BLOCKS) * forwards:
+        raise AssertionError(f"{where}: qconv1d_block launched {launches} "
+                             f"times in {forwards} forwards, want "
+                             f"{len(KERNEL_BLOCKS)} per forward")
+    if calls["calls"] != forwards:
+        raise AssertionError(f"{where}: {calls['calls']} runner calls for "
+                             f"{forwards} forwards")
+    if len(out["done"]) != args["requests"]:
+        raise AssertionError(f"{where}: {len(out['done'])} of "
+                             f"{args['requests']} reads done")
+    out.update(calls, launches=launches, forwards=forwards,
+               routes=routes["qconv1d_block"])
+    return out
+
+
+def watch_ejections(engine) -> dict:
+    """Each ejected read's consumed samples, as the engine books them."""
+    seen = {}
+    record = engine.metrics.record_eject
+
+    def watched(rid, consumed, arrived):
+        seen[rid] = consumed
+        record(rid, consumed=consumed, arrived=arrived)
+    engine.metrics.record_eject = watched
+    return seen
+
+
+def record_frames(runner) -> dict:
+    """The argmax frame ids each read's CTC merge is fed, by rid (a far
+    finer check than the bases: random weights emit mostly blanks)."""
+    frames = {}
+    admit = runner.admit
+
+    def recording(slot, req):
+        admit(slot, req)
+        merge, fed = runner._merge[slot], frames.setdefault(req.rid, [])
+        feed = merge.feed
+
+        def feed_recorded(ids):
+            fed.extend(int(i) for i in ids)
+            return feed(ids)
+        merge.feed = feed_recorded
+    runner.admit = recording
+    return frames
+
+
+def queue_waits(engine, rids) -> list:
+    """Seconds each read waited for a slot (submit to admission)."""
+    req = engine.metrics.requests
+    return [req[r].admit - req[r].arrival for r in rids]
+
+
+def tokens(run: dict) -> dict:
+    return {rid: list(map(int, r.out_tokens))
+            for rid, r in run["done"].items()}
+
+
+def statuses(run: dict) -> dict:
+    return {rid: r.status for rid, r in run["done"].items()}
+
+
+def phase_stream() -> dict:
+    cfg, params = rubicall_served()
+    params = tree_map(lambda t: t.to("cuda"), params)
+    exact = no_act_quant(cfg)
+    out = {"launches": 0}
+
+    # 1) both QoS as served, paced by the wall clock
+    for qos in ("accuracy", "latency"):
+        eng = stream_engine(params, cfg, qos=qos)
+        core = eng.runner.core
+        run = streamed_run(eng, STREAM, f"stream {qos}")
+        if set(statuses(run).values()) != {"finished"}:
+            raise AssertionError(f"stream {qos}: {statuses(run)}")
+        s = run["summary"]
+        if not s["emit_events"] or not all(tokens(run).values()):
+            raise AssertionError(f"stream {qos}: no bases emitted")
+        lens = [sig.shape[0] for _, _, sig in run["reads"]]
+        n = len(lens)
+        waits = queue_waits(eng, run["done"])
+        row = {"emit_p50_ms": s["emit_latency_p50_s"] * 1e3,
+               "emit_p99_ms": s["emit_latency_p99_s"] * 1e3,
+               "emit_events": s["emit_events"], "forwards": run["forwards"],
+               "windows_per_read": run["windows"] / n,
+               "forwards_per_read": run["forwards"] / n,
+               "tick_p50_ms": s["tick_latency_p50_s"] * 1e3,
+               "forward_tick_p50_ms":
+                   statistics.median(run["step_s"]) * 1e3,
+               "dispatch_p50_ms": statistics.median(run["dispatch_s"]) * 1e3,
+               "collect_p50_ms": statistics.median(run["collect_s"]) * 1e3,
+               "idle_ticks": s["idle_ticks"], "launches": run["launches"],
+               "queue_wait_mean_s": sum(waits) / n,
+               "queue_wait_max_s": max(waits),
+               "routes": run["routes"], "wall_s": run["wall_s"],
+               "samples": sum(lens)}
+        out[qos] = row
+        out["launches"] += run["launches"]
+        print(f"[stream] qos={qos}: {n} live reads of {min(lens)}-"
+              f"{max(lens)} samples in {run['wall_s']:.2f}s | emit latency "
+              f"p50 {row['emit_p50_ms']:.2f} ms p99 {row['emit_p99_ms']:.2f} "
+              f"ms ({row['emit_events']} emissions) | {run['forwards']} "
+              f"forwards ({row['forwards_per_read']:.2f} a read, "
+              f"{row['windows_per_read']:.2f} windows a read; offline "
+              f"{sum(-(-n_ // core) for n_ in lens) / n:.2f}) | tick p50 "
+              f"{row['tick_p50_ms']:.2f} ms, with a forward "
+              f"{row['forward_tick_p50_ms']:.2f} ms (enqueue "
+              f"{row['dispatch_p50_ms']:.2f}, readback + merge "
+              f"{row['collect_p50_ms']:.2f}) | idle ticks skipped "
+              f"{row['idle_ticks']:.0f} | wait for a slot mean "
+              f"{row['queue_wait_mean_s']:.3f} s max "
+              f"{row['queue_wait_max_s']:.3f} s | qconv1d_block launches "
+              f"{run['launches']} = {len(KERNEL_BLOCKS)} x {run['forwards']},"
+              f" routes {run['routes']}")
+
+    # 2) exactness: activation quantizers off (no row couples to another),
+    # streamed accuracy bases == the same reads served whole
+    eng = stream_engine(params, exact)
+    frames = record_frames(eng.runner)
+    args = {**STREAM, "requests": EXACT_READS}
+    run = streamed_run(eng, args, "stream exact", **replayed())
+    ops.reset_launch_counts()
+    for rid, (_, _, sig) in enumerate(run["reads"]):
+        eng.submit(Request(rid=100 + rid, signal=sig))
+    offline = eng.run()
+    check_routes(ops.launch_counts(routes=True), ("qconv1d_block",),
+                 "offline exact")
+    got = tokens(run)
+    for rid in got:
+        want = list(map(int, offline[100 + rid].out_tokens))
+        fs, fo = frames[rid], frames[100 + rid]
+        if offline[100 + rid].status != "finished" or got[rid] != want \
+                or fs != fo or len(fs) != -(-run["reads"][rid][2].shape[0]
+                                           // eng.runner.stride):
+            diff = next((i for i, (a, b) in enumerate(zip(fs, fo))
+                         if a != b), None)
+            raise AssertionError(
+                f"stream exact: read {rid}: {len(got[rid])} bases streamed, "
+                f"{len(want)} offline; {len(fs)} frames streamed, "
+                f"{len(fo)} offline, first differing frame {diff}")
+    out["exact"] = {"reads": EXACT_READS,
+                    "bases": sum(map(len, got.values())),
+                    "frames": sum(len(frames[r]) for r in got)}
+    print(f"[stream] exact (no act-quant, bf16): {EXACT_READS} streamed "
+          f"accuracy reads == the same reads served whole: "
+          f"{out['exact']['frames']} argmax frames fed to the CTC merge and "
+          f"{out['exact']['bases']} bases, each equal")
+
+    # 3) read-until: the classifier trained on the card, as the launcher
+    # does; the mechanics asserted, not the classifier's quality
+    ru_args = {**STREAM, "read_until": True}
+    ru = serve.make_read_until(cfg, types.SimpleNamespace(**ru_args), "cuda")
+    eng = stream_engine(params, cfg, read_until=ru)
+    where = {v.device.type for v in ru.params.values()} | {
+        v.device.type for v in eng.runner.read_until.params.values()}
+    if where != {eng.runner.device.type}:
+        raise AssertionError(f"read-until: the classifier lies on {where}, "
+                             f"the forward runs on {eng.runner.device}")
+    consumed = watch_ejections(eng)
+    run = streamed_run(eng, ru_args, "read-until")
+    out["launches"] += run["launches"]
+    st = statuses(run)
+    if not set(st.values()) <= {"finished", "ejected"} or \
+            any(c > 2 * core for c in consumed.values()) or \
+            sorted(consumed) != sorted(r for r, v in st.items()
+                                       if v == "ejected"):
+        raise AssertionError(f"read-until: statuses {st}, consumed "
+                             f"{consumed}")
+    on = {i: tgt for i, (_, tgt, _) in enumerate(run["reads"])}
+    s = run["summary"]
+    total = sum(sig.shape[0] for _, _, sig in run["reads"])
+    off_samples = sum(sig.shape[0] for _, tgt, sig in run["reads"]
+                      if not tgt)
+    out["read_until"] = {
+        "off_target_samples": off_samples,
+        "ejections": s["ejections"],
+        "off_target": sum(not v for v in on.values()),
+        "off_target_rejected": sum(not on[r] for r in consumed),
+        "on_target_lost": sum(on[r] for r in consumed),
+        "samples_saved": s["samples_saved"], "samples": total,
+        "ejected_consumed_samples": s["ejected_consumed_samples"],
+        "emit_p50_ms": s["emit_latency_p50_s"] * 1e3,
+        "emit_p99_ms": s["emit_latency_p99_s"] * 1e3,
+        "tick_p50_ms": s["tick_latency_p50_s"] * 1e3,
+        "forward_tick_p50_ms": statistics.median(run["step_s"]) * 1e3,
+        "forwards": run["forwards"], "launches": run["launches"]}
+    r_ = out["read_until"]
+    print(f"[stream] read-until: {r_['ejections']:.0f} ejections, "
+          f"{r_['off_target_rejected']}/{r_['off_target']} off-target "
+          f"rejected, {r_['on_target_lost']} on-target lost | samples saved "
+          f"{r_['samples_saved']:.0f}/{total} ({off_samples} off-target) | "
+          f"basecalled "
+          f"{r_['ejected_consumed_samples']:.0f} samples on ejected reads "
+          f"(each <= {2 * core}) | tick p50 {r_['tick_p50_ms']:.2f} ms, "
+          f"with a forward {r_['forward_tick_p50_ms']:.2f} ms")
+
+    # one read-until tick traced (phase 3 traces the same tick without
+    # the classifier), then the classifier alone: its kernels and device
+    # time, and the tick's one readback
+    runner = eng.runner
+    works = [types.SimpleNamespace(final=False, payload=runner.make_chunks(
+        Request(rid=i, signal=sig))[1].payload)
+        for i, (_, _, sig) in enumerate(run["reads"][:B])]
+    out["trace"] = trace("one read-until tick (rubicall, B=4, qos accuracy)",
+                         lambda: runner.dispatch(works)[1],
+                         fetch=lambda o: runner_mod.readback(*o))
+    wins = torch.from_numpy(np.stack([w.payload[0] for w in works])).cuda()
+    cls_params = runner.read_until.params
+    with torch.inference_mode():
+        cls_ms = device_ms([lambda: rc.forward(cls_params, wins)] * 20)
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            rc.forward(cls_params, wins)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in kernels:
+        print(f"[trace]   classifier alone, 3 calls: "
+              f"{e.self_device_time_total / 1e3:8.4f} ms {e.count:3d}x "
+              f"{e.key[:80]}")
+    per_call = sum(e.count for e in kernels) / 3
+    busy = out["trace"]["busy_ms"]
+    out["classifier"] = {"device_ms": cls_ms, "kernels_per_call": per_call,
+                         "share_of_tick": cls_ms / busy if busy else None}
+    print(f"[trace] read-until classifier: {cls_ms:.4f} ms of device time "
+          f"a call (host out of the way), {per_call:.0f} kernels a call; "
+          f"the read-until tick's kernels: {busy:.2f} ms in "
+          f"{out['trace']['launches']} launches")
+    reads_back = []
+    real = runner_mod.readback
+
+    def counted(*ts):
+        reads_back.append([tuple(t.shape) for t in ts])
+        return real(*ts)
+    for i in range(B):
+        runner.admit(i, None)
+    with mock.patch.object(runner_mod, "readback", counted):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.collect(runner.dispatch(works))
+        t_tick = time.perf_counter() - t0
+    for i in range(B):
+        runner.reset_row(i)
+    if len(reads_back) != 1 or len(reads_back[0]) != 2:
+        raise AssertionError(f"read-until tick: readbacks {reads_back}")
+    print(f"[trace] read-until tick: one readback of {reads_back[0]} "
+          f"(log-probs, logits); dispatch + collect {t_tick * 1e3:.2f} ms")
+
+    # 4) forced verdicts on a replayed schedule, activation quantizers off:
+    # +1e9 ejects every read after two windows, -1e9 none, with the bases
+    # of the same schedule served without read-until
+    base = streamed_run(stream_engine(params, exact), ru_args,
+                        "no read-until", **replayed())
+    forced = {}
+    for thr in (1e9, -1e9):
+        eng = stream_engine(params, exact,
+                            read_until=replace(ru, threshold=thr))
+        consumed = watch_ejections(eng)
+        run = streamed_run(eng, ru_args, f"forced {thr:+.0e}", **replayed())
+        st = statuses(run)
+        if thr > 0 and (set(st.values()) != {"ejected"}
+                        or any(c != 2 * core for c in consumed.values())):
+            raise AssertionError(f"forced +1e9: {st}, consumed {consumed}")
+        if thr < 0 and (set(st.values()) != {"finished"}
+                        or tokens(run) != tokens(base)):
+            raise AssertionError(f"forced -1e9: {st}, bases differ from "
+                                 f"the run without read-until")
+        forced[f"{thr:+.0e}"] = {"ejections": run["summary"]["ejections"],
+                                 "samples_saved":
+                                     run["summary"]["samples_saved"]}
+    out["forced"] = forced
+    print(f"[stream] forced verdicts: +1e9 ejected all {STREAM['requests']} "
+          f"reads after {2 * core} samples each (saved "
+          f"{forced['+1e+09']['samples_saved']:.0f}); -1e9 ejected none, "
+          f"bases == the run without read-until")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1753,6 +2147,7 @@ def main() -> int:
                    QWEN_PROMPT, "flash_attention",
                    (fa, "flash_attention_cuda", ref.flash_attention_gqa_ref),
                    QWEN_PREFILL, 8, ("flash_attention",), ("flash_",))
+    stream = lap("stream", phase_stream)
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
     def forward_sum(pk):
@@ -1769,6 +2164,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/qconv1d.cu",
         "replaces": "src/repro/kernels/qconv1d.py:38",
         "launches": served["launches"], "max_abs_err": kern["err_main"],
+        "launches_by_phase": {"serve": served["launches"],
+                              "stream": stream["launches"]},
+        "stream": {k: stream[k] for k in ("accuracy", "latency", "exact",
+                                          "read_until", "classifier",
+                                          "forced")},
         **forward_sum(kern["per_route"]["tensor_core"]),
         "shape": f"sum over one forward's {len(blocks_k)} launches, bf16 "
                  f"(qconv1d_tc_kernel) B={B} T={T_MAIN} C={C} k={blocks_k}",

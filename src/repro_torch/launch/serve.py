@@ -16,6 +16,19 @@ stride-1 square blocks run the fused CUDA ``qconv1d`` kernel.
 ``--max-queue``/``--queue-timeout`` bound admission. The run ends with
 reads/s, bases/s and the tick-latency percentiles.
 
+``--stream`` makes the reads LIVE: Poisson read starts, then each
+read's samples arrive over wall-clock time at ``PORE_HZ`` and are
+``append()``-ed to a :class:`repro_torch.serving.stream.StreamingRequest`;
+bases emit as their receptive field is covered (``--qos latency``) or
+once per fully covered window (``--qos accuracy``, identical to the
+offline chunked path). ``--read-until`` trains the start-of-read
+classifier at launch, on the engine's device, and ejects off-target
+reads (with ``--stream``, a ``1 - --target-frac`` share of the reads is
+normalized white noise) after ``--eject-after-chunks`` windows; an
+ejected read frees its slot, keeps its bases so far, and its generator
+stops appending. The streamed run reports emit-latency p50/p99 and,
+with read-until, ejections and samples saved.
+
 Token LMs (the dense and moe families)
 --------------------------------------
 ``python -m repro_torch.launch.serve --arch qwen1.5-4b --wbits 8
@@ -106,6 +119,131 @@ def build_reads(args, seed: int = 0):
         reqs.append(Request(rid=i, signal=normalize(sig),
                             arrival_time=float(arrivals[i])))
     return reqs
+
+
+PORE_HZ = 4000.0          # nanopore sample rate the streamed traffic mimics
+
+
+def make_read_until(cfg, args, device):
+    """Train the start-of-read classifier on ``device`` on synthetic
+    windows of the engine's window geometry and wrap it in a ReadUntil
+    policy."""
+    from repro_torch.models.basecaller import classifier as rc
+    from repro_torch.models.basecaller import model as bc
+    from repro_torch.serving.stream import ReadUntil
+    stride = bc.total_stride(cfg)
+    halo = bc.chunk_halo(cfg)
+    core = max(-(-args.chunk_samples // stride), 1) * stride
+    window = core + 2 * halo
+    rs = np.random.RandomState(args.seed + 77)
+    x, y = rc.make_training_set(rs, window, n_per_class=32)
+    cp = rc.init_params(torch.Generator().manual_seed(args.seed + 1))
+    cp = {k: v.to(device) for k, v in cp.items()}
+    cp, loss = rc.fit(cp, x, y, steps=150, lr=0.1)
+    print(f"[serve] read-until: classifier trained on {device} on "
+          f"{x.shape[0]} windows of {window} samples (bce {loss:.3f}), "
+          f"ejecting after {args.eject_after_chunks} chunks")
+    return ReadUntil(params=cp, eject_after_chunks=args.eject_after_chunks)
+
+
+def build_streamed_reads(args, seed: int = 0):
+    """Streamed basecaller traffic: Poisson read starts; each entry is
+    ``(start_time, on_target, full_signal)`` and the run loop appends
+    the signal in wall-clock order at PORE_HZ. With --read-until, a
+    ``1 - target_frac`` fraction are off-target white-noise reads."""
+    from repro_torch.data.squiggle import (SquiggleConfig, normalize,
+                                           pore_table, simulate_read)
+    rs = np.random.RandomState(seed)
+    starts = np.cumsum(rs.exponential(1.0 / args.rate, size=args.requests))
+    sim = SquiggleConfig(noise=0.1, drift=0.0)
+    table = pore_table()
+    target_frac = args.target_frac if args.read_until else 1.0
+    reads = []
+    for i in range(args.requests):
+        n_bases = int(rs.randint(max(args.read_bases // 2, 8),
+                                 args.read_bases + 1))
+        on_target = bool(rs.rand() < target_frac)
+        if on_target:
+            sig, _ = simulate_read(rs, sim, table, n_bases)
+            sig = normalize(sig)
+        else:
+            sig = normalize(rs.randn(n_bases * 9).astype(np.float32))
+        reads.append((float(starts[i]), on_target, sig))
+    return reads
+
+
+def stream_reads(engine, reads, *, clock=time.perf_counter,
+                 sleep=time.sleep) -> dict:
+    """Drive the engine from live StreamingRequests: submit each read at
+    its start on ``clock``, append its samples as that clock covers them
+    (PORE_HZ per pore), finish it at its end, and step the engine until
+    every read is done. Ejected reads stop appending — the forgone tail
+    is booked as samples saved. Returns the drained requests by rid. A
+    ``clock`` that advances a fixed step per call, with a no-op
+    ``sleep``, replays one append schedule exactly."""
+    from repro_torch.serving.stream import StreamingRequest
+    live = {}                       # rid -> [req, signal, appended]
+    t0 = clock()
+    i = 0
+    while i < len(reads) or live:
+        now = clock() - t0
+        while i < len(reads) and reads[i][0] <= now:
+            req = StreamingRequest(rid=i, arrival_time=reads[i][0],
+                                   clock=engine.metrics.clock)
+            engine.submit(req)
+            live[i] = [req, reads[i][2], 0]
+            i += 1
+        for rid in list(live):
+            req, sig, ptr = live[rid]
+            if req.done:
+                if req.ejected and ptr < sig.shape[0]:
+                    engine.metrics.record_samples_saved(sig.shape[0] - ptr)
+                del live[rid]
+                continue
+            due = min(int((now - req.arrival_time) * PORE_HZ), sig.shape[0])
+            if due > ptr:
+                req.append(sig[ptr:due])
+                live[rid][2] = due
+            elif ptr >= sig.shape[0] and not req.stream_finished:
+                req.finish()
+        if engine.busy:
+            engine.step()
+        else:
+            sleep(0.002)
+    return engine.drain_completed()
+
+
+def run_streamed(engine, args, **kw) -> dict:
+    """Stream ``--requests`` live reads (:func:`build_streamed_reads`,
+    seeded by ``--seed``) through ``engine`` (:func:`stream_reads`, which
+    takes ``kw``) and print the emit-latency and read-until report.
+    Returns the drained requests, the reads and the metrics summary."""
+    reads = build_streamed_reads(args, seed=args.seed)
+    done = stream_reads(engine, reads, **kw)
+    on_target = {i: tgt for i, (_, tgt, _) in enumerate(reads)}
+    ejected = [r for r in done.values() if r.ejected]
+    n_off = sum(not on_target[rid] for rid in done)
+    off_ejected = sum(not on_target[r.rid] for r in ejected)
+    total_samples = sum(sig.shape[0] for _, _, sig in reads)
+    s = engine.metrics.summary()
+    print(f"[serve] streamed: {len(done)} reads ({n_off} off-target), "
+          f"qos={engine.runner.qos}, emit latency p50 "
+          f"{s['emit_latency_p50_s'] * 1e3:.1f}ms p99 "
+          f"{s['emit_latency_p99_s'] * 1e3:.1f}ms "
+          f"({s['emit_events']} emissions)")
+    if engine.runner.read_until is not None:
+        print(f"[serve] read-until: {s['ejections']:.0f} ejections "
+              f"({off_ejected}/{n_off} off-target rejected, "
+              f"{len(ejected) - off_ejected} on-target lost) | samples "
+              f"saved {s['samples_saved']:.0f}/{total_samples} "
+              f"({s['samples_saved'] / max(total_samples, 1) * 100:.0f}%) | "
+              f"basecalled {s['ejected_consumed_samples']:.0f} samples on "
+              f"ejected reads")
+    print_tick_report(s, args)
+    if done:
+        first = done[min(done)]
+        print(f"[serve] sample ({first.status}):", first.out_tokens[:16])
+    return {"done": done, "reads": reads, "summary": s}
 
 
 def run(engine, reqs) -> None:
@@ -322,7 +460,8 @@ def run_static(params, cfg, args, device) -> dict:
 def print_tick_report(s, args) -> None:
     print(f"[serve] ticks ({'async' if args.async_dispatch else 'sync'}): "
           f"p50 {s['tick_latency_p50_s'] * 1e3:.2f}ms "
-          f"p99 {s['tick_latency_p99_s'] * 1e3:.2f}ms | queue hwm "
+          f"p99 {s['tick_latency_p99_s'] * 1e3:.2f}ms | idle skipped "
+          f"{s['idle_ticks']:.0f} | queue hwm "
           f"{s['queue_depth_hwm']:.0f} | rejected {s['rejections']:.0f} | "
           f"plans {s['plans']:.0f} ({s['plans_warmed']:.0f} warmed), "
           f"hits {s['bucket_hits']:.0f} misses {s['bucket_misses']:.0f}")
@@ -352,6 +491,25 @@ def main(argv=None) -> None:
     ap.add_argument("--async-dispatch", action="store_true")
     ap.add_argument("--max-queue", type=int, default=0)
     ap.add_argument("--queue-timeout", type=float, default=0.0)
+    # ---- streaming + read-until (basecaller archs only) ----
+    ap.add_argument("--stream", action="store_true",
+                    help="live reads: samples arrive over wall-clock time "
+                         "at the pore rate and are appended to "
+                         "StreamingRequests")
+    ap.add_argument("--qos", default="accuracy",
+                    choices=["latency", "accuracy"],
+                    help="streaming: 'latency' re-forwards the live window "
+                         "as frames become stable; 'accuracy' forwards "
+                         "each window once, when fully covered")
+    ap.add_argument("--read-until", action="store_true",
+                    help="train the start-of-read classifier at launch and "
+                         "eject off-target reads")
+    ap.add_argument("--target-frac", type=float, default=0.5,
+                    help="streamed read-until traffic: share of on-target "
+                         "reads (the rest are white noise)")
+    ap.add_argument("--eject-after-chunks", type=int, default=2,
+                    help="read-until: decide after this many "
+                         "window-complete classifier scores")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--static", action="store_true",
@@ -397,6 +555,10 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+    if (args.stream or args.read_until) and cfg.family != "basecaller":
+        raise SystemExit(
+            f"[serve] error: --stream/--read-until serve live squiggle "
+            f"reads; arch {cfg.name!r} is not a basecaller")
     if args.static:
         if cfg.family == "basecaller":
             raise SystemExit("[serve] error: --static serves token LMs")
@@ -414,18 +576,27 @@ def main(argv=None) -> None:
     if args.wbits:
         params = quantize_for_serving(params, args.wbits)
         print(f"[serve] weights quantized to int{args.wbits} (packed)")
+    read_until = make_read_until(cfg, args, device) if args.read_until \
+        else None
     engine = api.make_serving_engine(
         params, cfg, device=device, n_slots=args.slots,
-        chunk_samples=args.chunk_samples, beam=args.beam,
-        async_dispatch=args.async_dispatch, max_queue=args.max_queue,
-        queue_timeout_s=args.queue_timeout)
+        chunk_samples=args.chunk_samples, beam=args.beam, qos=args.qos,
+        read_until=read_until, async_dispatch=args.async_dispatch,
+        max_queue=args.max_queue, queue_timeout_s=args.queue_timeout)
     if args.warmup:
         t0 = time.perf_counter()
         n = engine.warmup()
         print(f"[serve] warmup: {n} tick plans run in "
               f"{time.perf_counter() - t0:.2f}s")
-    reqs = build_reads(args)
     r = engine.runner
+    if args.stream:
+        print(f"[serve] engine ({type(r).__name__} on {device}): "
+              f"{args.requests} LIVE reads (rate {args.rate}/s, "
+              f"{PORE_HZ:.0f} samples/s per pore), {args.slots} slots, "
+              f"chunk {r.core} samples (halo {r.halo}), qos={args.qos}")
+        run_streamed(engine, args)
+        return
+    reqs = build_reads(args)
     print(f"[serve] engine ({type(r).__name__} on {device}): "
           f"{args.requests} reads over {reqs[-1].arrival_time:.2f}s "
           f"(rate {args.rate}/s), {args.slots} slots, chunk {r.core} "
@@ -438,6 +609,11 @@ def main(argv=None) -> None:
           f"{s['generated_tokens']} bases in {s['elapsed_s']:.2f}s "
           f"({s['requests_done'] / max(s['elapsed_s'], 1e-9):.2f} reads/s, "
           f"{s['tokens_per_s']:.0f} bases/s)")
+    if read_until is not None:
+        print(f"[serve] read-until: {s['ejections']:.0f} ejections | "
+              f"samples saved {s['samples_saved']:.0f} | basecalled "
+              f"{s['ejected_consumed_samples']:.0f} samples on ejected "
+              f"reads")
     print_tick_report(s, args)
     done = engine.drain_completed()
     if done:

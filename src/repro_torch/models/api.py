@@ -53,7 +53,11 @@ def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):
     engine and runner: ``n_slots``; for token LMs ``cache_len``,
     ``prefill_chunk``, ``block_len``, ``n_blocks``, ``cache_dtype``,
     ``quant_policy``, ``attn_backend``; for basecallers
-    ``chunk_samples``, ``beam``."""
+    ``chunk_samples``, ``beam``, ``qos`` (``"accuracy"``: each window
+    forwarded once, when covered; ``"latency"``: live windows
+    re-forwarded as frames become stable) and ``read_until`` (a
+    :class:`repro_torch.serving.stream.ReadUntil` whose classifier moves
+    to ``device`` and ejects off-target reads)."""
     from repro_torch.serving.engine import ServingEngine
     if cfg.family == "ssm":
         raise NotImplementedError(

@@ -109,6 +109,15 @@ def make_sep_conv_params(gen: torch.Generator, c_in: int, c_out: int,
     }
 
 
+def make_conv_params(gen: torch.Generator, k: int, c_in: int,
+                     c_out: int) -> torch.Tensor:
+    """Plain (non-separable) ``(K, Cin, Cout)`` conv kernel — the
+    basecaller blocks themselves are depthwise-separable (see
+    :func:`make_sep_conv_params`); the read-until classifier head uses
+    full convs because its channel counts are tiny."""
+    return truncated_normal_init(gen, (k, c_in, c_out), stddev=0.2)
+
+
 def sep_conv_state(c_out: int) -> State:
     return {"bn": make_bn_state(c_out)}
 

@@ -19,13 +19,20 @@ model-shaped lives behind a :class:`ModelRunner`:
 ``warmup``         run every tick plan once at launch; ``plan_stats``
                    reports the bucket hit/miss counters
 ``reset_row``      release a slot's per-slot runner state
+``open_stream``    build the cursor that feeds a live
+                   :class:`repro_torch.serving.stream.StreamingRequest`
+``export_row``/    stash and restore a slot's runner state across a
+``restore_row``    preemption (a live stream resumes where it left)
+``flush_row``/     read-until: a slot's last bases, and the slots its
+``pop_ejections``  classifier rejected this tick (basecaller only)
 
 Registered here: :class:`TokenRunner` (token-only LMs over the paged KV
 pool, per-request sampling) and :class:`BasecallerRunner` (squiggle in,
-bases out). Streaming and read-until come with the streaming slice.
+bases out; offline reads and live streams, with read-until ejection).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import PackedTensor, tree_map
+from repro_torch.models.basecaller import classifier as rc
 from repro_torch.models.basecaller import ctc
 from repro_torch.models.basecaller import model as bc
 from repro_torch.serving.cache import CachePool
@@ -99,10 +107,11 @@ class ModelRunner:
     def pool_util(self) -> float:
         return 0.0
 
-    # ---- streaming hooks (no port runner streams yet) ----
+    # ---- streaming hooks (runners with ``supports_streaming``) ----
     def open_stream(self, req):
         raise NotImplementedError(
-            f"{type(self).__name__} does not serve StreamingRequests")
+            f"{type(self).__name__} does not serve StreamingRequests "
+            f"(only runners with supports_streaming do)")
 
     def export_row(self, slot: int):
         return None
@@ -133,6 +142,15 @@ class ModelRunner:
         return {}
 
 
+def readback(*tensors) -> List[np.ndarray]:
+    """The tick's device results on the host behind ONE synchronisation:
+    every copy is enqueued before the stream is waited on."""
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    if tensors[0].is_cuda:
+        torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in host]
+
+
 def _device_of(tree) -> torch.device:
     for v in tree.values():
         if isinstance(v, dict):
@@ -153,26 +171,49 @@ class BasecallerRunner(ModelRunner):
     the window, not the read). ``beam > 0`` switches to the incremental
     prefix-beam merge, emitting the read when it completes.
 
-    Reads are not autoregressive: no decode phase, no KV pool, never
-    preempted; a read finishes with its final chunk.
+    Reads are not autoregressive: no decode phase, no KV pool
+    (``alloc_pool`` always succeeds, so the engine never preempts a read
+    for blocks); a read finishes with its final chunk, or is ejected.
 
     A tick batches EVERY slot's window into one ``(n_slots, W, 1)``
     forward on ``device`` (idle rows are zero windows with
     ``read_len == 0``). ``dispatch`` moves windows and bounds to the
     device and enqueues the forward; ``collect`` is the only readback.
 
-    Payload contract: ``(window, f_lo, f_hi, start, read_len)`` — core
-    frames ``[f_lo, f_hi)`` feed the merge; ``start``/``read_len`` are
-    the read-edge mask bounds.
+    Payload contract: ``(window, f_lo, f_hi, start, read_len,
+    classify)`` — the window's core frames ``[f_lo, f_hi)`` feed the
+    merge (offline chunks always span the full window; streaming spans
+    only the newly stable frames under the latency QoS), ``start`` /
+    ``read_len`` are the read-edge mask bounds (``read_len`` is the
+    :data:`repro_torch.serving.stream.UNBOUNDED` sentinel while a
+    stream's end is unknown), and ``classify`` marks windows the
+    read-until classifier scores.
+
+    Streaming (``supports_streaming``): :class:`StreamingRequest`
+    payloads skip ``make_chunks`` — the engine pulls works from the
+    :class:`repro_torch.serving.stream.StreamCursor` built by
+    :meth:`open_stream`; ``qos`` picks eager per-frame flushing
+    (``"latency"``) or once-per-window forwards (``"accuracy"``).
+
+    Read-until (``read_until=ReadUntil(...)``): the start-of-read
+    classifier runs in the same tick plan, on the same device and
+    windows (the plan returns ``(log_probs, on-target logits)``;
+    ``collect`` reads both back behind one synchronisation). The host
+    accumulates each read's logit over its first ``eject_after_chunks``
+    fully covered windows and flags the slot for ejection when the mean
+    falls below ``threshold``; the engine collects the flags via
+    :meth:`pop_ejections` after booking the tick's bases.
     """
 
     autoregressive = False
     pool = None
+    supports_streaming = True
     supports_async = True
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int,
                  chunk_samples: int = 1024, beam: int = 0,
-                 model_state=None, device=None, **_):
+                 model_state=None, qos: str = "accuracy", read_until=None,
+                 device=None, **_):
         self.params = params
         self.cfg = cfg
         self.device = (torch.device(device) if device is not None
@@ -182,12 +223,30 @@ class BasecallerRunner(ModelRunner):
         self.halo = bc.chunk_halo(cfg)
         self.core = max(-(-int(chunk_samples) // self.stride), 1) * self.stride
         self.beam = int(beam)
+        self.qos = qos
         state = model_state if model_state is not None else bc.init_state(cfg)
         self.state = tree_map(lambda t: t.to(self.device), state)
         self._merge: List[Optional[Any]] = [None] * self.n_slots
+        # read-until bookkeeping: per-slot logit accumulator + verdicts
+        self._cls_sum = np.zeros((self.n_slots,), np.float64)
+        self._cls_n = np.zeros((self.n_slots,), np.int64)
+        self._cls_decided = [False] * self.n_slots
+        self._eject_pending: set = set()
+        self.read_until = read_until
+        if read_until is not None:
+            # the classifier runs where the forward runs, never beside it
+            # on another device
+            cls_params = {k: v.to(self.device)
+                          for k, v in read_until.params.items()}
+            self.read_until = dataclasses.replace(read_until,
+                                                  params=cls_params)
 
-        def fwd(p, s, w, start, read_len):
-            return bc.forward_window(p, s, w, cfg, start, read_len)
+            def fwd(p, s, w, start, read_len):
+                return (bc.forward_window(p, s, w, cfg, start, read_len),
+                        rc.forward(cls_params, w))
+        else:
+            def fwd(p, s, w, start, read_len):
+                return bc.forward_window(p, s, w, cfg, start, read_len)
         # one window geometry -> one plan
         self._plan_key = ("window", self.core + 2 * self.halo, "fwd")
         self.plans = PlanCache()
@@ -196,7 +255,7 @@ class BasecallerRunner(ModelRunner):
     def plan_stats(self) -> Dict[str, int]:
         return self.plans.stats()
 
-    def _forward(self, fwd, wins, start, read_len) -> torch.Tensor:
+    def _forward(self, fwd, wins, start, read_len):
         dev = self.device
         with torch.inference_mode():
             return fwd(self.params, self.state,
@@ -218,6 +277,8 @@ class BasecallerRunner(ModelRunner):
 
     # ------------------------------------------------------------ intake
     def validate(self, req) -> None:
+        if getattr(req, "streaming", False):
+            return                      # samples arrive later via append()
         if req.signal is None:
             raise ValueError(
                 f"request {req.rid}: basecaller serving needs a `signal` "
@@ -228,24 +289,67 @@ class BasecallerRunner(ModelRunner):
     def make_chunks(self, req) -> List[Chunk]:
         sig = np.asarray(req.signal, np.float32).reshape(-1)
         wins = bc.chunk_windows(sig, self.core, self.halo, self.stride)
-        return [Chunk((w, 0, nf, k * self.core - self.halo, sig.shape[0]),
-                      ns)
+        K = self._classify_chunks()
+        return [Chunk((w, 0, nf, k * self.core - self.halo, sig.shape[0],
+                       int(k < K)), ns)
                 for k, (w, nf, ns) in enumerate(wins)]
+
+    def _classify_chunks(self) -> int:
+        return self.read_until.eject_after_chunks if self.read_until else 0
 
     def admit(self, slot: int, req) -> None:
         self._merge[slot] = (ctc.BeamCTCMerge(self.beam) if self.beam
                              else ctc.GreedyCTCMerge())
+        self._clear_verdict(slot)
 
+    def _clear_verdict(self, slot: int) -> None:
+        self._cls_sum[slot] = 0.0
+        self._cls_n[slot] = 0
+        self._cls_decided[slot] = False
+
+    def open_stream(self, req):
+        # local: stream.py imports the engine, which imports this module
+        from repro_torch.serving.stream import StreamCursor
+        return StreamCursor(self.core, self.halo, self.stride, qos=self.qos,
+                            classify_chunks=self._classify_chunks())
+
+    # ------------------------------------------------------------- rows
     def reset_row(self, slot: int) -> None:
         self._merge[slot] = None
+        self._clear_verdict(slot)
+        self._eject_pending.discard(slot)
+
+    def export_row(self, slot: int):
+        """Preemption stash: the merge (cloned — ``feed`` mutates it in
+        place) plus the read-until accumulator."""
+        merge = self._merge[slot]
+        return (merge.clone() if merge is not None else None,
+                float(self._cls_sum[slot]), int(self._cls_n[slot]),
+                self._cls_decided[slot])
+
+    def restore_row(self, slot: int, state) -> None:
+        merge, cls_sum, cls_n, decided = state
+        self._merge[slot] = merge
+        self._cls_sum[slot] = cls_sum
+        self._cls_n[slot] = cls_n
+        self._cls_decided[slot] = decided
+
+    def flush_row(self, slot: int) -> List[int]:
+        merge = self._merge[slot]
+        return list(merge.finalize()) if merge is not None else []
+
+    def pop_ejections(self) -> List[int]:
+        out = sorted(self._eject_pending)
+        self._eject_pending.clear()
+        return out
 
     # ------------------------------------------------------------ device
     def step(self, works: List[Optional[Any]]) -> List[List[int]]:
         return self.collect(self.dispatch(works))
 
     def dispatch(self, works: List[Optional[Any]]) -> Any:
-        """Enqueue the tick's batched window forward; the log-probs stay
-        on the device until ``collect``."""
+        """Enqueue the tick's batched window forward; the log-probs (and
+        the classifier's logits) stay on the device until ``collect``."""
         B = self.n_slots
         W = self.core + 2 * self.halo
         wins = np.zeros((B, W, 1), np.float32)
@@ -254,7 +358,7 @@ class BasecallerRunner(ModelRunner):
         for i, w in enumerate(works):
             if w is None:
                 continue
-            window, _, _, st, rl = w.payload
+            window, _, _, st, rl, _ = w.payload
             wins[i] = window
             start[i] = st
             read_len[i] = rl
@@ -263,19 +367,25 @@ class BasecallerRunner(ModelRunner):
 
     def collect(self, handle: Any,
                 discard: frozenset = frozenset()) -> List[List[int]]:
-        """Deferred readback + host-side CTC merge. ``discard`` rows are
-        dropped before the merge sees them."""
+        """Deferred readback + host-side CTC merge and read-until verdict.
+        ``discard`` rows (post-completion or post-ejection speculative
+        windows under the async engine) are dropped before the merge and
+        the classifier see them, so an ejected read's bases match the
+        synchronous engine exactly."""
         works, dev = handle
-        # sync: the CTC merge is host-side by design — every basecall
-        # tick reads the window's log-probs back
-        lp = dev.cpu().numpy()
+        # sync: the CTC merge and the read-until verdict are host-side by
+        # design — one readback per tick covers both
+        if self.read_until is not None:
+            lp, cls = readback(*dev)
+        else:
+            lp, cls = readback(dev)[0], None
         f0 = self.halo // self.stride
         out: List[List[int]] = []
         for i, w in enumerate(works):
             if w is None or i in discard:
                 out.append([])
                 continue
-            _, f_lo, f_hi, _, _ = w.payload
+            _, f_lo, f_hi, _, _, classify = w.payload
             core = lp[i, f0 + f_lo:f0 + f_hi]
             merge = self._merge[i]
             toks = merge.feed(core if self.beam
@@ -283,6 +393,14 @@ class BasecallerRunner(ModelRunner):
             if w.final:
                 toks = toks + merge.finalize()
             out.append(toks)
+            if cls is not None and classify and not self._cls_decided[i]:
+                self._cls_sum[i] += float(cls[i])
+                self._cls_n[i] += 1
+                ru = self.read_until
+                if self._cls_n[i] >= ru.eject_after_chunks:
+                    self._cls_decided[i] = True
+                    if self._cls_sum[i] / self._cls_n[i] < ru.threshold:
+                        self._eject_pending.add(i)
         return out
 
 

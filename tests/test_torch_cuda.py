@@ -567,3 +567,104 @@ def test_cuda_static_prefill_matches_the_cpu_path(arch):
         for name, want in tree.items():
             torch.testing.assert_close(cg[g][name].cpu(), want, rtol=1e-4,
                                        atol=1e-4)
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 convs and matmuls in fp32 (cuDNN's TF32 default would round
+    the classifier's operands to 10 mantissa bits)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qos", ["accuracy", "latency"])
+def test_cuda_streamed_read_equals_the_offline_read(qos):
+    """On a card: a rubicall-smoke read streamed in bursts (activation
+    quantizers off, every block packed at 8 bits, bf16) gives the bases
+    of the same read served whole through the same engine; both go
+    through the kernel on the tensor-core route, three fused blocks a
+    forward. The engine takes a read-until policy whose classifier lies
+    on the CPU: the runner moves it to the card (threshold -1e9 keeps
+    every read)."""
+    _cuda()
+    from dataclasses import replace
+
+    from repro_torch.config import QuantPolicy, get_config
+    from repro_torch.core.quant.policy import quantize_tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.basecaller import classifier as rc
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.stream import ReadUntil, StreamingRequest
+    cfg = replace(get_config("rubicall-smoke"), quant=QuantPolicy(8, 0),
+                  dtype="bfloat16")
+    params = quantize_tree(api.init_params(torch.Generator().manual_seed(0),
+                                           cfg), QuantPolicy(8, 0),
+                           min_size=1)
+    policy = ReadUntil(params=rc.init_params(
+        torch.Generator().manual_seed(1)), threshold=-1e9)
+    eng = api.make_serving_engine(params, cfg, n_slots=2, chunk_samples=300,
+                                  qos=qos, read_until=policy)
+    assert all(v.is_cuda for v in eng.runner.read_until.params.values())
+    sig = np.random.RandomState(4).randn(2300).astype(np.float32)
+    ops.reset_launch_counts()
+    req = StreamingRequest(rid=0)
+    eng.submit(req)
+    for a in range(0, sig.size, 170):
+        req.append(sig[a:a + 170])
+        for _ in range(4):
+            eng.step()
+    req.finish()
+    eng.run()
+    streamed = eng.metrics.summary()
+    eng.submit(Request(rid=1, signal=sig))
+    done = eng.run()
+    s = eng.metrics.summary()
+    assert done[0].status == done[1].status == "finished"
+    assert done[0].out_tokens == done[1].out_tokens and done[1].out_tokens
+    forwards = s["bucket_hits"] + s["bucket_misses"]
+    assert streamed["bucket_hits"] + streamed["bucket_misses"] >= \
+        -(-sig.size // 300)
+    assert ops.launch_counts(routes=True)["qconv1d_block"] == {
+        "tensor_core": 3 * forwards, "cuda_core": 0}
+
+
+@pytest.mark.gpu
+def test_cuda_classifier_forward_matches_the_cpu(no_tf32):
+    """On a card: the read-until classifier's forward on CUDA equals the
+    CPU one within 1e-5."""
+    _cuda()
+    from repro_torch.models.basecaller import classifier as rc
+    x, _ = rc.make_training_set(np.random.RandomState(0), 7500,
+                                n_per_class=4)
+    p = rc.init_params(torch.Generator().manual_seed(0))
+    want = rc.forward(p, torch.from_numpy(x))
+    got = rc.forward({k: v.cuda() for k, v in p.items()},
+                     torch.from_numpy(x).cuda())
+    assert got.is_cuda and got.shape == (8,)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_classifier_fit_stays_on_the_card(no_tf32):
+    """On a card: ``fit`` trains where its params lie, returns params on
+    the card, and follows the CPU fit (20 steps) within 1e-4 relative."""
+    _cuda()
+    from repro_torch.models.basecaller import classifier as rc
+    x, y = rc.make_training_set(np.random.RandomState(1), 1380,
+                                n_per_class=8)
+    p = rc.init_params(torch.Generator().manual_seed(2))
+    want, want_loss = rc.fit(p, x, y, steps=20, lr=0.1)
+    got, loss = rc.fit({k: v.cuda() for k, v in p.items()}, x, y, steps=20,
+                       lr=0.1)
+    assert all(v.is_cuda and not v.requires_grad for v in got.values())
+    assert np.isfinite(loss) and loss == pytest.approx(want_loss, rel=1e-4)
+    for k, v in want.items():
+        torch.testing.assert_close(got[k].cpu(), v, rtol=1e-4,
+                                   atol=1e-4 * float(v.abs().max()))
