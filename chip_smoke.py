@@ -128,6 +128,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    schedule: threshold +1e9 ejects every read after 2 windows, -1e9
    none, with the bases of the same schedule served without
    read-until.
+14. train — full-width RUBICALL (28 blocks, C=344, no cut) trained as
+   ``launch/train.py`` trains it: ``train_loop.run``, fp32 params and
+   AdamW state, bf16 compute, its QABAS fake-quant on, 50 steps of 8 x
+   2048 simulated samples, checkpoints every 25 steps into a temporary
+   directory. Checks every loss is finite, the mean of the last 10 is
+   below the mean of the first 10, and the step-50 checkpoint restores
+   bit for bit; prints the losses at steps 1, 25 and 50, step time p50
+   (CUDA events, host enqueue beside it), samples/s, peak device memory
+   and one traced step. Then the offline identity gate on the benchmark
+   simulator (``training/evaluate.py``): rubicall-smoke under
+   QuantPolicy(8, 8) trained 300 steps, and full-width RUBICALL for as
+   many steps as fit in about 60 s; each basecalls its held-out reads
+   with float weights, with int8-packed weights through qconv1d_block
+   (3 launches a forward on the CUDA-core route at smoke, packed with
+   min_size=1; 19 on the tensor-core route at full width, packed as
+   ``launch/serve.py --wbits 8``) and through the plain version; the
+   kernel's identity must be within 0.005 of the plain version's (no
+   absolute identity is gated). Last, the RUBICON core on the card: a
+   QABAS search over TINY_SPACE, ``derive_config``, one SkipClip step
+   from a bonito-smoke teacher, pruning and packing the student.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -174,6 +194,21 @@ from repro_torch.models.lm import transformer as tfm  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving import runner as runner_mod  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
+from repro_torch.core import pruning, skipclip  # noqa: E402
+from repro_torch.core.qabas.search import (QABASConfig,  # noqa: E402
+                                           derive_config, run_search)
+from repro_torch.core.qabas.space import TINY_SPACE  # noqa: E402
+from repro_torch.core.quant.policy import (quantize_tree,  # noqa: E402
+                                           tree_size_bytes)
+from repro_torch.data.squiggle import SquiggleConfig  # noqa: E402
+from repro_torch.data.squiggle import batches as squiggle_batches  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.training import evaluate as train_eval  # noqa: E402
+from repro_torch.training import train_loop  # noqa: E402
+from repro_torch.training.checkpoint import leaf_items  # noqa: E402
+from repro_torch.training.optimizer import (AdamWConfig,  # noqa: E402
+                                            adamw_update, init_opt_state)
+from repro_torch.training.train_loop import TrainLoopConfig  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and FLOP/s
 # by operand type (bf16 on tensor cores, fp32 on CUDA cores).
@@ -2096,6 +2131,232 @@ def phase_stream() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training slice: full-width RUBICALL trained as launch/train.py trains it,
+# the offline identity gate through qconv1d_block, the RUBICON core
+
+TRAIN = dict(batch=8, seq=2048, steps=50, ckpt_every=25)   # the launcher's
+TRAIN_TIMED = 20            # steps timed one by one after the loop
+IDENT_BATCHES = 4           # held-out batches of 8 reads (evaluate.py)
+SMOKE_STEPS = 300           # the reference identity test's setting
+FULL_TRAIN_S = 60.0         # full-width training budget, seconds
+IDENT_TOL = 0.005           # kernel identity vs plain identity
+REF_SMOKE_IDENTITY = 0.018  # the reference's, on the CPU (ROADMAP Queue 3)
+
+
+def time_train_steps(step, carry, batches) -> tuple:
+    """Each step alone: host enqueue, device time from its first enqueue
+    to its last kernel (CUDA events) and wall to the synchronise.
+    Returns (carry, per-step dict of lists in ms)."""
+    out = {"host": [], "device": [], "wall": []}
+    for b in batches:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        carry, _ = step(carry, b)
+        e1.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out["host"].append((t1 - t0) * 1e3)
+        out["device"].append(e0.elapsed_time(e1))
+        out["wall"].append((t2 - t0) * 1e3)
+    return carry, out
+
+
+def identity_gate(name, cfg, params, state, packed, per_forward,
+                  route) -> dict:
+    """Held-out identity of the float weights, of ``packed`` through
+    ``qconv1d_block`` (``per_forward`` launches a forward, all on
+    ``route``, counted from 0 around the call) and of ``packed`` through
+    the plain version on the card."""
+    float_id = train_eval.eval_identity(cfg, params, state, IDENT_BATCHES)
+    ops.reset_launch_counts()
+    kern_id = train_eval.eval_identity(cfg, packed, state, IDENT_BATCHES)
+    torch.cuda.synchronize()
+    routes = ops.launch_counts(routes=True)["qconv1d_block"]
+    kern_ctc = train_eval.eval_ctc_loss(cfg, packed, state, IDENT_BATCHES)
+    with mock.patch.object(qconv1d, "qconv1d_block_cuda", qconv_plain):
+        plain_id = train_eval.eval_identity(cfg, packed, state,
+                                            IDENT_BATCHES)
+        plain_ctc = train_eval.eval_ctc_loss(cfg, packed, state,
+                                             IDENT_BATCHES)
+    want = {r: per_forward * IDENT_BATCHES if r == route else 0
+            for r in routes}
+    print(f"[train] identity {name}: float {float_id:.4f}, int8 packed "
+          f"through qconv1d_block {kern_id:.4f}, through the plain version "
+          f"{plain_id:.4f} (the reference, rubicall-smoke on the CPU: "
+          f"{REF_SMOKE_IDENTITY}); held-out CTC loss, kernel {kern_ctc:.4f} "
+          f"plain {plain_ctc:.4f} | qconv1d_block {routes}")
+    if routes != want:
+        raise AssertionError(f"{name}: qconv1d_block routes {routes}, want "
+                             f"{want} ({per_forward} a forward)")
+    if abs(kern_id - plain_id) > IDENT_TOL:
+        raise AssertionError(f"{name}: kernel identity {kern_id} vs plain "
+                             f"{plain_id}, more than {IDENT_TOL} apart")
+    return {"float": float_id, "kernel": kern_id, "plain": plain_id,
+            "ctc_kernel": kern_ctc, "ctc_plain": plain_ctc,
+            "launches": sum(routes.values()), "routes": routes}
+
+
+def phase_train() -> dict:
+    import tempfile
+    out = {}
+    # (a) full-width RUBICALL through train_loop.run, as launch/train.py
+    cfg = get_config("rubicall")
+    opt_cfg = AdamWConfig(lr=2e-3, total_steps=TRAIN["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckdir:
+        loop = TrainLoopConfig(steps=TRAIN["steps"], log_every=1,
+                               ckpt_every=TRAIN["ckpt_every"],
+                               ckpt_dir=ckdir)
+        t0 = time.perf_counter()
+        run = train_loop.run(cfg, opt_cfg, loop,
+                             train_launcher.data_for(cfg, TRAIN["batch"],
+                                                     TRAIN["seq"]),
+                             torch.Generator().manual_seed(0),
+                             device="cuda")
+        t_loop = time.perf_counter() - t0
+        carry = run["carry"]
+        # the checkpoint of step 50 is the final carry, bit for bit
+        like = tree_map(torch.zeros_like, carry.params)
+        step_no, restored = run["ckpt"].restore(api.TrainCarry(
+            like, init_opt_state(like, opt_cfg), carry.model_state))
+        bad = [k for (k, a), (_, b) in zip(leaf_items(restored),
+                                           leaf_items(carry))
+               if not (a.device == b.device and a.dtype == b.dtype
+                       and torch.equal(a, b))]
+        if step_no != TRAIN["steps"] or bad:
+            raise AssertionError(f"checkpoint of step {step_no}: leaves "
+                                 f"{bad[:4]} differ from the carry")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [r["loss"] for r in run["history"]]
+    if len(losses) != TRAIN["steps"] or not np.isfinite(losses).all():
+        raise AssertionError(f"losses: {losses}")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    marks = (1, TRAIN["steps"] // 2, TRAIN["steps"])
+    at = {m: losses[m - 1] for m in marks}
+    print(f"[train] rubicall {cfg.n_blocks} blocks C={cfg.channels[0]} "
+          f"{cfg.dtype} compute, fp32 params and AdamW state, batch "
+          f"{TRAIN['batch']} x {TRAIN['seq']}: {TRAIN['steps']} steps of "
+          f"train_loop.run in {t_loop:.2f}s; loss at steps "
+          f"{', '.join(f'{m}: {v:.2f}' for m, v in at.items())} (mean of the first 10 "
+          f"{first:.2f}, of the last 10 {last:.2f}); checkpoint of step "
+          f"{step_no} restored bit-exact ({len(list(leaf_items(carry)))} leaves); "
+          f"peak device memory {peak:.3f} GiB")
+    if not last < first:
+        raise AssertionError(f"the loss did not fall over {len(losses)} "
+                             f"steps")
+    step = api.make_train_step(cfg, opt_cfg)
+    data = train_launcher.data_for(cfg, TRAIN["batch"], TRAIN["seq"])
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+               for _ in range(TRAIN_TIMED)]
+    carry, t = time_train_steps(step, carry, batches)
+    p50 = {k: statistics.median(v) for k, v in t.items()}
+    sps = TRAIN["batch"] * TRAIN["seq"] / (p50["wall"] / 1e3)
+    print(f"[train] step p50 over {TRAIN_TIMED}: device (events, first "
+          f"enqueue to last kernel) {p50['device']:.2f} ms, host enqueue "
+          f"{p50['host']:.2f} ms, wall {p50['wall']:.2f} ms: {sps:.0f} "
+          f"samples/s")
+    tr = trace("one train step",
+               lambda: step(carry, batches[0])[1]["loss"],
+               fetch=lambda loss: float(loss))
+    out["rubicall"] = {"losses": at,
+                       "loop_s": t_loop, "step_ms_p50": p50,
+                       "samples_per_s": sps, "peak_gib": peak,
+                       "trace": tr}
+    del run, carry, batches, restored, like
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the offline identity gate on the benchmark simulator
+    smoke = replace(get_config("rubicall-smoke"), quant=QuantPolicy(8, 8))
+    t0 = time.perf_counter()
+    p, s, loss = train_eval.train_model(smoke, steps=SMOKE_STEPS,
+                                        device="cuda")
+    print(f"[train] rubicall-smoke QuantPolicy(8, 8): {SMOKE_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f}s, final loss {loss:.2f}")
+    out["smoke"] = identity_gate(
+        "rubicall-smoke", smoke, p, s,
+        quantize_tree(p, QuantPolicy(8, 0), min_size=1), 3, "cuda_core")
+    # full width: as many steps as fit in FULL_TRAIN_S at the rate of 8
+    # steps of this shape enqueued back to back, as train_model runs them
+    b0 = {k: torch.from_numpy(v).cuda()
+          for k, v in next(train_eval.data_iter(0)).items()}
+    q = tree_map(lambda x: x.cuda(), api.init_params(
+        torch.Generator().manual_seed(0), cfg))
+    warm = api.TrainCarry(q, init_opt_state(q, opt_cfg), tree_map(
+        lambda x: x.cuda(), api.init_model_state(cfg)))
+    for i in range(10):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        warm, _ = step(warm, b0)
+    torch.cuda.synchronize()
+    steps = max(50, int(FULL_TRAIN_S / ((time.perf_counter() - t0) / 8)))
+    del warm, q
+    t0 = time.perf_counter()
+    p, s, loss = train_eval.train_model(cfg, steps=steps, device="cuda")
+    t_full = time.perf_counter() - t0
+    print(f"[train] rubicall (full width) on the simulator: {steps} steps "
+          f"of {train_eval.BATCH} x {train_eval.CHUNK} in {t_full:.2f}s, "
+          f"final loss {loss:.2f}")
+    out["rubicall"]["identity"] = identity_gate(
+        "rubicall", cfg, p, s, serve.quantize_for_serving(p, 8),
+        len(KERNEL_BLOCKS), "tensor_core")
+    out["rubicall"]["identity"].update(steps=steps, train_s=t_full)
+
+    # (c) the RUBICON core on the card
+    t0 = time.perf_counter()
+    qc = QABASConfig(steps=5, channels=16, chunk=96)
+    _, arch, hist = run_search(torch.Generator().manual_seed(0), TINY_SPACE,
+                               qc, squiggle_batches(
+                                   SquiggleConfig(chunk_len=96), 2),
+                               device="cuda")
+    student = derive_config(arch, TINY_SPACE, channels=16)
+    t_search = time.perf_counter() - t0
+    t_cfg = get_config("bonito-smoke")
+    t_p = tree_map(lambda x: x.cuda(), api.init_params(
+        torch.Generator().manual_seed(0), t_cfg))
+    t_s = tree_map(lambda x: x.cuda(), api.init_model_state(t_cfg))
+    s_p = tree_map(lambda x: x.cuda(), api.init_params(
+        torch.Generator().manual_seed(3), student))
+    s_s = tree_map(lambda x: x.cuda(), api.init_model_state(student))
+    sc_loss = skipclip.make_skipclip_loss(student, t_cfg,
+                                          skipclip.SkipClipConfig())
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+        squiggle_batches(SquiggleConfig(chunk_len=96), 2)).items()}
+    gates = skipclip.gates_for_epoch(student.n_blocks, 2, 1, device="cuda")
+    t1 = time.perf_counter()
+    (_, (sm, _)), g = api.value_and_grad(sc_loss, s_p, s_s, t_p, t_s,
+                                          batch, gates)
+    sc_opt = AdamWConfig(lr=2e-3, total_steps=1, warmup_steps=0)
+    s_p2, _, _ = adamw_update(s_p, g, init_opt_state(s_p, sc_opt), sc_opt)
+    sk = {k: float(v) for k, v in sm.items()}
+    t_skip = time.perf_counter() - t1
+    mask = pruning.unstructured_mask(s_p2, 0.3)
+    pruned = pruning.apply_mask(s_p2, mask)
+    q = quantize_tree(pruned, student.quant, min_size=64)
+    size = (tree_size_bytes(s_p2), tree_size_bytes(q))
+    print(f"[train] QABAS over TINY_SPACE: {qc.steps} steps in "
+          f"{t_search:.2f}s (weight loss {hist['w_loss'][0]:.2f} -> "
+          f"{hist['w_loss'][-1]:.2f}, E[latency] {hist['latency'][-1]:.3e} s"
+          f" on the H100 table) -> {student.n_blocks} blocks k="
+          f"{student.kernel_sizes}; SkipClip step (bonito-smoke teacher) "
+          f"{t_skip:.2f}s: ctc {sk['ctc']:.2f} kd {sk['kd']:.4f} loss "
+          f"{sk['loss']:.2f}; pruned to sparsity "
+          f"{pruning.sparsity_of(mask):.3f} and packed: {size[0]} -> "
+          f"{size[1]} bytes")
+    finite = hist["w_loss"] + hist["a_loss"] + list(sk.values())
+    if not np.isfinite(finite).all() or not size[1] < size[0]:
+        raise AssertionError(f"RUBICON core: losses {finite}, sizes {size}")
+    out["core"] = {"search_s": t_search, "skipclip_s": t_skip,
+                   "skipclip": sk, "bytes": size}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2148,6 +2409,7 @@ def main() -> int:
                    (fa, "flash_attention_cuda", ref.flash_attention_gqa_ref),
                    QWEN_PREFILL, 8, ("flash_attention",), ("flash_",))
     stream = lap("stream", phase_stream)
+    trained = lap("train", phase_train)
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
     def forward_sum(pk):
@@ -2165,7 +2427,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/qconv1d.py:38",
         "launches": served["launches"], "max_abs_err": kern["err_main"],
         "launches_by_phase": {"serve": served["launches"],
-                              "stream": stream["launches"]},
+                              "stream": stream["launches"],
+                              "train": {
+                                  "rubicall": trained["rubicall"]["identity"][
+                                      "launches"],
+                                  "rubicall-smoke": trained["smoke"][
+                                      "launches"]}},
+        "train": trained,
         "stream": {k: stream[k] for k in ("accuracy", "latency", "exact",
                                           "read_until", "classifier",
                                           "forced")},

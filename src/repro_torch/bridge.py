@@ -1,5 +1,5 @@
-"""Weights across frameworks: nested dicts of numpy arrays -> the port's
-tree of torch tensors.
+"""Weights across frameworks: nested dicts and lists of numpy arrays ->
+the port's tree of torch tensors.
 
 A JAX params/state tree becomes such a tree with
 ``jax.tree.map(np.asarray, tree)``, which keeps its ``PackedTensor``
@@ -8,8 +8,6 @@ nodes with numpy children; those are recognised by their ``data``,
 nothing from the JAX package. Dtypes are kept (int8 stays int8).
 """
 from __future__ import annotations
-
-from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -26,20 +24,18 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def from_numpy_tree(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Nested dicts of numpy arrays (and PackedTensor-like nodes) ->
-    the same structure of torch tensors / :class:`PackedTensor` on
-    ``device``: CUDA unless the caller asks for the CPU, raising
+def from_numpy_tree(tree, device=None):
+    """Nested dicts and lists of numpy arrays (and PackedTensor-like
+    nodes) -> the same structure of torch tensors / :class:`PackedTensor`
+    on ``device``: CUDA unless the caller asks for the CPU, raising
     without a card (:func:`repro_torch.models.api.resolve_device`)."""
     device = resolve_device(device)
-    out: Dict[str, Any] = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = from_numpy_tree(v, device)
-        elif isinstance(v, (np.ndarray, np.generic)):
-            out[k] = _tensor(v, device)
-        else:                           # a PackedTensor node, duck-typed
-            out[k] = PackedTensor(_tensor(v.data, device),
-                                  _tensor(v.scale, device), int(v.bits),
-                                  tuple(int(d) for d in v.orig_shape))
-    return out
+    if isinstance(tree, dict):
+        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [from_numpy_tree(v, device) for v in tree]
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return _tensor(tree, device)
+    # a PackedTensor node, duck-typed
+    return PackedTensor(_tensor(tree.data, device), _tensor(tree.scale, device),
+                        int(tree.bits), tuple(int(d) for d in tree.orig_shape))

@@ -10,6 +10,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quant.policy import tree_map
+
 
 def _scales(x: torch.Tensor, bits: int, axis: Optional[int]) -> torch.Tensor:
     qmax = 2.0 ** (bits - 1) - 1.0
@@ -40,3 +42,14 @@ def fake_quant(x: torch.Tensor, bits: int,
     qmax = 2.0 ** (bits - 1) - 1.0
     q = torch.clamp(torch.round(xf / s), -qmax - 1, qmax) * s
     return (xf + (q - xf).detach()).to(dt)
+
+
+def quant_dequant_params(params, bits: int, per_channel: bool = True):
+    """Fake-quant every >=2D leaf of a param tree (static quantization —
+    same precision everywhere; the paper's Fig. 7/8 sweep)."""
+    def one(x):
+        if x.ndim >= 2:
+            return fake_quant(x, bits, axis=x.ndim - 1 if per_channel
+                              else None)
+        return x
+    return tree_map(one, params)

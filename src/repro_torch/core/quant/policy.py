@@ -78,13 +78,19 @@ def dequantize(p: PackedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (q.float() * p.scale).to(dtype)
 
 
-def _walk(tree: Dict[str, Any], fn: Callable[[str, Any], Any],
-          prefix: str = "") -> Dict[str, Any]:
-    """Rebuild a nested dict, mapping every non-dict leaf through
-    ``fn(tag, leaf)`` where ``tag`` is the '/'-joined key path."""
-    return {k: (_walk(v, fn, prefix + k + "/") if isinstance(v, dict)
-                else fn(prefix + k, v))
-            for k, v in tree.items()}
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree,
+                       prefix: str = ""):
+    """Rebuild a tree of dicts and lists, mapping every other leaf
+    through ``fn(path, leaf)`` where ``path`` is ``prefix`` + the
+    '/'-joined keys (a list element's key is its index)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return fn(prefix[:-1], tree)
+    out = {k: tree_map_with_path(fn, v, prefix + k + "/") for k, v in items}
+    return out if isinstance(tree, dict) else list(out.values())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +142,7 @@ class Packer:
     def tree(self, tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
         """Pack every leaf of ``tree`` whose tag (``prefix`` + key path)
         packs; PackedTensor leaves pass through."""
-        return _walk(tree, self, prefix)
+        return tree_map_with_path(self, tree, prefix)
 
 
 def quantize_tree(params: Dict[str, Any], policy: QuantPolicy,
@@ -145,16 +151,41 @@ def quantize_tree(params: Dict[str, Any], policy: QuantPolicy,
     return Packer(policy, min_size).tree(params)
 
 
-def tree_map(fn: Callable[[torch.Tensor], torch.Tensor],
-             tree: Dict[str, Any]) -> Dict[str, Any]:
-    """Apply ``fn`` to every tensor of a nested dict, PackedTensor
-    children included (e.g. ``lambda t: t.to(device)``)."""
-    def one(_, leaf):
-        if isinstance(leaf, PackedTensor):
-            return PackedTensor(fn(leaf.data), fn(leaf.scale), leaf.bits,
-                                leaf.orig_shape)
-        return fn(leaf)
-    return _walk(tree, one)
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """Apply ``fn`` to every leaf of a tree of dicts and lists (e.g.
+    ``lambda t: t.to(device)``); with one tree, PackedTensor children
+    are mapped too. ``rest`` are trees of the same structure, matched by
+    key: ``fn(leaf, *their leaves)``, whose result may be a tuple."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    if isinstance(tree, PackedTensor) and not rest:
+        return PackedTensor(fn(tree.data), fn(tree.scale), tree.bits,
+                            tree.orig_shape)
+    return fn(tree, *rest)
+
+
+def tree_items(tree) -> list:
+    """``(path, leaf)`` of every leaf of a tree of dicts and lists, in
+    walk order."""
+    out: list = []
+    tree_map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
+    return out
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in walk order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure holding ``leaves`` (in :func:`tree_leaves`
+    order)."""
+    it = iter(leaves)
+    return tree_map_with_path(lambda _, __: next(it), like)
 
 
 def tree_size_bytes(params: Dict[str, Any]) -> int:
@@ -165,5 +196,5 @@ def tree_size_bytes(params: Dict[str, Any]) -> int:
         nonlocal total
         total += (leaf.nbytes if isinstance(leaf, PackedTensor)
                   else leaf.numel() * leaf.element_size())
-    _walk(params, one)
+    tree_map_with_path(one, params)
     return total

@@ -12,6 +12,6 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device available: pass device='cpu' (serve.py: "
+            "no CUDA device available: pass device='cpu' (the launchers: "
             "--device cpu) to run on the CPU")
     return dev

@@ -1,8 +1,9 @@
 """Model API of the port (the basecaller family and the LM families
 ported so far: ``dense`` and ``moe``, GQA or MLA, through the serving
 engine; ``dense`` and ``ssm`` through the static path): parameter init,
-the serving engine, the whole-prompt prefill and lockstep decode steps
-and smoke batches, on the device a caller names.
+the basecaller's loss and train step, the serving engine, the
+whole-prompt prefill and lockstep decode steps and smoke batches, on
+the device a caller names.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they
@@ -10,11 +11,24 @@ raise, never carrying on quietly on the CPU.
 """
 from __future__ import annotations
 
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.quant.policy import tree_map
+from repro_torch.core.quant.policy import (tree_leaves, tree_map,
+                                           tree_unflatten)
 from repro_torch.device import resolve_device
+from repro_torch.training.optimizer import (AdamWConfig, OptState,
+                                            adamw_update)
+
+MICRO_TOKENS = 65536       # grad-accum target: tokens per microbatch
+
+
+class TrainCarry(NamedTuple):
+    params: Any
+    opt_state: OptState
+    model_state: Any        # e.g. BatchNorm running stats (basecaller)
 
 
 def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0):
@@ -43,6 +57,100 @@ def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0):
         from repro_torch.core.quant.policy import Packer
         pack = Packer(QuantPolicy(weight_bits=wbits, act_bits=0))
     return tfm.init_decoder(gen, cfg, pack=pack)
+
+
+def init_model_state(cfg: ModelConfig):
+    """Non-parameter model state: the basecaller's BatchNorm running
+    stats (fp32 CPU tensors), ``{}`` for the LMs."""
+    if cfg.family == "basecaller":
+        from repro_torch.models.basecaller import model as bc
+        return bc.init_state(cfg)
+    return {}
+
+
+# ---------------------------------------------------------------------------
+# Loss and train step (the basecaller family)
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    """``loss(params, model_state, batch) -> (loss, (metrics,
+    new_state))``. Only the basecaller family trains in the port."""
+    if cfg.family != "basecaller":
+        raise NotImplementedError(
+            f"{cfg.name}: LM training ({cfg.family!r}) is not ported: it "
+            f"needs the LM half of make_loss_fn, transformer.forward in "
+            f"train mode, cross_entropy, the MTP loss and data/tokens.py")
+    from repro_torch.models.basecaller import model as bc
+
+    def bc_loss(params, model_state, batch):
+        return bc.loss_fn(params, model_state, batch, cfg)
+    return bc_loss
+
+
+def n_microbatches(cfg: ModelConfig, batch: int, seq: int,
+                   dp: int = 1) -> int:
+    """Grad-accumulation factor: ~MICRO_TOKENS tokens per microbatch, but
+    never slicing the batch below one example per data-parallel shard."""
+    n = max(1, (batch * seq) // MICRO_TOKENS)
+    n = min(n, max(batch // max(dp, 1), 1))
+    while batch % n:
+        n -= 1
+    return n
+
+
+def value_and_grad(loss_fn: Callable, params, *args):
+    """``((loss, aux), grads)`` of ``loss_fn(params, *args) -> (loss,
+    aux)`` with respect to every leaf of ``params`` (grads in the
+    params' structure; zeros for a leaf the loss does not reach), by
+    ``torch.autograd.grad``. ``aux`` is a tuple of trees (metrics, new
+    model state) and comes back detached: the train-mode BatchNorm
+    state carries the batch statistics' graph, which would otherwise
+    grow across steps."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    aux = tuple(tree_map(torch.Tensor.detach, a) for a in aux)
+    return (loss.detach(), aux), tree_unflatten(params, list(grads))
+
+
+def microbatch_grads(loss_fn: Callable, params, mstate, batch: Dict,
+                     n_micro: int):
+    """``(grads, loss, new model state)`` over ``batch`` split into
+    ``n_micro`` microbatches along its first axis: the model state
+    threads through them, their fp32 gradients and losses averaged."""
+    grads, lsum = None, None
+    for i in range(n_micro):
+        mb = {k: x.reshape((n_micro, x.shape[0] // n_micro)
+                           + x.shape[1:])[i] for k, x in batch.items()}
+        (l, (_, mstate)), g = value_and_grad(loss_fn, params, mstate, mb)
+        g = tree_map(lambda t: t.float(), g)
+        grads = g if grads is None else tree_map(torch.add, grads, g)
+        lsum = l if lsum is None else lsum + l
+    if n_micro > 1:
+        grads = tree_map(lambda g: g / n_micro, grads)
+        lsum = lsum / n_micro
+    return grads, lsum, mstate
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    n_micro: int = 1) -> Callable:
+    """``train_step(carry, batch) -> (carry, metrics)``: the averaged
+    gradients of ``n_micro`` microbatches (:func:`microbatch_grads`),
+    one AdamW update. Metrics (``loss``, ``grad_norm``, ``lr``) are 0-d
+    tensors on the params' device: nothing is read back."""
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(carry: TrainCarry, batch: Dict) -> Tuple[TrainCarry, Dict]:
+        params, opt_state, mstate = carry
+        grads, loss, mstate = microbatch_grads(loss_fn, params, mstate,
+                                               batch, n_micro)
+        new_params, new_opt, om = adamw_update(params, grads, opt_state,
+                                               opt_cfg)
+        return TrainCarry(new_params, new_opt, mstate), {"loss": loss, **om}
+
+    return train_step
 
 
 def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):
@@ -95,12 +203,23 @@ def make_decode_step(cfg: ModelConfig):
 
 def make_smoke_batch(gen, cfg: ModelConfig, batch: int = 2,
                      seq: int = 64, *, device=None):
-    """A random token-LM batch on ``device`` (CUDA by default) from
-    ``gen`` (a seed or a ``torch.Generator`` on that device): ``tokens``
-    and ``labels`` (B, seq) int32 in [0, vocab)."""
+    """A random batch on ``device`` (CUDA by default) from ``gen`` (a
+    seed or a ``torch.Generator`` on that device). Basecaller:
+    ``signal`` (B, seq, 1) fp32 normal, ``labels`` (B, seq // 8) int32 in
+    [1, n_bases), ``label_lengths`` (B,) = seq // 8. Token LM:
+    ``tokens`` and ``labels`` (B, seq) int32 in [0, vocab)."""
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(
             int(gen))
+    if cfg.family == "basecaller":
+        L = seq // 8
+        return {"signal": torch.randn((batch, seq, 1), generator=gen,
+                                      device=gen.device),
+                "labels": torch.randint(1, cfg.n_bases, (batch, L),
+                                        generator=gen, device=gen.device,
+                                        dtype=torch.int32),
+                "label_lengths": torch.full((batch,), L, dtype=torch.int32,
+                                            device=gen.device)}
     return {name: torch.randint(0, cfg.vocab_size, (batch, seq),
                                 generator=gen, device=gen.device,
                                 dtype=torch.int32)

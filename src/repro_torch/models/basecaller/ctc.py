@@ -1,5 +1,7 @@
-"""Connectionist Temporal Classification decoders: greedy and
-prefix-beam, whole-read and incremental (host-side numpy).
+"""Connectionist Temporal Classification: the loss (``F.ctc_loss``,
+held against :func:`ctc_loss_ref`, the reference's log-space forward
+algorithm step for step) and the greedy / prefix-beam decoders,
+whole-read and incremental (host-side numpy).
 
 Alphabet: index 0 = CTC blank; 1..4 = A, C, G, T (paper's 5-way head).
 """
@@ -8,8 +10,81 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
+NEG = -1e30
 BLANK = 0
+
+
+def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
+             label_lengths: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood over the batch, not divided by the
+    label lengths (the reference's ``-mean(ll)``).
+
+    log_probs: (B, T, V) log-softmax outputs; labels: (B, L) in [1, V)
+    padded with 0; label_lengths: (B,). Every row is scored over all T
+    frames. The targets go to the log-probs' device as int64, which
+    keeps PyTorch off cuDNN's CTC: the card runs the native CUDA
+    implementation, the CPU the native CPU one, both in the log-probs'
+    dtype. An alignment that cannot exist (T too short for the label)
+    gives ``inf`` here and about 1e30 in the reference.
+
+    Its gradient with respect to ``log_probs`` is PyTorch's
+    ``exp(lp) - gamma``, not ``-gamma``: the two agree only through
+    ``log_softmax``'s backward, so gradients match the reference's with
+    respect to the logits or the parameters, never ``log_probs``.
+    """
+    B, T, _ = log_probs.shape
+    dev = log_probs.device
+    ll = F.ctc_loss(log_probs.transpose(0, 1),
+                    labels.to(device=dev, dtype=torch.int64),
+                    torch.full((B,), T, dtype=torch.int64, device=dev),
+                    label_lengths.to(device=dev, dtype=torch.int64),
+                    blank=BLANK, reduction="none", zero_infinity=False)
+    return ll.mean()
+
+
+def ctc_loss_ref(log_probs: torch.Tensor, labels: torch.Tensor,
+                 label_lengths: torch.Tensor) -> torch.Tensor:
+    """:func:`ctc_loss`'s plain twin: the reference's forward algorithm
+    over the extended label (blank, l1, blank, ..., blank), one step a
+    frame, with its ``NEG = -1e30`` floor and ``+1e-38`` inside the
+    logs. Differentiable by autograd."""
+    B, T, _ = log_probs.shape
+    dev = log_probs.device
+    labels = labels.to(device=dev, dtype=torch.int64)
+    label_lengths = label_lengths.to(device=dev, dtype=torch.int64)
+    U = 2 * labels.shape[1] + 1
+    z = torch.zeros((B, U), dtype=torch.int64, device=dev)
+    z[:, 1::2] = labels
+    u_len = 2 * label_lengths + 1
+    z_shift2 = F.pad(z, (2, 0))[:, :U]
+    can_skip = (z != BLANK) & (z != z_shift2)
+    u_valid = torch.arange(U, device=dev)[None, :] < u_len[:, None]
+    neg = torch.full((B, U), NEG, dtype=log_probs.dtype, device=dev)
+
+    lp0 = log_probs[:, 0]
+    first = torch.gather(lp0, 1, z[:, :2])
+    alpha = torch.cat([first[:, :1],
+                       torch.where(u_len[:, None] > 1, first[:, 1:2],
+                                   neg[:, :1]), neg[:, 2:]], dim=1)
+    for t in range(1, T):
+        stay = alpha
+        prev1 = F.pad(alpha, (1, 0), value=NEG)[:, :U]
+        prev2 = F.pad(alpha, (2, 0), value=NEG)[:, :U]
+        prev2 = torch.where(can_skip, prev2, neg)
+        m = torch.maximum(torch.maximum(stay, prev1), prev2)
+        tot = m + torch.log(torch.exp(stay - m) + torch.exp(prev1 - m)
+                            + torch.exp(prev2 - m) + 1e-38)
+        emit = torch.gather(log_probs[:, t], 1, z)
+        alpha = torch.where(u_valid, tot + emit, neg)
+    idx_last = (u_len - 1)[:, None]
+    a_last = torch.gather(alpha, 1, idx_last)[:, 0]
+    a_prev = torch.gather(alpha, 1, (idx_last - 1).clamp_min(0))[:, 0]
+    m = torch.maximum(a_last, a_prev)
+    ll = m + torch.log(torch.exp(a_last - m) + torch.exp(a_prev - m) + 1e-38)
+    return -ll.mean()
 
 
 def greedy_decode(log_probs: np.ndarray) -> List[np.ndarray]:

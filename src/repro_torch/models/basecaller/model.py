@@ -7,7 +7,7 @@ Input: normalized squiggle chunks (B, S, 1). Output: CTC log-probs
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -15,6 +15,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models.basecaller import blocks as bl
 from repro_torch.models.basecaller.blocks import Params, State
+from repro_torch.models.basecaller.ctc import ctc_loss
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -134,3 +135,15 @@ def forward_window(params: Params, state: State, window: torch.Tensor,
     log_probs, _ = forward(params, state, window, cfg, train=False,
                            bounds=(start, read_len))
     return log_probs
+
+
+def loss_fn(params: Params, state: State, batch: Dict, cfg: ModelConfig,
+            *, skip_gates: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Tuple[Dict, State]]:
+    """Train-mode forward + CTC loss: ``(loss, ({"ctc_loss": loss},
+    new_state))``. The new BatchNorm state carries the autograd graph of
+    the batch statistics; a train step detaches it."""
+    log_probs, new_state = forward(params, state, batch["signal"], cfg,
+                                   train=True, skip_gates=skip_gates)
+    loss = ctc_loss(log_probs, batch["labels"], batch["label_lengths"])
+    return loss, ({"ctc_loss": loss}, new_state)

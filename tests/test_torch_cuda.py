@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels (qconv1d, qmatmul, the GQA
-and MLA paged attention, flash attention and the SSD scan; ``-m gpu``;
-they skip without a card). This file imports neither JAX nor the JAX package, so
-it runs on a GPU machine that has only the port's requirements:
+and MLA paged attention, flash attention and the SSD scan) and of
+training on the card (the CTC loss, a train step, checkpoints, the
+packed identity gate); ``-m gpu``; they skip without a card. This
+file imports neither JAX nor the JAX package, so it runs on a GPU
+machine that has only the port's requirements:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 
@@ -668,3 +670,151 @@ def test_cuda_classifier_fit_stays_on_the_card(no_tf32):
     for k, v in want.items():
         torch.testing.assert_close(got[k].cpu(), v, rtol=1e-4,
                                    atol=1e-4 * float(v.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Training (slice 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,L", [(4, 170, 57), (8, 683, 200)])
+def test_cuda_ctc_loss_matches_its_plain_twin(B, T, L):
+    """On a card: ``F.ctc_loss`` (targets int64 on the card: the native
+    CUDA implementation, not cuDNN's) against ``ctc_loss_ref``, the
+    reference's scan, on the same logits: loss 1e-5 relative, gradients
+    with respect to the logits at four fp32 ulps of the largest per-row
+    log-likelihood (``tests/test_torch_training.py``)."""
+    _cuda()
+    from repro_torch.models.basecaller.ctc import ctc_loss, ctc_loss_ref
+    rs = np.random.RandomState(T)
+    z = torch.from_numpy((3 * rs.randn(B, T, 5)).astype(np.float32))
+    lens = torch.from_numpy(rs.randint(L // 2, L + 1, size=B).astype(
+        np.int32))
+    labels = torch.from_numpy(rs.randint(1, 5, size=(B, L)).astype(np.int32))
+    labels[torch.arange(L)[None, :] >= lens[:, None]] = 0
+    out = []
+    for fn, dev in ((ctc_loss, "cuda"), (ctc_loss_ref, "cuda"),
+                    (ctc_loss_ref, "cpu")):
+        zt = z.clone().to(dev).requires_grad_()
+        loss = fn(torch.log_softmax(zt, -1), labels.to(dev), lens.to(dev))
+        (g,) = torch.autograd.grad(loss, zt)
+        out.append((float(loss.detach()), g.cpu()))
+    ll = torch.nn.functional.ctc_loss(
+        torch.log_softmax(z, -1).transpose(0, 1), labels.long(),
+        torch.full((B,), T), lens.long(), reduction="none")
+    for loss, g in out[:2]:
+        assert loss == pytest.approx(out[2][0], rel=1e-5)
+    torch.testing.assert_close(out[1][1], out[2][1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(out[0][1], out[2][1], rtol=0,
+                               atol=max(4 * float(ll.max()) * 2 ** -23, 1e-5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_cuda_train_step_matches_the_cpu(n_micro, no_tf32):
+    """On a card: one rubicall-smoke train step (fp32, activation
+    quantizers off, so no grid step can flip) from the same params and
+    batch as the same step on the CPU: loss 1e-5, grad norm 1e-4, BN
+    state 1e-5, params within 1e-3 of lr (2 lr where the gradient is
+    within 1e-4 of zero, as ``tests/test_torch_training.py``); every
+    leaf of the new carry stays on the card."""
+    _cuda()
+    from dataclasses import replace
+
+    from repro_torch.config import QuantPolicy, get_config
+    from repro_torch.core.quant.policy import tree_items, tree_map
+    from repro_torch.models import api
+    from repro_torch.training import optimizer as opt
+    cfg = get_config("rubicall-smoke")
+    cfg = replace(cfg, quant=QuantPolicy(8, 0, overrides=tuple(
+        (p, (w, 0)) for p, (w, _) in cfg.quant.overrides)))
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = api.make_smoke_batch(0, cfg, 4, 512, device="cpu")
+    oc = opt.AdamWConfig(lr=5e-3, total_steps=10, warmup_steps=0)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        carry = api.TrainCarry(p, opt.init_opt_state(p, oc), tree_map(
+            lambda t: t.to(dev), api.init_model_state(cfg)))
+        carry, m = api.make_train_step(cfg, oc, n_micro)(
+            carry, {k: v.to(dev) for k, v in batch.items()})
+        assert all(v.device.type == dev for _, v in tree_items(carry.params))
+        assert m["loss"].device.type == dev
+        outs.append((carry, m))
+    (cc, cm), (gc, gm) = outs
+    assert float(gm["loss"]) == pytest.approx(float(cm["loss"]), rel=1e-5)
+    assert float(gm["grad_norm"]) == pytest.approx(float(cm["grad_norm"]),
+                                                   rel=1e-4)
+    for (k, a), (_, b) in zip(tree_items(gc.model_state),
+                              tree_items(cc.model_state)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    mm = dict(tree_items(cc.opt_state.m))
+    scale = max(float(v.abs().max()) for v in mm.values())
+    for (k, a), (_, b) in zip(tree_items(gc.params), tree_items(cc.params)):
+        atol = torch.where(mm[k].abs() < 1e-4 * scale, 2.0, 1e-3) * oc.lr
+        assert bool(((a.cpu() - b).abs() <= atol).all()), k
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_round_trip(tmp_path):
+    """On a card: a carry of CUDA tensors (int8 AdamW state) saved
+    asynchronously and restored into a CUDA carry, bit for bit."""
+    _cuda()
+    from repro_torch.config import get_config
+    from repro_torch.core.quant.policy import tree_map
+    from repro_torch.models import api
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.checkpoint import CheckpointManager, leaf_items
+    cfg = get_config("rubicall-smoke")
+    p = tree_map(lambda t: t.cuda(), api.init_params(
+        torch.Generator().manual_seed(0), cfg))
+    oc = opt.AdamWConfig(state_bits=8)
+    grads = tree_map(torch.ones_like, p)
+    p, st, _ = opt.adamw_update(p, grads, opt.init_opt_state(p, oc), oc)
+    carry = api.TrainCarry(p, st, tree_map(lambda t: t.cuda(),
+                                           api.init_model_state(cfg)))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(5, carry)
+    mgr.wait()
+    like = tree_map(torch.zeros_like, p)
+    step, got = mgr.restore(api.TrainCarry(
+        like, opt.init_opt_state(like, oc), carry.model_state))
+    assert step == 5
+    want = dict(leaf_items(carry))
+    for k, v in leaf_items(got):
+        assert v.is_cuda and v.dtype == want[k].dtype
+        assert torch.equal(v, want[k]), k
+
+
+@pytest.mark.gpu
+def test_cuda_packed_identity_through_the_kernel(no_tf32):
+    """On a card: rubicall-smoke under QuantPolicy(8, 8), trained 60
+    steps on the card, packed to int8 (every conv, min_size=1):
+    ``eval_identity`` through the kernel (3 launches a forward, on the
+    CUDA-core route: fp32) and through its plain version on the card
+    agree within 0.005."""
+    _cuda()
+    from dataclasses import replace
+    from unittest import mock
+
+    from repro_torch.config import QuantPolicy, get_config
+    from repro_torch.core.quant.policy import quantize_tree
+    from repro_torch.kernels import ops
+    from repro_torch.training import evaluate
+    cfg = replace(get_config("rubicall-smoke"), quant=QuantPolicy(8, 8))
+    params, state, loss = evaluate.train_model(cfg, steps=60, device="cuda")
+    assert np.isfinite(loss)
+    packed = quantize_tree(params, QuantPolicy(8, 0), min_size=1)
+
+    def plain(x, *w, relu=True):
+        k = w[0].shape[0]
+        pad = (k - 1) // 2
+        return ref.qconv1d_block_ref(torch.nn.functional.pad(
+            x, (0, 0, pad, k - 1 - pad)), *w, relu=relu)
+    ops.reset_launch_counts()
+    kern = evaluate.eval_identity(cfg, packed, state, n_batches=2)
+    routes = ops.launch_counts(routes=True)["qconv1d_block"]
+    assert routes == {"tensor_core": 0, "cuda_core": 3 * 2}
+    with mock.patch.object(qconv1d, "qconv1d_block_cuda", plain):
+        want = evaluate.eval_identity(cfg, packed, state, n_batches=2)
+    assert abs(kern - want) <= 0.005
