@@ -148,6 +148,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    absolute identity is gated). Last, the RUBICON core on the card: a
    QABAS search over TINY_SPACE, ``derive_config``, one SkipClip step
    from a bonito-smoke teacher, pruning and packing the student.
+15. lm_train — LM training on the card through ``train_loop.run`` as
+   ``launch/train.py`` runs it (fp32 master leaves drawn on the card,
+   bf16 compute, AdamW, every block rematerialised; the training forward
+   runs ``blockwise_attn``, the chunked SSD and the MoE routing, never
+   the prefill kernels, which have no backward): full-width qwen1.5-4b
+   cut to 8 of 40 layers, 4 x 1024 tokens of the synthetic token stream,
+   30 steps (finite, falling loss); mamba2-130m whole (24 layers, chunk
+   256), 4 x 2048, 10 steps (finite loss and gradients); full-width
+   granite-moe-1b-a400m (all 32 experts, top-8), 4 x 1024, 10 steps
+   (finite loss and aux). Each prints its cut, the losses at the first,
+   middle and last step, step p50 (CUDA events, host enqueue beside
+   it), tokens/s, the step's matmul FLOPs, peak device memory and one
+   traced step (launches, device ms, busy share). Then the card's loss
+   and every gradient leaf at smoke size (qwen1.5-4b, granite-moe,
+   deepseek-v3 with MLA, MoE and MTP, mamba2) against the CPU's, fp32
+   with TF32 off, each leaf within 1e-5 of the tree's largest; the
+   mixers' projections (wq, wk, wv; MLA's; the SSM's in_proj) non-zero,
+   and no kernel launched.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -178,6 +196,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.config import QuantPolicy, get_config  # noqa: E402
 from repro_torch.core.quant.policy import (Packer, quantize_tensor,  # noqa: E402
+                                           tree_items, tree_leaves,
                                            tree_map)
 from repro_torch.kernels import _build, ops, qconv1d, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -202,6 +221,7 @@ from repro_torch.core.quant.policy import (quantize_tree,  # noqa: E402
                                            tree_size_bytes)
 from repro_torch.data.squiggle import SquiggleConfig  # noqa: E402
 from repro_torch.data.squiggle import batches as squiggle_batches  # noqa: E402
+from repro_torch.data.tokens import token_batches  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.training import evaluate as train_eval  # noqa: E402
 from repro_torch.training import train_loop  # noqa: E402
@@ -2357,6 +2377,198 @@ def phase_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM training: the training forward (blockwise attention, the chunked SSD,
+# MoE routing with its aux loss) through train_loop.run at full width,
+# and the card's gradients against the CPU's at smoke size
+
+# (arch, layers kept (None: all), batch, seq, steps, the loss must fall):
+# qwen1.5-4b cut to 8 of 40 layers, so fp32 params, grads and both Adam
+# moments (16 B a parameter, 22.6 GB at 1.41 B parameters) and the
+# 151936-wide logits fit the card with room; mamba2-130m whole (its chunk
+# of 256 is where the reference's SSD gradient overflows: its gradients
+# must be finite); granite-moe-1b-a400m whole (all 32 experts, top-8: a
+# finite loss and aux). Ten steps, five of them warmup, need not lower a
+# loss.
+LM_TRAIN = [("qwen1.5-4b", 8, 4, 1024, 30, True),
+            (SSM_ARCH, None, 4, 2048, 10, False),
+            ("granite-moe-1b-a400m", None, 4, 1024, 10, False)]
+LM_TRAIN_TIMED = 5          # steps timed one by one after the loop
+# peak lr, after 5 warmup steps: the launcher's 2e-3 (QABAS's setting)
+# moves each 0.02-std weight by a tenth a step, and qwen's loss climbed
+# from 12.33 to 13.2 on an H100; there, at 3e-4, the mean of 5 steps
+# fell 0.013 in 30 steps, at 6e-4 0.23
+LM_LR = 6e-4
+LM_GRAD_ARCHS = ("qwen1.5-4b-smoke", "granite-moe-1b-a400m-smoke",
+                 "deepseek-v3-671b-smoke", "mamba2-130m-smoke")
+# card vs CPU gradients at smoke size, both fp32 with TF32 off: only the
+# order of fp32 sums differs (tests/test_torch_cuda.py holds the same)
+LM_GRAD_TOL = 1e-5          # of the tree's largest |gradient|
+MIXER_LEAVES = ("wq", "wk", "wv", "wdq", "wuq", "wdkv", "wukv", "in_proj")
+
+
+def lm_step_flops(cfg, batch: int, seq: int) -> float:
+    """Matmul FLOPs of one training step with each block rematerialised:
+    2 N per token forward, 4 N backward, 2 N again for the remat, over
+    the non-embedding parameters N a token touches (MoE: the top-k
+    experts), the unembedding's 6 V d per token, and the attention's
+    score and value products (4 S^2 hd a head forward, the whole S x S
+    block, as blockwise_attn computes it at S <= kv_chunk) four times.
+    An SSM counts its projections; its chunked scan's products are
+    left out."""
+    d, L, tokens = cfg.d_model, cfg.n_layers, batch * seq
+    if cfg.family == "ssm":
+        from repro_torch.models.lm.ssm import ssm_dims
+        d_in, nh, N, _ = ssm_dims(cfg)
+        per_layer = d * (2 * d_in + 2 * N + nh) + d_in * d
+        attn = 0.0
+    else:
+        hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+        per_layer = d * hd * (2 * H + 2 * Hkv)
+        ff = cfg.moe_d_ff or cfg.d_ff
+        per_layer += 3 * d * ff * (cfg.experts_per_tok or 1)
+        attn = 4 * 4.0 * batch * H * seq * seq * hd * L
+    return (8.0 * per_layer * L * tokens + 6.0 * cfg.vocab_size * d * tokens
+            + attn)
+
+
+def lm_train_one(arch, layers, batch, seq, steps, falls, smi) -> dict:
+    """One LM trained through ``train_loop.run`` on the card (fp32 master
+    leaves drawn there, bf16 compute, AdamW), then each of
+    ``LM_TRAIN_TIMED`` steps timed alone and one step traced."""
+    import tempfile
+    full = get_config(arch)
+    cfg = full if layers is None else replace(full, n_layers=layers)
+    cut = ("no cut" if layers is None else
+           f"cut to {layers} of {full.n_layers} layers with "
+           f"dataclasses.replace")
+    opt_cfg = AdamWConfig(lr=LM_LR, warmup_steps=5, total_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.perf_counter()
+        run = train_loop.run(
+            cfg, opt_cfg, TrainLoopConfig(steps=steps, log_every=1,
+                                          ckpt_every=10 ** 9, ckpt_dir=ckdir),
+            train_launcher.data_for(cfg, batch, seq), device="cuda")
+        t_loop = time.perf_counter() - t0
+    carry = run["carry"]
+    n_params = sum(v.numel() for v in tree_leaves(carry.params))
+    hist = run["history"]
+    losses = [r["loss"] for r in hist]
+    norms = [r["grad_norm"] for r in hist]
+    finite = np.isfinite(losses).all() and np.isfinite(norms).all()
+    k = max(2, steps // 6)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    marks = sorted({1, (steps + 1) // 2, steps})
+    at = {m: losses[m - 1] for m in marks}
+    step = api.make_train_step(cfg, opt_cfg)
+    data = train_launcher.data_for(cfg, batch, seq)
+    batches = [{key: torch.from_numpy(v).cuda() for key, v in
+                next(data).items()} for _ in range(LM_TRAIN_TIMED)]
+    carry, t = time_train_steps(step, carry, batches)
+    p50 = {key: statistics.median(v) for key, v in t.items()}
+    flops = lm_step_flops(cfg, batch, seq)
+    # the loss's terms (ce, moe_aux, mtp) at the trained params, on a
+    # batch no step saw: the step's metrics carry only their sum, and on
+    # a batch it trained on mamba2's ce read 6.90 against 10.92 (H100),
+    # as Adam's momentum kept raising the tied embedding rows it touched
+    held_out = {key: torch.from_numpy(v).cuda() for key, v in next(
+        token_batches(cfg, batch, seq, seed=1)).items()}
+    with torch.no_grad():
+        _, (terms, _) = api.make_loss_fn(cfg)(carry.params, {}, held_out)
+    terms = {key: float(v) for key, v in terms.items()}
+    print(f"[lm-train] {cfg.name} ({smi}): {cfg.n_layers} layers ({cut}), "
+          f"d {cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+          f"params; fp32 master leaves and AdamW state, {cfg.dtype} "
+          f"compute, remat {cfg.remat}; batch {batch} x {seq} tokens, "
+          f"{steps} steps of train_loop.run in {t_loop:.2f}s; loss at steps "
+          f"{', '.join(f'{m}: {v:.4f}' for m, v in at.items())} (mean of "
+          f"the first {k} {first:.4f}, of the last {k} {last:.4f}); grad "
+          f"norm {norms[0]:.4f} -> {norms[-1]:.4f}; the loss's terms after "
+          f"{steps + LM_TRAIN_TIMED} steps on a held-out batch: "
+          + ", ".join(f"{key} {v:.4f}" for key, v in terms.items()))
+    wall_s = p50["wall"] / 1e3
+    print(f"[lm-train] {cfg.name} ({smi}): step p50 over {LM_TRAIN_TIMED}: "
+          f"device (events, first enqueue to last kernel) "
+          f"{p50['device']:.2f} ms, host enqueue {p50['host']:.2f} ms, wall "
+          f"{p50['wall']:.2f} ms: {batch * seq / wall_s:.0f} tokens/s; "
+          f"{flops / 1e12:.2f} TFLOP of matmuls a step, "
+          f"{flops / wall_s / 1e12:.1f} TFLOP/s")
+    if not (finite and np.isfinite(list(terms.values())).all()):
+        raise AssertionError(f"{cfg.name}: losses {losses}, grad norms "
+                             f"{norms}, terms {terms}")
+    if falls and not last < first:
+        raise AssertionError(f"{cfg.name}: the loss did not fall: {losses}")
+    tr = trace(f"one {cfg.name} train step ({smi})",
+               lambda: step(carry, batches[0])[1]["loss"],
+               fetch=lambda loss: float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[lm-train] {cfg.name}: peak device memory {peak:.2f} GiB "
+          f"({smi})")
+    del run, carry, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "cut": cut, "params": n_params,
+            "losses": at, "first_mean": first, "last_mean": last,
+            "grad_norms": (norms[0], norms[-1]), "loop_s": t_loop,
+            "step_ms_p50": p50, "tflop_per_step": flops / 1e12,
+            "peak_gib": peak, "trace": tr, "terms": terms}
+
+
+def lm_grad_check(arch, smi) -> dict:
+    """The LM loss and every gradient leaf at smoke size (fp32 leaves,
+    fp32 compute, TF32 off) on the card against the CPU, from the same
+    params and token batch; the training forward launches no kernel."""
+    cfg = get_config(arch)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                             dtype=torch.float32)
+    batch = {key: torch.from_numpy(v) for key, v in next(
+        train_launcher.data_for(cfg, 2, 64)).items()}
+    out = []
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        ops.reset_launch_counts()
+        (loss, (m, _)), g = api.value_and_grad(
+            api.make_loss_fn(cfg), p, {}, {key: v.to(dev)
+                                           for key, v in batch.items()})
+        launched = {key: n for key, n in ops.launch_counts().items() if n}
+        out.append((float(loss), {key: float(v) for key, v in m.items()},
+                    {key: v.cpu() for key, v in tree_items(g)}, launched))
+    (cl, cm, cg, _), (gl, gm, gg, launched) = out
+    scale = max(float(v.abs().max()) for v in cg.values())
+    err = {key: float((gg[key] - v).abs().max()) for key, v in cg.items()}
+    worst = max(err, key=err.get)
+    mixer = {key: (float(gg[key].abs().max()), err[key]) for key in cg
+             if any(f"/{n}/" in key for n in MIXER_LEAVES)}
+    print(f"[lm-train] gradients {arch} ({smi}): loss card {gl:.6f} CPU "
+          f"{cl:.6f}; "
+          f"{len(cg)} leaves, worst |card - CPU| {err[worst]:.3e} at {worst} "
+          f"(tree max |g| {scale:.3e}, bound {LM_GRAD_TOL:g} of it); mixer "
+          + ", ".join(f"{key.split('/', 2)[-1]} max|g| {a:.2e} err {e:.1e}"
+                      for key, (a, e) in mixer.items()
+                      if key.endswith("kernel")))
+    bad = (launched or abs(gl - cl) > 1e-5 * abs(cl)
+           or any(abs(gm[key] - cm[key]) > 1e-5 * abs(cm[key]) for key in cm)
+           or err[worst] > LM_GRAD_TOL * scale or not mixer
+           or any(a == 0.0 for a, _ in mixer.values()))
+    if bad:
+        raise AssertionError(f"{arch}: card gradients vs CPU: launched "
+                             f"{launched}, loss {gl} vs {cl}, metrics {gm} "
+                             f"vs {cm}, worst {worst} {err[worst]}, mixer "
+                             f"{mixer}")
+    return {"loss": (gl, cl), "max_abs_err": err[worst], "scale": scale,
+            "mixer": mixer}
+
+
+def phase_lm_train(smi: str) -> dict:
+    out = {name: lm_train_one(name, *rest, smi=smi)
+           for name, *rest in LM_TRAIN}
+    out["grads"] = {arch: lm_grad_check(arch, smi) for arch in LM_GRAD_ARCHS}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2410,6 +2622,7 @@ def main() -> int:
                    QWEN_PREFILL, 8, ("flash_attention",), ("flash_",))
     stream = lap("stream", phase_stream)
     trained = lap("train", phase_train)
+    lap("lm_train", phase_lm_train, smi)
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
     def forward_sum(pk):

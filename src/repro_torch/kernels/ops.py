@@ -4,7 +4,9 @@ A wrapper owns the layout glue (the plain versions' halo padding,
 PackedTensor unwrapping, GQA head folding) and routes by device: a CPU
 tensor runs the plain PyTorch version in :mod:`repro_torch.kernels.ref`,
 a CUDA tensor launches the hand-written kernel — or the call raises.
-There is no fallback from one to the other.
+There is no fallback from one to the other. The kernels have no
+backward, so on a card an input that requires grad (with grad enabled)
+raises rather than getting no gradient.
 
 Whole-prompt prefill has two kernels: :func:`flash_attention` (the
 dense family's attention) and :func:`ssd_chunk_scan` (the Mamba-2 SSD
@@ -35,6 +37,17 @@ def _no_kernel(name: str, device) -> ValueError:
     return ValueError(f"{name}: no kernel for device {device}")
 
 
+def _no_backward(name: str, *inputs: torch.Tensor) -> None:
+    """The CUDA kernels write their outputs through ctypes, so autograd
+    records nothing: an input that requires grad would silently get no
+    gradient from the kernel. Every wrapper raises instead, on a card
+    (training has its own differentiable paths)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad; train through the model's train=True path")
+
+
 def qconv1d_block(x: torch.Tensor, dw, pw, gamma: torch.Tensor,
                   beta: torch.Tensor, *, relu: bool = True) -> torch.Tensor:
     """x: (B, T, C); dw/pw: int8 PackedTensor (dw packed (k, C), pw
@@ -48,6 +61,7 @@ def qconv1d_block(x: torch.Tensor, dw, pw, gamma: torch.Tensor,
          gamma.float().reshape(1, -1).contiguous(),
          beta.float().reshape(1, -1).contiguous())
     if x.is_cuda:
+        _no_backward("qconv1d_block", x, gamma, beta)
         return qconv1d.qconv1d_block_cuda(x.contiguous(), *w, relu=relu)
     if x.device.type == "cpu":
         pad = (k - 1) // 2
@@ -66,6 +80,7 @@ def qmatmul(x: torch.Tensor, w, scale=None, *, bits: int = 8
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     s2 = scale.float().reshape(1, -1).contiguous()
     if x.is_cuda:
+        _no_backward("qmatmul", x)
         out = qmm.qmatmul_cuda(x2, w, s2, bits=bits)
     elif x.device.type == "cpu":
         out = ref.qmatmul_ref(x2, w, s2, bits=bits)
@@ -81,8 +96,10 @@ def qmatmul(x: torch.Tensor, w, scale=None, *, bits: int = 8
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, H, d); k/v: (B, Sk, Hkv, d) -> (B, Sq, H, d) in q's
-    dtype. Query head h reads KV head h // (H // Hkv); any Sq, Sk."""
+    dtype. Query head h reads KV head h // (H // Hkv); any Sq, Sk. On a
+    card, inputs that require grad (with grad enabled) raise."""
     if q.is_cuda:
+        _no_backward("flash_attention", q, k, v)
         return fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
                                        v.contiguous(), causal=causal)
     if q.device.type == "cpu":
@@ -97,8 +114,9 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     shared by every head. Returns (y (B, S, nh, hd) in x's dtype, the
     state after the last position (B, nh, hd, N) fp32). On the card dt,
     A and D go to the kernel in fp32 (exact widenings) and B/C in x's
-    dtype."""
+    dtype; inputs that require grad (with grad enabled) raise there."""
     if x.is_cuda:
+        _no_backward("ssd_chunk_scan", x, dt, A, Bm, Cm, D)
         return ssd.ssd_scan_cuda(
             x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
             Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(),
@@ -131,6 +149,7 @@ def resolve_attn_backend(name: Optional[str] = None,
 def _paged(q, *args, chunk: bool, **kw):
     """Kernel on a CUDA tensor, its plain version on a CPU tensor."""
     if q.is_cuda:
+        _no_backward("gqa_paged", q, *args[:2])
         fn = pa.gqa_paged_chunk_cuda if chunk else pa.gqa_paged_cuda
     elif q.device.type == "cpu":
         fn = ref.gqa_paged_chunk_ref if chunk else ref.gqa_paged_ref
@@ -179,6 +198,7 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _mla_paged(q_abs, *args, chunk: bool, **kw):
     """MLA kernel on a CUDA tensor, its plain version on a CPU tensor."""
     if q_abs.is_cuda:
+        _no_backward("mla_paged", q_abs, *args[:3])
         fn = pa.mla_paged_chunk_cuda if chunk else pa.mla_paged_cuda
     elif q_abs.device.type == "cpu":
         fn = ref.mla_paged_chunk_ref if chunk else ref.mla_paged_ref

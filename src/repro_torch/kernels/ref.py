@@ -251,10 +251,21 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, D):
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int, init_state=None):
     """The chunked SSD algorithm (the reference model's
-    ``ssm.ssd_chunked``) and the plain version of the ``ssd_scan``
-    kernel. x: (B, S, nh, hd); dt: (B, S, nh); A/D: (nh,); Bm/Cm: (B, S,
-    N). The chunk shrinks to the largest divisor of S. Returns (y (B, S,
-    nh, hd) in x's dtype, final state (B, nh, hd, N) fp32)."""
+    ``ssm.ssd_chunked``), the plain version of the ``ssd_scan`` kernel
+    and the training forward's scan. x: (B, S, nh, hd); dt: (B, S, nh);
+    A/D: (nh,); Bm/Cm: (B, S, N). The chunk shrinks to the largest
+    divisor of S. Returns (y (B, S, nh, hd) in x's dtype, final state
+    (B, nh, hd, N) fp32).
+
+    One departure from the reference, in the gradient only: the
+    intra-chunk decay ``exp(cum_t - cum_s)`` is masked to the causal
+    triangle before the ``exp``. The reference exponentiates the whole
+    Q x Q block and masks after; above the diagonal the exponent is
+    +sum |A dt|, which overflows fp32 at mamba2-130m's chunk of 256 once
+    dt nears its init's 0.1, and its backward then forms 0 * inf (NaN
+    gradients for A_log and dt). The entries kept are computed as before
+    and the rest are zeroed as before, so the output equals the unmasked
+    form's bit for bit."""
     Bsz, S, nh, hd = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -269,11 +280,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int, init_state=None):
     total = cum[:, :, -1]                                 # (B, T, nh)
     # intra-chunk: M[t, s] = C_t.B_s exp(cum_t - cum_s) dt_s, s <= t
     G = torch.einsum("btqn,btsn->btqs", Cr, Br)
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                   device=x.device))
+                                   device=x.device))[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    decay = torch.exp(torch.where(causal, diff, -torch.inf))
     M = G[..., None] * decay * dtr[:, :, None, :, :]
-    M = torch.where(causal[None, None, :, :, None], M, torch.zeros_like(M))
+    M = torch.where(causal, M, torch.zeros_like(M))
     y_intra = torch.einsum("btqsh,btshd->btqhd", M, xr)
     # each chunk's contribution to the state, then the scan over chunks
     w_state = torch.exp(total[:, :, None, :] - cum) * dtr

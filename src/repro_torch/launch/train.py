@@ -2,7 +2,9 @@
 rubicall --steps 200``.
 
 Trains a basecaller on synthetic squiggles (``data/squiggle.py``,
-``--batch`` chunks of ``--seq`` samples a step) through the
+``--batch`` chunks of ``--seq`` samples a step) or an LM (``dense``,
+``moe``, ``ssm``) on the synthetic Markov token stream
+(``data/tokens.py``, ``--batch`` rows of ``--seq`` tokens) through the
 fault-tolerant loop (``training/train_loop.py``: checkpoint/resume
 every ``--ckpt-every`` steps into ``--ckpt-dir``, optional int8
 gradient compression) and prints the metric history, one JSON row per
@@ -10,8 +12,7 @@ logged step. Runs on CUDA; ``--device cpu`` trains on the CPU, and
 without a card and without it the launcher raises.
 
 One device only: ``--coordinator`` (multi-host) and ``--model-parallel``
-above 1 are refused, and the LM families raise: their training is not
-ported.
+above 1 are refused.
 """
 from __future__ import annotations
 
@@ -26,10 +27,14 @@ from repro_torch.training.train_loop import TrainLoopConfig, run
 
 
 def data_for(cfg, batch: int, seq: int):
-    """Synthetic squiggle batches (numpy; the loop moves them to the
-    device)."""
-    from repro_torch.data.squiggle import SquiggleConfig, batches
-    yield from batches(SquiggleConfig(chunk_len=seq), batch)
+    """Synthetic squiggle batches for a basecaller, synthetic token
+    batches for an LM (numpy; the loop moves them to the device)."""
+    if cfg.family == "basecaller":
+        from repro_torch.data.squiggle import SquiggleConfig, batches
+        yield from batches(SquiggleConfig(chunk_len=seq), batch)
+    else:
+        from repro_torch.data.tokens import token_batches
+        yield from token_batches(cfg, batch, seq)
 
 
 def main(argv=None) -> None:
@@ -61,12 +66,6 @@ def main(argv=None) -> None:
             "--num-hosts, --model-parallel) are not ported: the port "
             "trains on one device")
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
-    if cfg.family != "basecaller":
-        raise NotImplementedError(
-            f"{cfg.name}: LM training is not ported (it needs the LM half "
-            f"of models/api.py's make_loss_fn, transformer.forward in "
-            f"train mode, common.cross_entropy, the MTP loss and "
-            f"data/tokens.py)")
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
     loop = TrainLoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                            ckpt_every=args.ckpt_every,

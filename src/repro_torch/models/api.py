@@ -1,9 +1,9 @@
 """Model API of the port (the basecaller family and the LM families
-ported so far: ``dense`` and ``moe``, GQA or MLA, through the serving
-engine; ``dense`` and ``ssm`` through the static path): parameter init,
-the basecaller's loss and train step, the serving engine, the
-whole-prompt prefill and lockstep decode steps and smoke batches, on
-the device a caller names.
+ported so far: ``dense``, ``moe`` (GQA or MLA, with the MTP head) and
+``ssm`` in training; ``dense`` and ``moe`` through the serving engine;
+``dense`` and ``ssm`` through the static path): parameter init, the
+loss and train step, the serving engine, the whole-prompt prefill and
+lockstep decode steps and smoke batches, on the device a caller names.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they
@@ -31,12 +31,15 @@ class TrainCarry(NamedTuple):
     model_state: Any        # e.g. BatchNorm running stats (basecaller)
 
 
-def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0):
+def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0,
+                dtype=None):
     """Parameters of ``cfg``.
 
     Basecaller: fp32 CPU parameters drawn from ``gen`` (a CPU
-    ``torch.Generator``). LM: the layer-stacked tree in ``cfg.dtype``,
-    drawn on the device that draws it, never on the host first: ``gen``
+    ``torch.Generator``). LM: the layer-stacked tree in ``dtype``
+    (default ``cfg.dtype``, what serving holds; training passes fp32
+    for master leaves), drawn on the device that draws it, never on the
+    host first: ``gen``
     is a seed (drawn on ``device``, CUDA by default, through a
     ``torch.Generator`` there) or a ``torch.Generator`` (drawn on its
     device). ``wbits`` 8 or 4 packs the weights as they are drawn, leaf
@@ -56,7 +59,7 @@ def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0):
         from repro_torch.config import QuantPolicy
         from repro_torch.core.quant.policy import Packer
         pack = Packer(QuantPolicy(weight_bits=wbits, act_bits=0))
-    return tfm.init_decoder(gen, cfg, pack=pack)
+    return tfm.init_decoder(gen, cfg, pack=pack, dtype=dtype)
 
 
 def init_model_state(cfg: ModelConfig):
@@ -69,22 +72,73 @@ def init_model_state(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Loss and train step (the basecaller family)
+# Loss and train step
 
 
 def make_loss_fn(cfg: ModelConfig) -> Callable:
     """``loss(params, model_state, batch) -> (loss, (metrics,
-    new_state))``. Only the basecaller family trains in the port."""
-    if cfg.family != "basecaller":
-        raise NotImplementedError(
-            f"{cfg.name}: LM training ({cfg.family!r}) is not ported: it "
-            f"needs the LM half of make_loss_fn, transformer.forward in "
-            f"train mode, cross_entropy, the MTP loss and data/tokens.py")
-    from repro_torch.models.basecaller import model as bc
+    new_state))``.
 
-    def bc_loss(params, model_state, batch):
-        return bc.loss_fn(params, model_state, batch, cfg)
-    return bc_loss
+    Basecaller: the CTC loss (``model.loss_fn``). LM (``dense``,
+    ``moe``, ``ssm``): the mean cross-entropy of ``batch["labels"]``
+    over the training forward of ``batch["tokens"]``, plus 0.01 x the
+    MoE aux loss when ``cfg.n_experts`` and 0.3 x the MTP loss when
+    ``cfg.mtp_depth``; metrics ``ce`` (and ``moe_aux``, ``mtp``). The
+    ``vlm`` and ``audio`` families (and ``hybrid``'s layers) raise."""
+    if cfg.family == "basecaller":
+        from repro_torch.models.basecaller import model as bc
+
+        def bc_loss(params, model_state, batch):
+            return bc.loss_fn(params, model_state, batch, cfg)
+        return bc_loss
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family is not "
+            f"ported: it needs models/lm/encdec.py (audio) or the vision "
+            f"projection (vlm), and the configs whisper_tiny and "
+            f"internvl2_1b")
+    from repro_torch.models.lm import transformer as tfm
+    from repro_torch.models.lm.common import cross_entropy
+    tfm.layer_plan(cfg)          # raises for a family that is not ported
+
+    def lm_loss(params, model_state, batch):
+        h, aux = tfm.forward(params, batch["tokens"], cfg, train=True)
+        lsum, wsum = cross_entropy(tfm.unembed(params, h, cfg),
+                                   batch["labels"])
+        loss = lsum / wsum.clamp_min(1.0)
+        metrics = {"ce": loss}
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux
+            metrics["moe_aux"] = aux
+        if cfg.mtp_depth:
+            loss_mtp = _mtp_loss(params, h, batch, cfg)
+            loss = loss + 0.3 * loss_mtp
+            metrics["mtp"] = loss_mtp
+        return loss, (metrics, model_state)
+    return lm_loss
+
+
+def _mtp_loss(params, h: torch.Tensor, batch: Dict, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction head (depth 1): position t
+    predicts label t + 1 from the normed hidden state at t and the
+    embedding of token t + 1, through one more block."""
+    from repro_torch.models.lm import transformer as tfm
+    from repro_torch.models.lm.common import cross_entropy, dense, rmsnorm
+    mtp = params["mtp"]
+    tokens, labels = batch["tokens"], batch["labels"]
+    emb_next = tfm.embed_tokens(params, tokens[:, 1:], cfg)
+    hcat = torch.cat([rmsnorm(mtp["norm"], h[:, :-1], cfg.norm_eps),
+                      emb_next], dim=-1)
+    x = dense(mtp["proj"], hcat, cfg=cfg, tag="mtp/proj")
+    B, S1, _ = x.shape
+    positions = torch.arange(S1, dtype=torch.int32,
+                             device=x.device)[None, :].expand(B, S1)
+    x, _, _ = tfm.block_forward(mtp["block"], x, positions, cfg,
+                                "mla_dense" if cfg.mla else "dense",
+                                train=True)
+    lsum, wsum = cross_entropy(tfm.unembed(params, x, cfg), labels[:, 1:])
+    return lsum / wsum.clamp_min(1.0)
 
 
 def n_microbatches(cfg: ModelConfig, batch: int, seq: int,

@@ -27,8 +27,12 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     frames. The targets go to the log-probs' device as int64, which
     keeps PyTorch off cuDNN's CTC: the card runs the native CUDA
     implementation, the CPU the native CPU one, both in the log-probs'
-    dtype. An alignment that cannot exist (T too short for the label)
-    gives ``inf`` here and about 1e30 in the reference.
+    dtype. A row whose alignment cannot exist (T below the label's
+    length plus its repeats, where ``F.ctc_loss`` is infinite) takes
+    :func:`ctc_loss_ref`'s value and gradient, as in the reference:
+    about 1e30, finite, so one such row does not turn every parameter
+    to NaN. Finding those rows reads one index list back to the host,
+    where the native CUDA CTC reads the lengths back anyway.
 
     Its gradient with respect to ``log_probs`` is PyTorch's
     ``exp(lp) - gamma``, not ``-gamma``: the two agree only through
@@ -37,12 +41,21 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     """
     B, T, _ = log_probs.shape
     dev = log_probs.device
-    ll = F.ctc_loss(log_probs.transpose(0, 1),
-                    labels.to(device=dev, dtype=torch.int64),
-                    torch.full((B,), T, dtype=torch.int64, device=dev),
-                    label_lengths.to(device=dev, dtype=torch.int64),
-                    blank=BLANK, reduction="none", zero_infinity=False)
-    return ll.mean()
+    labels = labels.to(device=dev, dtype=torch.int64)
+    lens = label_lengths.to(device=dev, dtype=torch.int64)
+    # zero_infinity only touches the rows replaced below
+    nll = F.ctc_loss(log_probs.transpose(0, 1), labels,
+                     torch.full((B,), T, dtype=torch.int64, device=dev),
+                     lens, blank=BLANK, reduction="none", zero_infinity=True)
+    # an alignment takes a frame per label and one between repeats
+    live = (torch.arange(1, labels.shape[1], device=dev)[None, :]
+            < lens[:, None])
+    repeats = ((labels[:, 1:] == labels[:, :-1]) & live).sum(dim=1)
+    bad = torch.nonzero(lens + repeats > T)[:, 0]
+    if bad.numel():
+        nll = nll.index_put((bad,), -_log_likelihood_ref(
+            log_probs[bad], labels[bad], lens[bad]))
+    return nll.mean()
 
 
 def ctc_loss_ref(log_probs: torch.Tensor, labels: torch.Tensor,
@@ -51,6 +64,12 @@ def ctc_loss_ref(log_probs: torch.Tensor, labels: torch.Tensor,
     over the extended label (blank, l1, blank, ..., blank), one step a
     frame, with its ``NEG = -1e30`` floor and ``+1e-38`` inside the
     logs. Differentiable by autograd."""
+    return -_log_likelihood_ref(log_probs, labels, label_lengths).mean()
+
+
+def _log_likelihood_ref(log_probs: torch.Tensor, labels: torch.Tensor,
+                        label_lengths: torch.Tensor) -> torch.Tensor:
+    """Per-row log-likelihood (B,) of :func:`ctc_loss_ref`."""
     B, T, _ = log_probs.shape
     dev = log_probs.device
     labels = labels.to(device=dev, dtype=torch.int64)
@@ -83,8 +102,8 @@ def ctc_loss_ref(log_probs: torch.Tensor, labels: torch.Tensor,
     a_last = torch.gather(alpha, 1, idx_last)[:, 0]
     a_prev = torch.gather(alpha, 1, (idx_last - 1).clamp_min(0))[:, 0]
     m = torch.maximum(a_last, a_prev)
-    ll = m + torch.log(torch.exp(a_last - m) + torch.exp(a_prev - m) + 1e-38)
-    return -ll.mean()
+    return m + torch.log(torch.exp(a_last - m) + torch.exp(a_prev - m)
+                         + 1e-38)
 
 
 def greedy_decode(log_probs: np.ndarray) -> List[np.ndarray]:

@@ -3,12 +3,17 @@
 one-token decode over a contiguous cache (the static path), and the
 slot-batched step over the paged KV pool (the serving engine).
 
-Whole-prompt attention, the port's routing: :func:`attn_forward` calls
-``ops.flash_attention``, the hand-written CUDA ``flash_attention``
-kernel on a card, where the reference calls its XLA ``blockwise_attn``
-and never its Pallas twin (``flash_attention_p``); on the CPU the same
-call runs the dense plain version. Sliding-window layers (the hybrid
-family) are not ported. The contiguous decode runs no kernel.
+Whole-prompt attention, the port's routing: :func:`attn_forward` serves
+a prompt through ``ops.flash_attention``, the hand-written CUDA
+``flash_attention`` kernel on a card, where the reference calls its XLA
+``blockwise_attn`` and never its Pallas twin (``flash_attention_p``); on
+the CPU the same call runs the dense plain version. The kernel has no
+backward, so a training forward (``train=True``) runs
+:func:`blockwise_attn`, the port of the reference's XLA attention and
+plain autograd-differentiable PyTorch, as the reference trains through
+it. Sliding-window layers (the hybrid family) are not ported; the
+window of :func:`blockwise_attn` is. The contiguous decode runs no
+kernel.
 
 In the paged pool, each layer's K/V bytes live in a shared block arena ``(n_blocks,
 block_len, Hkv, hd)``; a host block table ``(B, T)`` maps each slot's
@@ -30,6 +35,125 @@ from repro_torch.kernels.paged_attention import (EMPTY_POS, NEG_INF,
                                                  quantize_kv)
 from repro_torch.models.lm.common import Params, dense, make_dense_params
 from repro_torch.models.lm.rope import apply_rope
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (the training forward's)
+
+
+def _chunk(n: int, pref: int) -> int:
+    """Largest divisor of n that is <= pref (every chunk the same size)."""
+    if n <= pref:
+        return n
+    c = pref
+    while n % c:
+        c -= 1
+    return c
+
+
+def _blockwise_tri(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor, *,
+                   Kc: int, group: int, scale: float, q_offset: int,
+                   causal: bool, dtype) -> torch.Tensor:
+    """Online softmax of each query chunk over the KV chunks it can see.
+    qs: (Tq, B, H, Qc, hd); ks/vs: (Tk, B, Hkv, Kc, hd | hd_v). Returns
+    (Tq, B, H, Qc, hd_v) in ``dtype``.
+
+    Causal: only the KV chunks at or below the diagonal, the reference's
+    triangular schedule (``_blockwise_tri``). A chunk past the diagonal
+    is masked for every query of the chunk, so the reference's full grid
+    adds exactly nothing there (p underflows to 0, the correction is 1):
+    skipping it changes no value. Scores, probabilities and the
+    statistics in fp32. The chunk stacks are unbound once, so the
+    backward stacks the chunks' gradients in one op."""
+    _, B, H, Qc, _ = qs.shape
+    dev = qs.device
+    ks, vs = ks.unbind(0), vs.unbind(0)
+    outs = []
+    for i, qc in enumerate(qs.unbind(0)):
+        q0 = q_offset + i * Qc
+        qpos = q0 + torch.arange(Qc, device=dev)
+        qf = qc.float()
+        m = torch.full((B, H, Qc), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, Qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, Qc, vs[0].shape[-1]), dtype=torch.float32,
+                          device=dev)
+        for j in range(len(ks)):
+            if causal and j * Kc > q0 + Qc - 1:
+                break
+            kc = ks[j].repeat_interleave(group, dim=1).float()
+            vc = vs[j].repeat_interleave(group, dim=1).float()
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, kc) * scale
+            if causal:
+                kpos = j * Kc + torch.arange(Kc, device=dev)
+                s = torch.where(kpos[None, :] <= qpos[:, None], s,
+                                torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd",
+                                                       p, vc)
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(dtype))
+    return torch.stack(outs)
+
+
+def blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0, q_offset: int = 0,
+                   q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+    """The reference's ``blockwise_attn``: q (B, Sq, H, hd); k (B, Sk,
+    Hkv, hd); v (B, Sk, Hkv, hd_v), hd_v taken from v (MLA's value width
+    differs from its query width). Returns (B, Sq, H, hd_v) in q's dtype.
+    Query head h reads KV head h // (H // Hkv); query i sits at position
+    ``q_offset + i``.
+
+    Never materialises (Sq, Sk) scores: query chunks of ``q_chunk`` (the
+    largest divisor of Sq not above it) against KV chunks of
+    ``kv_chunk`` with an online softmax, scores in fp32. ``window > 0``:
+    sliding-window attention, each query seeing the ``window`` positions
+    up to itself, through one KV window of ``window + q_chunk``
+    positions a query chunk. Plain PyTorch, differentiable by autograd;
+    memory in training is bounded by the block-level rematerialisation
+    (``transformer.forward``), where the reference also remats each KV
+    step."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    group = H // Hkv
+    scale = hd ** -0.5
+    Qc = _chunk(Sq, q_chunk)
+    Tq = Sq // Qc
+    qs = q.reshape(B, Tq, Qc, H, hd).permute(1, 0, 3, 2, 4)
+    dev = q.device
+    if window > 0:
+        W = min(window, Sk)
+        Wpad = W + Qc if Sk >= W + Qc else Sk
+        outs = []
+        for i, qc in enumerate(qs.unbind(0)):
+            q0 = q_offset + i * Qc
+            start = min(max(q0 + Qc - Wpad, 0), Sk - Wpad)
+            kw = k[:, start:start + Wpad].repeat_interleave(group, dim=2)
+            vw = v[:, start:start + Wpad].repeat_interleave(group, dim=2)
+            qpos = q0 + torch.arange(Qc, device=dev)
+            kpos = start + torch.arange(Wpad, device=dev)
+            mask = ((kpos[None, :] <= qpos[:, None])
+                    & (kpos[None, :] > qpos[:, None] - W))
+            s = torch.einsum("bhqd,bkhd->bhqk", qc.float(),
+                             kw.float()) * scale
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            p = torch.softmax(s, dim=-1)
+            outs.append(torch.einsum("bhqk,bkhd->bhqd", p,
+                                     vw.float()).to(q.dtype))
+        out = torch.stack(outs)
+    else:
+        Kc = _chunk(Sk, kv_chunk)
+        Tk = Sk // Kc
+        ks = k.reshape(B, Tk, Kc, Hkv, hd).permute(1, 0, 3, 2, 4)
+        vs = v.reshape(B, Tk, Kc, Hkv, hd_v).permute(1, 0, 3, 2, 4)
+        out = _blockwise_tri(qs, ks, vs, Kc=Kc, group=group, scale=scale,
+                             q_offset=q_offset, causal=causal,
+                             dtype=q.dtype)
+    return out.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, hd_v)
 
 
 def make_attn_params(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
@@ -62,17 +186,21 @@ def _project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, *, window: int = 0,
-                 causal: bool = True) -> Tuple[torch.Tensor, Dict]:
+                 cfg: ModelConfig, *, window: int = 0, causal: bool = True,
+                 train: bool = False) -> Tuple[torch.Tensor, Dict]:
     """Whole-prompt attention. x: (B, S, d); positions: (B, S). Returns
-    (out (B, S, d), {"k", "v": (B, S, Hkv, hd)} for the cache)."""
+    (out (B, S, d), {"k", "v": (B, S, Hkv, hd)} for the cache).
+    ``train``: the training forward, through :func:`blockwise_attn`
+    (differentiable); otherwise ``ops.flash_attention`` (the kernel on a
+    card, which refuses inputs that require grad)."""
     if window > 0:
         raise NotImplementedError(
             "sliding-window attention (the hybrid family's hybrid_swa "
             "layers) is not ported")
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, positions, cfg)
-    o = flash_attention(q, k, v, causal=causal)
+    o = (blockwise_attn(q, k, v, causal=causal) if train
+         else flash_attention(q, k, v, causal=causal))
     o = o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return dense(p["wo"], o, cfg=cfg, tag="attn/wo"), {"k": k, "v": v}
 

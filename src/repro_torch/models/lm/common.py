@@ -14,7 +14,7 @@ no counterpart here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -134,3 +134,17 @@ def mlp(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
     h = dense(p["wi"], x, cfg=cfg, tag=tag + "/wi")
     g = dense(p["wg"], x, cfg=cfg, tag=tag + "/wg")
     return dense(p["wo"], F.silu(g) * h, cfg=cfg, tag=tag + "/wo")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy in fp32 (logsumexp over the vocabulary). Labels
+    equal to ``ignore_id`` weigh 0. Returns (sum of the losses, sum of
+    the weights), so microbatches can be averaged."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    # an ignored label still needs an index to gather from
+    idx = torch.where(labels == ignore_id, 0, labels).long()
+    picked = torch.gather(lf, -1, idx[..., None])[..., 0]
+    w = (labels != ignore_id).float()
+    return ((lse - picked) * w).sum(), w.sum()

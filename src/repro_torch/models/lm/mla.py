@@ -1,6 +1,12 @@
-"""Multi-head Latent Attention (DeepSeek-V3) for slot-batched serving over
-the paged latent pool (the port's counterpart of the serving half of
-``repro.models.lm.mla``).
+"""Multi-head Latent Attention (DeepSeek-V3): the whole-sequence forward
+of training, and slot-batched serving over the paged latent pool (the
+port's counterpart of ``repro.models.lm.mla``).
+
+The whole-sequence form (:func:`mla_forward`) expands the latent into
+per-head K/V and runs ``attention.blockwise_attn`` with the value width
+``mla_v_dim``, as the reference does. It runs no kernel: the port's
+flash kernel takes one head width of at most 128, and MLA's query width
+is ``nope + rope`` (192 at full width).
 
 Decode uses the *absorbed* form: scores and values are computed in the
 (kv_lora_rank + rope) latent space, so each layer caches one latent
@@ -18,6 +24,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ops import decode_mla
+from repro_torch.models.lm.attention import blockwise_attn
 from repro_torch.kernels.paged_attention import (EMPTY_POS, PagedWrites,
                                                  paged_writes, put_rows,
                                                  quantize_kv)
@@ -72,6 +79,28 @@ def _project_kv_latent(p: Params, x: torch.Tensor, positions: torch.Tensor,
     k_rope = apply_rope(k_rope, positions, head_dim=rope_d,
                         theta=cfg.rope_theta)
     return c, k_rope            # (B, S, kvr), (B, S, rope_d)
+
+
+def mla_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """Whole-sequence MLA. x: (B, S, d); positions: (B, S). The latent
+    up-projects to per-head K = [k_nope, k_rope] (the rope key shared
+    by every head) and V, then :func:`blockwise_attn` (causal, value
+    width ``mla_v_dim``). Returns (out (B, S, d), {"c": (B, S, kvr),
+    "k_rope": (B, S, rope)})."""
+    B, S, _ = x.shape
+    H, qr, kvr, nope, rope_d, vd = _dims(cfg)
+    q_nope, q_rope = _project_q(p, x, positions, cfg)
+    c, k_rope = _project_kv_latent(p, x, positions, cfg)
+    kv = dense(p["wukv"], c, cfg=cfg, tag="mla/wukv").reshape(
+        B, S, H, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope_d)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = blockwise_attn(q, k, v, causal=True).reshape(B, S, H * vd)
+    return dense(p["wo"], o, cfg=cfg, tag="mla/wo"), {"c": c,
+                                                       "k_rope": k_rope}
 
 
 def init_mla_cache_paged(cfg: ModelConfig, n_slots: int, cache_len: int,

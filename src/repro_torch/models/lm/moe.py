@@ -125,13 +125,11 @@ def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int,
     return dispatch, combine, aux
 
 
-def _expert(w, e: int, dtype) -> torch.Tensor:
+def _expert(w: PackedTensor, e: int, dtype) -> torch.Tensor:
     """Expert ``e``'s weight in ``dtype``, dequantized as ``kernel_of``
     dequantizes a packed stack."""
-    if isinstance(w, PackedTensor):
-        return dequantize(PackedTensor(w.data[e], w.scale[e], w.bits,
-                                       w.orig_shape), dtype)
-    return w[e].to(dtype)
+    return dequantize(PackedTensor(w.data[e], w.scale[e], w.bits,
+                                   w.orig_shape), dtype)
 
 
 def _routed(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
@@ -142,6 +140,15 @@ def _routed(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
     x: (G, S, d). Returns (G, S, d)."""
     G, S, d = x.shape
     dt = x.dtype
+    # float stacks are cast once and unbound: the backward stacks the
+    # experts' gradients in one op, where indexing an expert would fill a
+    # zero tensor of the whole stack for each expert's gradient
+    ws = {n: p[n] if isinstance(p[n], PackedTensor)
+          else p[n].to(dt).unbind(0) for n in ("wi", "wg", "wo")}
+
+    def expert(name: str, e: int) -> torch.Tensor:
+        w = ws[name]
+        return _expert(w, e, dt) if isinstance(w, PackedTensor) else w[e]
     # sync: the loop below runs on the host over the experts that
     # received a token, so the routing is read back once per layer
     nz = torch.nonzero(dispatch).cpu()                  # (n, 4) g, s, e, c
@@ -156,9 +163,8 @@ def _routed(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
     for e, n in zip(experts.tolist(), counts.tolist()):
         r = rows[off:off + n]
         xe = xf[r]
-        h = (F.silu(xe @ _expert(p["wg"], e, dt))
-             * (xe @ _expert(p["wi"], e, dt)))
-        ye = h @ _expert(p["wo"], e, dt)
+        h = F.silu(xe @ expert("wg", e)) * (xe @ expert("wi", e))
+        ye = h @ expert("wo", e)
         y.index_add_(0, r, w[off:off + n, None] * ye.float())
         off += n
     return y.to(dt).reshape(G, S, d)

@@ -14,7 +14,10 @@ counterpart and the prompt's hot spot; it also returns the state after
 the last position, which the decode steps continue from, so the scan
 runs once. On the CPU the same call runs :func:`ssd_chunked` (the
 reference's algorithm, re-exported here), so the CPU path is the
-reference's. Decode keeps O(1) state per layer and runs no kernel.
+reference's. The kernel has no backward, so a training forward
+(``train=True``) calls :func:`ssd_chunked` itself on any device, as the
+reference trains through its XLA scan. Decode keeps O(1) state per
+layer and runs no kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ssd_chunked  # noqa: F401 (the twin)
+from repro_torch.kernels.ref import ssd_chunked
 from repro_torch.models.lm.common import (Params, dense, make_dense_params,
                                           truncated_normal_init)
 
@@ -89,11 +92,14 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b.to(xbc.dtype))
 
 
-def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, Dict]:
+def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                train: bool = False) -> Tuple[torch.Tensor, Dict]:
     """Whole-prompt forward. x: (B, S, d). Returns (y (B, S, d), the
     decode hand-off {"h": (B, nh, hd, N) fp32, "conv": the last K - 1
-    pre-conv positions (B, K - 1, conv_ch)})."""
+    pre-conv positions (B, K - 1, conv_ch)}). ``train``: the scan is
+    :func:`ssd_chunked` (differentiable); otherwise
+    ``ops.ssd_chunk_scan`` (the kernel on a card, which refuses inputs
+    that require grad)."""
     B, S, _ = x.shape
     d_in, nh, N, _ = ssm_dims(cfg)
     zxbcdt = dense(p["in_proj"], x, cfg=cfg, tag="ssm/in_proj")
@@ -105,8 +111,10 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
                   xbc[..., d_in + N:])
     dtv = F.softplus(dtr.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, h = ops.ssd_chunk_scan(xs.reshape(B, S, nh, cfg.ssm_headdim), dtv, A,
-                              Bm, Cm, p["D"], chunk=cfg.ssm_chunk)
+    xh = xs.reshape(B, S, nh, cfg.ssm_headdim)
+    y, h = (ssd_chunked(xh, dtv, A, Bm, Cm, p["D"], cfg.ssm_chunk) if train
+            else ops.ssd_chunk_scan(xh, dtv, A, Bm, Cm, p["D"],
+                                    chunk=cfg.ssm_chunk))
     y = y.reshape(B, S, d_in) * F.silu(z)
     out = dense(p["out_proj"], y, cfg=cfg, tag="ssm/out_proj")
     return out, {"h": h.float(), "conv": conv_state}

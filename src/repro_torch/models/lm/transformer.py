@@ -1,8 +1,10 @@
 """Decoder-only transformer (the port's counterpart of
-``repro.models.lm.transformer``): the whole-prompt ``forward``/
-``prefill`` and the lockstep ``decode_step`` over contiguous caches (the
-static path), and the slot-batched step over the paged pool (the
-serving engine).
+``repro.models.lm.transformer``): the whole-sequence ``forward`` of
+training (``train=True``: every mixer on its differentiable path, the
+MoE aux loss summed over layers, each block rematerialised under
+``cfg.remat``), the whole-prompt ``prefill`` and the lockstep
+``decode_step`` over contiguous caches (the static path), and the
+slot-batched step over the paged pool (the serving engine).
 
 Layers form *groups* of identical blocks; a group's parameters and
 caches stack along a leading ``n_layers`` axis, and the port walks that
@@ -14,15 +16,18 @@ axis in a Python loop where the reference scans. Ported block kinds:
   mla_moe     norm -> MLA           -> norm -> MoE
   ssm         norm -> Mamba-2 (no MLP)
 
-The slot path serves ``SLOT_KINDS``; the static path (``prefill``,
-``decode_step``) runs ``STATIC_KINDS``. Every other kind, and a kind on
-a path that does not run it, raises ``NotImplementedError`` naming it.
+Training runs every kind above; the slot path serves ``SLOT_KINDS``;
+the static path (``prefill``, ``decode_step``) runs ``STATIC_KINDS``.
+Every other kind (the hybrid family's ``hybrid_full``/``hybrid_swa``,
+the audio family's ``xdec``), and a kind on a path that does not run
+it, raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import Packer, PackedTensor
@@ -62,9 +67,14 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
         return [("moe", L)]
     if cfg.family == "ssm":
         return [("ssm", L)]
+    missing = {"hybrid": "the hybrid_full and hybrid_swa blocks (a "
+                         "parallel attention + SSM mixer, windowed)",
+               "audio": "the xdec blocks and models/lm/encdec.py",
+               "vlm": "the vision projection of the patch embeddings"}
     raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family's layers are not ported "
-        f"(ported block kinds: {PARAM_KINDS})")
+        f"{cfg.name}: the {cfg.family!r} family's layers are not ported: "
+        f"{missing.get(cfg.family, 'no layer plan')} (ported block kinds: "
+        f"{PARAM_KINDS})")
 
 
 def group_names(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
@@ -126,16 +136,20 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, *,
 
 
 def init_decoder(gen: torch.Generator, cfg: ModelConfig,
-                 pack: Optional[Packer] = None) -> Params:
-    """Layer-stacked decoder parameters in ``cfg.dtype``, drawn from
-    ``gen`` on its device (truncated normal, std 0.02; norms ones,
-    biases zeros — the reference's init, other random numbers).
+                 pack: Optional[Packer] = None, dtype=None) -> Params:
+    """Layer-stacked decoder parameters in ``dtype`` (default
+    ``cfg.dtype``, what serving holds; training holds fp32 master
+    leaves, as the reference's init draws), drawn from ``gen`` on its
+    device (truncated normal, std 0.02; norms ones, biases zeros — the
+    reference's init, other random numbers). With ``cfg.mtp_depth`` the
+    tree holds the reference's multi-token-prediction head (``mtp``:
+    ``proj`` 2d -> d, one ``mla_dense`` or ``dense`` block, ``norm``),
+    drawn last, which only the training loss reads.
 
     ``pack`` packs each weight as soon as it is drawn, so the float tree
     never exists whole; the result equals ``quantize_tree`` of the
-    unpacked tree bit for bit. The reference's multi-token-prediction
-    head (``mtp``) is left out: only its training loss reads it."""
-    dtype = getattr(torch, cfg.dtype)
+    unpacked tree bit for bit."""
+    dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
     d = cfg.d_model
     params: Params = {
         "embed": truncated_normal_init(gen, (cfg.vocab_size, d),
@@ -151,24 +165,36 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig,
         gname: init_block(gen, cfg, kind, lead=(n,), dtype=dtype, pack=pack,
                           tag=f"groups/{gname}/")
         for gname, kind, n in group_names(cfg)}
+    if cfg.mtp_depth:
+        proj = make_dense_params(gen, 2 * d, d, dtype=dtype)
+        params["mtp"] = {
+            "proj": pack.tree(proj, "mtp/proj/") if pack is not None
+            else proj,
+            "block": init_block(gen, cfg, "mla_dense" if cfg.mla
+                                else "dense", dtype=dtype, pack=pack,
+                                tag="mtp/block/"),
+            "norm": make_rmsnorm_params(d, dtype=dtype, device=gen.device)}
     return params
 
 
 def layer_views(stack: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     """Per-layer views of a layer-stacked tree (PackedTensor children
-    sliced too; nothing is copied)."""
-    def one(tree, i):
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out[k] = one(v, i)
-            elif isinstance(v, PackedTensor):
-                out[k] = PackedTensor(v.data[i], v.scale[i], v.bits,
-                                      v.orig_shape)
-            else:
-                out[k] = v[i]
-        return out
-    return [one(stack, i) for i in range(n)]
+    sliced too; nothing is copied). Each leaf is unbound once, so the
+    backward through the views stacks the layers' gradients in one op;
+    indexing a layer would fill a zero tensor of the whole stack for
+    each layer's gradient."""
+    out: List[Dict[str, Any]] = [{} for _ in range(n)]
+    for k, v in stack.items():
+        if isinstance(v, dict):
+            parts = layer_views(v, n)
+        elif isinstance(v, PackedTensor):
+            parts = [PackedTensor(d, sc, v.bits, v.orig_shape) for d, sc
+                     in zip(v.data.unbind(0), v.scale.unbind(0))]
+        else:
+            parts = v.unbind(0)
+        for view, part in zip(out, parts):
+            view[k] = part
+    return out
 
 
 def param_layer_views(params: Params, cfg: ModelConfig
@@ -196,30 +222,41 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
 
 
 # ---------------------------------------------------------------------------
-# The static path: whole-prompt forward/prefill, lockstep decode over
-# contiguous caches
+# The whole sequence: the training forward, and the static path's
+# prefill and lockstep decode over contiguous caches
 
 
 def _mixer_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                   cfg: ModelConfig, kind: str):
-    """Token mixer over the whole prompt -> (y, cache hand-off)."""
+                   cfg: ModelConfig, kind: str, train: bool):
+    """Token mixer over the whole sequence -> (y, cache hand-off)."""
+    if kind in MLA_KINDS:
+        return mla_mod.mla_forward(p["attn"], x, positions, cfg)
     if kind == "ssm":
-        return ssm_mod.ssm_forward(p["ssm"], x, cfg)
-    return attn_mod.attn_forward(p["attn"], x, positions, cfg)
+        return ssm_mod.ssm_forward(p["ssm"], x, cfg, train=train)
+    return attn_mod.attn_forward(p["attn"], x, positions, cfg, train=train)
 
 
 def block_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig, kind: str) -> Tuple[torch.Tensor, Dict]:
-    """One block over the whole prompt. Returns (x_out, cache hand-off);
-    no static kind has an auxiliary loss."""
-    _check_kind(kind, STATIC_KINDS, "static")
+                  cfg: ModelConfig, kind: str, *, train: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """One block over the whole sequence. Returns (x_out, aux loss (the
+    MoE load balance; 0 for the other kinds), cache hand-off).
+    ``train``: the mixers' differentiable paths (``blockwise_attn``,
+    ``ssd_chunked``) in place of the prefill kernels, which have no
+    backward."""
+    _check_kind(kind, PARAM_KINDS, "whole-sequence")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    mix, kv = _mixer_forward(p, h, positions, cfg, kind)
+    mix, kv = _mixer_forward(p, h, positions, cfg, kind, train)
     x = x + mix
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
-        return x, kv
+        return x, aux, kv
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], h2, cfg=cfg, tag="mlp"), kv
+    if kind in MOE_KINDS:
+        y, aux = moe_mod.moe_ffn(p["ffn"], h2, cfg)
+    else:
+        y = mlp(p["ffn"], h2, cfg=cfg, tag="mlp")
+    return x + y, aux, kv
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -228,17 +265,26 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
                         device=x.device)[None, :].expand(B, S)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Whole-sequence forward -> (final-normed hidden (B, S, d),
-    aux_loss, 0 for the static kinds). tokens: (B, S)."""
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-sequence forward -> (final-normed hidden (B, S, d), the aux
+    loss summed over layers). tokens: (B, S). ``train``: the training
+    forward (:func:`block_forward`'s ``train``); with ``cfg.remat``
+    each block is rematerialised in the backward
+    (``torch.utils.checkpoint``), as the reference wraps its scan step
+    in ``jax.checkpoint``."""
     x = embed_tokens(params, tokens, cfg)
     positions = _positions(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = train and cfg.remat and torch.is_grad_enabled()
     for gname, kind, n in group_names(cfg):
+        def step(p, xc, kind=kind):
+            return block_forward(p, xc, positions, cfg, kind, train=train)[:2]
         for p in layer_views(params["groups"][gname], n):
-            x, _ = block_forward(p, x, positions, cfg, kind)
-    return (rmsnorm(params["final_norm"], x, cfg.norm_eps),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+            x, a = (checkpoint(step, p, x, use_reentrant=False) if remat
+                    else step(p, x))
+            aux = aux + a
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
@@ -288,7 +334,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         cviews = [None] * n if cstack is None else layer_views(cstack, n)
         filled = []
         for p, c in zip(layer_views(params["groups"][gname], n), cviews):
-            x, kv = block_forward(p, x, positions, cfg, kind)
+            x, _, kv = block_forward(p, x, positions, cfg, kind)
             filled.append(fill_block_cache(cfg, kind, c, kv))
         caches[gname] = (cstack if cstack is not None else
                          {k: torch.stack([f[k] for f in filled])

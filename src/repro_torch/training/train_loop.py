@@ -1,6 +1,8 @@
 """Training loop: train step + checkpoint/restart + optional int8
-gradient compression, for the basecaller family (its BatchNorm state
-threads through TrainCarry). One device; meshes are not ported.
+gradient compression, for every family the port trains: the basecaller
+(its BatchNorm state threads through TrainCarry) and the LMs
+(``dense``, ``moe``, ``ssm``; ``model_state`` is ``{}``). One device;
+meshes are not ported.
 """
 from __future__ import annotations
 
@@ -58,15 +60,22 @@ def run(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
         *, device=None) -> Dict[str, Any]:
     """Train for ``loop.steps`` on ``device`` (CUDA unless the caller
     asks for the CPU); returns the final carry, the metric history and
-    the checkpoint manager. Params are drawn from ``gen`` (a CPU
-    ``torch.Generator``, seed 0 by default); the run resumes from the
+    the checkpoint manager. Params are drawn in fp32 (the master leaves
+    AdamW updates; an LM computes in ``cfg.dtype``) from ``gen``, seed 0
+    by default: the basecaller draws on the CPU (``gen`` a CPU
+    generator), an LM on ``gen``'s device, by default ``device``, so a
+    full-width tree is drawn on the card; the params then move to
+    ``device``. The run resumes from the
     latest valid checkpoint in ``loop.ckpt_dir``. Batches move to the
     device as they are taken; metrics are read back (``float``) only on
     logged steps: rows of ``loss``, ``grad_norm``, ``lr``, ``step`` and
     ``wall_s``."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(0) if gen is None else gen
-    params = tree_map(lambda t: t.to(dev), api.init_params(gen, cfg))
+    if gen is None:
+        gen = torch.Generator(device="cpu" if cfg.family == "basecaller"
+                              else dev).manual_seed(0)
+    params = tree_map(lambda t: t.to(dev),
+                      api.init_params(gen, cfg, dtype=torch.float32))
     mstate = tree_map(lambda t: t.to(dev), api.init_model_state(cfg))
     carry = api.TrainCarry(params, init_opt_state(params, opt_cfg), mstate)
     err_state = (grad_compress.init_error_state(params)

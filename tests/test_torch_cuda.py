@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels (qconv1d, qmatmul, the GQA
 and MLA paged attention, flash attention and the SSD scan) and of
 training on the card (the CTC loss, a train step, checkpoints, the
-packed identity gate); ``-m gpu``; they skip without a card. This
+packed identity gate, the LM training forward's gradients and the
+prefill kernels' refusal of inputs that require grad); ``-m gpu``;
+they skip without a card. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
 machine that has only the port's requirements:
 
@@ -818,3 +820,87 @@ def test_cuda_packed_identity_through_the_kernel(no_tf32):
     with mock.patch.object(qconv1d, "qconv1d_block_cuda", plain):
         want = evaluate.eval_identity(cfg, packed, state, n_batches=2)
     assert abs(kern - want) <= 0.005
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-4b-smoke",
+                                  "granite-moe-1b-a400m-smoke",
+                                  "deepseek-v3-671b-smoke",
+                                  "mamba2-130m-smoke"])
+def test_cuda_lm_grads_match_the_cpu(arch, no_tf32):
+    """On a card: the LM loss and every gradient leaf at smoke size
+    (fp32 master leaves, fp32 compute) against the same loss on the CPU:
+    loss and metrics 1e-5 relative, each leaf within 1e-5 of the tree's
+    largest |gradient|. The mixers' projections (``wq``, ``wk``, ``wv``;
+    MLA's ``wdq``, ``wuq``, ``wdkv``, ``wukv``; the SSM's ``in_proj``) get
+    non-zero gradients on the card, and the training forward launches no
+    kernel: the prefill kernels have no backward."""
+    _cuda()
+    from repro_torch.config import get_config
+    from repro_torch.core.quant.policy import tree_items, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                             dtype=torch.float32)
+    batch = api.make_smoke_batch(torch.Generator().manual_seed(1), cfg, 2,
+                                 64)
+    out = []
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        ops.reset_launch_counts()
+        (loss, (m, _)), g = api.value_and_grad(
+            api.make_loss_fn(cfg), p, {}, {k: v.to(dev)
+                                           for k, v in batch.items()})
+        assert not any(ops.launch_counts().values())
+        out.append((float(loss), {k: float(v) for k, v in m.items()},
+                    {k: v.cpu() for k, v in tree_items(g)}))
+    (cl, cm, cg), (gl, gm, gg) = out
+    assert gl == pytest.approx(cl, rel=1e-5)
+    assert set(gm) == set(cm)
+    for k in cm:
+        assert gm[k] == pytest.approx(cm[k], rel=1e-5), k
+    scale = max(float(v.abs().max()) for v in cg.values())
+    for k, want in cg.items():
+        torch.testing.assert_close(gg[k], want, rtol=0, atol=1e-5 * scale,
+                                   msg=k)
+    mixer = [k for k in cg if any(f"/{n}/" in k for n in (
+        "wq", "wk", "wv", "wdq", "wuq", "wdkv", "wukv", "in_proj"))]
+    assert mixer
+    for k in mixer:
+        assert float(gg[k].abs().max()) > 0, k
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_kernels_refuse_inputs_that_require_grad():
+    """On a card: ``ops.flash_attention`` and ``ops.ssd_chunk_scan`` (and
+    ``ops.qmatmul``) raise for an input that requires grad while grad is
+    enabled (their kernels record nothing for autograd), and run under
+    ``torch.no_grad``."""
+    _cuda()
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, grad=False):
+        return torch.randn(shape, generator=g, device="cuda").requires_grad_(
+            grad)
+    for i in range(3):
+        qkv = [randn(1, 32, 2, 64, grad=j == i) for j in range(3)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention(*qkv)
+        with torch.no_grad():
+            assert ops.flash_attention(*qkv).shape == (1, 32, 2, 64)
+    x, dt = randn(1, 64, 2, 16, grad=True), randn(1, 64, 2).abs()
+    A, D = -torch.ones(2, device="cuda"), torch.ones(2, device="cuda")
+    Bm, Cm = randn(1, 64, 16), randn(1, 64, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_chunk_scan(x, dt, A, Bm, Cm, D, chunk=32)
+    with torch.no_grad():
+        y, h = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, D, chunk=32)
+    assert y.shape == x.shape and h.shape == (1, 2, 16, 16)
+    w = quantize_tensor(randn(256, 128), 8)
+    xq = randn(4, 256, grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.qmatmul(xq, w)
+    with torch.no_grad():
+        assert ops.qmatmul(xq, w).shape == (4, 128)

@@ -219,8 +219,21 @@ def test_train_launcher_prints_history_rows(tmp_path):
     assert rows[-1]["step"] == 4 and np.isfinite(rows[-1]["loss"])
 
 
+def test_train_launcher_trains_an_lm(tmp_path, capsys):
+    """``--arch qwen1.5-4b --smoke --device cpu``: the LM branch of
+    ``data_for`` (the token stream) through the loop, a row a logged
+    step, finite losses and a checkpoint at the last step."""
+    from repro_torch.launch import train
+    train.main(["--arch", "qwen1.5-4b", "--smoke", "--steps", "4",
+                "--batch", "2", "--seq", "32", "--ckpt-every", "4",
+                "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["step"] for r in rows] == [4]
+    assert np.isfinite(rows[-1]["loss"]) and rows[-1]["loss"] > 0
+    assert (tmp_path / "step_0000000004" / "manifest.json").exists()
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "qwen1.5-4b", "--smoke"], "LM training is not ported"),
     (["--coordinator", "localhost:1"], "not ported"),
     (["--model-parallel", "2"], "not ported"),
 ])
