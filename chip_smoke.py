@@ -167,6 +167,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    mixers' projections (wq, wk, wv; MLA's; the SSM's in_proj) non-zero,
    and no kernel launched.
 
+16. rubicon — RUBICON's own front door on the card. First
+   ``launch/serve.py --knob-search`` (``core/qabas/serving.py``) at
+   full-width qwen1.5-4b (40 layers, no cut), int8 weights drawn on the
+   card under QuantPolicy(8, 0), 4 slots, ``--attn-backend auto`` (both
+   ``gather`` and ``cuda``), block_len 16 and 8, bf16, fp8 and int8
+   arenas, 8 requests of 8 prompt and 8 new tokens a candidate,
+   ``--knob-budget 10`` (the baseline, every fp8 and int8 candidate
+   and bf16 on ``cuda``). It prints the ranked table; each candidate's
+   pool must equal the arena's analytic size, every ``cuda`` candidate
+   launch gqa_paged and gqa_paged_chunk on the tensor-core route, 40 a
+   tick, every ``gather`` candidate none, and every candidate 281
+   qmatmul launches a tick on the tensor-core route. In each
+   candidate's warm drain (the first of three) every paged-attention
+   call is held against its plain version on the same pool state at
+   phase 4's tolerances (block_len 8 and 16), and each served row's
+   top logits are kept: each ``cuda`` candidate's greedy tokens are read
+   against the ``gather`` candidate of its cache mode, the shared
+   steps' top-1 logits within phase 5's one-tick bound and, where
+   tokens part, the two margins crossed within twice that bound; the
+   three drains of a candidate must serve the same tokens. The tok/s
+   are launch and route evidence, not a measurement of the knobs: at
+   8 + 8 tokens the pool is a sliver beside the weights. Then the three
+   examples (``examples/*_torch.py``) as subprocesses on the card at
+   their default flags (serve_quantized_lm at qwen1.5-4b-smoke): each
+   exits 0; prints their seconds, identities and tok/s.
+
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``. Exits non-zero
@@ -174,10 +200,12 @@ without CUDA, and when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import functools
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -194,6 +222,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.analysis import roofline  # noqa: E402
 from repro_torch.config import QuantPolicy, get_config  # noqa: E402
 from repro_torch.core.quant.policy import (Packer, quantize_tensor,  # noqa: E402
                                            tree_items, tree_leaves,
@@ -230,10 +259,12 @@ from repro_torch.training.optimizer import (AdamWConfig,  # noqa: E402
                                             adamw_update, init_opt_state)
 from repro_torch.training.train_loop import TrainLoopConfig  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3 and FLOP/s
-# by operand type (bf16 on tensor cores, fp32 on CUDA cores).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (analysis/roofline.py, from NVIDIA's data sheet,
+# dense): bytes/s of HBM3 and FLOP/s by operand type (bf16 on tensor
+# cores, fp32 on CUDA cores).
+HBM_BYTES_PER_S = roofline.HBM_BW
+PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_BF16,
+              torch.float32: roofline.PEAK_FP32}
 
 C = 344                       # RUBICALL width
 B = 4                         # serving slots -> windows per forward
@@ -2569,6 +2600,339 @@ def phase_lm_train(smi: str) -> dict:
     return out
 
 
+# phase 16: the knob search at full width, then the three examples
+KNOB_BUDGET = 10      # baseline + every fp8 and int8 candidate + bf16 cuda
+KNOB_PROMPT = 8       # prompt and new tokens a request: cache_len 16
+KNOB_ARGV = ["--arch", LM_ARCH, "--wbits", "8", "--slots", str(LM_SLOTS),
+             "--attn-backend", "auto", "--prompt-len", str(KNOB_PROMPT),
+             "--tokens", str(KNOB_PROMPT), "--knob-budget",
+             str(KNOB_BUDGET), "--knob-search"]
+EXAMPLES = ("quickstart_torch.py", "train_basecaller_torch.py",
+            "serve_quantized_lm_torch.py")
+ATTN_KERNELS = ("gqa_paged", "gqa_paged_chunk")
+KNOB_TOPK = 4         # top logits kept a row, to read where tokens part
+
+
+def knob_cache_bytes(cfg, knobs, n_slots: int, cache_len: int) -> int:
+    """The paged pool of one uniform-mode candidate, counted from the
+    config: K and V arenas of every layer over n_slots x ceil(cache_len
+    / block_len) blocks, int8's fp32 scale per position and KV head,
+    the int32 positions and each layer's window."""
+    L, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    esize = {"bf16": 2, "fp8": 1, "int8": 1}[knobs.quant_policy]
+    positions = n_slots * -(-cache_len // knobs.block_len) * knobs.block_len
+    scales = 2 * L * positions * hkv * 4 if knobs.quant_policy == "int8" \
+        else 0
+    return 2 * L * positions * hkv * hd * esize + scales \
+        + L * positions * 4 + L * 4
+
+
+class KnobWatch:
+    """Hooks on the knob search's warm drain (the first of a candidate's
+    three; the two timed drains run bare). Every paged-attention call of
+    a ``cuda`` candidate is held against its plain version on the same
+    pool state, at phase 4's tolerances; every served row's top
+    ``KNOB_TOPK`` logits are kept by (request, position), so a greedy
+    token that leaves another candidate's can be read at its margin.
+    Every drain's greedy tokens are kept too."""
+
+    def __init__(self):
+        self.on = self.first = False
+        self.rids, self.calls, self.tops = [], [], []
+        self.drains = []
+
+    def paged(self, real):
+        """``ops._paged``: the kernel (counted as ever), then its plain
+        version on the same inputs; errors stay on the card until the
+        candidate ends."""
+        def fn(q, *args, chunk, **kw):
+            out = real(q, *args, chunk=chunk, **kw)
+            if self.on and q.is_cuda:
+                plain = ref.gqa_paged_chunk_ref if chunk else \
+                    ref.gqa_paged_ref
+                want = plain(q, *args, **kw).float()
+                t = args[3]
+                live = (t >= 0).reshape(*t.shape,
+                                        *(1,) * (out.ndim - t.ndim))
+                got = out.float()
+                d = torch.where(live, (got - want).abs(), 0.0)
+                tol = ATTN_TOL[args[0].dtype]
+                self.calls.append((
+                    "gqa_paged_chunk" if chunk else "gqa_paged",
+                    torch.stack([d.amax(),
+                                 (d - tol - tol * want.abs()).amax(),
+                                 (torch.isfinite(got) | ~live).all()
+                                 .float()])))
+            return out
+        return fn
+
+    def dispatch(self, real):
+        """``TokenRunner.dispatch``: the request in each slot."""
+        def fn(runner, works):
+            self.rids = [None if w is None else w.req.rid for w in works]
+            return real(runner, works)
+        return fn
+
+    def step(self, real):
+        """``transformer.decode_step_slots``: each row's top logits at
+        the position it emits from."""
+        def fn(params, caches, tokens, t, cfg, logits_at=None, **kw):
+            logits, caches = real(params, caches, tokens, t, cfg,
+                                  logits_at=logits_at, **kw)
+            if self.on:
+                col = (torch.zeros(t.shape[0], dtype=torch.long)
+                       if logits_at is None else logits_at.long().cpu())
+                at = t.cpu().gather(1, col[:, None])[:, 0].tolist()
+                top = logits[:, 0, :].float().topk(KNOB_TOPK, dim=-1)
+                self.tops.append((list(self.rids), at, top.values,
+                                  top.indices))
+            return logits, caches
+        return fn
+
+    def drain(self, real):
+        """``serving._drain``: watch the first drain of a candidate;
+        keep each drain's tokens."""
+        def fn(*a, **kw):
+            self.on, self.first = self.first, False
+            try:
+                self.drains.append(real(*a, **kw))
+                return self.drains[-1]
+            finally:
+                self.on = False
+        return fn
+
+    def start(self) -> None:
+        self.first, self.calls, self.tops = True, [], []
+        self.drains = []
+
+    def take(self) -> tuple:
+        """(per kernel: [calls, max|err|, max excess over the tolerance,
+        all live rows finite], (the warm drain's tokens, {(rid,
+        position): (top values, top ids)}), whether every drain served
+        the same tokens) of the candidate just measured, read back
+        once."""
+        held = {}
+        for name, row in self.calls:
+            e, x, fin = row.tolist()
+            h = held.setdefault(name, [0, 0.0, -np.inf, True])
+            h[0] += 1
+            h[1], h[2] = max(h[1], e), max(h[2], x)
+            h[3] = h[3] and fin == 1.0
+        tops = {}
+        for rids, at, vals, ids in self.tops:
+            for rid, p, v, i in zip(rids, at, vals.tolist(), ids.tolist()):
+                if rid is not None and p >= 0:
+                    tops[(rid, p)] = (v, i)
+        return (held, (self.drains[0], tops),
+                all(d == self.drains[0] for d in self.drains))
+
+
+def flip_margins(base: tuple, cand: tuple, prompt_len: int) -> dict:
+    """Greedy tokens and top logits of one drain of each of two
+    candidates that hold the same arena values (one ``gather``, one
+    ``cuda``), request by request up to the first token where they part:
+    the largest |d top-1 logit| over the shared steps, and at each
+    parting token the two margins that the kernel's rounding had to
+    cross (baseline's top-1 minus its logit of the candidate's token,
+    and the reverse), summed."""
+    (btok, btop), (ctok, ctop) = base, cand
+    shared, flips = 0.0, []
+    for rid, seq in btok.items():
+        for j, (a, b) in enumerate(zip(seq, ctok[rid])):
+            (bv, bi), (cv, ci) = btop[(rid, prompt_len + j - 1)], \
+                ctop[(rid, prompt_len + j - 1)]
+            # the served token holds the top logit (argmax takes the
+            # first of a tie, topk may list another first: logits are
+            # bf16, so ties are common)
+            if a not in bi or bv[bi.index(a)] != bv[0] or \
+                    b not in ci or cv[ci.index(b)] != cv[0]:
+                raise AssertionError(f"request {rid} token {j}: top "
+                                     f"logits {bi} {bv} / {ci} {cv} vs "
+                                     f"tokens {a} / {b}")
+            if a == b:
+                shared = max(shared, abs(bv[0] - cv[0]))
+                continue
+            gap = ((bv[0] - bv[bi.index(b)]) if b in bi else np.inf) + \
+                ((cv[0] - cv[ci.index(a)]) if a in ci else np.inf)
+            flips.append((rid, j, gap))
+            break
+    return {"shared_max_d_top1": shared, "flips": flips,
+            "equal": sum(btok[r] == ctok[r] for r in btok)}
+
+
+def run_example(script: str, *args) -> tuple:
+    """``examples/<script>`` on the card as a subprocess at its default
+    flags; returns (stdout, seconds). Fails on a non-zero exit."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, str(root / "examples" / script),
+                          *args], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=str(root))
+    secs = time.perf_counter() - t
+    if res.returncode != 0:
+        raise AssertionError(f"{script} exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res.stdout, secs
+
+
+def example_figures(script: str, out: str) -> dict:
+    """The identities and throughputs an example prints."""
+    def num(pattern):
+        m = re.search(pattern, out)
+        if m is None:
+            raise AssertionError(f"{script}: no match for {pattern!r}:\n"
+                                 f"{out[-2000:]}")
+        return float(m.group(1))
+    if script.startswith("quickstart"):
+        return {"identity_fresh": num(r"identity on fresh reads: (\S+)"),
+                "identity_served": num(r"\); identity (\S+)"),
+                "bases_per_s": num(r"\((\d+) bases/s"),
+                "loss_last": num(r"step \d+: ctc loss (\S+)\n== 3")}
+    if script.startswith("train_basecaller"):
+        rows = [ast.literal_eval(line) for line in out.splitlines()
+                if line.startswith("{")]
+        return {"identity": num(r"held-out read identity: (\S+)"),
+                "steps": rows[-1]["step"], "loss_first": rows[0]["loss"],
+                "loss_last": rows[-1]["loss"], "wall_s": rows[-1]["wall_s"]}
+    return {"bf16_tok_s": num(r"\[engine bf16\].*\((\S+) tok/s decode"),
+            "int8_tok_s": num(r"\[engine int8\].*\((\S+) tok/s decode"),
+            "h100_weight_read_ms_bf16": num(r"projection.*bf16 (\S+) ms"),
+            "h100_weight_read_ms_int8": num(r"-> int8 (\S+) ms")}
+
+
+def phase_rubicon() -> dict:
+    """``launch/serve.py --knob-search`` at full-width qwen1.5-4b (int8
+    weights drawn on the card, 4 slots, both backends), each candidate's
+    launches by route and pool bytes checked, its paged-attention calls
+    held against their plain version and its greedy tokens read against
+    the ``gather`` candidate's; then the three examples on the card."""
+    import tempfile
+
+    from repro_torch.core.qabas import serving as knobs_mod
+    cfg = get_config(LM_ARCH)
+    real = knobs_mod.measure_knobs
+    per, watch = [], KnobWatch()
+
+    def counted(*a, **kw):
+        before = ops.launch_counts(routes=True)
+        watch.start()
+        t = time.perf_counter()
+        r = real(*a, **kw)
+        after = ops.launch_counts(routes=True)
+        per.append((r, time.perf_counter() - t, {
+            k: {rt: after[k][rt] - before[k][rt] for rt in after[k]}
+            for k in after}, *watch.take()))
+        return r
+    print(f"[rubicon] knob search: {' '.join(KNOB_ARGV)} (budget "
+          f"{KNOB_BUDGET})")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for mod, name, hook in (
+                (knobs_mod, "measure_knobs", lambda f: counted),
+                (knobs_mod, "_drain", watch.drain),
+                (ops, "_paged", watch.paged),
+                (runner_mod.TokenRunner, "dispatch", watch.dispatch),
+                (tfm, "decode_step_slots", watch.step)):
+            stack.enter_context(mock.patch.object(
+                mod, name, hook(getattr(mod, name))))
+        serve.main(KNOB_ARGV)
+    search_s = time.perf_counter() - t0
+    total = ops.launch_counts(routes=True)
+    per_tick = qmatmul_per_tick(replace(cfg, quant=QuantPolicy(8, 0)))
+    cache_len = 2 * KNOB_PROMPT
+    rows, modes_on_cuda = [], set()
+    for r, secs, got, held, _, same_tokens in per:
+        k = r.knobs
+        where = f"knob candidate {k.label()}"
+        want = knob_cache_bytes(cfg, k, LM_SLOTS, cache_len)
+        if r.cache_bytes != want:
+            raise AssertionError(f"{where}: pool {r.cache_bytes} B, the "
+                                 f"arena's analytic size {want} B")
+        q = got["qmatmul"]
+        attn = {n: got[n] for n in ATTN_KERNELS}
+        n_attn = sum(sum(v.values()) for v in attn.values())
+        if q["cuda_core"] or not q["tensor_core"] or \
+                q["tensor_core"] % per_tick:
+            raise AssertionError(f"{where}: qmatmul {q}, {per_tick} a "
+                                 f"tick, all on tensor_core")
+        ticks = q["tensor_core"] // per_tick
+        if k.attn_backend == "cuda":
+            check_routes(attn, ATTN_KERNELS, where)
+            if not all(v["tensor_core"] for v in attn.values()) or \
+                    n_attn != ticks * cfg.n_layers:
+                raise AssertionError(f"{where}: {attn} over {ticks} ticks")
+            # the warm drain's calls, held against the plain version
+            if set(held) != set(ATTN_KERNELS) or any(
+                    not (h[2] <= 0.0 and h[3]) for h in held.values()):
+                raise AssertionError(f"{where}: kernel vs plain over the "
+                                     f"warm drain {held}")
+            modes_on_cuda.add(k.quant_policy)
+        elif n_attn:
+            raise AssertionError(f"{where}: the gather backend launched "
+                                 f"paged kernels {attn}")
+        # the parity column reads the last drain, the margins the warm
+        # one: greedy decode must serve the same tokens in each
+        if not same_tokens:
+            raise AssertionError(f"{where}: drains served other tokens")
+        others = {n: v for n, v in got.items() if sum(v.values()) and
+                  n not in ATTN_KERNELS + ("qmatmul",)}
+        if others:
+            raise AssertionError(f"{where}: launched {others}")
+        rows.append({"knobs": k.label(), "tok_s": r.decode_tok_s,
+                     "cache_bytes": r.cache_bytes,
+                     "tok_s_per_mib": r.score * 2 ** 20,
+                     "parity_bf16": r.tokens_match_bf16, "seconds": secs,
+                     "ticks": ticks, "launches": got,
+                     "held_vs_plain": held})
+        print(f"[rubicon] {k.label()}: {r.decode_tok_s:.1f} tok/s decode, "
+              f"{r.cache_bytes} B pool (analytic {want}), {ticks} ticks, "
+              f"qmatmul {q}, attention {attn}, {secs:.2f}s"
+              + "".join(f"; {n} vs plain over the warm drain: {c} calls, "
+                        f"max|err| {e:.3g}" for n, (c, e, _, _) in
+                        held.items()))
+    if modes_on_cuda != {"bf16", "fp8", "int8"}:
+        raise AssertionError(f"cuda candidates measured {modes_on_cuda}")
+    # each cuda candidate against a gather one of the same cache mode
+    # (the same arena values; only the attention's arithmetic differs):
+    # where greedy tokens part, the two margins crossed sum to at most
+    # twice phase 5's one-tick |d logit| bound
+    gathers = {r.knobs.quant_policy: warm
+               for r, _, _, _, warm, _ in per
+               if r.knobs.attn_backend == "gather"}
+    if not gathers:
+        raise AssertionError("no gather candidate measured")
+    for row, (r, _, _, _, warm, _) in zip(rows, per):
+        mode = r.knobs.quant_policy
+        if r.knobs.attn_backend != "cuda" or mode not in gathers:
+            continue
+        m = row["vs_gather"] = flip_margins(gathers[mode], warm,
+                                            KNOB_PROMPT)
+        print(f"[rubicon] {r.knobs.label()} vs {mode} gather: "
+              f"{m['equal']} of {len(warm[0])} requests equal in the warm "
+              f"drains; shared "
+              f"steps max |d top-1 logit| {m['shared_max_d_top1']:.4f}; "
+              f"parted at (request, token, margins crossed) "
+              f"{[(rid, j, round(g, 4)) for rid, j, g in m['flips']]}")
+        if m["shared_max_d_top1"] > LM_TICK_BF16[0] or any(
+                not g <= 2 * LM_TICK_BF16[0] for *_, g in m["flips"]):
+            raise AssertionError(f"{r.knobs.label()} vs gather: {m}")
+    print(f"[rubicon] knob search: {len(rows)} candidates in "
+          f"{search_s:.1f}s, launches {total}")
+    examples = {}
+    with tempfile.TemporaryDirectory() as ckdir:
+        for script in EXAMPLES:
+            args = (("--ckpt-dir", ckdir) if script.startswith("train")
+                    else ())
+            out, secs = run_example(script, *args)
+            fig = {"seconds": secs, **example_figures(script, out)}
+            examples[script] = fig
+            print(f"[rubicon] example {script}: {json.dumps(fig)}")
+    return {"search_s": search_s, "candidates": rows, "launches": total,
+            "examples": examples}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2623,6 +2987,8 @@ def main() -> int:
     stream = lap("stream", phase_stream)
     trained = lap("train", phase_train)
     lap("lm_train", phase_lm_train, smi)
+    rub = lap("rubicon", phase_rubicon)
+    knob_routes = rub["launches"]
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
     def forward_sum(pk):
@@ -2670,7 +3036,8 @@ def main() -> int:
         "name": "qmatmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
         "replaces": "src/repro/kernels/qmatmul.py:57",
-        "launches": lm_launches["qmatmul"] + ds_launches["qmatmul"],
+        "launches": lm_launches["qmatmul"] + ds_launches["qmatmul"]
+        + sum(knob_routes["qmatmul"].values()),
         "max_abs_err": lm_kern["err"]["qmatmul"],
         **{key: decode[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "library_ms")},
@@ -2681,10 +3048,11 @@ def main() -> int:
                  f"phases",
         "mixed_tick": {**mixed, "M": LM_SLOTS * LM_CHUNK},
         "launches_by_phase": {LM_ARCH: lm_launches["qmatmul"],
-                              DS_ARCH: ds_launches["qmatmul"]},
+                              DS_ARCH: ds_launches["qmatmul"],
+                              "rubicon": knob_routes["qmatmul"]},
         "launches_by_route": {
             r: lm_routes["qmatmul"][r] + ds_routes["qmatmul"][r]
-            for r in qmm.ROUTES},
+            + knob_routes["qmatmul"][r] for r in qmm.ROUTES},
         "routes": {r: {"kernel": kern, "x": "bf16 (timed); served: "
                        + x, "decode_tick_ms": decode[r],
                        "mixed_tick_ms": mixed[r]}
@@ -2707,7 +3075,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{replaces}",
-            "launches": lm_launches[name],
+            "launches": lm_launches[name] + sum(knob_routes[name].values()),
             "max_abs_err": lm_kern["err"][name],
             **{key: (row[key] * qwen.n_layers if key.endswith("ms")
                      else row[key]) for key in row},
@@ -2715,7 +3083,10 @@ def main() -> int:
                      f"arena, B={LM_SLOTS} Hkv=20 hd={HD} block_len={BLOCK}"
                      f", positions 0..159, C="
                      f"{1 if name == 'gqa_paged' else 16}",
-            "launches_by_route": lm_routes[name],
+            "launches_by_route": {r: lm_routes[name][r]
+                                  + knob_routes[name][r] for r in pa.ROUTES},
+            "launches_by_phase": {LM_ARCH: lm_routes[name],
+                                  "rubicon": knob_routes[name]},
             "per_call": row, **extra})
     for name, replaces in (("mla_paged", 372), ("mla_paged_chunk", 608)):
         row = mla_kern["timing"][(name, MLA_POSITIONS[0])]

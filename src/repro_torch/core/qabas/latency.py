@@ -19,13 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.roofline import HBM_BW, PEAK_BF16, PEAK_INT8
 from repro_torch.core.qabas.space import SearchSpace
-
-# NVIDIA H100 SXM5 80GB (700 W) data sheet, dense: HBM3 bytes/s, bf16
-# and int8 tensor-core operations/s
-HBM_BW = 3.35e12
-PEAK_BF16 = 989e12
-PEAK_INT8 = 1979e12
 
 
 def _peak_for_bits(wb: int, ab: int) -> float:

@@ -49,9 +49,22 @@ packed projection runs the CUDA ``qmatmul`` kernel (the JAX launcher's
 ``--wbits`` packs without the policy, so its projections dequantize on
 read); the weights are packed as they are drawn on the device. The
 moe family (``--arch deepseek-v3-671b``, MLA attention over a latent
-pool, or ``granite-moe-1b-a400m``) goes the same way. The run ends with
-tok/s, TTFT percentiles, the decode interval, pool utilisation,
-preemptions and the resolved attention backend.
+pool, or ``granite-moe-1b-a400m``) goes the same way. ``--split-tick``
+runs the legacy scheduler (one step per prefilling slot, then a
+decode-only step) instead of the co-batched tick; ``--history-limit N``
+keeps only the newest N entries of the host-side per-request history.
+The run ends with tok/s, TTFT percentiles, the decode interval, pool
+utilisation, preemptions and the resolved attention backend.
+
+``--knob-search`` (token LMs) runs QABAS's measure-and-rank loop over
+the serving knobs instead (``core/qabas/serving.py``): KV-cache
+storage bf16, fp8 and int8, ``--block-len`` and half of it, and the
+attention backend (``--attn-backend auto`` tries both ``gather`` and
+``cuda``), each candidate serving the same small greedy workload;
+``--knob-budget`` caps the candidates measured (taken in
+roofline-prior order) and ``--per-group`` adds the per-layer-group
+refinement. It prints the table ranked by decode tok/s per cache byte
+and the best knobs as flags.
 
 The static path (``--static``, token LMs of the dense and ssm families)
 --------------------------------------------------------------------------
@@ -316,9 +329,10 @@ def resolve_quant_policy(cfg, args):
     return spec
 
 
-def build_lm_engine(cfg, args, device):
-    """Seeded parameters drawn on ``device``, packed under ``--wbits``,
-    and the engine over them."""
+def draw_lm_params(cfg, args, device):
+    """Seeded parameters drawn on ``device`` and packed under
+    ``--wbits`` as they are drawn, with those weight bits carried into
+    the config's quantization policy. Returns (cfg, params)."""
     if args.wbits:
         cfg = replace(cfg, quant=QuantPolicy(weight_bits=args.wbits,
                                              act_bits=0))
@@ -326,13 +340,22 @@ def build_lm_engine(cfg, args, device):
     if args.wbits:
         print(f"[serve] weights quantized to int{args.wbits} (packed; "
               f"projections run the qmatmul kernel)")
+    return cfg, params
+
+
+def build_lm_engine(cfg, args, device):
+    """Seeded parameters drawn on ``device``, packed under ``--wbits``,
+    and the engine over them."""
+    cfg, params = draw_lm_params(cfg, args, device)
     engine = api.make_serving_engine(
         params, cfg, device=device, n_slots=args.slots,
         cache_len=args.cache_len or args.prompt_len + args.tokens,
         prefill_chunk=args.prefill_chunk,
         max_prefill_tokens=args.max_prefill_tokens,
+        co_batch=not args.split_tick,
         cache_dtype=getattr(torch, cfg.dtype), block_len=args.block_len,
-        n_blocks=args.n_blocks, async_dispatch=args.async_dispatch,
+        n_blocks=args.n_blocks, history_limit=args.history_limit or None,
+        async_dispatch=args.async_dispatch,
         max_queue=args.max_queue, queue_timeout_s=args.queue_timeout,
         attn_backend=args.attn_backend,
         quant_policy=resolve_quant_policy(cfg, args))
@@ -364,8 +387,10 @@ def run_lm(cfg, args, device) -> None:
           f"({pool.nbytes() / 2 ** 20:.2f} MiB = "
           f"{by['arena'] / 2 ** 20:.2f} arena + "
           f"{by['scales'] / 2 ** 20:.2f} scales + "
-          f"{by['pos'] / 2 ** 20:.2f} pos), cache quantization "
-          f"{pool.quant_policy.describe()}")
+          f"{by['pos'] / 2 ** 20:.2f} pos)"
+          + (f", history_limit {args.history_limit}"
+             if args.history_limit else "")
+          + f", cache quantization {pool.quant_policy.describe()}")
     print(f"[serve] attn backend: {engine.runner.attn_backend} "
           f"(requested {args.attn_backend!r})")
     run(engine, reqs)
@@ -382,7 +407,10 @@ def run_lm(cfg, args, device) -> None:
           f"{s['slot_occupancy']:.2f}/{args.slots}")
     print(f"[serve] decode interval p50 "
           f"{s['decode_interval_p50_s'] * 1e3:.1f}ms p99 "
-          f"{s['decode_interval_p99_s'] * 1e3:.1f}ms")
+          f"{s['decode_interval_p99_s'] * 1e3:.1f}ms "
+          f"({'split-tick' if args.split_tick else 'unified tick'}"
+          + (f", prefill budget {args.max_prefill_tokens} tok"
+             if args.max_prefill_tokens else "") + ")")
     print(f"[serve] pool util mean {s['pool_util_mean']:.2f} max "
           f"{s['pool_util_max']:.2f} | preemptions {s['preemptions']:.0f} | "
           f"attn backend {engine.runner.attn_backend}")
@@ -467,15 +495,50 @@ def print_tick_report(s, args) -> None:
           f"hits {s['bucket_hits']:.0f} misses {s['bucket_misses']:.0f}")
 
 
+def run_knob_search(cfg, args, device) -> None:
+    """QABAS-style serving-knob search on ``device``: rank (cache policy,
+    block_len, attn backend) by measured decode tok/s per cache byte,
+    over seeded weights drawn as the engine path draws them."""
+    if cfg.family == "basecaller":
+        raise SystemExit(
+            f"[serve] error: --knob-search tunes the paged KV arena; "
+            f"basecaller arch {cfg.name!r} has no KV cache")
+    from repro_torch.core.qabas.serving import (format_knob_table,
+                                                search_serving_knobs)
+    cfg, params = draw_lm_params(cfg, args, device)
+    cache_len = args.cache_len or args.prompt_len + args.tokens
+    backends = ([args.attn_backend] if args.attn_backend != "auto"
+                else ["gather", "cuda"])
+    block_lens = sorted({args.block_len, max(args.block_len // 2, 4)})
+    results = search_serving_knobs(
+        params, cfg, block_lens=block_lens, backends=backends,
+        n_slots=args.slots, cache_len=cache_len,
+        prompt_len=min(args.prompt_len, cache_len // 2),
+        max_tokens=min(args.tokens, cache_len // 2),
+        per_group=args.per_group,
+        budget=args.knob_budget or None, emit=print, device=device)
+    print(f"[serve] knob search over {cfg.name}: ranked by measured "
+          f"decode tok/s per cache byte")
+    print(format_knob_table(results))
+    best = results[0]
+    print(f"[serve] best: --quant-policy '{best.knobs.quant_policy}' "
+          f"--block-len {best.knobs.block_len} "
+          f"--attn-backend {best.knobs.attn_backend} "
+          f"({best.decode_tok_s:.1f} tok/s at "
+          f"{best.cache_bytes/2**20:.2f} MiB, "
+          f"{best.bytes_vs_bf16:.2f}x smaller than bf16)")
+
+
 # ---------------------------------------------------------------------------
 # Entry point
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="rubicall")
+    ap.add_argument("--arch", default="qwen1.5-4b")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4,
+                    help="decode slots (engine) / batch size (static)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--rate", type=float, default=16.0,
                     help="Poisson read arrivals per second")
@@ -491,6 +554,13 @@ def main(argv=None) -> None:
     ap.add_argument("--async-dispatch", action="store_true")
     ap.add_argument("--max-queue", type=int, default=0)
     ap.add_argument("--queue-timeout", type=float, default=0.0)
+    ap.add_argument("--split-tick", action="store_true",
+                    help="legacy scheduler: one runner step per prefill "
+                         "slot, then a decode-only step (admissions "
+                         "stall decode)")
+    ap.add_argument("--history-limit", type=int, default=0,
+                    help="bound host-side per-request history to the "
+                         "most recent N (0 = unbounded)")
     # ---- streaming + read-until (basecaller archs only) ----
     ap.add_argument("--stream", action="store_true",
                     help="live reads: samples arrive over wall-clock time "
@@ -549,6 +619,17 @@ def main(argv=None) -> None:
     ap.add_argument("--quant-policy", default="",
                     help="per-group storage, e.g. 'default=bf16,"
                          "g0_dense=int8' (overrides --cache-dtype)")
+    ap.add_argument("--knob-search", action="store_true",
+                    help="QABAS-style serving-knob search: measure "
+                         "per-layer cache dtype x block_len x attn "
+                         "backend on a small greedy workload, print the "
+                         "ranked tok/s-per-cache-byte table, and exit")
+    ap.add_argument("--knob-budget", type=int, default=0,
+                    help="cap measured knob-search candidates (taken in "
+                         "roofline-prior order; 0 = measure all)")
+    ap.add_argument("--per-group", action="store_true",
+                    help="knob search: add the coordinate-descent "
+                         "per-group precision refinement pass")
     args = ap.parse_args(argv)
 
     device = api.resolve_device(args.device)
@@ -559,6 +640,9 @@ def main(argv=None) -> None:
         raise SystemExit(
             f"[serve] error: --stream/--read-until serve live squiggle "
             f"reads; arch {cfg.name!r} is not a basecaller")
+    if args.knob_search:
+        run_knob_search(cfg, args, device)
+        return
     if args.static:
         if cfg.family == "basecaller":
             raise SystemExit("[serve] error: --static serves token LMs")
@@ -581,7 +665,9 @@ def main(argv=None) -> None:
     engine = api.make_serving_engine(
         params, cfg, device=device, n_slots=args.slots,
         chunk_samples=args.chunk_samples, beam=args.beam, qos=args.qos,
-        read_until=read_until, async_dispatch=args.async_dispatch,
+        read_until=read_until, co_batch=not args.split_tick,
+        history_limit=args.history_limit or None,
+        async_dispatch=args.async_dispatch,
         max_queue=args.max_queue, queue_timeout_s=args.queue_timeout)
     if args.warmup:
         t0 = time.perf_counter()

@@ -3,7 +3,8 @@ ported so far: ``dense``, ``moe`` (GQA or MLA, with the MTP head) and
 ``ssm`` in training; ``dense`` and ``moe`` through the serving engine;
 ``dense`` and ``ssm`` through the static path): parameter init, the
 loss and train step, the serving engine, the whole-prompt prefill and
-lockstep decode steps and smoke batches, on the device a caller names.
+lockstep decode steps and smoke batches, on the device a caller names;
+parameter counts from shapes alone.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they
@@ -69,6 +70,31 @@ def init_model_state(cfg: ModelConfig):
         from repro_torch.models.basecaller import model as bc
         return bc.init_state(cfg)
     return {}
+
+
+def count_params_analytic(cfg: ModelConfig) -> int:
+    """Parameter count of ``cfg`` from shapes alone: the init runs under
+    ``FakeTensorMode``, so no storage is taken at any width (the
+    truncated-normal helpers leave a fake tensor undrawn)."""
+    import math
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        params = init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    return sum(math.prod(leaf.shape) for leaf in tree_leaves(params))
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: shared + top-k routed only)."""
+    total = count_params_analytic(cfg)
+    if cfg.family != "moe" or not cfg.n_experts:
+        return total
+    ff = cfg.moe_d_ff or cfg.d_ff
+    n_moe_layers = cfg.n_layers - cfg.n_dense_layers
+    routed = n_moe_layers * cfg.n_experts * 3 * cfg.d_model * ff
+    active_routed = routed * cfg.experts_per_tok // cfg.n_experts
+    return total - routed + active_routed
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.fake_quant import fake_quant
@@ -28,8 +29,11 @@ State = Dict[str, Any]
 
 def truncated_normal_init(gen: torch.Generator, shape, stddev=0.02
                           ) -> torch.Tensor:
-    """``stddev`` x a standard normal truncated to [-2, 2] (fp32, CPU)."""
+    """``stddev`` x a standard normal truncated to [-2, 2] (fp32, CPU).
+    A fake or meta tensor (shapes only) is returned undrawn."""
     w = torch.empty(shape, dtype=torch.float32)
+    if w.is_meta or is_fake(w):
+        return w
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return stddev * w
 

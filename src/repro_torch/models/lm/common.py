@@ -18,6 +18,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import PackedTensor, dequantize
@@ -28,8 +29,12 @@ Params = Dict[str, Any]
 def truncated_normal_init(gen: torch.Generator, shape, stddev: float = 0.02,
                           dtype=torch.float32) -> torch.Tensor:
     """``stddev`` x a standard normal truncated to [-2, 2], drawn in fp32
-    on the generator's device and returned in ``dtype``."""
+    on the generator's device and returned in ``dtype``. A fake or meta
+    tensor (shapes only, as ``api.count_params_analytic`` asks) is
+    returned undrawn."""
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if w.is_meta or is_fake(w):
+        return w.to(dtype)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return w.mul_(stddev).to(dtype)
 

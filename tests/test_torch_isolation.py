@@ -2,6 +2,7 @@
 package (``repro``), and its entry points run on CUDA unless the caller
 asks for the CPU — without a card they raise instead of falling back."""
 import ast
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -12,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _modules():
@@ -69,6 +71,15 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     # the LM path too: its weights are drawn on the card by default
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "qwen1.5-4b", "--smoke", "--requests", "1"])
+    # the knob search, and the examples, whose main runs in process here
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen1.5-4b", "--smoke", "--knob-search"])
+    for example in sorted((ROOT / "examples").glob("*_torch.py")):
+        spec = importlib.util.spec_from_file_location(example.stem, example)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            module.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         api.init_params(0, get_config("qwen1.5-4b-smoke"))
     with pytest.raises(RuntimeError, match="CUDA"):
