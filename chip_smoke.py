@@ -192,6 +192,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    examples (``examples/*_torch.py``) as subprocesses on the card at
    their default flags (serve_quantized_lm at qwen1.5-4b-smoke): each
    exits 0; prints their seconds, identities and tok/s.
+17. serve (hybrid) — full-width hymba-1.5b (32 layers: hybrid_full at
+   0, 16 and 31, hybrid_swa with a 1024 window between; 25 x 64 query
+   heads over 5 KV heads; 50 SSM heads of 64, state 16), int8 weights
+   drawn on the card under QuantPolicy(8, 0), a bf16 paged arena (4
+   slots, chunk 16, block_len 16, cache_len 1280: window layers ring at
+   1024), 8 greedy requests of 32-128 prompt tokens and one of 1100,
+   32 new tokens each. The ``cuda`` drain: every request finishes, 32
+   gqa_paged (C == 1) or gqa_paged_chunk (wider) launches a tick on the
+   tensor-core route, no qmatmul (no projection meets the reference's
+   tiling contract at d_model 1600) and no other kernel, every paged
+   call held against its plain version (replayed from a CUDA graph) at
+   phase 4's tolerances; then the ``gather`` drain on the same weights,
+   its greedy tokens read against the ``cuda`` ones under phase 16's
+   near-tie rule; pool bytes by class, a traced decode and mixed tick,
+   peak memory. Then the static path (``--static --wbits 8``, 4 prompts
+   of 1536 tokens, 32 new): flash_attention 3 times (the full layers)
+   and ssd_scan 32 times in the prefill, none in the decode, the
+   prefill through the kernels against their plain versions in fp32 and
+   bf16, and a traced prefill.
+18. serve (ssm) — full-width mamba2-130m (24 layers) through the engine
+   on phase 17's traffic (the slot recurrence, no KV pool), int8
+   weights drawn on the card: 24 qmatmul launches a tick (out_proj) on
+   the tensor-core route, each held against its plain version, no
+   other kernel; its greedy tokens read against the static path's
+   (the chunked SSD prefill through ssd_scan, then the one-token decode)
+   on the same weights and prompts under the near-tie rule.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -224,9 +250,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.analysis import roofline  # noqa: E402
 from repro_torch.config import QuantPolicy, get_config  # noqa: E402
-from repro_torch.core.quant.policy import (Packer, quantize_tensor,  # noqa: E402
-                                           tree_items, tree_leaves,
-                                           tree_map)
+from repro_torch.core.quant.policy import (Packer, PackedTensor,  # noqa: E402
+                                           quantize_tensor, tree_items,
+                                           tree_leaves, tree_map)
 from repro_torch.kernels import _build, ops, qconv1d, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -1036,12 +1062,20 @@ def qmatmul_per_tick(cfg) -> int:
     ``api.init_params(wbits=8)`` packs) whose (M, K, N) meet the
     reference kernel's tiling contract (``common._qmatmul_tiles``, the
     same at every M a tick makes: 4 to 64). wukv is dequantized, the
-    routed experts run dequantized rows, and neither is a projection."""
+    routed experts run dequantized rows, and neither is a projection.
+    An SSM mixer (ssm, hybrid kinds) projects d -> 2 d_in + 2 N + nh and
+    d_in -> d."""
     d, plan = cfg.d_model, tfm.layer_plan(cfg)
     hd = cfg.resolved_head_dim
+    d_in = cfg.ssm_expand * d
+    ssm = [(d, 2 * d_in + 2 * cfg.ssm_state + d_in // max(cfg.ssm_headdim,
+                                                          1)), (d_in, d)]
     min_size = Packer(QuantPolicy(8, 0)).min_size
     shapes = []
     for kind, n in plan:
+        if kind == "ssm":
+            shapes += [(k, nn) for k, nn in ssm if n * k * nn >= min_size] * n
+            continue
         if kind in tfm.MLA_KINDS:
             H, qr, kvr = cfg.n_heads, cfg.mla_q_lora_rank, \
                 cfg.mla_kv_lora_rank
@@ -1052,6 +1086,8 @@ def qmatmul_per_tick(cfg) -> int:
         else:
             mix = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
                    (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
+            if kind in tfm.HYBRID_KINDS:
+                mix += ssm
         if kind in tfm.MOE_KINDS:
             ff = cfg.moe_d_ff or cfg.d_ff
             sh = ff * cfg.n_shared_experts
@@ -1503,6 +1539,8 @@ SSD_TOL = {torch.float32: (5e-3, 5e-3), torch.bfloat16: (2 ** -7, 1e-3)}
 # anywhere and carry through 24 (mamba2) or 40 (qwen) residual layers.
 SSM_PREFILL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (0.25, 0.05)}
 QWEN_PREFILL = {torch.float32: (0.02, 1e-3), torch.bfloat16: (0.25, 0.05)}
+FLASH_SWAP = (fa, "flash_attention_cuda", ref.flash_attention_gqa_ref)
+SSD_SWAP = (ssd, "ssd_scan_cuda", ref.ssd_chunked)
 
 
 def flash_inputs(rs, b, s, h, hkv, dtype, d=HD):
@@ -1707,20 +1745,31 @@ def phase_prefill_kernel() -> dict:
     return {"err": err, "timing": timing}
 
 
-def prefill_both_paths(params, cfg, tokens, swap, dtype, tensor_core=()):
-    """One whole-prompt prefill through the kernel and through its plain
-    version (``swap``: (module, wrapper name, plain function)) on the
-    same tokens, in ``dtype``; returns the max |d logit| of the last
-    position and the worst max |d| / max |ref| over the handed-off
-    cache leaves (every layer). The kernel pass's launches of a kernel in
-    ``tensor_core`` take the tensor-core route in bf16, and every other
-    launch the CUDA-core route."""
+def cache_leaves(tree, path=()):
+    """(key path, tensor) of every leaf of a nested cache tree (a hybrid
+    group nests ``kv`` and ``ssm``)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from cache_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def prefill_both_paths(params, cfg, tokens, swaps, dtype, tensor_core=()):
+    """One whole-prompt prefill through the kernels and through their
+    plain versions (``swaps``: (module, wrapper name, plain function)
+    each) on the same tokens, in ``dtype``; returns the max |d logit| of
+    the last position and the worst max |d| / max |ref| over the
+    handed-off cache leaves (every layer). The kernel pass's launches of
+    a kernel in ``tensor_core`` take the tensor-core route in bf16, and
+    every other launch the CUDA-core route."""
     cfg = replace(cfg, dtype=str(dtype)[6:])
     p = tree_map(lambda t: t.to(dtype), params)
     out = []
     for plain in (False, True):
-        ctx = (mock.patch.object(*swap) if plain
-               else contextlib.nullcontext())
+        ctx = contextlib.ExitStack()
+        for swap in (swaps if plain else ()):
+            ctx.enter_context(mock.patch.object(*swap))
         ops.reset_launch_counts()
         with ctx, torch.no_grad():
             out.append(tfm.prefill(p, tokens, cfg, cache_len=tokens.shape[1],
@@ -1734,27 +1783,41 @@ def prefill_both_paths(params, cfg, tokens, swap, dtype, tensor_core=()):
         raise AssertionError("prefill: non-finite logits")
     d_logit = float((lk.float() - lp.float()).abs().max())
     d_state = 0.0
-    for g, tree in cp.items():
-        for name, want in tree.items():
-            if not want.is_floating_point():
-                continue
-            got = ck[g][name].float()
-            scale = float(want.float().abs().max()) or 1.0
-            d_state = max(d_state, float((got - want.float()).abs().max())
-                          / scale)
+    got_leaves = dict(cache_leaves(ck))
+    for path, want in cache_leaves(cp):
+        if not want.is_floating_point():
+            continue
+        got = got_leaves[path].float()
+        scale = float(want.float().abs().max()) or 1.0
+        d_state = max(d_state, float((got - want.float()).abs().max())
+                      / scale)
     return d_logit, d_state, float(lk.float().std())
 
 
-def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
-                 wbits: int = 0, tensor_core: tuple = (),
-                 share: tuple = ()) -> dict:
+def prefill_launches(cfg) -> dict:
+    """Launches of the prefill kernels in one whole-prompt prefill of
+    ``cfg``: flash_attention per full-attention layer (dense,
+    hybrid_full; a hybrid_swa layer's window runs blockwise_attn),
+    ssd_scan per SSM mixer (ssm and both hybrid kinds)."""
+    want = {"flash_attention": 0, "ssd_scan": 0}
+    for kind, n in tfm.layer_plan(cfg):
+        if kind in ("dense", "hybrid_full"):
+            want["flash_attention"] += n
+        if kind in ("ssm", "hybrid_full", "hybrid_swa"):
+            want["ssd_scan"] += n
+    return {k: n for k, n in want.items() if n}
+
+
+def phase_static(cfg, prompt: int, swaps, bounds, wbits: int = 0,
+                 tensor_core: tuple = (), share: tuple = ()) -> dict:
     """The static path at full width through ``launch/serve.py``'s
     ``run_static``: seeded weights drawn on the card (``wbits``: packed
     as drawn and dequantized once up front, as ``--static --wbits``
     does), 4 prompts of ``prompt`` tokens, 32 greedy new tokens. Checks
-    ``kernel`` launched once per layer in the prefill and never in the
-    decode, and no other kernel; then the prefill through the kernel vs
-    its plain version in fp32 and bf16; then traces one prefill."""
+    each prefill kernel launched as often as :func:`prefill_launches`
+    says in the prefill and never in the decode, and no other kernel;
+    then the prefill through the kernels vs their plain versions
+    (``swaps``) in fp32 and bf16; then traces one prefill."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1777,7 +1840,7 @@ def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
     counts = ops.launch_counts()
     routes = ops.launch_counts(routes=True)
     check_routes(routes, tensor_core, f"{cfg.name} static")
-    want = {kernel: cfg.n_layers}
+    want = prefill_launches(cfg)
     if r["launches_prefill"] != want or r["launches_decode"] or \
             {k: c for k, c in counts.items() if c} != want:
         raise AssertionError(f"{cfg.name}: launches prefill "
@@ -1790,17 +1853,17 @@ def phase_static(cfg, prompt: int, kernel: str, swap, bounds,
     n_dec = STATIC_SLOTS * (STATIC_NEW - 1)
     row = {"prefill_ms": r["prefill_s"] * 1e3,
            "decode_tok_s": n_dec / r["decode_s"],
-           "launches": counts[kernel], "routes": routes[kernel]}
+           "launches": want, "routes": {k: routes[k] for k in want}}
     print(f"[static] {cfg.name}: prefill {STATIC_SLOTS}x{prompt} "
           f"{row['prefill_ms']:.2f} ms, decode {n_dec} tokens "
-          f"{row['decode_tok_s']:.1f} tok/s; {kernel} launches "
-          f"{counts[kernel]} = {cfg.n_layers} x 1 prefill, 0 in "
-          f"{STATIC_NEW - 1} decode steps; routes {routes[kernel]}")
+          f"{row['decode_tok_s']:.1f} tok/s; launches {want} in 1 "
+          f"prefill, 0 in {STATIC_NEW - 1} decode steps; routes "
+          f"{row['routes']}")
     del r
     tokens = api.make_smoke_batch(2, cfg, STATIC_SLOTS, prompt,
                                   device="cuda")["tokens"]
     for dtype in (torch.float32, torch.bfloat16):
-        dl, ds, std = prefill_both_paths(params, cfg, tokens, swap, dtype,
+        dl, ds, std = prefill_both_paths(params, cfg, tokens, swaps, dtype,
                                          tensor_core)
         print(f"[static] {cfg.name}: prefill kernel vs plain, "
               f"{str(dtype)[6:]}: max|d logit| {dl:.4g} (logit std "
@@ -2636,6 +2699,8 @@ class KnobWatch:
     token that leaves another candidate's can be read at its margin.
     Every drain's greedy tokens are kept too."""
 
+    topk = KNOB_TOPK
+
     def __init__(self):
         self.on = self.first = False
         self.rids, self.calls, self.tops = [], [], []
@@ -2650,7 +2715,7 @@ class KnobWatch:
             if self.on and q.is_cuda:
                 plain = ref.gqa_paged_chunk_ref if chunk else \
                     ref.gqa_paged_ref
-                want = plain(q, *args, **kw).float()
+                want = self.run_plain(plain, (q, *args), kw).float()
                 t = args[3]
                 live = (t >= 0).reshape(*t.shape,
                                         *(1,) * (out.ndim - t.ndim))
@@ -2665,6 +2730,9 @@ class KnobWatch:
                                  .float()])))
             return out
         return fn
+
+    def run_plain(self, fn, args: tuple, kw: dict):
+        return fn(*args, **kw)
 
     def dispatch(self, real):
         """``TokenRunner.dispatch``: the request in each slot."""
@@ -2683,7 +2751,7 @@ class KnobWatch:
                 col = (torch.zeros(t.shape[0], dtype=torch.long)
                        if logits_at is None else logits_at.long().cpu())
                 at = t.cpu().gather(1, col[:, None])[:, 0].tolist()
-                top = logits[:, 0, :].float().topk(KNOB_TOPK, dim=-1)
+                top = logits[:, 0, :].float().topk(self.topk, dim=-1)
                 self.tops.append((list(self.rids), at, top.values,
                                   top.indices))
             return logits, caches
@@ -2727,7 +2795,7 @@ class KnobWatch:
                 all(d == self.drains[0] for d in self.drains))
 
 
-def flip_margins(base: tuple, cand: tuple, prompt_len: int) -> dict:
+def flip_margins(base: tuple, cand: tuple, prompt_len) -> dict:
     """Greedy tokens and top logits of one drain of each of two
     candidates that hold the same arena values (one ``gather``, one
     ``cuda``), request by request up to the first token where they part:
@@ -2738,9 +2806,10 @@ def flip_margins(base: tuple, cand: tuple, prompt_len: int) -> dict:
     (btok, btop), (ctok, ctop) = base, cand
     shared, flips = 0.0, []
     for rid, seq in btok.items():
+        P = prompt_len[rid] if isinstance(prompt_len, dict) else prompt_len
         for j, (a, b) in enumerate(zip(seq, ctok[rid])):
-            (bv, bi), (cv, ci) = btop[(rid, prompt_len + j - 1)], \
-                ctop[(rid, prompt_len + j - 1)]
+            (bv, bi), (cv, ci) = btop[(rid, P + j - 1)], \
+                ctop[(rid, P + j - 1)]
             # the served token holds the top logit (argmax takes the
             # first of a tie, topk may list another first: logits are
             # bf16, so ties are common)
@@ -2933,6 +3002,365 @@ def phase_rubicon() -> dict:
             "examples": examples}
 
 
+# ---------------------------------------------------------------------------
+# The ssm and hybrid families through the engine: full-width hymba-1.5b
+# and mamba2-130m
+
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_CACHE = 1280            # per-request capacity: a window layer rings at
+#                               1024, a full layer holds 80 blocks of 16
+LONG_PROMPT = 1100            # one prompt past the window: every ring wraps
+HYMBA_PROMPT = 1536           # static prompt tokens per row
+# hymba's whole-prompt prefill, kernels vs plain versions (bounds stated
+# before the first run on the card; 32 residual layers, as qwen's 40)
+HYMBA_PREFILL = {torch.float32: (0.02, 1e-3), torch.bfloat16: (0.25, 0.05)}
+
+
+def engine_requests(cfg):
+    """The served traffic of phases 17 and 18: phase 5's 8 greedy
+    requests (32-128 random prompt tokens, 32 new) and one more whose
+    1100-token prompt passes the 1024-position window."""
+    rs = np.random.RandomState(0)
+    lens = [int(rs.randint(32, 129)) for _ in range(8)] + [LONG_PROMPT]
+    return [Request(rid=i, prompt=rs.randint(1, cfg.vocab_size,
+                                             size=n).tolist(),
+                    sampling=SamplingParams(max_new_tokens=32))
+            for i, n in enumerate(lens)]
+
+
+HELD_TOPK = 64          # top logits kept a row in phases 17 and 18
+
+
+class GraphedPlain:
+    """A plain version captured into a CUDA graph once per input
+    signature and replayed on copies of each call's inputs: the same
+    PyTorch ops on the card, enqueued at once. The paged plain versions
+    walk a table column at a time (~20 ops a column, 64-80 columns at
+    hymba's cache_len), so launched op by op they cost ~40 ms of host
+    time a call, thousands of calls a drain."""
+
+    def __init__(self):
+        self.graphs = {}
+
+    def __call__(self, fn, args: tuple, kw: dict):
+        names = sorted(kw)
+        ins = list(args) + [kw[n] for n in names]
+        key = (fn, tuple((tuple(a.shape), a.dtype, a.stride())
+                         if torch.is_tensor(a) else a for a in ins))
+        if key not in self.graphs:
+            static = [a.clone() if torch.is_tensor(a) else a for a in ins]
+
+            def run():
+                return fn(*static[:len(args)],
+                          **dict(zip(names, static[len(args):])))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = run()
+            self.graphs[key] = (graph, static, out)
+        graph, static, out = self.graphs[key]
+        for dst, src in zip(static, ins):
+            if torch.is_tensor(dst):
+                dst.copy_(src)
+        graph.replay()
+        return out
+
+
+class HeldWatch(KnobWatch):
+    """:class:`KnobWatch` on one whole drain: every paged-attention call
+    held against its plain version (replayed from a CUDA graph,
+    :class:`GraphedPlain`), every qmatmul launch too (``QMM_TOL``), and
+    the top ``HELD_TOPK`` logits of each row kept."""
+
+    topk = HELD_TOPK
+
+    def __init__(self):
+        super().__init__()
+        self.plain = GraphedPlain()
+
+    def run_plain(self, fn, args: tuple, kw: dict):
+        return self.plain(fn, args, kw)
+
+    def qmatmul(self, real):
+        """``ops.qmatmul``: the kernel (counted as ever), then its plain
+        version on the same operands."""
+        def fn(x, w, scale=None, **kw):
+            out = real(x, w, scale, **kw)
+            if self.on and x.is_cuda:
+                bits, scale, w = (w.bits, w.scale, w.data)  \
+                    if isinstance(w, PackedTensor) else (kw.get("bits", 8),
+                                                         scale, w)
+                want = ref.qmatmul_ref(
+                    x.reshape(-1, x.shape[-1]), w,
+                    scale.float().reshape(1, -1), bits=bits).float()
+                d = (out.reshape(want.shape).float() - want).abs()
+                self.calls.append(("qmatmul", torch.stack([
+                    d.amax(), (d - QMM_TOL - QMM_TOL * want.abs()).amax(),
+                    torch.isfinite(out).all().float()])))
+            return out
+        return fn
+
+
+def serve_held(params, cfg, backend: str, reqs) -> dict:
+    """One drain of ``reqs`` through a fresh engine on ``backend`` (4
+    slots, chunk 16, blocks of 16, a bf16 arena of ``HYMBA_CACHE``
+    positions a slot, warmed up), every paged-attention and qmatmul
+    launch held against its plain version (:class:`HeldWatch`) and each
+    row's top logits kept. Returns the engine, the launches by kernel
+    and route, the plans' calls and the watch's take."""
+    engine = api.make_serving_engine(
+        params, cfg, device="cuda", n_slots=LM_SLOTS, cache_len=HYMBA_CACHE,
+        prefill_chunk=LM_CHUNK, block_len=BLOCK, cache_dtype=torch.bfloat16,
+        attn_backend=backend)
+    runner = engine.runner
+    engine.warmup()
+    watch = HeldWatch()
+    watch.start()
+    ops.reset_launch_counts()
+    runner.plans.calls.clear()
+    with contextlib.ExitStack() as stack:
+        for mod, name, hook in (
+                (ops, "_paged", watch.paged),
+                (ops, "qmatmul", watch.qmatmul),
+                (runner_mod.TokenRunner, "dispatch", watch.dispatch),
+                (tfm, "decode_step_slots", watch.step)):
+            stack.enter_context(mock.patch.object(
+                mod, name, hook(getattr(mod, name))))
+        for r in reqs:
+            engine.submit(r)
+        watch.on = True
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        watch.on = False
+    done = engine.completed
+    if len(done) != len(reqs) or any(r.status != "finished" or
+                                      len(r.out_tokens) != 32
+                                      for r in done.values()):
+        raise AssertionError(f"{cfg.name} ({backend}): requests not all "
+                             f"finished: "
+                             f"{[(r.rid, r.status) for r in done.values()]}")
+    watch.drains = [{rid: list(r.out_tokens) for rid, r in done.items()}]
+    held, warm, _ = watch.take()
+    return {"engine": engine, "counts": ops.launch_counts(),
+            "routes": ops.launch_counts(routes=True),
+            "calls": dict(runner.plans.calls), "held": held, "warm": warm,
+            "seconds": secs, "summary": engine.metrics.summary()}
+
+
+def check_served(cfg, r: dict, want: dict, where: str) -> tuple:
+    """The launches of a held drain equal ``want`` ({kernel: per tick on
+    C == 1 ticks, per tick on wider ones}), every launch on the
+    tensor-core route, no other kernel launched, and every held call
+    within its tolerance and finite. Returns (ticks, narrow ticks)."""
+    calls = r["calls"]
+    ticks = sum(calls.values())
+    narrow = sum(n for (_, w, _), n in calls.items() if w == 1)
+    counts = {k: c for k, c in r["counts"].items() if c}
+    expect = {k: a * narrow + b * (ticks - narrow)
+              for k, (a, b) in want.items()}
+    expect = {k: n for k, n in expect.items() if n}
+    if counts != expect:
+        raise AssertionError(f"{where}: launches {counts} in {ticks} ticks "
+                             f"({narrow} of width 1), want {expect}")
+    check_routes({k: r["routes"][k] for k in counts}, tuple(counts), where)
+    if set(r["held"]) != set(counts) or any(
+            not (h[2] <= 0.0 and h[3]) for h in r["held"].values()):
+        raise AssertionError(f"{where}: kernels vs plain over the drain "
+                             f"{r['held']}, launched {counts}")
+    return ticks, narrow
+
+
+def report_served(cfg, r: dict, where: str) -> None:
+    st = r["summary"]
+    print(f"[{where}] {cfg.name}: {st['requests_done']} requests, "
+          f"{st['generated_tokens']} tokens in {st['elapsed_s']:.3f}s: "
+          f"{st['tokens_per_s']:.1f} tok/s, decode "
+          f"{st['decode_tokens_per_s']:.1f} tok/s, TTFT p50 "
+          f"{st['ttft_p50_s'] * 1e3:.1f} ms, decode interval p50 "
+          f"{st['decode_interval_p50_s'] * 1e3:.2f} ms, tick p50 "
+          f"{st['tick_latency_p50_s'] * 1e3:.2f} ms; launches "
+          f"{ {k: c for k, c in r['counts'].items() if c} }; held vs plain "
+          + "; ".join(f"{n}: {c} calls, max|err| {e:.3g}"
+                      for n, (c, e, _, _) in r["held"].items()))
+
+
+def near_ties(base: tuple, cand: tuple, prompt_len: dict, tag: str,
+              where: str) -> dict:
+    """:func:`flip_margins` of ``cand`` against ``base`` under phase
+    16's rule: shared steps' |d top-1 logit| within phase 5's one-tick
+    bound, the margins crossed where tokens part within twice it."""
+    m = flip_margins(base, cand, prompt_len)
+    print(f"[{tag}] {where}: {m['equal']} of {len(base[0])} requests equal; "
+          f"shared steps max |d top-1 logit| {m['shared_max_d_top1']:.4f};"
+          f" parted at (request, token, margins crossed) "
+          f"{[(rid, j, round(g, 4)) for rid, j, g in m['flips']]}")
+    if m["shared_max_d_top1"] > LM_TICK_BF16[0] or any(
+            not g <= 2 * LM_TICK_BF16[0] for *_, g in m["flips"]):
+        raise AssertionError(f"{where}: {m}")
+    return m
+
+
+def phase_hybrid_serve() -> dict:
+    """Full-width hymba-1.5b (32 layers: 3 hybrid_full, 29 hybrid_swa
+    with a 1024 window) through the engine, int8 weights drawn on the
+    card, a bf16 arena: the ``cuda`` drain with every paged call held
+    against its plain version, then the ``gather`` drain on the same
+    weights, the greedy tokens read against each other at near-tie
+    margins; a traced decode and mixed tick; then the static path."""
+    cfg = replace(get_config(HYMBA_ARCH), quant=QuantPolicy(8, 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, device="cuda", wbits=8)
+    torch.cuda.synchronize()
+    print(f"[serve-hybrid] {cfg.name}: {cfg.n_layers} layers "
+          f"{tfm.layer_plan(cfg)}, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, window "
+          f"{cfg.sliding_window}, int8 weights "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    reqs = engine_requests(cfg)
+    plen = {r.rid: len(r.prompt) for r in reqs}
+    per_tick = qmatmul_per_tick(cfg)
+    L = cfg.n_layers
+    cuda = serve_held(params, cfg, "cuda", reqs)
+    ticks, narrow = check_served(
+        cfg, cuda, {"qmatmul": (per_tick, per_tick), "gqa_paged": (L, 0),
+                    "gqa_paged_chunk": (0, L)}, f"{cfg.name} cuda")
+    report_served(cfg, cuda, "serve-hybrid")
+    pool = cuda["engine"].pool
+    by = pool.nbytes_by_class()
+    print(f"[serve-hybrid] {cfg.name}: {ticks} ticks ({narrow} of width 1),"
+          f" qmatmul {per_tick} a tick (d_model {cfg.d_model} is no "
+          f"multiple of 128: every packed projection dequantizes on read,"
+          f" as the reference's tiling contract routes it); pool "
+          f"{pool.nbytes()} B = {by}; layout (blocks a slot) "
+          f"{pool.layout}")
+    gather = serve_held(params, cfg, "gather", engine_requests(cfg))
+    check_served(cfg, gather, {"qmatmul": (per_tick, per_tick)},
+                 f"{cfg.name} gather")
+    report_served(cfg, gather, "serve-hybrid")
+    margins = near_ties(gather["warm"], cuda["warm"], plen, "serve-hybrid",
+                        f"{cfg.name} cuda vs gather")
+    del gather
+    # a traced decode and mixed tick on a state of 48 positions a row
+    runner = cuda["engine"].runner
+    for slot in range(LM_SLOTS):
+        pool.release_slot(slot)
+    for slot in range(LM_SLOTS):
+        assert pool.alloc(slot, 64)
+    trs = np.random.RandomState(1)
+    tok = torch.from_numpy(trs.randint(1, cfg.vocab_size, (LM_SLOTS, 64))
+                           .astype(np.int32))
+    for c0 in (0, 16, 32):
+        lm_tick(runner, cfg, tok[:, c0:c0 + 16],
+                torch.arange(c0, c0 + 16, dtype=torch.int32).repeat(
+                    LM_SLOTS, 1),
+                last=torch.full((LM_SLOTS,), 15, dtype=torch.int32),
+                fresh=torch.full((LM_SLOTS,), int(c0 == 0),
+                                 dtype=torch.int32))
+    snap = [(a, a.clone()) for _, a in cache_leaves(pool.caches)]
+    t_mixed = torch.full((LM_SLOTS, 16), -1, dtype=torch.int32)
+    t_mixed[0:2] = torch.arange(48, 64, dtype=torch.int32)
+    t_mixed[2, 0] = 48
+    traced = phase_lm_trace({
+        "runner": runner, "cfg": cfg,
+        "restore": lambda: [a.copy_(b) for a, b in snap],
+        "mixed": (tok[:, 48:64], t_mixed,
+                  torch.tensor([15, 15, 0, 0], dtype=torch.int32)),
+        "decode": (tok[:, 48:49],
+                   torch.full((LM_SLOTS, 1), 48, dtype=torch.int32), None)})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[serve-hybrid] {cfg.name}: peak device memory {peak:.2f} GiB")
+    out = {"launches": cuda["counts"], "routes": cuda["routes"],
+           "ticks": ticks, "narrow": narrow, "per_tick": per_tick,
+           "held": cuda["held"], "vs_gather": margins, "pool_bytes": by,
+           "tick_p50_ms": cuda["summary"]["tick_latency_p50_s"] * 1e3,
+           "drain_s": cuda["seconds"], "trace": traced, "peak_gib": peak}
+    del cuda, params, snap, runner, pool
+    out["static"] = phase_static(
+        get_config(HYMBA_ARCH), HYMBA_PROMPT, (FLASH_SWAP, SSD_SWAP),
+        HYMBA_PREFILL, 8, ("flash_attention", "ssd_scan"),
+        ("flash_", "ssd_"))
+    return out
+
+
+def static_tops(params, cfg, prompt, n_new: int) -> tuple:
+    """The static path on one prompt (whole-prompt prefill, then
+    lockstep decode, as ``serve.static_generate``): its greedy tokens
+    and each step's top logits by position, as :class:`KnobWatch`
+    keeps them."""
+    P = len(prompt)
+    tok = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    out, tops = [], {}
+    with torch.inference_mode():
+        logits, caches = tfm.prefill(params, tok, cfg, cache_len=P + n_new)
+        for j in range(n_new):
+            row = logits[0, -1].float()
+            top = row.topk(HELD_TOPK)
+            tops[P + j - 1] = (top.values.tolist(), top.indices.tolist())
+            nxt = row.argmax().to(torch.int32).reshape(1, 1)
+            out.append(int(nxt))
+            if j < n_new - 1:
+                logits, caches = tfm.decode_step(params, caches, nxt, P + j,
+                                                 cfg)
+    return out, tops
+
+
+def phase_ssm_serve() -> dict:
+    """Full-width mamba2-130m (24 layers) through the engine, int8
+    weights drawn on the card: the slot recurrence on phase 17's
+    traffic, every qmatmul launch held against its plain version; its
+    greedy tokens read against the static path's (the chunked SSD
+    prefill through ssd_scan, then the one-token decode) on the same
+    weights and prompts, at near-tie margins."""
+    cfg = replace(get_config(SSM_ARCH), quant=QuantPolicy(8, 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(0, cfg, device="cuda", wbits=8)
+    reqs = engine_requests(cfg)
+    plen = {r.rid: len(r.prompt) for r in reqs}
+    per_tick = qmatmul_per_tick(cfg)
+    served = serve_held(params, cfg, "cuda", reqs)
+    ticks, narrow = check_served(cfg, served,
+                                 {"qmatmul": (per_tick, per_tick)},
+                                 f"{cfg.name} engine")
+    report_served(cfg, served, "serve-ssm")
+    pool = served["engine"].pool
+    print(f"[serve-ssm] {cfg.name}: {ticks} ticks ({narrow} of width 1), "
+          f"qmatmul {per_tick} a tick; pool {pool.nbytes()} B = "
+          f"{pool.nbytes_by_class()}, no block table")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    static = {}, {}
+    for r in reqs:
+        toks, tops = static_tops(params, cfg, r.prompt, 32)
+        static[0][r.rid] = toks
+        static[1].update({(r.rid, p): v for p, v in tops.items()})
+    counts = {k: c for k, c in ops.launch_counts().items() if c}
+    print(f"[serve-ssm] {cfg.name}: the static path on each prompt in "
+          f"{time.perf_counter() - t0:.1f}s, launches {counts}")
+    if counts.get("ssd_scan") != len(reqs) * cfg.n_layers:
+        raise AssertionError(f"static path launches {counts}")
+    margins = near_ties(static, served["warm"], plen, "serve-ssm",
+                        f"{cfg.name} engine vs static")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[serve-ssm] {cfg.name}: peak device memory {peak:.2f} GiB")
+    return {"launches": served["counts"], "routes": served["routes"],
+            "ticks": ticks, "narrow": narrow, "per_tick": per_tick,
+            "held": served["held"], "vs_static": margins,
+            "tick_p50_ms": served["summary"]["tick_latency_p50_s"] * 1e3,
+            "drain_s": served["seconds"], "peak_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2977,18 +3405,18 @@ def main() -> int:
     ds.clear()                             # free deepseek's engine
     pre = lap("kernel (prefill)", phase_prefill_kernel)
     ssm_run = lap("static (mamba2)", phase_static, get_config(SSM_ARCH),
-                  SSM_PROMPT, "ssd_scan", (ssd, "ssd_scan_cuda",
-                                           ref.ssd_chunked), SSM_PREFILL,
-                  0, ("ssd_scan",), ("ssd_",))
+                  SSM_PROMPT, (SSD_SWAP,), SSM_PREFILL, 0, ("ssd_scan",),
+                  ("ssd_",))
     qwen_run = lap("static (qwen1.5-4b)", phase_static, get_config(LM_ARCH),
-                   QWEN_PROMPT, "flash_attention",
-                   (fa, "flash_attention_cuda", ref.flash_attention_gqa_ref),
-                   QWEN_PREFILL, 8, ("flash_attention",), ("flash_",))
+                   QWEN_PROMPT, (FLASH_SWAP,), QWEN_PREFILL, 8,
+                   ("flash_attention",), ("flash_",))
     stream = lap("stream", phase_stream)
     trained = lap("train", phase_train)
     lap("lm_train", phase_lm_train, smi)
     rub = lap("rubicon", phase_rubicon)
     knob_routes = rub["launches"]
+    hyb = lap("serve (hybrid)", phase_hybrid_serve)
+    ssm_eng = lap("serve (ssm)", phase_ssm_serve)
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
     def forward_sum(pk):
@@ -3037,7 +3465,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
         "replaces": "src/repro/kernels/qmatmul.py:57",
         "launches": lm_launches["qmatmul"] + ds_launches["qmatmul"]
-        + sum(knob_routes["qmatmul"].values()),
+        + sum(knob_routes["qmatmul"].values()) + hyb["launches"]["qmatmul"]
+        + ssm_eng["launches"]["qmatmul"],
         "max_abs_err": lm_kern["err"]["qmatmul"],
         **{key: decode[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "library_ms")},
@@ -3049,10 +3478,14 @@ def main() -> int:
         "mixed_tick": {**mixed, "M": LM_SLOTS * LM_CHUNK},
         "launches_by_phase": {LM_ARCH: lm_launches["qmatmul"],
                               DS_ARCH: ds_launches["qmatmul"],
-                              "rubicon": knob_routes["qmatmul"]},
+                              "rubicon": knob_routes["qmatmul"],
+                              HYMBA_ARCH: hyb["routes"]["qmatmul"],
+                              SSM_ARCH + " (engine)":
+                                  ssm_eng["routes"]["qmatmul"]},
         "launches_by_route": {
             r: lm_routes["qmatmul"][r] + ds_routes["qmatmul"][r]
-            + knob_routes["qmatmul"][r] for r in qmm.ROUTES},
+            + knob_routes["qmatmul"][r] + hyb["routes"]["qmatmul"][r]
+            + ssm_eng["routes"]["qmatmul"][r] for r in qmm.ROUTES},
         "routes": {r: {"kernel": kern, "x": "bf16 (timed); served: "
                        + x, "decode_tick_ms": decode[r],
                        "mixed_tick_ms": mixed[r]}
@@ -3075,7 +3508,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{replaces}",
-            "launches": lm_launches[name] + sum(knob_routes[name].values()),
+            "launches": lm_launches[name] + sum(knob_routes[name].values())
+            + hyb["launches"][name],
             "max_abs_err": lm_kern["err"][name],
             **{key: (row[key] * qwen.n_layers if key.endswith("ms")
                      else row[key]) for key in row},
@@ -3084,9 +3518,14 @@ def main() -> int:
                      f", positions 0..159, C="
                      f"{1 if name == 'gqa_paged' else 16}",
             "launches_by_route": {r: lm_routes[name][r]
-                                  + knob_routes[name][r] for r in pa.ROUTES},
+                                  + knob_routes[name][r]
+                                  + hyb["routes"][name][r]
+                                  for r in pa.ROUTES},
             "launches_by_phase": {LM_ARCH: lm_routes[name],
-                                  "rubicon": knob_routes[name]},
+                                  "rubicon": knob_routes[name],
+                                  HYMBA_ARCH: hyb["routes"][name],
+                                  SSM_ARCH + " (engine)":
+                                      ssm_eng["routes"][name]},
             "per_call": row, **extra})
     for name, replaces in (("mla_paged", 372), ("mla_paged_chunk", 608)):
         row = mla_kern["timing"][(name, MLA_POSITIONS[0])]
@@ -3114,27 +3553,36 @@ def main() -> int:
                            ("tensor_core", "mla_tc_kernel",
                             "bf16, fp16, fp8, int8"),
                            ("cuda_core", "mla_paged_kernel", "fp32"))}})
+    hyb_static = hyb["static"]
     for name, src, replaces, run, arch in (
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:68", qwen_run, LM_ARCH),
             ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:62",
              ssm_run, SSM_ARCH)):
         row = pre["timing"][name]
-        n = run["launches"]
+        n = run["launches"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": n,
+            "replaces": replaces,
+            "launches": n + hyb_static["launches"][name],
+            "launches_by_phase": {f"{arch} static": n,
+                                  f"{HYMBA_ARCH} static":
+                                      hyb_static["launches"][name]},
             "max_abs_err": pre["err"][name],
             **{key: (row[key] * n if key.endswith("ms") and row[key]
                      is not None else row[key]) for key in row
                if key != "shape"},
             "shape": f"sum over one {arch} prefill's {n} launches, "
                      f"{row['shape']}",
-            "launches_by_route": run["routes"],
+            "launches_by_route": {
+                r: run["routes"][name][r] + hyb_static["routes"][name][r]
+                for r in ("tensor_core", "cuda_core")},
             "per_call": row,
             "static": {k: v for k, v in run.items() if k != "trace"},
             "prefill_trace": run["trace"],
+            "hymba_static": {k: v for k, v in hyb_static.items()
+                             if k != "trace"},
             **({"p_terms_max_abs_err": pre["err"]["flash_p_terms"]}
                if name == "flash_attention" else {})})
     print(f"[chip_smoke] all phases ok in {time.perf_counter() - t0:.1f}s "

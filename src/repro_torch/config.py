@@ -153,7 +153,7 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 
 PAPER_ARCHS = ("rubicall", "bonito", "causalcall")
 LM_ARCHS = ("qwen1.5-4b", "deepseek-v3-671b", "granite-moe-1b-a400m",
-            "mamba2-130m")
+            "mamba2-130m", "hymba-1.5b")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -37,6 +37,14 @@ def _no_kernel(name: str, device) -> ValueError:
     return ValueError(f"{name}: no kernel for device {device}")
 
 
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a`` contiguous and 16-byte aligned, as the kernels read it: a
+    layer's slice of a stacked leaf (hymba's D, 50 fp32 values a layer)
+    starts wherever the previous layers end, so it is copied."""
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
 def _no_backward(name: str, *inputs: torch.Tensor) -> None:
     """The CUDA kernels write their outputs through ctypes, so autograd
     records nothing: an input that requires grad would silently get no
@@ -118,9 +126,9 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.is_cuda:
         _no_backward("ssd_chunk_scan", x, dt, A, Bm, Cm, D)
         return ssd.ssd_scan_cuda(
-            x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
-            Bm.to(x.dtype).contiguous(), Cm.to(x.dtype).contiguous(),
-            D.float().contiguous(), chunk=chunk)
+            *(_aligned(a) for a in (
+                x, dt.float(), A.float(), Bm.to(x.dtype), Cm.to(x.dtype),
+                D.float())), chunk=chunk)
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk)
     raise _no_kernel("ssd_chunk_scan", x.device)

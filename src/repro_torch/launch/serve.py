@@ -29,8 +29,8 @@ ejected read frees its slot, keeps its bases so far, and its generator
 stops appending. The streamed run reports emit-latency p50/p99 and,
 with read-until, ejections and samples saved.
 
-Token LMs (the dense and moe families)
---------------------------------------
+Token LMs (the dense, moe, ssm and hybrid families)
+---------------------------------------------------
 ``python -m repro_torch.launch.serve --arch qwen1.5-4b --wbits 8
 --warmup`` replays ``--requests`` prompts of up to ``--prompt-len``
 random tokens, each asking for up to ``--tokens`` new ones, arriving as
@@ -49,7 +49,11 @@ packed projection runs the CUDA ``qmatmul`` kernel (the JAX launcher's
 ``--wbits`` packs without the policy, so its projections dequantize on
 read); the weights are packed as they are drawn on the device. The
 moe family (``--arch deepseek-v3-671b``, MLA attention over a latent
-pool, or ``granite-moe-1b-a400m``) goes the same way. ``--split-tick``
+pool, or ``granite-moe-1b-a400m``) goes the same way, as do the ssm
+family (``--arch mamba2-130m``: per-slot recurrent state, no KV pool)
+and the hybrid family (``--arch hymba-1.5b``: attention beside SSM
+heads in every layer, sliding-window layers paged as rings of their
+window, full-attention ones at ``--cache-len``). ``--split-tick``
 runs the legacy scheduler (one step per prefilling slot, then a
 decode-only step) instead of the co-batched tick; ``--history-limit N``
 keeps only the newest N entries of the host-side per-request history.
@@ -66,19 +70,19 @@ roofline-prior order) and ``--per-group`` adds the per-layer-group
 refinement. It prints the table ranked by decode tok/s per cache byte
 and the best knobs as flags.
 
-The static path (``--static``, token LMs of the dense and ssm families)
---------------------------------------------------------------------------
+The static path (``--static``, token LMs of the dense, ssm and hybrid families)
+-------------------------------------------------------------------------------
 ``python -m repro_torch.launch.serve --arch mamba2-130m --static
 --slots 4 --prompt-len 2048 --tokens 32`` runs the reference's legacy
 single-shot loop: one fixed batch of ``--slots`` random prompts of
 ``--prompt-len`` tokens, one whole-prompt prefill into contiguous caches
 (the ``ssd_scan`` kernel for mamba2's SSD layers, ``flash_attention``
-for qwen1.5-4b's attention), then ``--tokens`` - 1 lockstep greedy
-decode steps. ``--wbits`` packs the weights as they are drawn and
-dequantizes them once, up front, as the reference's static path does.
-It prints the prefill time, decode tok/s and the kernel launches of
-each half. The continuous-batching engine does not serve the ssm
-family yet.
+for qwen1.5-4b's attention, both for hymba-1.5b's full-attention
+layers and ``ssd_scan`` alone for its sliding-window ones), then
+``--tokens`` - 1 lockstep greedy decode steps. ``--wbits`` packs the
+weights as they are drawn and dequantizes them once, up front, as the
+reference's static path does. It prints the prefill time, decode tok/s
+and the kernel launches of each half.
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions on the
 CPU instead. Without a card and without ``--device cpu`` it raises.
@@ -387,7 +391,8 @@ def run_lm(cfg, args, device) -> None:
           f"({pool.nbytes() / 2 ** 20:.2f} MiB = "
           f"{by['arena'] / 2 ** 20:.2f} arena + "
           f"{by['scales'] / 2 ** 20:.2f} scales + "
-          f"{by['pos'] / 2 ** 20:.2f} pos)"
+          f"{by['pos'] / 2 ** 20:.2f} pos + "
+          f"{by['state'] / 2 ** 20:.2f} state)"
           + (f", history_limit {args.history_limit}"
              if args.history_limit else "")
           + f", cache quantization {pool.quant_policy.describe()}")

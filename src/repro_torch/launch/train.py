@@ -3,7 +3,7 @@ rubicall --steps 200``.
 
 Trains a basecaller on synthetic squiggles (``data/squiggle.py``,
 ``--batch`` chunks of ``--seq`` samples a step) or an LM (``dense``,
-``moe``, ``ssm``) on the synthetic Markov token stream
+``moe``, ``ssm``, ``hybrid``) on the synthetic Markov token stream
 (``data/tokens.py``, ``--batch`` rows of ``--seq`` tokens) through the
 fault-tolerant loop (``training/train_loop.py``: checkpoint/resume
 every ``--ckpt-every`` steps into ``--ckpt-dir``, optional int8

@@ -1,7 +1,8 @@
 """Model API of the port (the basecaller family and the LM families
-ported so far: ``dense``, ``moe`` (GQA or MLA, with the MTP head) and
-``ssm`` in training; ``dense`` and ``moe`` through the serving engine;
-``dense`` and ``ssm`` through the static path): parameter init, the
+ported so far: ``dense``, ``moe`` (GQA or MLA, with the MTP head),
+``ssm`` and ``hybrid`` in training and through the serving engine;
+``dense``, ``ssm`` and ``hybrid`` through the static path): parameter
+init, the
 loss and train step, the serving engine, the whole-prompt prefill and
 lockstep decode steps and smoke batches, on the device a caller names;
 parameter counts from shapes alone.
@@ -106,11 +107,12 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
     new_state))``.
 
     Basecaller: the CTC loss (``model.loss_fn``). LM (``dense``,
-    ``moe``, ``ssm``): the mean cross-entropy of ``batch["labels"]``
-    over the training forward of ``batch["tokens"]``, plus 0.01 x the
-    MoE aux loss when ``cfg.n_experts`` and 0.3 x the MTP loss when
-    ``cfg.mtp_depth``; metrics ``ce`` (and ``moe_aux``, ``mtp``). The
-    ``vlm`` and ``audio`` families (and ``hybrid``'s layers) raise."""
+    ``moe``, ``ssm``, ``hybrid``): the mean cross-entropy of
+    ``batch["labels"]`` over the training forward of
+    ``batch["tokens"]``, plus 0.01 x the MoE aux loss when
+    ``cfg.n_experts`` and 0.3 x the MTP loss when ``cfg.mtp_depth``;
+    metrics ``ce`` (and ``moe_aux``, ``mtp``). The ``vlm`` and
+    ``audio`` families raise."""
     if cfg.family == "basecaller":
         from repro_torch.models.basecaller import model as bc
 
@@ -247,11 +249,6 @@ def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):
     :class:`repro_torch.serving.stream.ReadUntil` whose classifier moves
     to ``device`` and ejects off-target reads)."""
     from repro_torch.serving.engine import ServingEngine
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the slot (continuous-batching) path of the 'ssm' "
-            f"family is not ported; serve it through the static path "
-            f"(launch/serve.py --static)")
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev), params)
     return ServingEngine(params, cfg, device=dev, **kw)

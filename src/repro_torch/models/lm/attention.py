@@ -4,16 +4,19 @@ one-token decode over a contiguous cache (the static path), and the
 slot-batched step over the paged KV pool (the serving engine).
 
 Whole-prompt attention, the port's routing: :func:`attn_forward` serves
-a prompt through ``ops.flash_attention``, the hand-written CUDA
-``flash_attention`` kernel on a card, where the reference calls its XLA
-``blockwise_attn`` and never its Pallas twin (``flash_attention_p``); on
-the CPU the same call runs the dense plain version. The kernel has no
-backward, so a training forward (``train=True``) runs
-:func:`blockwise_attn`, the port of the reference's XLA attention and
-plain autograd-differentiable PyTorch, as the reference trains through
-it. Sliding-window layers (the hybrid family) are not ported; the
-window of :func:`blockwise_attn` is. The contiguous decode runs no
-kernel.
+a prompt of a full-attention layer through ``ops.flash_attention``, the
+hand-written CUDA ``flash_attention`` kernel on a card, where the
+reference calls its XLA ``blockwise_attn`` and never its Pallas twin
+(``flash_attention_p``); on the CPU the same call runs the dense plain
+version. A sliding-window layer (the hybrid family's ``hybrid_swa``)
+runs :func:`blockwise_attn` with its window, as the reference does for
+every prompt: the TPU kernel takes no window in either package, so the
+route is chosen by the layer's kind. The kernel has no backward, so a
+training forward (``train=True``) runs :func:`blockwise_attn`, the port
+of the reference's XLA attention and plain autograd-differentiable
+PyTorch, as the reference trains through it. The contiguous decode
+runs no kernel; a windowed layer's contiguous cache is a ring of
+``min(window, cache_len)`` positions.
 
 In the paged pool, each layer's K/V bytes live in a shared block arena ``(n_blocks,
 block_len, Hkv, hd)``; a host block table ``(B, T)`` maps each slot's
@@ -190,33 +193,34 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
                  train: bool = False) -> Tuple[torch.Tensor, Dict]:
     """Whole-prompt attention. x: (B, S, d); positions: (B, S). Returns
     (out (B, S, d), {"k", "v": (B, S, Hkv, hd)} for the cache).
-    ``train``: the training forward, through :func:`blockwise_attn`
-    (differentiable); otherwise ``ops.flash_attention`` (the kernel on a
-    card, which refuses inputs that require grad)."""
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window attention (the hybrid family's hybrid_swa "
-            "layers) is not ported")
+    ``window > 0`` (each query sees the ``window`` positions up to
+    itself) and ``train`` (the training forward, differentiable) run
+    :func:`blockwise_attn`; otherwise ``ops.flash_attention`` (the
+    kernel on a card, which refuses inputs that require grad and takes
+    no window, as the reference's TPU kernel takes none)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, positions, cfg)
-    o = (blockwise_attn(q, k, v, causal=causal) if train
+    o = (blockwise_attn(q, k, v, causal=causal, window=window)
+         if train or window > 0
          else flash_attention(q, k, v, causal=causal))
     o = o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return dense(p["wo"], o, cfg=cfg, tag="attn/wo"), {"k": k, "v": v}
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-                    dtype=torch.bfloat16, device=None) -> Dict:
+                    window: int = 0, dtype=torch.bfloat16,
+                    device=None) -> Dict:
     """Empty contiguous cache: k/v (B, L, Hkv, hd), positions (L,) shared
     by the batch (the static path decodes in lockstep), and the
-    reference's ``window`` leaf (0: full attention)."""
+    reference's ``window`` leaf (0: full attention). A windowed layer
+    rings at L = min(window, cache_len), else L = cache_len."""
     Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    L = cache_len
+    L = attn_ring_len(cfg, cache_len, window=window)
     return {
         "k": torch.zeros((batch, L, Hkv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, L, Hkv, hd), dtype=dtype, device=device),
         "pos": torch.full((L,), EMPTY_POS, dtype=torch.int32, device=device),
-        "window": torch.tensor(0, dtype=torch.int32, device=device),
+        "window": torch.tensor(window, dtype=torch.int32, device=device),
     }
 
 
@@ -243,11 +247,13 @@ def fill_cache_from_prefill(cache: Dict, kv: Dict) -> Dict:
 
 
 def attn_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                cfg: ModelConfig, *, window: int = 0
+                ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode over a contiguous cache, updated in place. x: (B,
-    1, d); t: the token's position (every row's). The cache is read in
-    its storage dtype (bf16 compute for 1-byte caches), fp32 scores and
-    products, as the reference."""
+    1, d); t: the token's position (every row's); ``window > 0``: only
+    cached positions above ``t - window`` take part. The cache is read
+    in its storage dtype (bf16 compute for 1-byte caches), fp32 scores
+    and products, as the reference."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     pos_t = torch.full((1, 1), t, dtype=torch.int32, device=x.device)
@@ -262,6 +268,8 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
                      cache["k"].to(cdt).float()) * (hd ** -0.5)
     pos = cache["pos"]
     valid = (pos >= 0) & (pos <= t)
+    if window > 0:
+        valid &= pos > t - window
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     prob = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgl,blkd->bkgd", prob.to(cdt).float(),

@@ -1,5 +1,6 @@
-"""Mamba-2 (SSD: state-space duality) block: the whole-prompt forward and
-the one-token decode (the port's counterpart of
+"""Mamba-2 (SSD: state-space duality) block: the whole-prompt forward,
+the one-token decode over a contiguous cache and the slot-batched step
+over the serving pool (the port's counterpart of
 ``repro.models.lm.ssm``).
 
 Per head h with scalar decay A_h < 0:
@@ -17,7 +18,9 @@ reference's algorithm, re-exported here), so the CPU path is the
 reference's. The kernel has no backward, so a training forward
 (``train=True``) calls :func:`ssd_chunked` itself on any device, as the
 reference trains through its XLA scan. Decode keeps O(1) state per
-layer and runs no kernel.
+layer and runs no kernel: the slot step (:func:`ssm_decode_slots`)
+walks a row's C tokens through the recurrence in order, as the
+reference scans them.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.paged_attention import EMPTY_POS
 from repro_torch.kernels.ref import ssd_chunked
 from repro_torch.models.lm.common import (Params, dense, make_dense_params,
                                           truncated_normal_init)
@@ -122,6 +126,8 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                    device=None) -> Dict:
+    """Empty contiguous state: h (B, nh, hd, N) fp32, conv (B, K - 1,
+    conv_ch) in ``dtype``."""
     d_in, nh, N, conv_ch = ssm_dims(cfg)
     return {"h": torch.zeros((batch, nh, cfg.ssm_headdim, N),
                              dtype=torch.float32, device=device),
@@ -129,30 +135,67 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
                                 dtype=dtype, device=device)}
 
 
+def init_ssm_cache_slots(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                         *, lead=(), device=None) -> Dict:
+    """The serving pool's SSM state, stacked over ``lead``: h (*lead, B,
+    nh, hd, N) fp32, conv (*lead, B, K - 1, conv_ch) in ``dtype``, and
+    ``pos`` (*lead, B, 1), the highest position a row has written
+    (``EMPTY_POS`` while the row is free). Stale recurrent state cannot
+    be masked at read time, so a recycled row is zeroed
+    (:func:`ssm_cache_reset_spec`); ``pos`` lets the pool see the row."""
+    d_in, nh, N, conv_ch = ssm_dims(cfg)
+    return {"h": torch.zeros((*lead, batch, nh, cfg.ssm_headdim, N),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((*lead, batch, cfg.ssm_conv - 1, conv_ch),
+                                dtype=dtype, device=device),
+            "pos": torch.full((*lead, batch, 1), EMPTY_POS,
+                              dtype=torch.int32, device=device)}
+
+
+def ssm_cache_slot_axes() -> Dict[str, bool]:
+    """Every leaf is per slot: the state is O(1) a row, nothing pages."""
+    return {"h": True, "conv": True, "pos": True}
+
+
+def ssm_cache_reset_spec() -> Dict[str, str]:
+    """Per-leaf slot-recycle action: the recurrent state feeds forward
+    multiplicatively, so ``h`` and ``conv`` are zeroed; ``pos`` is
+    emptied."""
+    return {"h": "zero", "conv": "zero", "pos": "empty"}
+
+
+def _ssm_gates(p: Params, dtr: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dt, decay exp(dt A)) in fp32 from the raw dt (..., nh) of any
+    number of steps: elementwise, so a row's C steps at once give each
+    step's values bit for bit."""
+    dtv = F.softplus(dtr.float() + p["dt_bias"])
+    return dtv, torch.exp(dtv * -torch.exp(p["A_log"]))
+
+
 def _ssm_step(p: Params, cfg: ModelConfig, h: torch.Tensor,
-              conv: torch.Tensor, xbc_t: torch.Tensor, dtr_t: torch.Tensor,
-              act_dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              conv: torch.Tensor, xbc_t: torch.Tensor, dtv: torch.Tensor,
+              decay: torch.Tensor, conv_w: torch.Tensor, act_dtype
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One recurrence step. h: (B, nh, hd, N) fp32; conv: (B, K - 1,
-    conv_ch); xbc_t: (B, conv_ch) pre-conv; dtr_t: (B, nh) raw dt.
-    Returns (h_new fp32, window (B, K, conv_ch) whose ``[:, 1:]`` is the
-    next conv state, y_t (B, nh, hd) fp32)."""
+    conv_ch); xbc_t: (B, conv_ch) pre-conv; dtv, decay: (B, nh) this
+    step's :func:`_ssm_gates`; conv_w: the conv taps in fp32. Returns
+    (h_new fp32, window (B, K, conv_ch) whose ``[:, 1:]`` is the next
+    conv state, y_t (B, nh, hd) fp32)."""
     d_in, nh, N, _ = ssm_dims(cfg)
     hd = cfg.ssm_headdim
     B = xbc_t.shape[0]
     window = torch.cat([conv.to(xbc_t.dtype), xbc_t[:, None]], dim=1)
-    conv_out = torch.einsum("bkc,kc->bc", window.float(),
-                            p["conv_w"].float()) + p["conv_b"]
+    conv_out = torch.einsum("bkc,kc->bc", window.float(), conv_w) + \
+        p["conv_b"]
     conv_out = F.silu(conv_out).to(act_dtype)
-    xs_t = conv_out[..., :d_in].reshape(B, nh, hd)
-    Bm_t = conv_out[..., d_in:d_in + N]
-    Cm_t = conv_out[..., d_in + N:]
-    dtv = F.softplus(dtr_t.float() + p["dt_bias"])            # (B, nh)
-    A = -torch.exp(p["A_log"])
-    decay = torch.exp(dtv * A[None, :])
+    xs_t = conv_out[..., :d_in].float().reshape(B, nh, hd)
+    Bm_t = conv_out[..., d_in:d_in + N].float()
+    Cm_t = conv_out[..., d_in + N:].float()
     h_new = h * decay[:, :, None, None] + torch.einsum(
-        "bh,bn,bhd->bhdn", dtv, Bm_t.float(), xs_t.float())
-    y_t = torch.einsum("bn,bhdn->bhd", Cm_t.float(), h_new) + \
-        p["D"][None, :, None] * xs_t.float()
+        "bh,bn,bhd->bhdn", dtv, Bm_t, xs_t)
+    y_t = torch.einsum("bn,bhdn->bhd", Cm_t, h_new) + \
+        p["D"][None, :, None] * xs_t
     return h_new, window, y_t
 
 
@@ -165,8 +208,52 @@ def ssm_decode(p: Params, x: torch.Tensor, cache: Dict, cfg: ModelConfig
     zxbcdt = dense(p["in_proj"], x, cfg=cfg, tag="ssm/in_proj")
     z, xs, Bm, Cm, dtr = _split_proj(zxbcdt[:, 0], cfg)
     xbc = torch.cat([xs, Bm, Cm], dim=-1)                  # (B, conv_ch)
-    h, window, y = _ssm_step(p, cfg, cache["h"], cache["conv"], xbc, dtr,
+    h, window, y = _ssm_step(p, cfg, cache["h"], cache["conv"], xbc,
+                             *_ssm_gates(p, dtr), p["conv_w"].float(),
                              x.dtype)
     y = y.reshape(B, 1, d_in).to(x.dtype) * F.silu(z[:, None])
     out = dense(p["out_proj"], y, cfg=cfg, tag="ssm/out_proj")
     return out, {"h": h, "conv": window[:, 1:].to(cache["conv"].dtype)}
+
+
+def ssm_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
+                     t: torch.Tensor, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """Slot-batched recurrent step: row b's C tokens sit at positions
+    ``t[b]`` (< 0 = pad). x: (B, C, d); t: (B, C) int32 on x's device.
+
+    Walks the C steps in order (a Python loop where the reference
+    scans; the elementwise gates of all C steps are computed at once);
+    wherever ``t < 0`` the step leaves ``h`` and ``conv`` as
+    they were, so a pad step (a decode row padded to C in a mixed tick,
+    a free slot) cannot poison the row. ``pos`` advances to the row's
+    highest valid position. The pool's ``h``, ``conv`` and ``pos`` are
+    updated in place. Returns (out (B, C, d), cache); a pad token's
+    output row is garbage the caller ignores."""
+    B, C, _ = x.shape
+    d_in = ssm_dims(cfg)[0]
+    zxbcdt = dense(p["in_proj"], x, cfg=cfg, tag="ssm/in_proj")
+    z, xs, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)                  # (B, C, conv_ch)
+    valid = t >= 0
+    h, conv = cache["h"], cache["conv"]
+    dtv, decay = _ssm_gates(p, dtr)                        # (B, C, nh)
+    conv_w = p["conv_w"].float()
+    ys = []
+    for c in range(C):
+        h_new, window, y_t = _ssm_step(p, cfg, h, conv, xbc[:, c],
+                                       dtv[:, c], decay[:, c], conv_w,
+                                       x.dtype)
+        v = valid[:, c]
+        h = torch.where(v[:, None, None, None], h_new, h)
+        conv = torch.where(v[:, None, None], window[:, 1:].to(conv.dtype),
+                           conv)
+        ys.append(y_t)
+    y = torch.stack(ys, dim=1).reshape(B, C, d_in).to(x.dtype) * F.silu(z)
+    out = dense(p["out_proj"], y, cfg=cfg, tag="ssm/out_proj")
+    top = torch.where(valid, t, torch.full_like(t, EMPTY_POS)).amax(
+        dim=1, keepdim=True)
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv)
+    torch.maximum(cache["pos"], top, out=cache["pos"])
+    return out, cache

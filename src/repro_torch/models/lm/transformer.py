@@ -15,15 +15,20 @@ axis in a Python loop where the reference scans. Ported block kinds:
   mla_dense   norm -> MLA           -> norm -> gated SiLU MLP (dense_d_ff)
   mla_moe     norm -> MLA           -> norm -> MoE
   ssm         norm -> Mamba-2 (no MLP)
+  hybrid_full norm -> mean of (GQA attention || Mamba-2) -> norm -> MLP
+  hybrid_swa  the same with sliding-window attention
 
 Training runs every kind above; the slot path serves ``SLOT_KINDS``;
 the static path (``prefill``, ``decode_step``) runs ``STATIC_KINDS``.
-Every other kind (the hybrid family's ``hybrid_full``/``hybrid_swa``,
-the audio family's ``xdec``), and a kind on a path that does not run
-it, raises ``NotImplementedError`` naming it.
+A hybrid block's cache nests ``{"kv": attention cache, "ssm": SSM
+state}``; an SSM group has no block table in the paged pool (its
+state is per slot). Every other kind (the audio family's ``xdec``),
+and a kind on a path that does not run it, raises
+``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -44,11 +49,13 @@ from repro_torch.models.lm.common import (Params, dense, make_dense_params,
 # Layer kinds the slot-batched serving path covers in the port, the kinds
 # the static path (whole-prompt prefill + lockstep decode) covers, and
 # every kind whose parameters the port builds.
-SLOT_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
-STATIC_KINDS = ("dense", "ssm")
-PARAM_KINDS = SLOT_KINDS + ("ssm",)
+SLOT_KINDS = ("dense", "moe", "ssm", "mla_dense", "mla_moe", "hybrid_full",
+              "hybrid_swa")
+STATIC_KINDS = ("dense", "ssm", "hybrid_full", "hybrid_swa")
+PARAM_KINDS = SLOT_KINDS
 MLA_KINDS = ("mla_dense", "mla_moe")
 MOE_KINDS = ("moe", "mla_moe")
+HYBRID_KINDS = ("hybrid_full", "hybrid_swa")
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -67,14 +74,31 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
         return [("moe", L)]
     if cfg.family == "ssm":
         return [("ssm", L)]
-    missing = {"hybrid": "the hybrid_full and hybrid_swa blocks (a "
-                         "parallel attention + SSM mixer, windowed)",
-               "audio": "the xdec blocks and models/lm/encdec.py",
+    if cfg.family == "hybrid":
+        # full attention at the first, middle and last layer, sliding
+        # windows between them
+        full = sorted({0, L // 2, L - 1})
+        plan: List[Tuple[str, int]] = []
+        prev = -1
+        for f in full:
+            if f - prev - 1 > 0:
+                plan.append(("hybrid_swa", f - prev - 1))
+            plan.append(("hybrid_full", 1))
+            prev = f
+        if L - 1 - full[-1] > 0:
+            plan.append(("hybrid_swa", L - 1 - full[-1]))
+        return plan
+    missing = {"audio": "the xdec blocks and models/lm/encdec.py",
                "vlm": "the vision projection of the patch embeddings"}
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family's layers are not ported: "
         f"{missing.get(cfg.family, 'no layer plan')} (ported block kinds: "
         f"{PARAM_KINDS})")
+
+
+def _block_window(cfg: ModelConfig, kind: str) -> int:
+    """The attention window of a block kind (0: full attention)."""
+    return cfg.sliding_window if kind == "hybrid_swa" else 0
 
 
 def group_names(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
@@ -114,15 +138,18 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, *,
     norm = dict(lead=lead, dtype=dtype, device=gen.device)
     kw = dict(lead=lead, dtype=dtype)
     p: Params = {"ln1": make_rmsnorm_params(d, **norm)}
-    if kind == "ssm":
+    if kind != "ssm":
+        p["attn"] = (mla_mod.make_mla_params(gen, cfg, **kw)
+                     if kind in MLA_KINDS
+                     else attn_mod.make_attn_params(gen, cfg, **kw))
+        if pack is not None:
+            p["attn"] = pack.tree(p["attn"], tag + "attn/")
+    if kind == "ssm" or kind in HYBRID_KINDS:
         p["ssm"] = ssm_mod.make_ssm_params(gen, cfg, **kw)
         if pack is not None:
             p["ssm"] = pack.tree(p["ssm"], tag + "ssm/")
+    if kind == "ssm":
         return p
-    p["attn"] = (mla_mod.make_mla_params(gen, cfg, **kw) if kind in MLA_KINDS
-                 else attn_mod.make_attn_params(gen, cfg, **kw))
-    if pack is not None:
-        p["attn"] = pack.tree(p["attn"], tag + "attn/")
     p["ln2"] = make_rmsnorm_params(d, **norm)
     if kind in MOE_KINDS:
         p["ffn"] = moe_mod.make_moe_params(gen, cfg, pack=pack,
@@ -228,11 +255,20 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
 
 def _mixer_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ModelConfig, kind: str, train: bool):
-    """Token mixer over the whole sequence -> (y, cache hand-off)."""
+    """Token mixer over the whole sequence -> (y, cache hand-off). A
+    hybrid block runs attention (windowed for ``hybrid_swa``) and the
+    SSM side by side on the same input and takes their mean; its
+    hand-off nests ``{"kv", "ssm"}``."""
     if kind in MLA_KINDS:
         return mla_mod.mla_forward(p["attn"], x, positions, cfg)
     if kind == "ssm":
         return ssm_mod.ssm_forward(p["ssm"], x, cfg, train=train)
+    if kind in HYBRID_KINDS:
+        ya, kv = attn_mod.attn_forward(p["attn"], x, positions, cfg,
+                                       window=_block_window(cfg, kind),
+                                       train=train)
+        ys, st = ssm_mod.ssm_forward(p["ssm"], x, cfg, train=train)
+        return 0.5 * (ya + ys), {"kv": kv, "ssm": st}
     return attn_mod.attn_forward(p["attn"], x, positions, cfg, train=train)
 
 
@@ -287,29 +323,46 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
+def _stacked(tree: Dict, lead) -> Dict:
+    """Each leaf of ``tree`` repeated over a leading ``lead`` (a copy)."""
+    return {k: _stacked(v, lead) if isinstance(v, dict)
+            else v.expand(*lead, *v.shape).clone() for k, v in tree.items()}
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, dtype=torch.bfloat16, lead=(),
-                     device=None) -> Dict:
+                     device=None, state_dtype=torch.float32) -> Dict:
     """Empty contiguous cache of one block kind, stacked over ``lead``:
-    attention K/V in ``dtype``; SSM state fp32 (as the reference's
-    ``init_ssm_cache``)."""
+    attention K/V in ``dtype`` (a ``hybrid_swa`` layer's a ring of its
+    window); SSM state h fp32 and conv in ``state_dtype`` (fp32 as the
+    reference's ``init_ssm_cache``; a prefill fills it with the
+    activation dtype's hand-off)."""
     _check_kind(kind, STATIC_KINDS, "static")
+    attn = dict(window=_block_window(cfg, kind), dtype=dtype, device=device)
     if kind == "ssm":
-        one = ssm_mod.init_ssm_cache(cfg, batch, device=device)
+        one = ssm_mod.init_ssm_cache(cfg, batch, state_dtype, device=device)
+    elif kind in HYBRID_KINDS:
+        one = {"kv": attn_mod.init_attn_cache(cfg, batch, cache_len, **attn),
+               "ssm": ssm_mod.init_ssm_cache(cfg, batch, state_dtype,
+                                             device=device)}
     else:
-        one = attn_mod.init_attn_cache(cfg, batch, cache_len, dtype=dtype,
-                                       device=device)
-    return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
+        one = attn_mod.init_attn_cache(cfg, batch, cache_len, **attn)
+    return _stacked(one, lead)
 
 
-def fill_block_cache(cfg: ModelConfig, kind: str, cache: Optional[Dict],
+def fill_block_cache(cfg: ModelConfig, kind: str, cache: Dict,
                      kv: Dict) -> Dict:
-    """One layer's cache from its prefill hand-off: attention K/V are
-    written into ``cache`` in place; an SSM hand-off is the state itself
-    (h fp32, the conv window in the activation dtype), as the
-    reference returns it."""
+    """One layer's cache from its prefill hand-off, written into
+    ``cache`` in place: attention K/V (a ring keeps the last positions);
+    the SSM state as handed off (h fp32, the conv window)."""
     if kind == "ssm":
-        return kv
+        for name in ("h", "conv"):
+            cache[name].copy_(kv[name])
+        return cache
+    if kind in HYBRID_KINDS:
+        fill_block_cache(cfg, "ssm", cache["ssm"], kv["ssm"])
+        attn_mod.fill_cache_from_prefill(cache["kv"], kv["kv"])
+        return cache
     return attn_mod.fill_cache_from_prefill(cache, kv)
 
 
@@ -318,27 +371,23 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt (B, S) and build per-group contiguous caches for
     ``cache_len`` positions (default S), attention K/V in
-    ``cache_dtype``, each layer's filled as the layer runs. Returns
-    (last-position logits (B, 1, V), caches)."""
+    ``cache_dtype``, each layer's filled as the layer runs (SSM state as
+    handed off: h fp32, conv in the activation dtype, as the reference
+    returns it). Returns (last-position logits (B, 1, V), caches)."""
     x = embed_tokens(params, tokens, cfg)
     B, S, _ = x.shape
     cache_len = cache_len or S
     positions = _positions(x)
     caches: Dict[str, Any] = {}
     for gname, kind, n in group_names(cfg):
-        _check_kind(kind, STATIC_KINDS, "static")
-        cstack = (None if kind == "ssm" else
-                  init_block_cache(cfg, kind, B, cache_len,
-                                   dtype=cache_dtype, lead=(n,),
-                                   device=x.device))
-        cviews = [None] * n if cstack is None else layer_views(cstack, n)
-        filled = []
-        for p, c in zip(layer_views(params["groups"][gname], n), cviews):
+        cstack = init_block_cache(cfg, kind, B, cache_len, dtype=cache_dtype,
+                                  lead=(n,), device=x.device,
+                                  state_dtype=x.dtype)
+        for p, c in zip(layer_views(params["groups"][gname], n),
+                        layer_views(cstack, n)):
             x, _, kv = block_forward(p, x, positions, cfg, kind)
-            filled.append(fill_block_cache(cfg, kind, c, kv))
-        caches[gname] = (cstack if cstack is not None else
-                         {k: torch.stack([f[k] for f in filled])
-                          for k in filled[0]})
+            fill_block_cache(cfg, kind, c, kv)
+        caches[gname] = cstack
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return unembed(params, x, cfg), caches
 
@@ -351,7 +400,13 @@ def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
     if kind == "ssm":
         mix, nc = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg)
         return x + mix, nc
-    mix, nc = attn_mod.attn_decode(p["attn"], h, cache, t, cfg)
+    if kind in HYBRID_KINDS:
+        ya, nkv = attn_mod.attn_decode(p["attn"], h, cache["kv"], t, cfg,
+                                       window=_block_window(cfg, kind))
+        ys, nst = ssm_mod.ssm_decode(p["ssm"], h, cache["ssm"], cfg)
+        mix, nc = 0.5 * (ya + ys), {"kv": nkv, "ssm": nst}
+    else:
+        mix, nc = attn_mod.attn_decode(p["attn"], h, cache, t, cfg)
     x = x + mix
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + mlp(p["ffn"], h2, cfg=cfg, tag="mlp"), nc
@@ -367,11 +422,19 @@ def decode_step(params: Params, caches: Dict, tokens: torch.Tensor, t: int,
         for p, c in zip(layer_views(params["groups"][gname], n),
                         layer_views(caches[gname], n)):
             x, nc = block_decode(p, x, c, t, cfg, kind)
-            for name, leaf in nc.items():
-                if leaf is not c[name]:      # SSM state comes back new
-                    c[name].copy_(leaf)
+            _copy_back(c, nc)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x, cfg), caches
+
+
+def _copy_back(cache: Dict, new: Dict) -> None:
+    """Copy each leaf of ``new`` that is not ``cache``'s own tensor (SSM
+    state comes back new) into ``cache`` in place."""
+    for name, leaf in new.items():
+        if isinstance(leaf, dict):
+            _copy_back(cache[name], leaf)
+        elif leaf is not cache[name]:
+            cache[name].copy_(leaf)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
@@ -386,16 +449,29 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
 
 def block_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
                        t: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                       table: torch.Tensor,
+                       table: Optional[torch.Tensor],
                        attn_backend: Optional[str] = None,
                        writes=None) -> Tuple[torch.Tensor, Dict]:
-    """One block of the slot-batched step; x: (B, C, d); t: (B, C)."""
+    """One block of the slot-batched step; x: (B, C, d); t: (B, C).
+    ``table``: the group's block table (None for an SSM group, whose
+    state is per slot). The cache updates in place."""
     _check_kind(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    mixer = (mla_mod.mla_decode_slots if kind in MLA_KINDS
-             else attn_mod.attn_decode_slots)
-    mix, cache = mixer(p["attn"], h, cache, t, cfg, table=table,
-                       attn_backend=attn_backend, writes=writes)
+    if kind == "ssm":
+        mix, cache = ssm_mod.ssm_decode_slots(p["ssm"], h, cache, t, cfg)
+        return x + mix, cache
+    kw = dict(table=table, attn_backend=attn_backend, writes=writes)
+    if kind in HYBRID_KINDS:
+        ya, _ = attn_mod.attn_decode_slots(p["attn"], h, cache["kv"], t,
+                                           cfg,
+                                           window=_block_window(cfg, kind),
+                                           **kw)
+        ys, _ = ssm_mod.ssm_decode_slots(p["ssm"], h, cache["ssm"], t, cfg)
+        mix = 0.5 * (ya + ys)
+    else:
+        mixer = (mla_mod.mla_decode_slots if kind in MLA_KINDS
+                 else attn_mod.attn_decode_slots)
+        mix, cache = mixer(p["attn"], h, cache, t, cfg, **kw)
     x = x + mix
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind in MOE_KINDS:
@@ -419,38 +495,44 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
 
     tokens, t: (B, C) int32, ``t < 0`` for padding (pad rows give
     garbage logits and write nothing). ``tables``: {group: (B, T) block
-    table} over the paged ``caches``, which are updated in place and
-    returned. ``logits_at`` (B,) unembeds only each row's emitting
-    column. ``layers``: per-layer parameter views
+    table} over the paged ``caches`` (none for an SSM group), which are
+    updated in place and returned. ``logits_at`` (B,) unembeds only
+    each row's emitting column. ``layers``: per-layer parameter views
     (:func:`param_layer_views`), else sliced here.
 
     ``tokens``, ``t``, ``logits_at`` and ``tables`` may sit on the host:
     they move to the parameters' device once per call, and the arena
     writes (:func:`repro_torch.kernels.paged_attention.paged_writes`)
     are filtered from the host copies, so a tick from host inputs needs
-    no device synchronisation. Returns (logits (B, C or 1, V), caches).
+    no device synchronisation. Every host input moves before the first
+    layer is enqueued: a copy from pageable host memory waits for the
+    stream, so one between layers would hold the host until the device
+    caught up. Returns (logits (B, C or 1, V), caches).
     """
     dev = params["embed"].device
     if layers is None:
         layers = param_layer_views(params, cfg)
     t_dev = t.to(dev, torch.int32, non_blocking=True)
-    x = embed_tokens(params, tokens.to(dev, non_blocking=True).clamp(min=0),
-                     cfg)
+    tok_dev = tokens.to(dev, non_blocking=True)
+    idx = (None if logits_at is None else
+           logits_at.to(dev, torch.long, non_blocking=True))
+    paged: Dict[str, Tuple[torch.Tensor, Any]] = {}
+    for gname, _, _ in group_names(cfg):
+        table = None if tables is None else tables.get(gname)
+        if table is not None:
+            Nb, bl = _arena(caches[gname]).shape[1:3]
+            paged[gname] = (table.to(dev, torch.int32, non_blocking=True),
+                            paged_writes(table, t, Nb, bl).to(dev))
+    x = embed_tokens(params, tok_dev.clamp(min=0), cfg)
     for gname, kind, n in group_names(cfg):
-        cstack = caches[gname]
-        table = tables[gname]
-        Nb, bl = _arena(cstack).shape[1:3]
-        writes = paged_writes(table, t, Nb, bl).to(dev)
-        table_dev = table.to(dev, torch.int32, non_blocking=True)
-        for i, (p, c) in enumerate(zip(layers[gname],
-                                       layer_views(cstack, n))):
+        table_dev, writes = paged.get(gname, (None, None))
+        for p, c in zip(layers[gname], layer_views(caches[gname], n)):
             x, _ = block_decode_slots(p, x, c, t_dev, cfg, kind,
                                       table=table_dev,
                                       attn_backend=attn_backend,
                                       writes=writes)
-    if logits_at is not None:
-        idx = logits_at.to(dev, torch.long, non_blocking=True).clamp(min=0)
-        x = x[torch.arange(x.shape[0], device=dev), idx][:, None]
+    if idx is not None:
+        x = x[torch.arange(x.shape[0], device=dev), idx.clamp(min=0)][:, None]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x, cfg), caches
 
@@ -461,15 +543,28 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
 
 def _arena(cache: Dict) -> torch.Tensor:
     """A group's (layer-stacked) block arena: latent ``c`` for MLA groups,
-    ``k`` for attention groups."""
+    ``k`` for attention groups (under ``kv`` in a hybrid group)."""
+    cache = cache.get("kv", cache)
     return cache["c"] if "c" in cache else cache["k"]
+
+
+def _state_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The storage of a group's SSM conv state under a cache dtype: the
+    recurrent state has no masking point and feeds forward
+    multiplicatively, so a 1-byte policy (fp8, int8) keeps it bf16."""
+    return torch.bfloat16 if dtype.itemsize < 2 else dtype
 
 
 def paged_group_layout(cfg: ModelConfig, cache_len: int,
                        block_len: int) -> Dict[str, int]:
-    """{group name: blocks per slot (T)} for every KV-bearing group."""
-    return {gname: -(-attn_mod.attn_ring_len(cfg, cache_len) // block_len)
-            for gname, _, _ in group_names(cfg)}
+    """{group name: blocks per slot (T)} for every KV-bearing group. An
+    SSM group has no table (its state is per slot); a sliding-window
+    group rings at ``min(window, cache_len)``, so it needs fewer blocks
+    a slot than a full-attention group."""
+    return {gname: -(-attn_mod.attn_ring_len(
+                cfg, cache_len, window=_block_window(cfg, kind))
+                // block_len)
+            for gname, kind, _ in group_names(cfg) if kind != "ssm"}
 
 
 def init_caches_paged(cfg: ModelConfig, n_slots: int, cache_len: int,
@@ -478,17 +573,29 @@ def init_caches_paged(cfg: ModelConfig, n_slots: int, cache_len: int,
     """Empty paged pool caches: per group, arenas ``(n_layers,
     n_blocks[g], block_len, Hkv, hd)`` (MLA groups: latent arenas
     ``(n_layers, n_blocks[g], block_len, kvr|rope)``) and positions
-    ``(n_layers, n_slots, T * block_len)``. ``cache_dtype`` is one storage dtype or a
+    ``(n_layers, n_slots, T * block_len)``; SSM state per slot
+    (:func:`repro_torch.models.lm.ssm.init_ssm_cache_slots`, conv in
+    :func:`_state_dtype`), under ``ssm`` beside the attention cache's
+    ``kv`` in a hybrid group. ``cache_dtype`` is one storage dtype or a
     ``{group: dtype}`` mapping (int8 groups grow fp32 scale arenas)."""
     caches: Dict[str, Any] = {}
     for gname, kind, n in group_names(cfg):
         _check_kind(kind)
         dt = (cache_dtype.get(gname, torch.bfloat16)
               if isinstance(cache_dtype, dict) else cache_dtype)
+        kw = dict(lead=(n,), device=device)
+        state = (ssm_mod.init_ssm_cache_slots(cfg, n_slots, _state_dtype(dt),
+                                              **kw)
+                 if kind == "ssm" or kind in HYBRID_KINDS else None)
+        if kind == "ssm":
+            caches[gname] = state
+            continue
         init = (mla_mod.init_mla_cache_paged if kind in MLA_KINDS
-                else attn_mod.init_attn_cache_paged)
-        caches[gname] = init(cfg, n_slots, cache_len, n_blocks.get(gname, 0),
-                             block_len, dtype=dt, lead=(n,), device=device)
+                else functools.partial(attn_mod.init_attn_cache_paged,
+                                       window=_block_window(cfg, kind)))
+        kv = init(cfg, n_slots, cache_len, n_blocks.get(gname, 0),
+                  block_len, dtype=dt, **kw)
+        caches[gname] = kv if state is None else {"kv": kv, "ssm": state}
     return caches
 
 
@@ -498,17 +605,31 @@ def _quantized(cache_dtype, gname) -> bool:
     return dt == torch.int8
 
 
+def _block_spec(kind: str, quantized: bool, mla, attn, ssm) -> Dict:
+    """One block's spec tree, shaped as its paged cache: ``mla``,
+    ``attn`` and ``ssm`` are the modules' spec functions."""
+    if kind == "ssm":
+        return ssm()
+    if kind in HYBRID_KINDS:
+        return {"kv": attn(quantized), "ssm": ssm()}
+    return (mla if kind in MLA_KINDS else attn)(quantized)
+
+
 def caches_reset_specs(cfg: ModelConfig, cache_dtype=None) -> Dict:
-    """Reset-spec tree matching :func:`init_caches_paged`."""
-    return {gname: (mla_mod.mla_cache_reset_spec if kind in MLA_KINDS
-                    else attn_mod.attn_cache_reset_spec)(
-                _quantized(cache_dtype, gname))
+    """Reset-spec tree matching :func:`init_caches_paged`: per leaf
+    ``keep`` (stale but masked), ``empty`` (positions) or ``zero`` (SSM
+    state, which no mask can hide)."""
+    return {gname: _block_spec(kind, _quantized(cache_dtype, gname),
+                               mla_mod.mla_cache_reset_spec,
+                               attn_mod.attn_cache_reset_spec,
+                               ssm_mod.ssm_cache_reset_spec)
             for gname, kind, _ in group_names(cfg)}
 
 
 def caches_slot_axes(cfg: ModelConfig, cache_dtype=None) -> Dict:
     """Slot-axis tree matching :func:`init_caches_paged`."""
-    return {gname: (mla_mod.mla_cache_slot_axes if kind in MLA_KINDS
-                    else attn_mod.attn_cache_slot_axes)(
-                _quantized(cache_dtype, gname))
+    return {gname: _block_spec(kind, _quantized(cache_dtype, gname),
+                               mla_mod.mla_cache_slot_axes,
+                               attn_mod.attn_cache_slot_axes,
+                               ssm_mod.ssm_cache_slot_axes)
             for gname, kind, _ in group_names(cfg)}

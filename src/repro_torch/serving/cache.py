@@ -10,6 +10,11 @@ logical block j to an arena block. Allocation is host bookkeeping (a
 LIFO free list per group, all-or-nothing ``alloc``); positions stay
 per slot (``pos: (n_layers, n_slots, T * block_len)``), so a recycled
 block keeps its bytes but stays masked until its new owner writes it.
+SSM state (``h``, ``conv`` and its ``pos``) is per slot too, nests
+under ``ssm`` beside a hybrid group's ``kv``, and has no table: the
+tables, ``blocks_for``, ``fits``, ``alloc`` and ``release_slot`` see
+only the KV groups. A recycled row's SSM state is zeroed, since no mask
+can hide it.
 
 ``CacheQuantPolicy`` sets each group's storage: ``bf16`` | ``fp8``
 (``torch.float8_e4m3fn``) | ``int8`` (+ fp32 scale arenas written at
@@ -209,38 +214,57 @@ class CachePool:
     def mask_fresh_rows(self, caches: Dict[str, Any],
                         fresh: torch.Tensor) -> None:
         """In place: every slot with ``fresh > 0`` takes its spec'd reset
-        value on every resettable leaf (positions -> empty); arena
-        bytes are ``keep`` and stay."""
+        value on every resettable leaf (positions -> empty, SSM state ->
+        zero); arena bytes are ``keep`` and stay."""
         sel = (fresh.to(self.device) > 0)
-        for g, spec in self.reset_spec.items():
-            for name, how in spec.items():
-                if how == "keep":
-                    continue
-                if how != "empty":
-                    raise ValueError(f"unknown cache reset action {how!r}")
-                leaf = caches[g][name]
-                leaf.masked_fill_(sel.view((1, -1) + (1,) * (leaf.ndim - 2)),
-                                  EMPTY_POS)
+        for path, how in _leaves(self.reset_spec):
+            if how == "keep":
+                continue
+            if how not in _RESET_FILL:
+                raise ValueError(f"unknown cache reset action {how!r} "
+                                 f"({'/'.join(path)})")
+            leaf = caches
+            for key in path:
+                leaf = leaf[key]
+            leaf.masked_fill_(sel.view((1, -1) + (1,) * (leaf.ndim - 2)),
+                              _RESET_FILL[how])
 
     def nbytes(self) -> int:
-        """Total pool bytes over every leaf (arenas, scales, positions)."""
-        return sum(sum(t.numel() * t.element_size() for t in tree.values())
-                   for tree in self.caches.values())
+        """Total pool bytes over every leaf (arenas, scales, positions,
+        SSM state)."""
+        return sum(a.numel() * a.element_size()
+                   for _, a in _leaves(self.caches))
 
     def nbytes_by_class(self) -> Dict[str, int]:
-        """``nbytes`` split into ``arena``, ``scales``, ``pos`` and
-        ``state`` (other leaves)."""
+        """``nbytes`` split into ``arena`` (a KV group's K/V or latent
+        bytes), ``scales``, ``pos`` and ``state`` (SSM state, windows)."""
         out = {"arena": 0, "scales": 0, "pos": 0, "state": 0}
-        for g, tree in self.caches.items():
-            for name, leaf in tree.items():
-                nb = leaf.numel() * leaf.element_size()
-                if name.endswith("_scale"):
-                    out["scales"] += nb
-                elif name == "pos":
-                    out["pos"] += nb
-                elif g in self.layout and name in ("k", "v", "c",
-                                                   "k_rope"):
-                    out["arena"] += nb
-                else:
-                    out["state"] += nb
+        for (g, *_, name), leaf in _leaves(self.caches):
+            nb = leaf.numel() * leaf.element_size()
+            if name.endswith("_scale"):
+                out["scales"] += nb
+            elif name == "pos":
+                out["pos"] += nb
+            elif g in self.layout and name in ("k", "v", "c", "k_rope"):
+                out["arena"] += nb
+            else:
+                out["state"] += nb
         return out
+
+
+# what a reset action writes into a fresh row (``keep`` writes nothing)
+_RESET_FILL = {"empty": EMPTY_POS, "zero": 0}
+
+
+def _leaves(tree: Dict[str, Any], path: Tuple[str, ...] = ()
+            ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(key path, leaf) of every leaf of a nested cache or spec tree
+    (group, then a hybrid group's ``kv`` or ``ssm``, then the leaf's
+    name)."""
+    out: List[Tuple[Tuple[str, ...], Any]] = []
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            out += _leaves(v, path + (name,))
+        else:
+            out.append((path + (name,), v))
+    return out

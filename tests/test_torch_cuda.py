@@ -19,7 +19,7 @@ import torch
 from repro_torch.core.quant.policy import quantize_tensor
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
-from repro_torch.kernels import qconv1d, qmatmul, ref
+from repro_torch.kernels import ops, qconv1d, qmatmul, ref
 from repro_torch.kernels import ssd_scan
 
 ARENAS = {"fp32": torch.float32, "bf16": torch.bfloat16,
@@ -266,9 +266,26 @@ def test_cuda_gqa_paged_matches_plain_version(Hkv, group, C, window, bl, T,
     order, a table hole, pad rows and a ring window; live rows at the
     reference tolerances; each call counts one launch on the route
     its dtype and shape take."""
+    _gqa_case(Hkv, group, C, window, bl, T, arena, hd=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", list(ARENAS))
+@pytest.mark.parametrize("C,window,T", [
+    (1, 1024, 128), (16, 1024, 128),         # the window over 2048
+    (1, 0, 80), (16, 0, 80)])                # a full layer at cache_len 1280
+def test_cuda_gqa_paged_at_hymba_heads(C, window, T, arena):
+    """On a card: the paged kernels at hymba-1.5b's heads (5 KV heads,
+    group 5, head dim 64: R = 5 or 80 query rows, odd in their 16-row
+    tiles), a window of 1024 over 2048 positions and a full layer's 80
+    blocks; checked as the cases above."""
+    _gqa_case(5, 5, C, window, 16, T, arena, hd=64)
+
+
+def _gqa_case(Hkv, group, C, window, bl, T, arena, *, hd):
     _cuda()
     rs = np.random.RandomState(Hkv * 7 + group + C + window + bl + T)
-    B, hd = 4, 128
+    B = 4
     fills = [T * bl - C, bl - 1, 0, 37]
     k, v, pos, t, table = mk_arena(rs, B, Hkv, hd, bl, T, C, fills,
                                    holes=[(0, 5)])
@@ -422,7 +439,8 @@ BF16_ULP = (2 ** -7, 1e-5)
     (2, 40, 40, 4, 2, 16, True),             # smoke width: d padded to 64
     (1, 100, 100, 4, 4, 80, False),          # d padded to 128
     (1, 2048, 2048, 4, 4, 128, True),        # a long prompt
-    (1, 129, 129, 4, 4, 128, True)])         # one row past a 128-row tile
+    (1, 129, 129, 4, 4, 128, True),          # one row past a 128-row tile
+    (4, 1536, 1536, 25, 5, 64, True)])       # hymba-1.5b's prefill
 def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, d,
                                                     causal, dtype):
     """On a card: the flash-attention kernel against its plain version,
@@ -458,7 +476,8 @@ def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, d,
     (2, 512, 4, 64, 32, 128),
     (1, 77, 1, 32, 4, 256),
     (2, 40, 8, 16, 16, 32),                  # smoke width: hd padded to 32
-    (1, 100, 3, 48, 6, 64)])                 # hd to 64, N to 8
+    (1, 100, 3, 48, 6, 64),                  # hd to 64, N to 8
+    (4, 1536, 50, 64, 16, 256)])             # hymba-1.5b's prefill
 def test_cuda_ssd_scan_matches_plain_version(B, S, nh, hd, N, chunk, dtype):
     """On a card: the SSD kernel against its plain version (the chunked
     algorithm), y and the final state; A spans mamba2's -1..-16 so the
@@ -483,6 +502,34 @@ def test_cuda_ssd_scan_matches_plain_version(B, S, nh, hd, N, chunk, dtype):
     assert h.shape == (B, nh, hd, N) and h.dtype == torch.float32
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     assert ssd_scan.ssd_scan_cuda.launches == before + 1
+    rtol, atol = ((5e-3, 5e-3) if dtype == torch.float32
+                  else (BF16_ULP[0], 1e-3))
+    torch.testing.assert_close(y.float(), wy.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, wh, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_chunk_scan_takes_a_layer_slice(dtype):
+    """hymba-1.5b keeps D as 50 fp32 values a layer, so an odd layer's
+    slice of the stacked leaf starts 8 bytes past a 16-byte boundary:
+    ``ops.ssd_chunk_scan`` hands the kernel an aligned copy (the kernel
+    refused the slice until it did) and matches the plain version."""
+    _cuda()
+    rs = np.random.RandomState(50)
+    B, S, nh, hd, N = 2, 300, 50, 64, 16
+    D = (torch.from_numpy(rs.rand(3, nh).astype(np.float32)) + 0.5).cuda()
+    D = D.unbind(0)[1]
+    assert D.data_ptr() % 16 == 8
+    x = torch.from_numpy(rs.randn(B, S, nh, hd).astype(np.float32)).to(
+        "cuda", dtype)
+    dt = torch.from_numpy((rs.rand(B, S, nh) * 0.1).astype(np.float32))
+    Bm, Cm = (torch.from_numpy(rs.randn(B, S, N).astype(np.float32)).to(
+        "cuda", dtype) for _ in range(2))
+    A = -torch.linspace(1.0, 16.0, nh, device="cuda")
+    y, h = ops.ssd_chunk_scan(x, dt.cuda(), A, Bm, Cm, D, chunk=256)
+    wy, wh = ref.ssd_chunked(x, dt.cuda(), A, Bm, Cm, D, 256)
+    torch.cuda.synchronize()
     rtol, atol = ((5e-3, 5e-3) if dtype == torch.float32
                   else (BF16_ULP[0], 1e-3))
     torch.testing.assert_close(y.float(), wy.float(), rtol=rtol, atol=atol)

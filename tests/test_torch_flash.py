@@ -155,8 +155,9 @@ def test_flash_wrapper_refuses_a_device_without_a_kernel():
 @pytest.mark.parametrize("S", [48, 37])
 def test_attn_forward_matches_jax_blockwise(S):
     """Layer 0's attention of qwen1.5-4b-smoke (QKV bias, rope, GQA 4:2)
-    over a whole prompt: the port's output and K/V hand-off against the
-    JAX layer's (``blockwise_attn``) at 1e-5."""
+    over a whole prompt, in full and with a window of 16: the port's
+    output and K/V hand-off against the JAX layer's (``blockwise_attn``)
+    at 1e-5."""
     jcfg = jget_config("qwen1.5-4b-smoke")
     tcfg = get_config("qwen1.5-4b-smoke")
     jp = japi.init_params(jax.random.key(5), jcfg)
@@ -172,6 +173,12 @@ def test_attn_forward_matches_jax_blockwise(S):
     _close(ty, jy, 1e-5)
     for name in ("k", "v"):
         _close(tkv[name], jkv[name], 1e-5)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        attn.attn_forward(t1, torch.from_numpy(x),
-                          torch.from_numpy(pos.copy()), tcfg, window=16)
+    # a sliding window (the hybrid family's hybrid_swa layers) runs the
+    # port's blockwise_attn, against the JAX layer's at 1e-5
+    jy, jkv = jattn.attn_forward(j1, jnp.asarray(x), jnp.asarray(pos), jcfg,
+                                 window=16)
+    ty, tkv = attn.attn_forward(t1, torch.from_numpy(x),
+                                torch.from_numpy(pos.copy()), tcfg, window=16)
+    _close(ty, jy, 1e-5)
+    for name in ("k", "v"):
+        _close(tkv[name], jkv[name], 1e-5)

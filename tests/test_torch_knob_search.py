@@ -136,7 +136,8 @@ def test_model_flops_matches_reference(n, tokens, train):
 
 @pytest.mark.parametrize("arch", [
     "qwen1.5-4b", "deepseek-v3-671b", "granite-moe-1b-a400m", "mamba2-130m",
-    "qwen1.5-4b-smoke", "deepseek-v3-671b-smoke", "rubicall"])
+    "qwen1.5-4b-smoke", "deepseek-v3-671b-smoke", "rubicall", "hymba-1.5b",
+    "hymba-1.5b-smoke"])
 def test_param_counts_match_reference(arch):
     """Counted from shapes alone, no storage: full widths too."""
     cfg, jcfg = get_config(arch), jget_config(arch)

@@ -131,14 +131,22 @@ def test_cross_entropy_matches_reference_with_ignored_labels():
 
 @pytest.mark.parametrize("family", ["vlm", "audio", "hybrid"])
 def test_unported_lm_families_raise_naming_what_is_missing(family):
+    """vlm and audio raise and name what they lack; hybrid (hymba-smoke)
+    is ported: its loss on a bridged init equals the reference's."""
+    if family == "hybrid":
+        jcfg, tcfg, jp, tp = _bridged("hymba-1.5b-smoke")
+        b = _batch(tcfg, S=32)
+        want, _ = japi.make_loss_fn(jcfg)(jp, {}, _j(b))
+        got, (metrics, _) = api.make_loss_fn(tcfg)(tp, {}, _torch(b))
+        assert float(got) == pytest.approx(float(want), rel=1e-5)
+        assert set(metrics) == {"ce"}
+        return
     cfg = replace(get_config("qwen1.5-4b-smoke"), family=family)
-    missing = {"vlm": "vision projection", "audio": "encdec.py",
-               "hybrid": "hybrid_full"}[family]
+    missing = {"vlm": "vision projection", "audio": "encdec.py"}[family]
     with pytest.raises(NotImplementedError, match=missing):
         api.make_loss_fn(cfg)
-    if family != "hybrid":
-        with pytest.raises(NotImplementedError, match="encdec.py"):
-            next(token_batches(cfg, 2, 8))
+    with pytest.raises(NotImplementedError, match="encdec.py"):
+        next(token_batches(cfg, 2, 8))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ their plain versions; the JAX package runs its model's own XLA paths
   within 1e-5 of JAX ``tfm.prefill``; positions and windows exact.
 - The static loop as the reference launcher runs it (bf16 KV cache,
   ``prompt + tokens`` capacity): greedy tokens identical.
-- mamba2 has no slot path in the port: the engine refuses it.
+- mamba2 through the port's engine serves the static path's greedy
+  tokens.
 """
 import functools
 
@@ -134,12 +135,24 @@ def test_empty_caches_match_jax_layout(arch):
 
 
 def test_mamba2_has_no_slot_path_in_the_port():
+    """mamba2-smoke's engine (the slot recurrence, prompts in chunks of
+    4 beside decode rows) serves the static path's greedy tokens (the
+    chunked SSD prefill and the one-token decode), fp32."""
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
     _, tcfg, _, tp = models("mamba2-130m-smoke")
-    assert not tfm.supports_slot_serving(tcfg)
-    with pytest.raises(NotImplementedError, match="'ssm' family"):
-        api.make_serving_engine(tp, tcfg, device="cpu", n_slots=2,
-                                cache_len=16, prefill_chunk=4,
-                                cache_dtype=torch.float32)
+    assert tfm.supports_slot_serving(tcfg)
+    eng = api.make_serving_engine(tp, tcfg, device="cpu", n_slots=2,
+                                  cache_len=32, prefill_chunk=4,
+                                  cache_dtype=torch.float32)
+    tok = _tokens(3, 13, seed=2)
+    for i, row in enumerate(tok):
+        eng.submit(Request(rid=i, prompt=row.tolist(),
+                           sampling=SamplingParams(max_new_tokens=9)))
+    done = eng.run()
+    want = serve.static_generate(tp, tcfg, torch.from_numpy(tok), 9,
+                                 cache_dtype=torch.float32)["tokens"]
+    assert [done[i].out_tokens for i in range(3)] == want.tolist()
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "qwen1.5-4b"])

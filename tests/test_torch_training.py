@@ -393,8 +393,7 @@ def test_make_loss_fn_refuses_lm_families():
     holds every family's loss and gradients)."""
     qwen = get_config("qwen1.5-4b-smoke")
     for family, missing in (("vlm", "vision projection"),
-                            ("audio", "encdec.py"),
-                            ("hybrid", "hybrid_full")):
+                            ("audio", "encdec.py")):
         with pytest.raises(NotImplementedError, match=missing):
             api.make_loss_fn(dataclasses.replace(qwen, family=family))
     jcfg = jget_config("qwen1.5-4b-smoke")
