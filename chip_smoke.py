@@ -218,6 +218,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    other kernel; its greedy tokens read against the static path's
    (the chunked SSD prefill through ssd_scan, then the one-token decode)
    on the same weights and prompts under the near-tie rule.
+19. serve (audio) — full-width whisper-tiny (arXiv:2212.04356: 4
+   encoder and 4 xdec layers, d 384, 6 heads of 64, d_ff 1536, 1500
+   frames, vocab 51865), int8 weights drawn on the card, a bf16 paged
+   arena (4 slots, chunk 16, block_len 16, cache_len 96); 8 greedy
+   requests of 8-64 prompt tokens, each with its own seeded stub
+   frames, 32 new tokens. The ``cuda`` drain: 32 qmatmul a tick; on
+   width-1 ticks 8 gqa_paged (4 self-attention over the bf16 arena on
+   tensor cores, 4 cross-attention over the fp32 encoder rows on CUDA
+   cores), on wider ones 4 gqa_paged_chunk (the cross-attention's
+   einsum launches none); 4 flash_attention (not causal) an admission
+   on tensor cores; every launch held against its plain version, the
+   cross-attention's calls in a bucket of their own at one bf16 ulp of
+   the output (``CROSS_TOL``), each flash launch also on fp32 copies.
+   Then the ``gather`` drain and the port's one-shot path (encode + prefill
+   + decode_step), tokens read against the ``cuda`` drain's under the
+   near-tie rule; the encoder buffer's and the pool's bytes against
+   their analytic sizes, the admission's ms.
+20. static+train (frontends) — the static path (``--static``) of
+   whisper-tiny (4 x 64 tokens over 1500 frames), internvl2-1b whole
+   (``--wbits 8`` dequantized to bf16, 4 x (256 patches + 256 tokens)),
+   chatglm3-6b whole (2 x 128) and command-r-plus-104b and llama3-405b
+   at published widths cut to 2 layers (2 x 128, 8 new tokens): flash
+   once a decoder and an encoder layer in the prefill (whisper 4 not
+   causal and 4 causal), none in the decode, tensor-core; one prefill
+   with every flash call held against its plain version in bf16 and
+   fp32; prefill ms, decode tok/s, peak memory. Then 10 training steps
+   each of whisper-tiny (4 x 448) and internvl2-1b (2 x 1024 after its
+   256 patches) as phase 15 trains, on the token stream's first batch
+   repeated (finite, falling loss, step p50, a traced step), card-vs-CPU
+   loss and gradients at smoke for both, and whisper-tiny's training
+   encoder over 1500 frames (blockwise, not causal, several chunks)
+   against the dense plain attention at full width.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -230,6 +262,7 @@ import ast
 import contextlib
 import functools
 import gc
+import itertools
 import json
 import os
 import re
@@ -262,7 +295,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models.basecaller import classifier as rc  # noqa: E402
 from repro_torch.models.basecaller import model as bc  # noqa: E402
+from repro_torch.models.lm import attention as attn_mod  # noqa: E402
 from repro_torch.models.lm import common  # noqa: E402
+from repro_torch.models.lm import encdec  # noqa: E402
 from repro_torch.models.lm import moe as moe_mod  # noqa: E402
 from repro_torch.models.lm import transformer as tfm  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
@@ -716,6 +751,11 @@ ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2,
             torch.float8_e4m3fn: 2e-2, torch.int8: 2e-2,
             torch.float16: 2e-2}
 QMM_TOL = 2e-2
+# a bf16 query over fp32 rows (the audio family's cross-attention): fp32
+# compute, then one bf16 rounding of the output, which fp32 sums in
+# another order can land one bf16 ulp apart, at most 2^-7 of |want|
+# (rtol, atol); tests/test_torch_cuda.py holds the same
+CROSS_TOL = (2 ** -7, 1e-6)
 QMM_ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 # One served tick, kernel path vs plain path on the same pool state:
 # (largest |d logit| of a live row, least share of live rows whose
@@ -1064,7 +1104,9 @@ def qmatmul_per_tick(cfg) -> int:
     same at every M a tick makes: 4 to 64). wukv is dequantized, the
     routed experts run dequantized rows, and neither is a projection.
     An SSM mixer (ssm, hybrid kinds) projects d -> 2 d_in + 2 N + nh and
-    d_in -> d."""
+    d_in -> d. An xdec block adds the cross-attention's q and o and
+    runs an ungated MLP; its cross K/V project the encoder's 1500 frames
+    at admission (M = 1500 fails the contract: dequantized)."""
     d, plan = cfg.d_model, tfm.layer_plan(cfg)
     hd = cfg.resolved_head_dim
     d_in = cfg.ssm_expand * d
@@ -1088,7 +1130,11 @@ def qmatmul_per_tick(cfg) -> int:
                    (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d)]
             if kind in tfm.HYBRID_KINDS:
                 mix += ssm
-        if kind in tfm.MOE_KINDS:
+            if kind == "xdec":       # cross q and o; k, v at admission
+                mix += [(d, cfg.n_heads * hd), (cfg.n_heads * hd, d)]
+        if kind == "xdec":           # ungated MLP
+            ffn = [(d, cfg.d_ff), (cfg.d_ff, d)]
+        elif kind in tfm.MOE_KINDS:
             ff = cfg.moe_d_ff or cfg.d_ff
             sh = ff * cfg.n_shared_experts
             ffn = [(d, cfg.n_experts)] + (
@@ -1581,6 +1627,62 @@ def ssd_bound(b, s, nh, hd, n, esize, chunk=256) -> tuple:
     chunks = -(-s // chunk)
     flops = 2 * b * chunks * (tri * n + nh * (tri * hd + 2 * chunk * n * hd))
     return bound_ms(nbytes, flops, torch.bfloat16)
+
+
+def held_row(got, want, rtol: float, atol: float,
+             live=None) -> torch.Tensor:
+    """One kernel call against its plain version, on the card: (max
+    |err|, the largest excess over ``atol + rtol |want|``, all finite,
+    max |want|) over the live entries (``live`` broadcasts; None: all)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    fin = torch.isfinite(got)
+    if live is not None:
+        d, want = torch.where(live, d, 0.0), torch.where(live, want, 0.0)
+        fin = fin | ~live
+    return torch.stack([d.amax(), (d - atol - rtol * want.abs()).amax(),
+                        fin.all().float(), want.abs().amax()])
+
+
+def fold_held(rows) -> dict:
+    """{bucket: [calls, max|err|, max excess, all finite, max|want|]}
+    from (bucket, :func:`held_row`) pairs, read back once."""
+    held = {}
+    for name, row in rows:
+        e, x, fin, w = row.tolist()
+        h = held.setdefault(name, [0, 0.0, -np.inf, True, 0.0])
+        h[0] += 1
+        h[1], h[2], h[4] = max(h[1], e), max(h[2], x), max(h[4], w)
+        h[3] = h[3] and fin == 1.0
+    return held
+
+
+def held_ok(held: dict) -> bool:
+    """Every bucket within its tolerance and finite."""
+    return all(h[2] <= 0.0 and h[3] for h in held.values())
+
+
+def flash_held(out, q, k, v, causal: bool) -> torch.Tensor:
+    """One flash launch's output against its plain version on the same
+    inputs, at ``FLASH_TOL`` of q's dtype (:func:`held_row`)."""
+    want = ref.flash_attention_gqa_ref(q, k, v, causal=causal)
+    rtol, atol = FLASH_TOL[q.dtype]
+    return held_row(out, want, rtol, atol)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches made inside (a kernel held against its plain
+    version) leave every launch count as it was: only the main path's
+    launches count."""
+    saved = {name: (fn.launches, dict(fn.routes))
+             for name, fn in ops._COUNTED.items()}
+    try:
+        yield
+    finally:
+        for name, fn in ops._COUNTED.items():
+            fn.launches, routes = saved[name]
+            fn.routes.update(routes)
 
 
 def flash_p_terms(q, k, v) -> tuple:
@@ -2509,8 +2611,17 @@ def lm_step_flops(cfg, batch: int, seq: int) -> float:
     score and value products (4 S^2 hd a head forward, the whole S x S
     block, as blockwise_attn computes it at S <= kv_chunk) four times.
     An SSM counts its projections; its chunked scan's products are
-    left out."""
-    d, L, tokens = cfg.d_model, cfg.n_layers, batch * seq
+    left out. A vlm's patch positions run through every layer (and the
+    d x d projection) but not the unembedding, which the loss takes
+    over the text positions only; an audio arch adds its encoder over
+    the frames,
+    the cross-attention (q and o a token, k and v a frame, scores and
+    values against every frame) and runs an ungated MLP."""
+    d, L = cfg.d_model, cfg.n_layers
+    P = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    S = seq + P
+    tokens = batch * S
+    extra = 8.0 * d * d * batch * P
     if cfg.family == "ssm":
         from repro_torch.models.lm.ssm import ssm_dims
         d_in, nh, N, _ = ssm_dims(cfg)
@@ -2520,16 +2631,28 @@ def lm_step_flops(cfg, batch: int, seq: int) -> float:
         hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
         per_layer = d * hd * (2 * H + 2 * Hkv)
         ff = cfg.moe_d_ff or cfg.d_ff
-        per_layer += 3 * d * ff * (cfg.experts_per_tok or 1)
-        attn = 4 * 4.0 * batch * H * seq * seq * hd * L
-    return (8.0 * per_layer * L * tokens + 6.0 * cfg.vocab_size * d * tokens
-            + attn)
+        gates = 2 if cfg.family == "audio" else 3
+        per_layer += gates * d * ff * (cfg.experts_per_tok or 1)
+        attn = 4 * 4.0 * batch * H * S * S * hd * L
+    if cfg.family == "audio":
+        F, n_enc = cfg.frontend_tokens, cfg.n_enc_layers
+        enc_layer = d * hd * (2 * H + 2 * Hkv) + 2 * d * cfg.d_ff
+        extra += (8.0 * enc_layer * n_enc * batch * F
+                  + 4 * 4.0 * batch * H * F * F * hd * n_enc
+                  + 8.0 * L * (2 * d * H * hd * tokens
+                               + 2 * d * Hkv * hd * batch * F)
+                  + 4 * 4.0 * batch * H * S * F * hd * L)
+    return (8.0 * per_layer * L * tokens
+            + 6.0 * cfg.vocab_size * d * batch * seq + attn + extra)
 
 
-def lm_train_one(arch, layers, batch, seq, steps, falls, smi) -> dict:
+def lm_train_one(arch, layers, batch, seq, steps, falls, smi,
+                 repeat=False) -> dict:
     """One LM trained through ``train_loop.run`` on the card (fp32 master
-    leaves drawn there, bf16 compute, AdamW), then each of
-    ``LM_TRAIN_TIMED`` steps timed alone and one step traced."""
+    leaves drawn there, bf16 compute, AdamW at ``LM_LR`` after 5 warmup
+    steps) on the launcher's token stream (``repeat``: its first batch
+    over and over), then each of ``LM_TRAIN_TIMED`` steps timed alone
+    and one step traced."""
     import tempfile
     full = get_config(arch)
     cfg = full if layers is None else replace(full, n_layers=layers)
@@ -2540,12 +2663,15 @@ def lm_train_one(arch, layers, batch, seq, steps, falls, smi) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    data = train_launcher.data_for(cfg, batch, seq)
+    if repeat:
+        data = itertools.repeat(next(data))
     with tempfile.TemporaryDirectory() as ckdir:
         t0 = time.perf_counter()
         run = train_loop.run(
             cfg, opt_cfg, TrainLoopConfig(steps=steps, log_every=1,
                                           ckpt_every=10 ** 9, ckpt_dir=ckdir),
-            train_launcher.data_for(cfg, batch, seq), device="cuda")
+            data, device="cuda")
         t_loop = time.perf_counter() - t0
     carry = run["carry"]
     n_params = sum(v.numel() for v in tree_leaves(carry.params))
@@ -2576,7 +2702,8 @@ def lm_train_one(arch, layers, batch, seq, steps, falls, smi) -> dict:
     print(f"[lm-train] {cfg.name} ({smi}): {cfg.n_layers} layers ({cut}), "
           f"d {cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
           f"params; fp32 master leaves and AdamW state, {cfg.dtype} "
-          f"compute, remat {cfg.remat}; batch {batch} x {seq} tokens, "
+          f"compute, remat {cfg.remat}, lr {opt_cfg.lr:g}; batch {batch} x "
+          f"{seq} tokens{' (one batch, repeated)' if repeat else ''}, "
           f"{steps} steps of train_loop.run in {t_loop:.2f}s; loss at steps "
           f"{', '.join(f'{m}: {v:.4f}' for m, v in at.items())} (mean of "
           f"the first {k} {first:.4f}, of the last {k} {last:.4f}); grad "
@@ -2715,19 +2842,19 @@ class KnobWatch:
             if self.on and q.is_cuda:
                 plain = ref.gqa_paged_chunk_ref if chunk else \
                     ref.gqa_paged_ref
-                want = self.run_plain(plain, (q, *args), kw).float()
+                want = self.run_plain(plain, (q, *args), kw)
                 t = args[3]
                 live = (t >= 0).reshape(*t.shape,
                                         *(1,) * (out.ndim - t.ndim))
-                got = out.float()
-                d = torch.where(live, (got - want).abs(), 0.0)
-                tol = ATTN_TOL[args[0].dtype]
-                self.calls.append((
-                    "gqa_paged_chunk" if chunk else "gqa_paged",
-                    torch.stack([d.amax(),
-                                 (d - tol - tol * want.abs()).amax(),
-                                 (torch.isfinite(got) | ~live).all()
-                                 .float()])))
+                name = "gqa_paged_chunk" if chunk else "gqa_paged"
+                if q.dtype != args[0].dtype == torch.float32:
+                    # the audio family's cross-attention: a bucket of
+                    # its own, at one rounding of the bf16 output
+                    name, (rtol, atol) = f"{name} cross", CROSS_TOL
+                else:
+                    rtol = atol = ATTN_TOL[args[0].dtype]
+                self.calls.append((name, held_row(out, want, rtol, atol,
+                                                  live)))
             return out
         return fn
 
@@ -2774,18 +2901,11 @@ class KnobWatch:
         self.drains = []
 
     def take(self) -> tuple:
-        """(per kernel: [calls, max|err|, max excess over the tolerance,
-        all live rows finite], (the warm drain's tokens, {(rid,
-        position): (top values, top ids)}), whether every drain served
-        the same tokens) of the candidate just measured, read back
-        once."""
-        held = {}
-        for name, row in self.calls:
-            e, x, fin = row.tolist()
-            h = held.setdefault(name, [0, 0.0, -np.inf, True])
-            h[0] += 1
-            h[1], h[2] = max(h[1], e), max(h[2], x)
-            h[3] = h[3] and fin == 1.0
+        """(:func:`fold_held` of the calls, by kernel, (the warm drain's
+        tokens, {(rid, position): (top values, top ids)}), whether every
+        drain served the same tokens) of the candidate just measured,
+        read back once."""
+        held = fold_held(self.calls)
         tops = {}
         for rids, at, vals, ids in self.tops:
             for rid, p, v, i in zip(rids, at, vals.tolist(), ids.tolist()):
@@ -2933,8 +3053,7 @@ def phase_rubicon() -> dict:
                     n_attn != ticks * cfg.n_layers:
                 raise AssertionError(f"{where}: {attn} over {ticks} ticks")
             # the warm drain's calls, held against the plain version
-            if set(held) != set(ATTN_KERNELS) or any(
-                    not (h[2] <= 0.0 and h[3]) for h in held.values()):
+            if set(held) != set(ATTN_KERNELS) or not held_ok(held):
                 raise AssertionError(f"{where}: kernel vs plain over the "
                                      f"warm drain {held}")
             modes_on_cuda.add(k.quant_policy)
@@ -2959,7 +3078,7 @@ def phase_rubicon() -> dict:
               f"{r.cache_bytes} B pool (analytic {want}), {ticks} ticks, "
               f"qmatmul {q}, attention {attn}, {secs:.2f}s"
               + "".join(f"; {n} vs plain over the warm drain: {c} calls, "
-                        f"max|err| {e:.3g}" for n, (c, e, _, _) in
+                        f"max|err| {e:.3g}" for n, (c, e, *_) in
                         held.items()))
     if modes_on_cuda != {"bf16", "fp8", "int8"}:
         raise AssertionError(f"cuda candidates measured {modes_on_cuda}")
@@ -3074,7 +3193,8 @@ class HeldWatch(KnobWatch):
     """:class:`KnobWatch` on one whole drain: every paged-attention call
     held against its plain version (replayed from a CUDA graph,
     :class:`GraphedPlain`), every qmatmul launch too (``QMM_TOL``), and
-    the top ``HELD_TOPK`` logits of each row kept."""
+    the top ``HELD_TOPK`` logits of each row kept. Flash launches are
+    held by a :class:`FlashHold` beside it."""
 
     topk = HELD_TOPK
 
@@ -3097,39 +3217,42 @@ class HeldWatch(KnobWatch):
                 want = ref.qmatmul_ref(
                     x.reshape(-1, x.shape[-1]), w,
                     scale.float().reshape(1, -1), bits=bits).float()
-                d = (out.reshape(want.shape).float() - want).abs()
-                self.calls.append(("qmatmul", torch.stack([
-                    d.amax(), (d - QMM_TOL - QMM_TOL * want.abs()).amax(),
-                    torch.isfinite(out).all().float()])))
+                self.calls.append(("qmatmul", held_row(
+                    out.reshape(want.shape), want, QMM_TOL, QMM_TOL)))
             return out
         return fn
 
 
-def serve_held(params, cfg, backend: str, reqs) -> dict:
+def serve_held(params, cfg, backend: str, reqs,
+               cache_len: int = HYMBA_CACHE) -> dict:
     """One drain of ``reqs`` through a fresh engine on ``backend`` (4
-    slots, chunk 16, blocks of 16, a bf16 arena of ``HYMBA_CACHE``
+    slots, chunk 16, blocks of 16, a bf16 arena of ``cache_len``
     positions a slot, warmed up), every paged-attention and qmatmul
-    launch held against its plain version (:class:`HeldWatch`) and each
-    row's top logits kept. Returns the engine, the launches by kernel
-    and route, the plans' calls and the watch's take."""
+    launch (:class:`HeldWatch`) and every flash launch
+    (:class:`FlashHold`) held against its plain version and each row's
+    top logits kept. Returns the engine, the launches by kernel and
+    route, the plans' calls and the held calls by bucket."""
     engine = api.make_serving_engine(
-        params, cfg, device="cuda", n_slots=LM_SLOTS, cache_len=HYMBA_CACHE,
+        params, cfg, device="cuda", n_slots=LM_SLOTS, cache_len=cache_len,
         prefill_chunk=LM_CHUNK, block_len=BLOCK, cache_dtype=torch.bfloat16,
         attn_backend=backend)
     runner = engine.runner
     engine.warmup()
     watch = HeldWatch()
+    flash = FlashHold(attn_mod.flash_attention)
     watch.start()
     ops.reset_launch_counts()
     runner.plans.calls.clear()
     with contextlib.ExitStack() as stack:
-        for mod, name, hook in (
-                (ops, "_paged", watch.paged),
-                (ops, "qmatmul", watch.qmatmul),
-                (runner_mod.TokenRunner, "dispatch", watch.dispatch),
-                (tfm, "decode_step_slots", watch.step)):
-            stack.enter_context(mock.patch.object(
-                mod, name, hook(getattr(mod, name))))
+        for mod, name, new in (
+                (ops, "_paged", watch.paged(ops._paged)),
+                (ops, "qmatmul", watch.qmatmul(ops.qmatmul)),
+                (attn_mod, "flash_attention", flash),
+                (runner_mod.TokenRunner, "dispatch",
+                 watch.dispatch(runner_mod.TokenRunner.dispatch)),
+                (tfm, "decode_step_slots",
+                 watch.step(tfm.decode_step_slots))):
+            stack.enter_context(mock.patch.object(mod, name, new))
         for r in reqs:
             engine.submit(r)
         watch.on = True
@@ -3147,6 +3270,7 @@ def serve_held(params, cfg, backend: str, reqs) -> dict:
                              f"{[(r.rid, r.status) for r in done.values()]}")
     watch.drains = [{rid: list(r.out_tokens) for rid, r in done.items()}]
     held, warm, _ = watch.take()
+    held.update(flash.take())
     return {"engine": engine, "counts": ops.launch_counts(),
             "routes": ops.launch_counts(routes=True),
             "calls": dict(runner.plans.calls), "held": held, "warm": warm,
@@ -3158,7 +3282,8 @@ def check_served(cfg, r: dict, want: dict, where: str) -> tuple:
     C == 1 ticks, per tick on wider ones}), every launch on the
     tensor-core route, no other kernel launched, and every held call
     within its tolerance and finite. Returns (ticks, narrow ticks)."""
-    calls = r["calls"]
+    calls = {key: n for key, n in r["calls"].items()
+             if key[0] in ("decode", "mixed")}
     ticks = sum(calls.values())
     narrow = sum(n for (_, w, _), n in calls.items() if w == 1)
     counts = {k: c for k, c in r["counts"].items() if c}
@@ -3169,8 +3294,7 @@ def check_served(cfg, r: dict, want: dict, where: str) -> tuple:
         raise AssertionError(f"{where}: launches {counts} in {ticks} ticks "
                              f"({narrow} of width 1), want {expect}")
     check_routes({k: r["routes"][k] for k in counts}, tuple(counts), where)
-    if set(r["held"]) != set(counts) or any(
-            not (h[2] <= 0.0 and h[3]) for h in r["held"].values()):
+    if set(r["held"]) != set(counts) or not held_ok(r["held"]):
         raise AssertionError(f"{where}: kernels vs plain over the drain "
                              f"{r['held']}, launched {counts}")
     return ticks, narrow
@@ -3186,8 +3310,9 @@ def report_served(cfg, r: dict, where: str) -> None:
           f"{st['decode_interval_p50_s'] * 1e3:.2f} ms, tick p50 "
           f"{st['tick_latency_p50_s'] * 1e3:.2f} ms; launches "
           f"{ {k: c for k, c in r['counts'].items() if c} }; held vs plain "
-          + "; ".join(f"{n}: {c} calls, max|err| {e:.3g}"
-                      for n, (c, e, _, _) in r["held"].items()))
+          + "; ".join(f"{n}: {c} calls, max|err| {e:.3g} (max|want| "
+                      f"{w:.3g})" for n, (c, e, _, _, w) in
+                      r["held"].items()))
 
 
 def near_ties(base: tuple, cand: tuple, prompt_len: dict, tag: str,
@@ -3292,16 +3417,19 @@ def phase_hybrid_serve() -> dict:
     return out
 
 
-def static_tops(params, cfg, prompt, n_new: int) -> tuple:
+def static_tops(params, cfg, prompt, n_new: int, frames=None) -> tuple:
     """The static path on one prompt (whole-prompt prefill, then
-    lockstep decode, as ``serve.static_generate``): its greedy tokens
-    and each step's top logits by position, as :class:`KnobWatch`
-    keeps them."""
+    lockstep decode, as ``serve.static_generate``; an audio prompt's
+    ``frames`` through the encoder first): its greedy tokens and each
+    step's top logits by position, as :class:`KnobWatch` keeps them."""
     P = len(prompt)
     tok = torch.tensor([prompt], dtype=torch.int32, device="cuda")
     out, tops = [], {}
     with torch.inference_mode():
-        logits, caches = tfm.prefill(params, tok, cfg, cache_len=P + n_new)
+        enc = (None if frames is None else encdec.encode(
+            params["encoder"], torch.from_numpy(frames).cuda()[None], cfg))
+        logits, caches = tfm.prefill(params, tok, cfg, cache_len=P + n_new,
+                                     enc_out=enc)
         for j in range(n_new):
             row = logits[0, -1].float()
             top = row.topk(HELD_TOPK)
@@ -3361,6 +3489,394 @@ def phase_ssm_serve() -> dict:
             "drain_s": served["seconds"], "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the audio family through the engine (whisper-tiny)
+
+AUDIO_ARCH = "whisper-tiny"
+AUDIO_NEW = 32               # greedy new tokens a request
+AUDIO_CACHE = 64 + AUDIO_NEW  # the longest prompt + its new tokens
+
+
+def audio_requests(cfg):
+    """8 greedy requests of 8-64 random prompt tokens, each with its own
+    seeded stub frames (1500 x 384 standard normal), 32 new tokens."""
+    rs = np.random.RandomState(0)
+    reqs = []
+    for i in range(8):
+        n = int(rs.randint(8, 65))
+        reqs.append(Request(
+            rid=i, prompt=rs.randint(1, cfg.vocab_size, size=n).tolist(),
+            sampling=SamplingParams(max_new_tokens=AUDIO_NEW),
+            frames=rs.randn(cfg.frontend_tokens,
+                            cfg.d_model).astype(np.float32)))
+    return reqs
+
+
+def enc_buffer_bytes(cfg, n_slots: int, dtype=torch.bfloat16) -> int:
+    """The per-slot encoder buffer, counted from the config: K and V of
+    every xdec layer over every slot's frames."""
+    return (2 * cfg.n_layers * n_slots * cfg.frontend_tokens
+            * cfg.n_kv_heads * cfg.resolved_head_dim * dtype.itemsize)
+
+
+def check_audio_served(cfg, r: dict, where: str) -> tuple:
+    """A whisper drain's launches against its ticks: ``qmatmul``
+    (``qmatmul_per_tick``) every tick on tensor cores; on width-1 ticks
+    ``gqa_paged`` twice a layer, self-attention over the bf16 arena on
+    tensor cores and cross-attention over the fp32 encoder rows on CUDA
+    cores; on wider ticks ``gqa_paged_chunk`` once a layer on tensor
+    cores (the cross-attention's einsum launches none);
+    ``flash_attention`` once an encoder layer at each admission, on
+    tensor cores. Every launch held against its plain version and
+    finite, the cross-attention's in a bucket of its own at
+    ``CROSS_TOL`` and each flash launch also on fp32 copies. Returns
+    (ticks, narrow ticks, admissions)."""
+    calls = {key: n for key, n in r["calls"].items()
+             if key[0] in ("decode", "mixed")}
+    ticks = sum(calls.values())
+    narrow = sum(n for (_, w, _), n in calls.items() if w == 1)
+    admits = r["calls"].get(("stage", 0, "enc"), 0)
+    L, per_tick = cfg.n_layers, qmatmul_per_tick(cfg)
+    want = {"qmatmul": {"tensor_core": per_tick * ticks, "cuda_core": 0},
+            "gqa_paged": {"tensor_core": L * narrow, "cuda_core": L * narrow},
+            "gqa_paged_chunk": {"tensor_core": L * (ticks - narrow),
+                                "cuda_core": 0},
+            "flash_attention": {"tensor_core": cfg.n_enc_layers * admits,
+                                "cuda_core": 0}}
+    want = {k: v for k, v in want.items() if sum(v.values())}
+    got = {k: v for k, v in r["routes"].items() if sum(v.values())}
+    if got != want or admits != 8:
+        raise AssertionError(f"{where}: launches by route {got} in {ticks} "
+                             f"ticks ({narrow} of width 1), {admits} "
+                             f"admissions; want {want}")
+    held = {n: h[0] for n, h in r["held"].items()}
+    want_held = {"qmatmul": per_tick * ticks, "gqa_paged": L * narrow,
+                 "gqa_paged cross": L * narrow,
+                 "gqa_paged_chunk": L * (ticks - narrow),
+                 "flash_attention": cfg.n_enc_layers * admits,
+                 "flash_attention fp32": cfg.n_enc_layers * admits}
+    if held != {n: c for n, c in want_held.items() if c} or \
+            not held_ok(r["held"]):
+        raise AssertionError(f"{where}: kernels vs plain over the drain "
+                             f"{r['held']}; calls held want {want_held}")
+    return ticks, narrow, admits
+
+
+def phase_audio_serve() -> dict:
+    """Full-width whisper-tiny (4 encoder and 4 decoder layers, d 384, 6
+    heads of 64, 1500 frames) through the engine, int8 weights drawn on
+    the card, a bf16 paged arena (4 slots, chunk 16, block_len 16): the
+    ``cuda`` drain with every paged self- and cross-attention call,
+    every qmatmul and every admission's flash launch held against its
+    plain version; the ``gather`` drain, its greedy tokens read against
+    the ``cuda`` ones at near-tie margins; both against the port's
+    one-shot path (``encode`` + ``prefill`` + ``decode_step``); the
+    encoder buffer's bytes against their analytic size and the
+    admission's (staging's) ms."""
+    cfg = replace(get_config(AUDIO_ARCH), quant=QuantPolicy(8, 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(0, cfg, device="cuda", wbits=8)
+    reqs = audio_requests(cfg)
+    plen = {r.rid: len(r.prompt) for r in reqs}
+    print(f"[serve-audio] {cfg.name}: {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} xdec layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.frontend_tokens} frames, int8 weights "
+          f"({torch.cuda.memory_allocated() / 2**20:.1f} MiB); 8 requests "
+          f"of {sorted(plen.values())} prompt tokens, {AUDIO_NEW} new")
+    cuda = serve_held(params, cfg, "cuda", reqs, AUDIO_CACHE)
+    ticks, narrow, admits = check_audio_served(cfg, cuda, f"{cfg.name} cuda")
+    report_served(cfg, cuda, "serve-audio")
+    runner = cuda["engine"].runner
+    pool = runner.pool
+    enc_bytes = sum(t.numel() * t.element_size()
+                    for g in runner.enc_kv.values() for t in g.values())
+    want_enc = enc_buffer_bytes(cfg, LM_SLOTS)
+    want_pool = knob_cache_bytes(cfg, types.SimpleNamespace(
+        quant_policy="bf16", block_len=BLOCK), LM_SLOTS, AUDIO_CACHE)
+    if enc_bytes != want_enc or pool.nbytes() != want_pool:
+        raise AssertionError(f"encoder buffer {enc_bytes} B (want "
+                             f"{want_enc}), pool {pool.nbytes()} B (want "
+                             f"{want_pool})")
+    frames = torch.from_numpy(reqs[0].frames)
+    stage_ms = []
+    for _ in range(5):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        runner._stage(frames, 0)
+        b.record()
+        torch.cuda.synchronize()
+        stage_ms.append((a.elapsed_time(b), (time.perf_counter() - t0) * 1e3))
+    stage = {"device_ms": statistics.median(x for x, _ in stage_ms),
+             "wall_ms": statistics.median(y for _, y in stage_ms)}
+    per = {k: round(v / ticks, 2) for k, v in cuda["counts"].items() if v}
+    print(f"[serve-audio] {cfg.name}: {ticks} ticks ({narrow} of width 1), "
+          f"{admits} admissions; launches a tick (mean) {per}; encoder "
+          f"buffer {enc_bytes} B = analytic {want_enc} (K, V x "
+          f"{cfg.n_layers} layers x {LM_SLOTS} slots x "
+          f"{cfg.frontend_tokens} frames x {cfg.n_kv_heads} x "
+          f"{cfg.resolved_head_dim} x bf16); pool {pool.nbytes()} B = "
+          f"analytic {want_pool} ({pool.nbytes_by_class()}); admission "
+          f"(encode + cross K/V of {cfg.n_layers} layers) p50 device "
+          f"{stage['device_ms']:.3f} ms, wall {stage['wall_ms']:.3f} ms")
+    gather = serve_held(params, cfg, "gather", audio_requests(cfg),
+                        AUDIO_CACHE)
+    g_calls = {k: n for k, n in gather["calls"].items()
+               if k[0] in ("decode", "mixed")}
+    g_ticks = sum(g_calls.values())
+    g_want = {"qmatmul": qmatmul_per_tick(cfg) * g_ticks,
+              "flash_attention": cfg.n_enc_layers * 8}
+    if {k: c for k, c in gather["counts"].items() if c} != g_want:
+        raise AssertionError(f"gather drain launches {gather['counts']}, "
+                             f"want {g_want}")
+    report_served(cfg, gather, "serve-audio")
+    vs_gather = near_ties(gather["warm"], cuda["warm"], plen, "serve-audio",
+                          f"{cfg.name} cuda vs gather")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    oneshot = {}, {}
+    for r in reqs:
+        toks, tops = static_tops(params, cfg, r.prompt, AUDIO_NEW, r.frames)
+        oneshot[0][r.rid] = toks
+        oneshot[1].update({(r.rid, p): v for p, v in tops.items()})
+    counts = {k: c for k, c in ops.launch_counts().items() if c}
+    print(f"[serve-audio] {cfg.name}: the one-shot path (encode + prefill "
+          f"+ decode_step) on each request in {time.perf_counter() - t0:.1f}"
+          f"s, launches {counts}")
+    vs_oneshot = near_ties(oneshot, cuda["warm"], plen, "serve-audio",
+                           f"{cfg.name} engine vs one-shot")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[serve-audio] {cfg.name}: peak device memory {peak:.2f} GiB")
+    return {"launches": cuda["counts"], "routes": cuda["routes"],
+            "ticks": ticks, "narrow": narrow, "admissions": admits,
+            "held": cuda["held"], "vs_gather": vs_gather,
+            "vs_oneshot": vs_oneshot, "enc_bytes": enc_bytes,
+            "pool_bytes": pool.nbytes(), "stage": stage,
+            "tick_p50_ms": cuda["summary"]["tick_latency_p50_s"] * 1e3,
+            "gather_tick_p50_ms":
+                gather["summary"]["tick_latency_p50_s"] * 1e3,
+            "drain_s": cuda["seconds"], "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the static path of the frontends and the last dense configs,
+# then training of both frontends
+
+# (arch, layers kept (None: whole), --wbits, prompt tokens (a vlm's
+# patches included), new tokens, rows)
+FRONT_STATIC = [("whisper-tiny", None, 0, 64, 32, 4),
+                ("internvl2-1b", None, 8, 512, 32, 4),
+                ("chatglm3-6b", None, 0, 128, 32, 2),
+                ("command-r-plus-104b", 2, 0, 128, 8, 2),
+                ("llama3-405b", 2, 0, 128, 8, 2)]
+# (arch, batch, seq): 10 steps each; whisper's 448 tokens are its
+# decoder's context, internvl2's 1024 follow its 256 patches. Each
+# trains on the token stream's first batch, repeated, where a working
+# step must lower the loss: on the stream itself whisper-tiny's loss did
+# not fall in 10 steps (H100), nor does the reference's at the published
+# vocab (tests/test_torch_lm_training.py::
+# test_frontend_steps_on_the_stream_at_the_published_vocab): each step
+# meets new (token, next token) pairs of a ring of V tokens.
+FRONT_TRAIN = [("whisper-tiny", 4, 448), ("internvl2-1b", 2, 1024)]
+FRONT_GRAD_ARCHS = ("whisper-tiny-smoke", "internvl2-1b-smoke")
+
+
+class FlashHold:
+    """``attention.flash_attention`` (``ops.flash_attention`` as the model
+    calls it) held call by call: the kernel as the main path launches it
+    (counted; bucket ``flash_attention``), then, uncounted, the kernel
+    again on fp32 copies of its inputs (``flash_attention fp32``); each
+    held against its plain version at ``FLASH_TOL`` of its dtype (bf16
+    on the tensor-core route, fp32 on the CUDA-core one). Keeps each
+    call's shape and mask."""
+
+    def __init__(self, real):
+        self.real, self.rows, self.shapes = real, [], []
+
+    def __call__(self, q, k, v, *, causal=True):
+        out = self.real(q, k, v, causal=causal)
+        self.shapes.append((tuple(q.shape), tuple(k.shape), causal))
+        self.rows.append(("flash_attention",
+                          flash_held(out, q, k, v, causal)))
+        with uncounted():
+            q32, k32, v32 = (a.float().contiguous() for a in (q, k, v))
+            self.rows.append(("flash_attention fp32", flash_held(
+                fa.flash_attention_cuda(q32, k32, v32, causal=causal), q32,
+                k32, v32, causal)))
+        return out
+
+    def take(self) -> dict:
+        """:func:`fold_held` of the calls, by bucket."""
+        return fold_held(self.rows)
+
+
+def front_static_one(arch, layers, wbits, prompt, new, rows, smi) -> dict:
+    """One config through ``launch/serve.py``'s static path at full width
+    (``layers``: cut to that many with ``dataclasses.replace``), seeded
+    weights drawn on the card (``wbits``: packed as drawn, dequantized
+    once to bf16): a warm run, a measured run (prefill ms, decode tok/s,
+    launches: flash once per attention layer, encoder layers included,
+    in the prefill, none in the decode; every launch on the tensor-core
+    route), then one prefill with every flash call held against its
+    plain version in bf16 and fp32 (:class:`FlashHold`); peak memory."""
+    full = get_config(arch)
+    cfg = full if layers is None else replace(full, n_layers=layers)
+    cut = ("no cut" if layers is None else
+           f"cut to {layers} of {full.n_layers} layers with "
+           f"dataclasses.replace")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, device="cuda", wbits=wbits)
+    if wbits:
+        params = serve.dequantize_tree(params, getattr(torch, cfg.dtype))
+    torch.cuda.synchronize()
+    gib = torch.cuda.memory_allocated() / 2**30
+    packed = (f", int{wbits}-packed as drawn, dequantized once" if wbits
+              else "")
+    print(f"[static-front] {cfg.name} ({smi}): {cfg.n_layers} layers "
+          f"({cut}), d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+          f"of {cfg.resolved_head_dim}, "
+          f"{api.count_params_analytic(cfg) / 1e9:.3f} B params, "
+          f"{cfg.dtype} weights ({gib:.2f} GiB{packed}) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    args = types.SimpleNamespace(slots=rows, prompt_len=prompt, tokens=new,
+                                 seed=0)
+    serve.run_static(params, cfg, types.SimpleNamespace(
+        **{**vars(args), "tokens": 2, "seed": 1}), "cuda")
+    ops.reset_launch_counts()
+    r = serve.run_static(params, cfg, args, "cuda")
+    routes = ops.launch_counts(routes=True)
+    check_routes(routes, ("flash_attention",), f"{cfg.name} static")
+    want = {"flash_attention": cfg.n_layers + cfg.n_enc_layers}
+    if r["launches_prefill"] != want or r["launches_decode"]:
+        raise AssertionError(f"{cfg.name}: launches prefill "
+                             f"{r['launches_prefill']}, decode "
+                             f"{r['launches_decode']}; want {want}, none")
+    toks = r["tokens"]
+    if toks.shape != (rows, new) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: tokens {tuple(toks.shape)}")
+    n_dec = rows * (new - 1)
+    row = {"layers": cfg.n_layers, "cut": cut, "weights_gib": gib,
+           "prefill_ms": r["prefill_s"] * 1e3,
+           "decode_tok_s": n_dec / r["decode_s"], "launches": want}
+    del r
+    hold = FlashHold(attn_mod.flash_attention)
+    with mock.patch.object(attn_mod, "flash_attention", hold):
+        ops.reset_launch_counts()
+        serve.run_static(params, cfg, types.SimpleNamespace(
+            **{**vars(args), "tokens": 1, "seed": 2}), "cuda")
+        torch.cuda.synchronize()
+        launched = {k: c for k, c in ops.launch_counts().items() if c}
+    held = hold.take()
+    masks = {"causal": sum(c for *_, c in hold.shapes),
+             "not causal": sum(not c for *_, c in hold.shapes)}
+    want_masks = {"causal": cfg.n_layers, "not causal": cfg.n_enc_layers}
+    if launched != want or masks != want_masks or not held_ok(held) or \
+            {n: h[0] for n, h in held.items()} != {
+                "flash_attention": sum(want.values()),
+                "flash_attention fp32": sum(want.values())}:
+        raise AssertionError(f"{cfg.name}: flash held {held}, masks "
+                             f"{masks}, launched {launched}")
+    row.update(held=held, masks=masks,
+               shapes=sorted({str(x) for x in hold.shapes}))
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[static-front] {cfg.name} ({smi}): prefill {rows}x{prompt} "
+          f"{row['prefill_ms']:.2f} ms, decode {n_dec} tokens "
+          f"{row['decode_tok_s']:.1f} tok/s; flash {want['flash_attention']}"
+          f" a prefill ({masks}), 0 in the decode, tensor-core; held vs "
+          f"plain: " + "; ".join(f"{dt}: {c} calls, max|err| {e:.3g}"
+                                 for dt, (c, e, *_) in held.items())
+          + f"; shapes {row['shapes']}; peak device memory "
+          f"{row['peak_gib']:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def encoder_train_check(smi: str) -> dict:
+    """whisper-tiny's training encoder at full width and frame count (2
+    x 1500 frames; ``blockwise_attn``, not causal: query chunks of 500
+    against KV chunks of 750) against the same encoder through the dense
+    plain attention (``ref.flash_attention_gqa_ref``), on the card in
+    fp32 with TF32 off: the output and the gradient of every encoder
+    leaf (of the output's dot with a seeded tensor) within
+    ``LM_GRAD_TOL`` of their largest magnitudes. No kernel launches."""
+    cfg = replace(get_config(AUDIO_ARCH), dtype="float32")
+    F_ = cfg.frontend_tokens
+    chunks = (F_ // attn_mod._chunk(F_, 512), F_ // attn_mod._chunk(F_, 1024))
+    params = encdec.init_encoder(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, dtype=torch.float32)
+    rs = np.random.RandomState(0)
+    frames, w = (torch.from_numpy(rs.randn(2, F_, cfg.d_model)
+                                  .astype(np.float32)).cuda()
+                 for _ in range(2))
+    leaves = tree_items(params)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        ops.reset_launch_counts()
+        for train in (True, False):
+            with mock.patch.object(attn_mod, "flash_attention",
+                                   ref.flash_attention_gqa_ref):
+                for _, leaf in leaves:
+                    leaf.requires_grad_(True)
+                y = encdec.encode(params, frames, cfg, train=train)
+                g = torch.autograd.grad((y * w).sum(),
+                                        [leaf for _, leaf in leaves])
+            out.append((y.detach(), g))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+        for _, leaf in leaves:
+            leaf.requires_grad_(False)
+    launched = {k: c for k, c in ops.launch_counts().items() if c}
+    (y, g), (y_d, g_d) = out
+    y_err, y_max = float((y - y_d).abs().max()), float(y_d.abs().max())
+    g_err = {path: float((a - b).abs().max())
+             for (path, _), a, b in zip(leaves, g, g_d)}
+    g_max = max(float(b.abs().max()) for b in g_d)
+    worst = max(g_err, key=g_err.get)
+    print(f"[static-front] {cfg.name} ({smi}): training encoder (2 x {F_} "
+          f"frames, {chunks[0]} query chunks x {chunks[1]} KV chunks, not "
+          f"causal, fp32) vs the dense plain attention: output max|err| "
+          f"{y_err:.3e} (max|y| {y_max:.3e}); {len(g)} gradient leaves, "
+          f"worst {g_err[worst]:.3e} at {worst} (max|g| {g_max:.3e}); "
+          f"bound {LM_GRAD_TOL:g} of the largest")
+    if launched or chunks != (3, 2) or y_err > LM_GRAD_TOL * y_max or \
+            g_err[worst] > LM_GRAD_TOL * g_max or not all(
+                torch.isfinite(a).all() for a in (y, *g)):
+        raise AssertionError(f"training encoder vs dense: launched "
+                             f"{launched}, chunks {chunks}, output "
+                             f"{y_err} of {y_max}, grads {g_err}")
+    return {"chunks": chunks, "out_err": y_err, "out_max": y_max,
+            "grad_err": g_err[worst], "grad_max": g_max}
+
+
+def phase_front_static_train(smi: str) -> dict:
+    """Phase 20: the static path of whisper-tiny, internvl2-1b (``--wbits
+    8`` dequantized to bf16), chatglm3-6b, and command-r-plus-104b and
+    llama3-405b at published widths cut to 2 layers; then 10 training
+    steps each of whisper-tiny and internvl2-1b (phase 15's loop and
+    checks on one repeated batch: finite, falling loss, step p50, a
+    traced step), their card-vs-CPU gradients at smoke and the training
+    encoder at full width and frame count against the dense one."""
+    out = {"static": {a: front_static_one(a, *rest, smi=smi)
+                      for a, *rest in FRONT_STATIC}}
+    out["train"] = {a: lm_train_one(a, None, b, s, 10, True, smi,
+                                    repeat=True)
+                    for a, b, s in FRONT_TRAIN}
+    out["grads"] = {a: lm_grad_check(a, smi) for a in FRONT_GRAD_ARCHS}
+    out["encoder"] = encoder_train_check(smi)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3417,6 +3933,10 @@ def main() -> int:
     knob_routes = rub["launches"]
     hyb = lap("serve (hybrid)", phase_hybrid_serve)
     ssm_eng = lap("serve (ssm)", phase_ssm_serve)
+    aud = lap("serve (audio)", phase_audio_serve)
+    front = lap("static+train (frontends)", phase_front_static_train, smi)
+    front_flash = {a: r["launches"]["flash_attention"]
+                   for a, r in front["static"].items()}
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
 
     def forward_sum(pk):
@@ -3466,7 +3986,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/qmatmul.py:57",
         "launches": lm_launches["qmatmul"] + ds_launches["qmatmul"]
         + sum(knob_routes["qmatmul"].values()) + hyb["launches"]["qmatmul"]
-        + ssm_eng["launches"]["qmatmul"],
+        + ssm_eng["launches"]["qmatmul"] + aud["launches"]["qmatmul"],
         "max_abs_err": lm_kern["err"]["qmatmul"],
         **{key: decode[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "library_ms")},
@@ -3481,11 +4001,13 @@ def main() -> int:
                               "rubicon": knob_routes["qmatmul"],
                               HYMBA_ARCH: hyb["routes"]["qmatmul"],
                               SSM_ARCH + " (engine)":
-                                  ssm_eng["routes"]["qmatmul"]},
+                                  ssm_eng["routes"]["qmatmul"],
+                              AUDIO_ARCH: aud["routes"]["qmatmul"]},
         "launches_by_route": {
             r: lm_routes["qmatmul"][r] + ds_routes["qmatmul"][r]
             + knob_routes["qmatmul"][r] + hyb["routes"]["qmatmul"][r]
-            + ssm_eng["routes"]["qmatmul"][r] for r in qmm.ROUTES},
+            + ssm_eng["routes"]["qmatmul"][r] + aud["routes"]["qmatmul"][r]
+            for r in qmm.ROUTES},
         "routes": {r: {"kernel": kern, "x": "bf16 (timed); served: "
                        + x, "decode_tick_ms": decode[r],
                        "mixed_tick_ms": mixed[r]}
@@ -3509,7 +4031,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention.py:{replaces}",
             "launches": lm_launches[name] + sum(knob_routes[name].values())
-            + hyb["launches"][name],
+            + hyb["launches"][name] + aud["launches"][name],
             "max_abs_err": lm_kern["err"][name],
             **{key: (row[key] * qwen.n_layers if key.endswith("ms")
                      else row[key]) for key in row},
@@ -3520,12 +4042,19 @@ def main() -> int:
             "launches_by_route": {r: lm_routes[name][r]
                                   + knob_routes[name][r]
                                   + hyb["routes"][name][r]
+                                  + aud["routes"][name][r]
                                   for r in pa.ROUTES},
+            "audio_held_vs_plain": {
+                n: dict(zip(("calls", "max_abs_err", "max_excess",
+                             "finite", "max_abs_want"), h))
+                for n, h in aud["held"].items() if n.split()[0] == name},
             "launches_by_phase": {LM_ARCH: lm_routes[name],
                                   "rubicon": knob_routes[name],
                                   HYMBA_ARCH: hyb["routes"][name],
                                   SSM_ARCH + " (engine)":
-                                      ssm_eng["routes"][name]},
+                                      ssm_eng["routes"][name],
+                                  AUDIO_ARCH + " (self + cross)":
+                                      aud["routes"][name]},
             "per_call": row, **extra})
     for name, replaces in (("mla_paged", 372), ("mla_paged_chunk", 608)):
         row = mla_kern["timing"][(name, MLA_POSITIONS[0])]
@@ -3561,22 +4090,30 @@ def main() -> int:
              ssm_run, SSM_ARCH)):
         row = pre["timing"][name]
         n = run["launches"][name]
+        flash = name == "flash_attention"
+        new = ({f"{AUDIO_ARCH} admissions (engine)":
+                aud["launches"][name],
+                **{f"{a} static": c for a, c in front_flash.items()}}
+               if flash else {})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces,
-            "launches": n + hyb_static["launches"][name],
+            "launches": n + hyb_static["launches"][name]
+            + sum(new.values()),
             "launches_by_phase": {f"{arch} static": n,
                                   f"{HYMBA_ARCH} static":
-                                      hyb_static["launches"][name]},
+                                      hyb_static["launches"][name], **new},
             "max_abs_err": pre["err"][name],
             **{key: (row[key] * n if key.endswith("ms") and row[key]
                      is not None else row[key]) for key in row
                if key != "shape"},
             "shape": f"sum over one {arch} prefill's {n} launches, "
                      f"{row['shape']}",
+            # phases 19 and 20 assert their flash launches tensor-core
             "launches_by_route": {
                 r: run["routes"][name][r] + hyb_static["routes"][name][r]
+                + (sum(new.values()) if r == "tensor_core" else 0)
                 for r in ("tensor_core", "cuda_core")},
             "per_call": row,
             "static": {k: v for k, v in run.items() if k != "trace"},

@@ -152,8 +152,10 @@ class ModelConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 PAPER_ARCHS = ("rubicall", "bonito", "causalcall")
-LM_ARCHS = ("qwen1.5-4b", "deepseek-v3-671b", "granite-moe-1b-a400m",
-            "mamba2-130m", "hymba-1.5b")
+LM_ARCHS = ("qwen1.5-4b", "chatglm3-6b", "command-r-plus-104b",
+            "llama3-405b", "internvl2-1b", "deepseek-v3-671b",
+            "granite-moe-1b-a400m", "mamba2-130m", "hymba-1.5b",
+            "whisper-tiny")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

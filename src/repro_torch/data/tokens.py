@@ -16,15 +16,10 @@ from repro_torch.config import ModelConfig
 
 def token_batches(cfg: ModelConfig, batch: int, seq: int,
                   seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-    """Endless ``{"tokens", "labels"}`` batches, (batch, seq) int32.
-    The ``vlm`` and ``audio`` families' frontend inputs are not
-    ported."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family's frontend inputs "
-            f"(patch embeddings, audio frames) are not ported: they feed "
-            f"models/lm/encdec.py and the vision projection, which the "
-            f"port lacks")
+    """Endless ``{"tokens", "labels"}`` batches, (batch, seq) int32; a
+    vlm batch adds ``patch_embeds`` and an audio batch ``frames``,
+    (batch, frontend_tokens, d_model) fp32 standard normal stubs drawn
+    after the tokens from the same stream."""
     rng = np.random.RandomState(seed)
     V = cfg.vocab_size
     jumps = rng.randint(1, 17, size=64)
@@ -33,5 +28,10 @@ def token_batches(cfg: ModelConfig, batch: int, seq: int,
         steps = jumps[rng.randint(0, 64, size=(batch, seq))]
         toks = (start + np.cumsum(steps, axis=1) - steps) % V
         labels = (toks + steps) % V
-        yield {"tokens": toks.astype(np.int32),
+        out = {"tokens": toks.astype(np.int32),
                "labels": labels.astype(np.int32)}
+        if cfg.family in ("vlm", "audio"):
+            name = "patch_embeds" if cfg.family == "vlm" else "frames"
+            out[name] = rng.randn(batch, cfg.frontend_tokens,
+                                  cfg.d_model).astype(np.float32)
+        yield out

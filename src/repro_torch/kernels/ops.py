@@ -21,6 +21,7 @@ paged kernels reading the block arena in place (``gqa_paged`` /
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -166,22 +167,66 @@ def _paged(q, *args, chunk: bool, **kw):
     return fn(q, *args, **kw)
 
 
+@functools.lru_cache(maxsize=None)
+def contiguous_block_len(L: int, hd: int) -> int:
+    """The block length a contiguous row of ``L`` positions at head dim
+    ``hd`` is viewed in on the card. The CUDA-core kernel stages a whole
+    block in shared memory, so a block is at most
+    ``pa.cuda_core_max_block(hd)`` long (Whisper's 1500 encoder frames
+    in one block would take ~786 KB at hd 64). Of those lengths, the
+    largest divisor of L, so the rows reshape in place (375 at 1500 and
+    hd 64); where that divisor is under half the longest (a prime L),
+    the longest, and :func:`decode_gqa` pads each row with masked
+    positions."""
+    cap = min(L, pa.cuda_core_max_block(hd))
+    bl = next(b for b in range(cap, 0, -1) if L % b == 0)
+    return bl if 2 * bl >= cap else cap
+
+
 def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               pos: torch.Tensor, t: torch.Tensor, *, table: torch.Tensor,
+               pos: torch.Tensor, t: torch.Tensor, *,
+               table: Optional[torch.Tensor] = None,
                window: int = 0, backend: Optional[str] = None,
                k_scale: Optional[torch.Tensor] = None,
                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Decode attention over the paged pool. q: (B, C, H, hd); k/v: arenas
-    (n_blocks, block_len, Hkv, hd); pos: (B, T*block_len); t: (B, C)
-    (< 0 = pad row); table: (B, T) (-1 = unassigned). Returns
-    (B, C, H*hd).
+    """Decode attention over slot-pool KV. q: (B, C, H, hd); pos: (B,
+    L); t: (B, C) (< 0 = pad row). Returns (B, C, H*hd).
+
+    ``table`` (B, T) (-1 = unassigned): k/v are shared arenas
+    (n_blocks, block_len, Hkv, hd) with L = T * block_len. ``table``
+    None: k/v are contiguous rows (B, L, Hkv, hd), as the audio
+    family's encoder buffer.
 
     ``backend`` ``gather``/None: the reference over the gathered logical
-    view. ``cuda``: single-token steps (C == 1) run ``gqa_paged``,
-    C > 1 chunks ``gqa_paged_chunk``. ``k_scale``/``v_scale``: int8
-    arena scales (n_blocks, block_len, Hkv)."""
+    view (the rows themselves when contiguous). ``cuda``: single-token
+    steps (C == 1) run ``gqa_paged``, C > 1 chunks ``gqa_paged_chunk``;
+    contiguous rows go as an arena of :func:`contiguous_block_len`
+    blocks (padded with masked positions where that length does not
+    divide L), row b's in table row b, in order. ``k_scale``/``v_scale``:
+    int8 arena scales (n_blocks, block_len, Hkv), paged layout only."""
     B, C, H, hd = q.shape
-    Hkv, bl = k.shape[2], k.shape[1]
+    Hkv = k.shape[2]
+    if table is None:
+        if k_scale is not None or v_scale is not None:
+            raise ValueError("decode_gqa: int8 KV scales need the paged "
+                             "layout (contiguous rows store bf16, fp8 or "
+                             "fp32 directly)")
+        if backend != "cuda":
+            return pa.gqa_reference(q, k, v, pos, t, window=window)
+        L = k.shape[1]
+        bl = contiguous_block_len(L, hd)
+        pad = -L % bl
+        if pad:
+            k, v = (torch.cat([a, a.new_zeros(B, pad, Hkv, hd)], dim=1)
+                    for a in (k, v))
+            pos = torch.cat([pos, pos.new_full((B, pad), pa.EMPTY_POS)],
+                            dim=1)
+        n = (L + pad) // bl
+        k = k.reshape(B * n, bl, Hkv, hd)
+        v = v.reshape(B * n, bl, Hkv, hd)
+        table = torch.arange(B * n, dtype=torch.int32,
+                             device=k.device).reshape(B, n)
+    bl = k.shape[1]
     if backend == "cuda":
         kw = dict(window=window, k_scale=k_scale, v_scale=v_scale)
         tbl = table.to(torch.int32).contiguous()

@@ -229,6 +229,25 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
               torch.int8: 3, torch.float16: 4}
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
+CORE_ROWS = 16                # query rows of a CUDA-core block, at most
+
+
+def cuda_core_smem_bytes(rows: int, bl: int, hd: int) -> int:
+    """The CUDA-core kernel's dynamic shared memory for ``rows`` query
+    rows over blocks of ``bl`` positions (csrc ``smem_bytes``): q, K
+    (each row padded by one) and V staged as fp32 whatever the arena's
+    dtype, the scores, the softmax state and the positions."""
+    rt = min(rows, CORE_ROWS)
+    return (4 * (rt * (hd + 1) + bl * (hd + 1) + bl * hd + rt * bl + 3 * rt)
+            + 4 * (rt + bl))
+
+
+def cuda_core_max_block(hd: int) -> int:
+    """The longest block the CUDA-core kernel stages at head dim ``hd``
+    with its most query rows: 390 positions at hd 64, 204 at 128."""
+    fixed = cuda_core_smem_bytes(CORE_ROWS, 0, hd)
+    return (SMEM_LIMIT - fixed) // (cuda_core_smem_bytes(CORE_ROWS, 1, hd)
+                                    - fixed)
 
 
 @functools.cache

@@ -29,8 +29,8 @@ ejected read frees its slot, keeps its bases so far, and its generator
 stops appending. The streamed run reports emit-latency p50/p99 and,
 with read-until, ejections and samples saved.
 
-Token LMs (the dense, moe, ssm and hybrid families)
----------------------------------------------------
+Token LMs (the dense, moe, ssm, hybrid and audio families)
+----------------------------------------------------------
 ``python -m repro_torch.launch.serve --arch qwen1.5-4b --wbits 8
 --warmup`` replays ``--requests`` prompts of up to ``--prompt-len``
 random tokens, each asking for up to ``--tokens`` new ones, arriving as
@@ -53,7 +53,12 @@ pool, or ``granite-moe-1b-a400m``) goes the same way, as do the ssm
 family (``--arch mamba2-130m``: per-slot recurrent state, no KV pool)
 and the hybrid family (``--arch hymba-1.5b``: attention beside SSM
 heads in every layer, sliding-window layers paged as rings of their
-window, full-attention ones at ``--cache-len``). ``--split-tick``
+window, full-attention ones at ``--cache-len``) and the audio family
+(``--arch whisper-tiny``: each request carries seeded stub frames; its
+encoder runs once at admission into a per-slot cross-attention buffer,
+read by the paged kernel on decode ticks). The vlm family
+(``internvl2-1b``) has no serving runner, as in the reference, and
+serves only under ``--static``. ``--split-tick``
 runs the legacy scheduler (one step per prefilling slot, then a
 decode-only step) instead of the co-batched tick; ``--history-limit N``
 keeps only the newest N entries of the host-side per-request history.
@@ -70,15 +75,17 @@ roofline-prior order) and ``--per-group`` adds the per-layer-group
 refinement. It prints the table ranked by decode tok/s per cache byte
 and the best knobs as flags.
 
-The static path (``--static``, token LMs of the dense, ssm and hybrid families)
--------------------------------------------------------------------------------
+The static path (``--static``, every LM family but moe)
+-------------------------------------------------------
 ``python -m repro_torch.launch.serve --arch mamba2-130m --static
 --slots 4 --prompt-len 2048 --tokens 32`` runs the reference's legacy
 single-shot loop: one fixed batch of ``--slots`` random prompts of
 ``--prompt-len`` tokens, one whole-prompt prefill into contiguous caches
 (the ``ssd_scan`` kernel for mamba2's SSD layers, ``flash_attention``
 for qwen1.5-4b's attention, both for hymba-1.5b's full-attention
-layers and ``ssd_scan`` alone for its sliding-window ones), then
+layers and ``ssd_scan`` alone for its sliding-window ones; Whisper's
+encoder runs the kernel without the causal mask over its seeded frames,
+and internvl2-1b's seeded patch embeddings sit before the prompt), then
 ``--tokens`` - 1 lockstep greedy decode steps. ``--wbits`` packs the
 weights as they are drawn and dequantizes them once, up front, as the
 reference's static path does. It prints the prefill time, decode tok/s
@@ -292,7 +299,9 @@ def request_samples(args, i: int) -> bool:
 
 
 def build_requests(cfg, args, seed: int = 0):
-    """Poisson arrivals of random-token prompts (the reference's stream)."""
+    """Poisson arrivals of random-token prompts (the reference's stream);
+    an audio arch's requests carry standard-normal stub frames, drawn
+    after each request's sampling parameters from the same stream."""
     from repro_torch.serving.engine import Request
     from repro_torch.serving.sampling import SamplingParams
     rs = np.random.RandomState(seed)
@@ -311,8 +320,10 @@ def build_requests(cfg, args, seed: int = 0):
                                 seed=args.seed + i)
         else:
             sp = SamplingParams(max_new_tokens=mnew, eos_id=eos)
+        frames = (rs.randn(cfg.frontend_tokens, cfg.d_model)
+                  .astype(np.float32) if cfg.family == "audio" else None)
         reqs.append(Request(rid=i, prompt=prompt, sampling=sp,
-                            arrival_time=float(arrivals[i])))
+                            frames=frames, arrival_time=float(arrivals[i])))
     return reqs
 
 
@@ -396,6 +407,12 @@ def run_lm(cfg, args, device) -> None:
           + (f", history_limit {args.history_limit}"
              if args.history_limit else "")
           + f", cache quantization {pool.quant_policy.describe()}")
+    enc = getattr(engine.runner, "enc_kv", None)
+    if enc:
+        nb = sum(t.numel() * t.element_size() for g in enc.values()
+                 for t in g.values())
+        print(f"[serve] encoder buffer: {nb / 2 ** 20:.2f} MiB "
+              f"({cfg.frontend_tokens} frames a slot, staged at admission)")
     print(f"[serve] attn backend: {engine.runner.attn_backend} "
           f"(requested {args.attn_backend!r})")
     run(engine, reqs)
@@ -431,23 +448,37 @@ def _sync(device) -> None:
 
 
 def static_generate(params, cfg, tokens, n_new: int, *, cache_len=None,
-                    cache_dtype=torch.bfloat16) -> dict:
+                    cache_dtype=torch.bfloat16, patch_embeds=None,
+                    frames=None) -> dict:
     """The static loop over prompts ``tokens`` (B, S): whole-prompt
     prefill, then ``n_new`` - 1 lockstep greedy decode steps (every row
-    at the same position). Returns the greedy tokens (B, n_new), the
-    prefill and decode seconds (host clock around work that ends in a
-    device synchronisation) and the kernel launches of each half."""
+    at the same position, from the prefilled length). ``patch_embeds``
+    (B, P, d): a vlm prompt's patches, before the tokens; the decode
+    then starts P positions further on, at S + 2 P, as the reference's
+    loop starts it (its prompt length counts the patches, and it adds
+    them again; the positions between stay empty). ``frames`` (B, F,
+    d): an audio prompt's, through the encoder inside the prefill.
+    Returns the greedy tokens (B, n_new), the prefill and decode
+    seconds (host clock around work that ends in a device
+    synchronisation) and the kernel launches of each half."""
+    from repro_torch.models.lm import encdec
     from repro_torch.models.lm import transformer as tfm
     dev = tokens.device
-    B, S = tokens.shape
-    cache_len = cache_len or S + n_new
+    B, start = tokens.shape
+    if patch_embeds is not None:
+        start += 2 * patch_embeds.shape[1]
+    cache_len = cache_len or start + n_new
     before = ops.launch_counts()
     _sync(dev)
     t0 = time.perf_counter()
     with torch.no_grad():      # the caches stay writable for the caller
+        enc_out = (encdec.encode(params["encoder"], frames, cfg)
+                   if frames is not None else None)
         logits, caches = tfm.prefill(params, tokens, cfg,
                                      cache_len=cache_len,
-                                     cache_dtype=cache_dtype)
+                                     cache_dtype=cache_dtype,
+                                     patch_embeds=patch_embeds,
+                                     enc_out=enc_out)
         tok = logits[:, -1:].argmax(-1).to(torch.int32)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
@@ -455,7 +486,8 @@ def static_generate(params, cfg, tokens, n_new: int, *, cache_len=None,
         out = [tok]
         t0 = time.perf_counter()
         for i in range(n_new - 1):
-            logits, caches = tfm.decode_step(params, caches, tok, S + i, cfg)
+            logits, caches = tfm.decode_step(params, caches, tok, start + i,
+                                             cfg)
             tok = logits[:, -1:].argmax(-1).to(torch.int32)
             out.append(tok)
         _sync(dev)
@@ -473,12 +505,19 @@ def run_static(params, cfg, args, device) -> dict:
     """The reference's legacy single-shot loop: ``--slots`` random
     prompts of ``--prompt-len`` tokens (seeded by ``--seed``), ``--tokens``
     greedy new tokens each; prints the prefill time, decode tok/s and
-    each half's kernel launches. Returns :func:`static_generate`'s
-    result."""
+    each half's kernel launches. A vlm batch's prompts keep ``--prompt-len
+    - frontend_tokens`` tokens after its patches, as the reference's
+    smoke batch, so its decode starts at ``--prompt-len +
+    frontend_tokens`` (:func:`static_generate`); the caches hold
+    ``prompt + tokens + frontend_tokens`` positions. Returns
+    :func:`static_generate`'s result."""
     batch = api.make_smoke_batch(args.seed, cfg, args.slots,
                                  args.prompt_len, device=device)
     r = static_generate(params, cfg, batch["tokens"], args.tokens,
-                        cache_len=args.prompt_len + args.tokens)
+                        cache_len=(args.prompt_len + args.tokens
+                                   + cfg.frontend_tokens),
+                        patch_embeds=batch.get("patch_embeds"),
+                        frames=batch.get("frames"))
     print(f"[serve] prefill {args.slots}x{args.prompt_len} in "
           f"{r['prefill_s'] * 1e3:.2f} ms; kernel launches "
           f"{r['launches_prefill'] or 'none'}")
@@ -659,6 +698,12 @@ def main(argv=None) -> None:
         run_static(params, cfg, args, device)
         return
     if cfg.family != "basecaller":
+        from repro_torch.serving.runner import runner_name_for
+        if runner_name_for(cfg) is None:
+            raise NotImplementedError(
+                f"[serve] {cfg.name} (family={cfg.family!r}) has no "
+                f"serving runner, as in the reference; serve it with "
+                f"--static")
         run_lm(cfg, args, device)
         return
     params = api.init_params(torch.Generator().manual_seed(0), cfg)

@@ -2,9 +2,10 @@
 rubicall --steps 200``.
 
 Trains a basecaller on synthetic squiggles (``data/squiggle.py``,
-``--batch`` chunks of ``--seq`` samples a step) or an LM (``dense``,
-``moe``, ``ssm``, ``hybrid``) on the synthetic Markov token stream
-(``data/tokens.py``, ``--batch`` rows of ``--seq`` tokens) through the
+``--batch`` chunks of ``--seq`` samples a step) or an LM (every family:
+``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm`` with stub patch
+embeddings, ``audio`` with stub frames) on the synthetic Markov token
+stream (``data/tokens.py``, ``--batch`` rows of ``--seq`` tokens) through the
 fault-tolerant loop (``training/train_loop.py``: checkpoint/resume
 every ``--ckpt-every`` steps into ``--ckpt-dir``, optional int8
 gradient compression) and prints the metric history, one JSON row per
@@ -28,7 +29,8 @@ from repro_torch.training.train_loop import TrainLoopConfig, run
 
 def data_for(cfg, batch: int, seq: int):
     """Synthetic squiggle batches for a basecaller, synthetic token
-    batches for an LM (numpy; the loop moves them to the device)."""
+    batches (with a vlm's patch embeddings or an audio arch's frames)
+    for an LM (numpy; the loop moves them to the device)."""
     if cfg.family == "basecaller":
         from repro_torch.data.squiggle import SquiggleConfig, batches
         yield from batches(SquiggleConfig(chunk_len=seq), batch)

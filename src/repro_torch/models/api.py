@@ -1,11 +1,12 @@
-"""Model API of the port (the basecaller family and the LM families
-ported so far: ``dense``, ``moe`` (GQA or MLA, with the MTP head),
-``ssm`` and ``hybrid`` in training and through the serving engine;
-``dense``, ``ssm`` and ``hybrid`` through the static path): parameter
-init, the
-loss and train step, the serving engine, the whole-prompt prefill and
-lockstep decode steps and smoke batches, on the device a caller names;
-parameter counts from shapes alone.
+"""Model API of the port (the basecaller family and every LM family of
+the reference: ``dense``, ``moe`` (GQA or MLA, with the MTP head),
+``ssm``, ``hybrid``, ``vlm`` (patch embeddings prepended) and
+``audio`` (Whisper's encoder-decoder) in training; all but ``vlm``
+through the serving engine, as the reference; ``dense``, ``ssm``,
+``hybrid``, ``vlm`` and ``audio`` through the static path): parameter
+init, the loss and train step, the serving engine, the whole-prompt
+prefill and lockstep decode steps and smoke batches, on the device a
+caller names; parameter counts from shapes alone.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they
@@ -47,7 +48,8 @@ def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0,
     device). ``wbits`` 8 or 4 packs the weights as they are drawn, leaf
     by leaf and expert stacks a few experts at a time, so the float tree
     never exists whole on the device; the result equals
-    ``quantize_tree(init_params(...), QuantPolicy(wbits, 0))``."""
+    ``quantize_tree(init_params(...), QuantPolicy(wbits, 0))``. The
+    audio family's encoder is drawn last, under ``encoder``."""
     if cfg.family == "basecaller":
         from repro_torch.models.basecaller import model as bc
         return bc.init_params(gen, cfg)
@@ -61,7 +63,13 @@ def init_params(gen, cfg: ModelConfig, *, device=None, wbits: int = 0,
         from repro_torch.config import QuantPolicy
         from repro_torch.core.quant.policy import Packer
         pack = Packer(QuantPolicy(weight_bits=wbits, act_bits=0))
-    return tfm.init_decoder(gen, cfg, pack=pack, dtype=dtype)
+    params = tfm.init_decoder(gen, cfg, pack=pack, dtype=dtype)
+    if cfg.family == "audio":
+        from repro_torch.models.lm import encdec
+        params["encoder"] = encdec.init_encoder(
+            gen, cfg, dtype=getattr(torch, cfg.dtype) if dtype is None
+            else dtype, pack=pack)
+    return params
 
 
 def init_model_state(cfg: ModelConfig):
@@ -106,31 +114,29 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
     """``loss(params, model_state, batch) -> (loss, (metrics,
     new_state))``.
 
-    Basecaller: the CTC loss (``model.loss_fn``). LM (``dense``,
-    ``moe``, ``ssm``, ``hybrid``): the mean cross-entropy of
-    ``batch["labels"]`` over the training forward of
+    Basecaller: the CTC loss (``model.loss_fn``). LM: the mean
+    cross-entropy of ``batch["labels"]`` over the training forward of
     ``batch["tokens"]``, plus 0.01 x the MoE aux loss when
     ``cfg.n_experts`` and 0.3 x the MTP loss when ``cfg.mtp_depth``;
-    metrics ``ce`` (and ``moe_aux``, ``mtp``). The ``vlm`` and
-    ``audio`` families raise."""
+    metrics ``ce`` (and ``moe_aux``, ``mtp``). A vlm batch's
+    ``patch_embeds`` are prepended and their positions cut off the
+    hidden states before the unembedding; an audio batch's ``frames``
+    go through the training encoder first."""
     if cfg.family == "basecaller":
         from repro_torch.models.basecaller import model as bc
 
         def bc_loss(params, model_state, batch):
             return bc.loss_fn(params, model_state, batch, cfg)
         return bc_loss
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not "
-            f"ported: it needs models/lm/encdec.py (audio) or the vision "
-            f"projection (vlm), and the configs whisper_tiny and "
-            f"internvl2_1b")
     from repro_torch.models.lm import transformer as tfm
     from repro_torch.models.lm.common import cross_entropy
     tfm.layer_plan(cfg)          # raises for a family that is not ported
 
     def lm_loss(params, model_state, batch):
-        h, aux = tfm.forward(params, batch["tokens"], cfg, train=True)
+        kw = frontend_inputs(params, batch, cfg, train=True)
+        h, aux = tfm.forward(params, batch["tokens"], cfg, train=True, **kw)
+        if cfg.family == "vlm":
+            h = h[:, batch["patch_embeds"].shape[1]:]
         lsum, wsum = cross_entropy(tfm.unembed(params, h, cfg),
                                    batch["labels"])
         loss = lsum / wsum.clamp_min(1.0)
@@ -144,6 +150,21 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
             metrics["mtp"] = loss_mtp
         return loss, (metrics, model_state)
     return lm_loss
+
+
+def frontend_inputs(params, batch: Dict, cfg: ModelConfig, *,
+                    train: bool = False) -> Dict:
+    """The frontend keywords of ``transformer.forward``/``prefill`` for
+    ``batch``: a vlm batch's ``patch_embeds``, an audio batch's
+    ``frames`` through the encoder (``train``: its differentiable
+    attention) as ``enc_out``; none for the token families."""
+    if cfg.family == "vlm":
+        return {"patch_embeds": batch["patch_embeds"]}
+    if cfg.family == "audio":
+        from repro_torch.models.lm import encdec
+        return {"enc_out": encdec.encode(params["encoder"], batch["frames"],
+                                         cfg, train=train)}
+    return {}
 
 
 def _mtp_loss(params, h: torch.Tensor, batch: Dict, cfg: ModelConfig
@@ -239,7 +260,8 @@ def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):
     """Continuous-batching engine over this model on ``device``
     (default CUDA): the params move there, and the runner registry
     builds the backend (``TokenRunner`` for token LMs,
-    ``BasecallerRunner`` for basecallers). Extra ``**kw`` reach the
+    ``EncoderPrefixRunner`` for the audio family, ``BasecallerRunner``
+    for basecallers; the vlm family has none and raises). Extra ``**kw`` reach the
     engine and runner: ``n_slots``; for token LMs ``cache_len``,
     ``prefill_chunk``, ``block_len``, ``n_blocks``, ``cache_dtype``,
     ``quant_policy``, ``attn_backend``; for basecallers
@@ -260,11 +282,14 @@ def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):
 
 def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch) -> (last logits (B, 1, V), caches)``
-    over ``batch["tokens"]`` (B, S), caches of S positions."""
+    over ``batch["tokens"]`` (B, S) (after a vlm batch's patches; an
+    audio batch's frames encoded first), caches of the sequence's
+    positions."""
     from repro_torch.models.lm import transformer as tfm
 
     def prefill_step(params, batch):
-        return tfm.prefill(params, batch["tokens"], cfg)
+        return tfm.prefill(params, batch["tokens"], cfg,
+                           **frontend_inputs(params, batch, cfg))
     return prefill_step
 
 
@@ -284,7 +309,10 @@ def make_smoke_batch(gen, cfg: ModelConfig, batch: int = 2,
     seed or a ``torch.Generator`` on that device). Basecaller:
     ``signal`` (B, seq, 1) fp32 normal, ``labels`` (B, seq // 8) int32 in
     [1, n_bases), ``label_lengths`` (B,) = seq // 8. Token LM:
-    ``tokens`` and ``labels`` (B, seq) int32 in [0, vocab)."""
+    ``tokens`` and ``labels`` (B, seq) int32 in [0, vocab); a vlm batch's
+    lose their first ``frontend_tokens`` columns to ``patch_embeds`` (B,
+    frontend_tokens, d) fp32 normal; an audio batch adds ``frames`` (B,
+    frontend_tokens, d) fp32 normal."""
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(
             int(gen))
@@ -297,7 +325,17 @@ def make_smoke_batch(gen, cfg: ModelConfig, batch: int = 2,
                                         dtype=torch.int32),
                 "label_lengths": torch.full((batch,), L, dtype=torch.int32,
                                             device=gen.device)}
-    return {name: torch.randint(0, cfg.vocab_size, (batch, seq),
-                                generator=gen, device=gen.device,
-                                dtype=torch.int32)
-            for name in ("tokens", "labels")}
+    out = {name: torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device=gen.device,
+                               dtype=torch.int32)
+           for name in ("tokens", "labels")}
+    if cfg.family in ("vlm", "audio"):
+        P = cfg.frontend_tokens
+        emb = torch.randn((batch, P, cfg.d_model), generator=gen,
+                          device=gen.device)
+        if cfg.family == "vlm":
+            out = {k: v[:, P:] for k, v in out.items()}
+            out["patch_embeds"] = emb
+        else:
+            out["frames"] = emb
+    return out

@@ -111,7 +111,7 @@ def dense(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "",
 
 
 # ---------------------------------------------------------------------------
-# Norms and MLP
+# Norms and MLPs
 
 
 def make_rmsnorm_params(d: int, *, lead=(), dtype=torch.float32,
@@ -125,20 +125,47 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
-def make_mlp_params(gen: torch.Generator, d: int, ff: int, *, lead=(),
+def make_layernorm_params(d: int, *, lead=(), dtype=torch.float32,
+                          device=None) -> Params:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 (the biased variance, as ``jnp.var``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(x.dtype)
+
+
+def make_mlp_params(gen: torch.Generator, d: int, ff: int, *,
+                    gated: bool = True, lead=(),
                     dtype=torch.float32) -> Params:
-    """Gated MLP (the dense family's); drawn in the reference's order."""
-    return {"wi": make_dense_params(gen, d, ff, lead=lead, dtype=dtype),
-            "wo": make_dense_params(gen, ff, d, lead=lead, dtype=dtype),
-            "wg": make_dense_params(gen, d, ff, lead=lead, dtype=dtype)}
+    """A gated MLP (``wi``, ``wo``, ``wg``: the dense family's) or, with
+    ``gated=False``, the two-matrix MLP of Whisper's blocks; drawn in the
+    reference's order."""
+    kw = dict(lead=lead, dtype=dtype)
+    p = {"wi": make_dense_params(gen, d, ff, **kw),
+         "wo": make_dense_params(gen, ff, d, **kw)}
+    if gated:
+        p["wg"] = make_dense_params(gen, d, ff, **kw)
+    return p
 
 
-def mlp(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
-        tag: str = "mlp") -> torch.Tensor:
-    """Gated SiLU MLP: ``(silu(x Wg) * (x Wi)) Wo``."""
+def mlp(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "mlp",
+        act: str = "silu") -> torch.Tensor:
+    """Gated SiLU MLP ``(silu(x Wg) * (x Wi)) Wo`` when ``p`` has ``wg``;
+    else ``act(x Wi) Wo``. ``act="gelu"`` is the tanh approximation, as
+    ``jax.nn.gelu`` computes by default."""
     h = dense(p["wi"], x, cfg=cfg, tag=tag + "/wi")
-    g = dense(p["wg"], x, cfg=cfg, tag=tag + "/wg")
-    return dense(p["wo"], F.silu(g) * h, cfg=cfg, tag=tag + "/wo")
+    if "wg" in p:
+        g = dense(p["wg"], x, cfg=cfg, tag=tag + "/wg")
+        h = F.silu(g) * h
+    else:
+        h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
+    return dense(p["wo"], h, cfg=cfg, tag=tag + "/wo")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

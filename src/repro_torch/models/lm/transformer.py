@@ -17,14 +17,20 @@ axis in a Python loop where the reference scans. Ported block kinds:
   ssm         norm -> Mamba-2 (no MLP)
   hybrid_full norm -> mean of (GQA attention || Mamba-2) -> norm -> MLP
   hybrid_swa  the same with sliding-window attention
+  xdec        norm -> causal GQA attention -> norm -> cross-attention
+              over the encoder's K/V -> norm -> GELU MLP (Whisper's
+              decoder)
 
-Training runs every kind above; the slot path serves ``SLOT_KINDS``;
-the static path (``prefill``, ``decode_step``) runs ``STATIC_KINDS``.
-A hybrid block's cache nests ``{"kv": attention cache, "ssm": SSM
-state}``; an SSM group has no block table in the paged pool (its
-state is per slot). Every other kind (the audio family's ``xdec``),
-and a kind on a path that does not run it, raises
-``NotImplementedError`` naming it.
+The vlm family runs dense blocks over its projected patch embeddings
+(``vision_proj``) prepended to the tokens. Training runs every kind
+above; the slot path serves ``SLOT_KINDS``; the static path
+(``prefill``, ``decode_step``) runs ``STATIC_KINDS``. A hybrid block's
+cache nests ``{"kv": attention cache, "ssm": SSM state}``; an SSM
+group has no block table in the paged pool (its state is per slot); an
+xdec group's encoder K/V sits beside its cache under ``gname +
+"/enc_kv"`` on the static path, and in the runner's per-slot buffer
+(``enc_kv``) on the slot path. A kind on a path that does not run it
+raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import Packer, PackedTensor
+from repro_torch.kernels.ops import decode_gqa
 from repro_torch.kernels.paged_attention import paged_writes
 from repro_torch.models.lm import attention as attn_mod
 from repro_torch.models.lm import mla as mla_mod
@@ -50,8 +57,8 @@ from repro_torch.models.lm.common import (Params, dense, make_dense_params,
 # the static path (whole-prompt prefill + lockstep decode) covers, and
 # every kind whose parameters the port builds.
 SLOT_KINDS = ("dense", "moe", "ssm", "mla_dense", "mla_moe", "hybrid_full",
-              "hybrid_swa")
-STATIC_KINDS = ("dense", "ssm", "hybrid_full", "hybrid_swa")
+              "hybrid_swa", "xdec")
+STATIC_KINDS = ("dense", "ssm", "hybrid_full", "hybrid_swa", "xdec")
 PARAM_KINDS = SLOT_KINDS
 MLA_KINDS = ("mla_dense", "mla_moe")
 MOE_KINDS = ("moe", "mla_moe")
@@ -60,7 +67,7 @@ HYBRID_KINDS = ("hybrid_full", "hybrid_swa")
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     L = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [("dense", L)]
     if cfg.family == "moe":
         if cfg.mla:
@@ -88,12 +95,11 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
         if L - 1 - full[-1] > 0:
             plan.append(("hybrid_swa", L - 1 - full[-1]))
         return plan
-    missing = {"audio": "the xdec blocks and models/lm/encdec.py",
-               "vlm": "the vision projection of the patch embeddings"}
+    if cfg.family == "audio":
+        return [("xdec", L)]
     raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family's layers are not ported: "
-        f"{missing.get(cfg.family, 'no layer plan')} (ported block kinds: "
-        f"{PARAM_KINDS})")
+        f"{cfg.name}: the {cfg.family!r} family has no layer plan "
+        f"(ported block kinds: {PARAM_KINDS})")
 
 
 def _block_window(cfg: ModelConfig, kind: str) -> int:
@@ -107,7 +113,10 @@ def group_names(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
 
 
 def supports_slot_serving(cfg: ModelConfig) -> bool:
-    """Token-only arch whose every block kind is ported."""
+    """Token-only arch whose every block kind is ported. A frontend arch
+    (vlm, audio) needs a patch or frame prefix that the token-only
+    chunked prefill cannot feed: audio serves through its own runner,
+    vlm through none."""
     if cfg.frontend_tokens:
         return False
     try:
@@ -154,6 +163,12 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, *,
     if kind in MOE_KINDS:
         p["ffn"] = moe_mod.make_moe_params(gen, cfg, pack=pack,
                                            tag=tag + "ffn", **kw)
+    elif kind == "xdec":
+        p["xattn"] = attn_mod.make_attn_params(gen, cfg, **kw)
+        if pack is not None:
+            p["xattn"] = pack.tree(p["xattn"], tag + "xattn/")
+        p["ln_x"] = make_rmsnorm_params(d, **norm)
+        p["ffn"] = make_mlp_params(gen, d, cfg.d_ff, gated=False, **kw)
     else:
         ff = (cfg.dense_d_ff or cfg.d_ff) if kind == "mla_dense" else cfg.d_ff
         p["ffn"] = make_mlp_params(gen, d, ff, **kw)
@@ -168,7 +183,9 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig,
     ``cfg.dtype``, what serving holds; training holds fp32 master
     leaves, as the reference's init draws), drawn from ``gen`` on its
     device (truncated normal, std 0.02; norms ones, biases zeros — the
-    reference's init, other random numbers). With ``cfg.mtp_depth`` the
+    reference's init, other random numbers). The vlm family's
+    ``vision_proj`` (d -> d) is drawn after the groups. With
+    ``cfg.mtp_depth`` the
     tree holds the reference's multi-token-prediction head (``mtp``:
     ``proj`` 2d -> d, one ``mla_dense`` or ``dense`` block, ``norm``),
     drawn last, which only the training loss reads.
@@ -192,6 +209,10 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig,
         gname: init_block(gen, cfg, kind, lead=(n,), dtype=dtype, pack=pack,
                           tag=f"groups/{gname}/")
         for gname, kind, n in group_names(cfg)}
+    if cfg.family == "vlm":
+        proj = make_dense_params(gen, d, d, dtype=dtype)
+        params["vision_proj"] = (pack.tree(proj, "vision_proj/")
+                                 if pack is not None else proj)
     if cfg.mtp_depth:
         proj = make_dense_params(gen, 2 * d, d, dtype=dtype)
         params["mtp"] = {
@@ -248,6 +269,81 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
     return dense(params["lm_head"], x, cfg=cfg, tag="lm_head")
 
 
+def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 patch_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The token embeddings, after the projected patch embeddings (B, P,
+    d) of a vlm prompt when given."""
+    x = embed_tokens(params, tokens, cfg)
+    if patch_embeds is None:
+        return x
+    pe = dense(params["vision_proj"],
+               patch_embeds.to(getattr(torch, cfg.dtype)), cfg=cfg,
+               tag="vision_proj")
+    return torch.cat([pe, x], dim=1)
+
+
+def _mlp_act(cfg: ModelConfig) -> str:
+    """The ungated MLP's activation: GELU for the audio family."""
+    return "gelu" if cfg.family == "audio" else "silu"
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention over the encoder's K/V (the audio family's xdec blocks)
+
+
+def enc_kv_for_layer(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """One decoder layer's cross-attention K/V (B, Se, Hkv, hd) from the
+    encoder's output (B, Se, d); ``p`` is the layer's ``xattn``."""
+    B, Se, _ = enc_out.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = dense(p["wk"], enc_out, cfg=cfg, tag="xattn/wk")
+    v = dense(p["wv"], enc_out, cfg=cfg, tag="xattn/wv")
+    return {"k": k.reshape(B, Se, Hkv, hd), "v": v.reshape(B, Se, Hkv, hd)}
+
+
+def _cross_attn(p: Params, x: torch.Tensor, enc_kv: Dict, cfg: ModelConfig,
+                attn_backend: Optional[str] = None) -> torch.Tensor:
+    """Cross-attention of x (B, S, d) over every encoder position of
+    ``enc_kv`` {"k", "v": (B, Se, Hkv, hd)}; ``p`` is the layer's
+    ``xattn``. With ``attn_backend == "cuda"`` a single-token step (S ==
+    1) runs ``ops.decode_gqa`` over the buffer as contiguous rows (every
+    position visible), K/V upcast to fp32 as the reference does; every
+    other call (prefill, training, a chunk of several tokens) the dense
+    fp32 einsum, the same math on every backend."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    q = dense(p["wq"], x, cfg=cfg, tag="xattn/wq").reshape(B, S, H, hd)
+    if attn_backend == "cuda" and S == 1:
+        Se = enc_kv["k"].shape[1]
+        pos = torch.arange(Se, dtype=torch.int32,
+                           device=x.device)[None, :].expand(B, Se)
+        t = torch.full((B, 1), Se, dtype=torch.int32, device=x.device)
+        o = decode_gqa(q, enc_kv["k"].float(), enc_kv["v"].float(), pos, t,
+                       backend=attn_backend).to(dt)
+        return dense(p["wo"], o, cfg=cfg, tag="xattn/wo")
+    k = enc_kv["k"].repeat_interleave(H // Hkv, dim=2).float()
+    v = enc_kv["v"].repeat_interleave(H // Hkv, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * hd ** -0.5
+    prob = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", prob, v)
+    return dense(p["wo"], o.reshape(B, S, H * hd).to(dt), cfg=cfg,
+                 tag="xattn/wo")
+
+
+def _cross(p: Params, x: torch.Tensor, enc_kv: Optional[Dict],
+           cfg: ModelConfig, attn_backend: Optional[str] = None
+           ) -> torch.Tensor:
+    """An xdec block's cross-attention sub-layer (none without
+    ``enc_kv``, as the reference's forward without an encoder)."""
+    if enc_kv is None:
+        return x
+    hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+    return x + _cross_attn(p["xattn"], hx, enc_kv, cfg, attn_backend)
+
+
 # ---------------------------------------------------------------------------
 # The whole sequence: the training forward, and the static path's
 # prefill and lockstep decode over contiguous caches
@@ -273,13 +369,14 @@ def _mixer_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def block_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig, kind: str, *, train: bool = False
+                  cfg: ModelConfig, kind: str, *, train: bool = False,
+                  enc_kv: Optional[Dict] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """One block over the whole sequence. Returns (x_out, aux loss (the
     MoE load balance; 0 for the other kinds), cache hand-off).
     ``train``: the mixers' differentiable paths (``blockwise_attn``,
     ``ssd_chunked``) in place of the prefill kernels, which have no
-    backward."""
+    backward. ``enc_kv``: an xdec layer's encoder K/V."""
     _check_kind(kind, PARAM_KINDS, "whole-sequence")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     mix, kv = _mixer_forward(p, h, positions, cfg, kind, train)
@@ -287,11 +384,13 @@ def block_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         return x, aux, kv
+    if kind == "xdec":
+        x = _cross(p, x, enc_kv, cfg)
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind in MOE_KINDS:
         y, aux = moe_mod.moe_ffn(p["ffn"], h2, cfg)
     else:
-        y = mlp(p["ffn"], h2, cfg=cfg, tag="mlp")
+        y = mlp(p["ffn"], h2, cfg=cfg, tag="mlp", act=_mlp_act(cfg))
     return x + y, aux, kv
 
 
@@ -302,20 +401,27 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            train: bool = False, patch_embeds: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-sequence forward -> (final-normed hidden (B, S, d), the aux
     loss summed over layers). tokens: (B, S). ``train``: the training
     forward (:func:`block_forward`'s ``train``); with ``cfg.remat``
     each block is rematerialised in the backward
     (``torch.utils.checkpoint``), as the reference wraps its scan step
-    in ``jax.checkpoint``."""
-    x = embed_tokens(params, tokens, cfg)
+    in ``jax.checkpoint``. ``patch_embeds`` (B, P, d): a vlm prompt's
+    patches, projected and prepended (S counts them); ``enc_out`` (B,
+    Se, d): the encoder's output that every xdec layer attends to."""
+    x = embed_inputs(params, tokens, cfg, patch_embeds)
     positions = _positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = train and cfg.remat and torch.is_grad_enabled()
     for gname, kind, n in group_names(cfg):
         def step(p, xc, kind=kind):
-            return block_forward(p, xc, positions, cfg, kind, train=train)[:2]
+            ekv = (enc_kv_for_layer(p["xattn"], enc_out, cfg)
+                   if kind == "xdec" and enc_out is not None else None)
+            return block_forward(p, xc, positions, cfg, kind, train=train,
+                                 enc_kv=ekv)[:2]
         for p in layer_views(params["groups"][gname], n):
             x, a = (checkpoint(step, p, x, use_reentrant=False) if remat
                     else step(p, x))
@@ -368,13 +474,20 @@ def fill_block_cache(cfg: ModelConfig, kind: str, cache: Dict,
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             cache_len: Optional[int] = None,
-            cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
+            cache_dtype=torch.bfloat16,
+            patch_embeds: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt (B, S) and build per-group contiguous caches for
-    ``cache_len`` positions (default S), attention K/V in
-    ``cache_dtype``, each layer's filled as the layer runs (SSM state as
-    handed off: h fp32, conv in the activation dtype, as the reference
-    returns it). Returns (last-position logits (B, 1, V), caches)."""
-    x = embed_tokens(params, tokens, cfg)
+    ``cache_len`` positions (default S, patches included), attention K/V
+    in ``cache_dtype``, each layer's filled as the layer runs (SSM state
+    as handed off: h fp32, conv in the activation dtype, as the
+    reference returns it). ``patch_embeds``/``enc_out`` as
+    :func:`forward`; an xdec group's encoder K/V is kept in
+    ``cache_dtype`` under ``gname + "/enc_kv"`` (stacked over its
+    layers), where :func:`decode_step` reads it. Returns (last-position
+    logits (B, 1, V), caches)."""
+    x = embed_inputs(params, tokens, cfg, patch_embeds)
     B, S, _ = x.shape
     cache_len = cache_len or S
     positions = _positions(x)
@@ -383,18 +496,30 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         cstack = init_block_cache(cfg, kind, B, cache_len, dtype=cache_dtype,
                                   lead=(n,), device=x.device,
                                   state_dtype=x.dtype)
+        ekvs = []
         for p, c in zip(layer_views(params["groups"][gname], n),
                         layer_views(cstack, n)):
-            x, _, kv = block_forward(p, x, positions, cfg, kind)
+            ekv = None
+            if kind == "xdec" and enc_out is not None:
+                ekv = enc_kv_for_layer(p["xattn"], enc_out, cfg)
+                ekvs.append(ekv)
+            x, _, kv = block_forward(p, x, positions, cfg, kind, enc_kv=ekv)
             fill_block_cache(cfg, kind, c, kv)
         caches[gname] = cstack
+        if ekvs:
+            caches[gname + "/enc_kv"] = {
+                name: torch.stack([e[name] for e in ekvs]).to(cache_dtype)
+                for name in ("k", "v")}
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return unembed(params, x, cfg), caches
 
 
 def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
-                 cfg: ModelConfig, kind: str) -> Tuple[torch.Tensor, Dict]:
-    """One block of the lockstep decode; x: (B, 1, d); t: the position."""
+                 cfg: ModelConfig, kind: str, enc_kv: Optional[Dict] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One block of the lockstep decode; x: (B, 1, d); t: the position;
+    ``enc_kv``: an xdec layer's encoder K/V (read by the dense einsum,
+    as the reference's static decode reads it)."""
     _check_kind(kind, STATIC_KINDS, "static")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
@@ -408,20 +533,25 @@ def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
     else:
         mix, nc = attn_mod.attn_decode(p["attn"], h, cache, t, cfg)
     x = x + mix
+    if kind == "xdec":
+        x = _cross(p, x, enc_kv, cfg)
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], h2, cfg=cfg, tag="mlp"), nc
+    return x + mlp(p["ffn"], h2, cfg=cfg, tag="mlp", act=_mlp_act(cfg)), nc
 
 
 def decode_step(params: Params, caches: Dict, tokens: torch.Tensor, t: int,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One token for the whole stack, every row at position ``t``.
-    tokens: (B, 1). The caches are updated in place and returned.
-    Returns (logits (B, 1, V), caches)."""
+    tokens: (B, 1). The caches are updated in place and returned (an
+    xdec group's ``/enc_kv`` entry is read, never written). Returns
+    (logits (B, 1, V), caches)."""
     x = embed_tokens(params, tokens, cfg)
     for gname, kind, n in group_names(cfg):
-        for p, c in zip(layer_views(params["groups"][gname], n),
-                        layer_views(caches[gname], n)):
-            x, nc = block_decode(p, x, c, t, cfg, kind)
+        ekv = caches.get(gname + "/enc_kv")
+        ekvs = layer_views(ekv, n) if ekv is not None else [None] * n
+        for p, c, e in zip(layer_views(params["groups"][gname], n),
+                           layer_views(caches[gname], n), ekvs):
+            x, nc = block_decode(p, x, c, t, cfg, kind, enc_kv=e)
             _copy_back(c, nc)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x, cfg), caches
@@ -440,21 +570,34 @@ def _copy_back(cache: Dict, new: Dict) -> None:
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 cache_dtype=torch.bfloat16, device=None) -> Dict:
     """Empty contiguous caches of the static path, per group stacked
-    over its layers."""
-    return {gname: init_block_cache(cfg, kind, batch, cache_len,
-                                    dtype=cache_dtype, lead=(n,),
-                                    device=device)
-            for gname, kind, n in group_names(cfg)}
+    over its layers; an xdec group's encoder K/V (``frontend_tokens``
+    positions) zero beside it."""
+    caches: Dict[str, Any] = {}
+    for gname, kind, n in group_names(cfg):
+        caches[gname] = init_block_cache(cfg, kind, batch, cache_len,
+                                         dtype=cache_dtype, lead=(n,),
+                                         device=device)
+        if kind == "xdec":
+            shape = (n, batch, cfg.frontend_tokens, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            caches[gname + "/enc_kv"] = {
+                name: torch.zeros(shape, dtype=cache_dtype, device=device)
+                for name in ("k", "v")}
+    return caches
 
 
 def block_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
                        t: torch.Tensor, cfg: ModelConfig, kind: str, *,
                        table: Optional[torch.Tensor],
                        attn_backend: Optional[str] = None,
-                       writes=None) -> Tuple[torch.Tensor, Dict]:
+                       writes=None, enc_kv: Optional[Dict] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
     """One block of the slot-batched step; x: (B, C, d); t: (B, C).
     ``table``: the group's block table (None for an SSM group, whose
-    state is per slot). The cache updates in place."""
+    state is per slot). ``enc_kv``: an xdec layer's per-slot encoder K/V
+    (B, Se, Hkv, hd), written at admission and only read here (a pad
+    row's cross-attention output is ignored, and writes nothing). The
+    cache updates in place."""
     _check_kind(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
@@ -473,6 +616,8 @@ def block_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
                  else attn_mod.attn_decode_slots)
         mix, cache = mixer(p["attn"], h, cache, t, cfg, **kw)
     x = x + mix
+    if kind == "xdec":
+        x = _cross(p, x, enc_kv, cfg, attn_backend)
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind in MOE_KINDS:
         # pad slots (t < 0) take no part in expert routing: a live
@@ -480,7 +625,7 @@ def block_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
         y, _ = moe_mod.moe_ffn(p["ffn"], h2, cfg, decode=x.shape[1] == 1,
                                pad_mask=t >= 0)
     else:
-        y = mlp(p["ffn"], h2, cfg=cfg, tag="mlp")
+        y = mlp(p["ffn"], h2, cfg=cfg, tag="mlp", act=_mlp_act(cfg))
     return x + y, cache
 
 
@@ -489,7 +634,8 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
                       logits_at: Optional[torch.Tensor] = None,
                       tables: Optional[Dict[str, torch.Tensor]] = None,
                       attn_backend: Optional[str] = None,
-                      layers: Optional[Dict[str, List[Params]]] = None
+                      layers: Optional[Dict[str, List[Params]]] = None,
+                      enc_kv: Optional[Dict[str, Dict]] = None
                       ) -> Tuple[torch.Tensor, Dict]:
     """Slot-batched decode/chunk step of the serving engine.
 
@@ -498,7 +644,9 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
     table} over the paged ``caches`` (none for an SSM group), which are
     updated in place and returned. ``logits_at`` (B,) unembeds only
     each row's emitting column. ``layers``: per-layer parameter views
-    (:func:`param_layer_views`), else sliced here.
+    (:func:`param_layer_views`), else sliced here. ``enc_kv``: {xdec
+    group: {"k", "v": (n_layers, B, Se, Hkv, hd)}}, the per-slot encoder
+    buffers the audio family's runner stages at admission.
 
     ``tokens``, ``t``, ``logits_at`` and ``tables`` may sit on the host:
     they move to the parameters' device once per call, and the arena
@@ -526,11 +674,14 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
     x = embed_tokens(params, tok_dev.clamp(min=0), cfg)
     for gname, kind, n in group_names(cfg):
         table_dev, writes = paged.get(gname, (None, None))
-        for p, c in zip(layers[gname], layer_views(caches[gname], n)):
+        ekv = None if enc_kv is None else enc_kv.get(gname)
+        ekvs = layer_views(ekv, n) if ekv is not None else [None] * n
+        for p, c, e in zip(layers[gname], layer_views(caches[gname], n),
+                           ekvs):
             x, _ = block_decode_slots(p, x, c, t_dev, cfg, kind,
                                       table=table_dev,
                                       attn_backend=attn_backend,
-                                      writes=writes)
+                                      writes=writes, enc_kv=e)
     if idx is not None:
         x = x[torch.arange(x.shape[0], device=dev), idx.clamp(min=0)][:, None]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -26,9 +26,13 @@ model-shaped lives behind a :class:`ModelRunner`:
 ``flush_row``/     read-until: a slot's last bases, and the slots its
 ``pop_ejections``  classifier rejected this tick (basecaller only)
 
-Registered here: :class:`TokenRunner` (token-only LMs over the paged KV
-pool, per-request sampling) and :class:`BasecallerRunner` (squiggle in,
-bases out; offline reads and live streams, with read-until ejection).
+Registered here: :class:`BasecallerRunner` (squiggle in, bases out;
+offline reads and live streams, with read-until ejection),
+:class:`EncoderPrefixRunner` (the audio family: encoder K/V staged per
+slot at admission, decoder tokens as :class:`TokenRunner` schedules
+them) and :class:`TokenRunner` (token-only LMs over the paged KV pool,
+per-request sampling). The vlm family has no runner, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -439,9 +443,9 @@ class TokenRunner(ModelRunner):
                  cache_len: int, prefill_chunk: int, cache_dtype,
                  block_len: int = 0, n_blocks: int = 0,
                  attn_backend: str = "auto", quant_policy=None,
-                 device=None, **_):
+                 device=None, _check: bool = True, **_):
         from repro_torch.models.lm import transformer as tfm
-        if not tfm.supports_slot_serving(cfg):
+        if _check and not tfm.supports_slot_serving(cfg):
             raise NotImplementedError(
                 f"TokenRunner serves token-only archs whose block kinds are "
                 f"ported ({tfm.SLOT_KINDS}); {cfg.name} has family="
@@ -473,6 +477,8 @@ class TokenRunner(ModelRunner):
         # the previous tick's on-device tokens (B,): chained rows' input
         self._prev_tokens = torch.zeros((self.n_slots,), dtype=torch.int32,
                                         device=self.device)
+        # per-slot encoder K/V of the xdec groups (EncoderPrefixRunner)
+        self.enc_kv: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
 
     def _plan(self, *, mixed: bool, sampled: bool) -> Callable:
         """One tick program: (tok, t, chain, fresh, last, sp) host inputs
@@ -491,7 +497,8 @@ class TokenRunner(ModelRunner):
                 logits, _ = tfm.decode_step_slots(
                     self.params, pool.caches, tok_d, t, cfg,
                     logits_at=last, tables=pool.host_tables(),
-                    attn_backend=self.attn_backend, layers=self.layers)
+                    attn_backend=self.attn_backend, layers=self.layers,
+                    enc_kv=self.enc_kv)
                 logits = logits[:, 0, :]
                 if sampled:
                     spd = {k: torch.from_numpy(v).to(dev, non_blocking=True)
@@ -511,6 +518,8 @@ class TokenRunner(ModelRunner):
         warmed = 0
         for key in self.plans.keys():
             kind, w, flavor = key
+            if kind not in ("decode", "mixed"):
+                continue
             tok = torch.zeros((B, w), dtype=torch.int32)
             t = torch.full((B, w), -1, dtype=torch.int32)
             zeros = torch.zeros((B,), dtype=torch.int32)
@@ -666,6 +675,85 @@ class TokenRunner(ModelRunner):
 
 
 # ---------------------------------------------------------------------------
+# EncoderPrefixRunner — the audio family's encoder-decoder (Whisper)
+
+
+class EncoderPrefixRunner(TokenRunner):
+    """Serve an encoder-decoder audio arch under the slot machinery.
+
+    Each request carries ``frames`` (the stub log-mel embeddings,
+    ``(frontend_tokens, d_model)``). At admission the encoder runs once
+    and every decoder layer's cross-attention K/V is written into the
+    slot's row of a per-slot device buffer (``{xdec group: {"k", "v":
+    (n_layers, n_slots, Se, Hkv, hd)}}`` in ``cache_dtype``); the tick
+    plans read the slots' rows, so the decoder tokens then schedule
+    exactly as a token-only arch's: chunked prefill, paged
+    self-attention KV, sampling, preemption (a resumed request is
+    admitted again and restages: ``encode`` is deterministic)."""
+
+    def __init__(self, params, cfg: ModelConfig, *, cache_dtype, **kw):
+        if cfg.family != "audio":
+            raise NotImplementedError(
+                f"EncoderPrefixRunner serves audio enc-dec archs, not "
+                f"{cfg.name} (family={cfg.family!r})")
+        super().__init__(params, cfg, cache_dtype=cache_dtype, _check=False,
+                         **kw)
+        Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        shape = (self.n_slots, cfg.frontend_tokens, Hkv, hd)
+        self.enc_kv = {
+            gname: {name: torch.zeros((n, *shape), dtype=cache_dtype,
+                                      device=self.device)
+                    for name in ("k", "v")}
+            for gname, kind, n in self._tfm.group_names(cfg)
+            if kind == "xdec"}
+        self._stage_key = ("stage", 0, "enc")
+        self.plans.register(self._stage_key, self._stage)
+
+    def _stage(self, frames: torch.Tensor, slot: int) -> None:
+        """Encode one request's frames (F, d) and write every xdec
+        layer's cross K/V into row ``slot`` of the buffer."""
+        from repro_torch.models.lm import encdec
+        tfm = self._tfm
+        with torch.inference_mode():
+            enc_out = encdec.encode(self.params["encoder"],
+                                    frames.to(self.device)[None], self.cfg)
+            for gname, bufs in self.enc_kv.items():
+                for i, p in enumerate(self.layers[gname]):
+                    kv = tfm.enc_kv_for_layer(p["xattn"], enc_out, self.cfg)
+                    for name in ("k", "v"):
+                        bufs[name][i, slot].copy_(kv[name][0])
+
+    def warmup(self) -> int:
+        """Every tick plan once, then the staging plan on zero frames
+        into slot 0 (each admission restages its slot, so nothing
+        leaks into traffic)."""
+        warmed = super().warmup()
+        cfg = self.cfg
+        self.plans.fn(self._stage_key)(
+            torch.zeros((cfg.frontend_tokens, cfg.d_model)), 0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.plans.mark_warmed(self._stage_key)
+        return warmed + 1
+
+    def validate(self, req) -> None:
+        super().validate(req)
+        Se, d = self.cfg.frontend_tokens, self.cfg.d_model
+        if req.frames is None:
+            raise ValueError(
+                f"request {req.rid}: audio serving needs a `frames` "
+                f"payload of shape ({Se}, {d})")
+        if tuple(np.shape(req.frames)) != (Se, d):
+            raise ValueError(
+                f"request {req.rid}: frames shape "
+                f"{tuple(np.shape(req.frames))} != ({Se}, {d})")
+
+    def admit(self, slot: int, req) -> None:
+        frames = torch.from_numpy(np.asarray(req.frames, np.float32))
+        self.plans.lookup(self._stage_key)(frames, slot)
+
+
+# ---------------------------------------------------------------------------
 # Registry
 
 
@@ -693,7 +781,8 @@ def make_runner(params, cfg: ModelConfig, **kw):
             return factory(params, cfg, **kw)
     raise NotImplementedError(
         f"no serving runner registered for {cfg.name} (family="
-        f"{cfg.family!r}); registered: {[n for n, _, _ in _RUNNERS]}")
+        f"{cfg.family!r}, frontend_tokens={cfg.frontend_tokens}); "
+        f"registered: {[n for n, _, _ in _RUNNERS]}")
 
 
 def _token_supported(cfg: ModelConfig) -> bool:
@@ -703,4 +792,6 @@ def _token_supported(cfg: ModelConfig) -> bool:
 
 register_runner("basecaller", lambda cfg: cfg.family == "basecaller",
                 BasecallerRunner)
+register_runner("encoder_prefix", lambda cfg: cfg.family == "audio",
+                EncoderPrefixRunner)
 register_runner("token", _token_supported, TokenRunner)

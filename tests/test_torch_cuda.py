@@ -2,7 +2,8 @@
 and MLA paged attention, flash attention and the SSD scan) and of
 training on the card (the CTC loss, a train step, checkpoints, the
 packed identity gate, the LM training forward's gradients and the
-prefill kernels' refusal of inputs that require grad); ``-m gpu``;
+prefill kernels' refusal of inputs that require grad), the contiguous
+layout of ``decode_gqa`` and the audio runner's staging; ``-m gpu``;
 they skip without a card. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
 machine that has only the port's requirements:
@@ -440,7 +441,9 @@ BF16_ULP = (2 ** -7, 1e-5)
     (1, 100, 100, 4, 4, 80, False),          # d padded to 128
     (1, 2048, 2048, 4, 4, 128, True),        # a long prompt
     (1, 129, 129, 4, 4, 128, True),          # one row past a 128-row tile
-    (4, 1536, 1536, 25, 5, 64, True)])       # hymba-1.5b's prefill
+    (4, 1536, 1536, 25, 5, 64, True),        # hymba-1.5b's prefill
+    (4, 1500, 1500, 6, 6, 64, False),        # whisper-tiny's encoder
+    (4, 512, 512, 14, 2, 64, True)])         # internvl2-1b's prefill
 def test_cuda_flash_attention_matches_plain_version(B, Sq, Sk, H, Hkv, d,
                                                     causal, dtype):
     """On a card: the flash-attention kernel against its plain version,
@@ -951,3 +954,107 @@ def test_cuda_prefill_kernels_refuse_inputs_that_require_grad():
         ops.qmatmul(xq, w)
     with torch.no_grad():
         assert ops.qmatmul(xq, w).shape == (4, 128)
+
+
+# a bf16 query over fp32 rows (the audio family's cross-attention): fp32
+# compute, then one bf16 rounding of the output, which fp32 sums in
+# another order can land one bf16 ulp apart, at most 2^-7 of |want|
+CROSS_TOL = dict(rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arena", ["fp32", "bf16", "bf16q_fp32"])
+@pytest.mark.parametrize("B,C,Se,H,Hkv,hd", [
+    (4, 1, 1500, 6, 6, 64),      # whisper-tiny's cross-attention decode
+    (1, 1, 1500, 6, 6, 64), (3, 1, 8, 6, 6, 64), (2, 3, 1500, 6, 6, 64),
+    (2, 1, 8, 4, 2, 64),
+    (2, 1, 256, 4, 2, 128), (2, 1, 257, 4, 2, 128)])
+def test_cuda_decode_gqa_contiguous_matches_plain(B, C, Se, H, Hkv, hd,
+                                                  arena):
+    """On a card: ``decode_gqa`` over contiguous rows (``table=None``:
+    the audio family's encoder buffer) through the paged kernels, the
+    rows viewed as blocks of ``contiguous_block_len`` (375 at 1500 and
+    hd 64; at hd 128, 128 at 256 and 204 at the prime 257, padded with
+    masked positions), against the same call on the CPU (the kernels'
+    plain versions): every position visible, one row's ``t`` halfway;
+    fp32 at 1e-5 on the CUDA-core route, bf16 at 2e-2 on the
+    tensor-core route, and a bf16 query over fp32 rows (the served
+    cross-attention, CUDA-core) at one bf16 ulp of the output
+    (``CROSS_TOL``); one launch a call."""
+    _cuda()
+    rs = np.random.RandomState(Se + B + C)
+    q_dt, kv_dt = ((torch.bfloat16, torch.float32) if arena == "bf16q_fp32"
+                   else (ARENAS[arena],) * 2)
+    q, k, v = (torch.from_numpy(rs.randn(B, S, h, hd).astype(np.float32))
+               .to(dt) for S, h, dt in ((C, H, q_dt), (Se, Hkv, kv_dt),
+                                        (Se, Hkv, kv_dt)))
+    pos = torch.arange(Se, dtype=torch.int32)[None].expand(B, Se)
+    t = torch.full((B, C), Se, dtype=torch.int32)
+    t[-1, -1] = Se // 2
+    want = ops.decode_gqa(q, k, v, pos, t, backend="cuda")
+    ops.reset_launch_counts()
+    got = ops.decode_gqa(*(a.cuda() for a in (q, k, v, pos, t)),
+                         backend="cuda")
+    torch.cuda.synchronize()
+    name = "gqa_paged" if C == 1 else "gqa_paged_chunk"
+    assert ops.launch_counts()[name] == 1
+    assert got.dtype == q_dt and bool(torch.isfinite(got).all())
+    tol = (CROSS_TOL if arena == "bf16q_fp32" else
+           dict(rtol=ATTN_TOL[arena], atol=ATTN_TOL[arena]))
+    torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+@pytest.mark.gpu
+def test_cuda_core_smem_bytes_match_the_kernel():
+    """``pa.cuda_core_smem_bytes`` (what ``contiguous_block_len`` sizes
+    a block by) equals the built kernel's own count, and the longest
+    block it allows fits the limit while one more does not."""
+    _cuda()
+    from repro_torch.kernels import paged_attention as pa
+    lib = pa._lib()
+    for rows, bl, hd in ((1, 16, 64), (6, 375, 64), (16, 390, 64),
+                         (4, 204, 128), (48, 8, 32)):
+        assert pa.cuda_core_smem_bytes(rows, bl, hd) == \
+            lib.gqa_paged_smem_bytes(rows, bl, hd)
+    for hd in (64, 128):
+        top = pa.cuda_core_max_block(hd)
+        assert lib.gqa_paged_smem_bytes(16, top, hd) <= pa.SMEM_LIMIT \
+            < lib.gqa_paged_smem_bytes(16, top + 1, hd)
+
+
+@pytest.mark.gpu
+def test_cuda_encoder_prefix_stage_matches_the_cpu():
+    """On a card: the audio runner's admission (``encode``, then every
+    xdec layer's cross K/V into the slot's row) at whisper-tiny-smoke
+    against the same staging on the CPU, fp32 with TF32 off: every
+    buffer leaf at 1e-4; the other slot's row stays zero."""
+    _cuda()
+    from repro_torch.config import get_config
+    from repro_torch.core.quant.policy import tree_map
+    from repro_torch.models import api
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config("whisper-tiny-smoke")
+        params = api.init_params(0, cfg, device="cpu")
+        frames = np.random.RandomState(0).randn(
+            cfg.frontend_tokens, cfg.d_model).astype(np.float32)
+        bufs = []
+        for dev in ("cpu", "cuda"):
+            eng = api.make_serving_engine(
+                tree_map(lambda a: a.to(dev), params), cfg, device=dev,
+                n_slots=2, cache_len=16, prefill_chunk=4,
+                cache_dtype=torch.float32)
+            eng.runner.admit(1, Request(
+                rid=0, prompt=[1], sampling=SamplingParams(max_new_tokens=1),
+                frames=frames))
+            bufs.append(tree_map(lambda a: a.cpu(), eng.runner.enc_kv))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for g, leaves in bufs[0].items():
+        for name, want in leaves.items():
+            got = bufs[1][g][name]
+            assert bool((got[:, 0] == 0).all())
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

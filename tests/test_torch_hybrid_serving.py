@@ -128,9 +128,12 @@ def test_layer_plans_configs_and_bridged_trees():
         assert {k: tuple(v.shape) for k, v in _tflat(drawn).items()} == want
     assert tfm.supports_slot_serving(get_config(MAMBA))
     for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match=family):
-            tfm.layer_plan(dataclasses.replace(get_config(HYMBA),
-                                               family=family))
+        assert tfm.layer_plan(dataclasses.replace(
+            get_config(HYMBA), family=family)) == jtfm.layer_plan(
+                dataclasses.replace(jget_config(HYMBA), family=family))
+    with pytest.raises(NotImplementedError, match="speech"):
+        tfm.layer_plan(dataclasses.replace(get_config(HYMBA),
+                                           family="speech"))
 
 
 # ------------------------------------------------------- one slot step

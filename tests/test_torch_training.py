@@ -387,15 +387,13 @@ def test_train_step_microbatches_average_the_whole_batch():
 
 
 def test_make_loss_fn_refuses_lm_families():
-    """The LM families whose modules are not ported raise and name them;
-    a ported one (qwen1.5-4b-smoke) gives the reference's loss on a
-    bridged init (1e-5 relative; ``tests/test_torch_lm_training.py``
-    holds every family's loss and gradients)."""
+    """A family with no layer plan raises and names itself; a ported one
+    (qwen1.5-4b-smoke) gives the reference's loss on a bridged init
+    (1e-5 relative; ``tests/test_torch_lm_training.py`` holds every
+    family's loss and gradients)."""
     qwen = get_config("qwen1.5-4b-smoke")
-    for family, missing in (("vlm", "vision projection"),
-                            ("audio", "encdec.py")):
-        with pytest.raises(NotImplementedError, match=missing):
-            api.make_loss_fn(dataclasses.replace(qwen, family=family))
+    with pytest.raises(NotImplementedError, match="speech"):
+        api.make_loss_fn(dataclasses.replace(qwen, family="speech"))
     jcfg = jget_config("qwen1.5-4b-smoke")
     jp = japi.init_params(jax.random.key(0), jcfg)
     rs = np.random.RandomState(0)
