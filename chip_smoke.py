@@ -250,6 +250,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    loss and gradients at smoke for both, and whisper-tiny's training
    encoder over 1500 frames (blockwise, not causal, several chunks)
    against the dense plain attention at full width.
+21. static (moe) — ``--static --wbits 8`` through ``run_static`` (4
+   prompts of 512 tokens, 32 greedy new tokens; weights packed to int8
+   as drawn on the card and dequantized once to bf16) of
+   granite-moe-1b-a400m whole (24 ``moe`` layers, 32 experts, top-8)
+   and deepseek-v3-671b at published widths cut to 4 layers (3
+   mla_dense + 1 mla_moe, 256 experts, top-8 and the shared expert):
+   granite's prefill launches flash_attention 24 times, all on the
+   tensor-core route, and neither decode launches any kernel; deepseek's
+   prefill (MLA: the plain ``blockwise_attn``, as the reference) and
+   decode (the latent rows through ``decode_mla``'s gather route)
+   launch none. granite's prefill with every flash call held against
+   its plain version in bf16 (one bf16 ulp) and on fp32 copies (1e-4),
+   and its whole prefill through the kernel against the plain path in
+   fp32 (1e-4) and bf16 (last-position logits, every layer's handed-off
+   K/V; the plain pass replays the kernel pass's MoE routing and counts
+   the tokens whose own routing would have differed); deepseek's bf16
+   prefill the same way (no kernel: the two paths are one);
+   prefill ms, decode tok/s, peak memory. Then ``decode_mla``'s
+   contiguous ``cuda`` route (``table=None``: latent rows viewed as an
+   arena of ``mla_contiguous_block_len`` blocks) held against its plain
+   version at deepseek-v3's widths: L = 544 and the prime 541, C = 1
+   and 16, bf16 (tensor-core) and fp32 (CUDA-core) rows, a hole and
+   pad rows; the route of every launch asserted (these check launches
+   are counted apart from the main path's).
+22. dry run — ``python -m repro_torch.launch.dryrun`` as subprocesses
+   (started before phase 20, CPU only, one thread each) on qwen1.5-4b x decode_32k,
+   granite-moe-1b-a400m x train_4k and deepseek-v3-671b x prefill_32k
+   on the multi-pod mesh: each record's roofline terms and per-device
+   bytes printed, CUDA never initialised in them. Then on a one-rank
+   NCCL group over the card: the dry run's per-device parameter bytes
+   on the 1 x 1 host mesh for qwen1.5-4b-smoke and
+   deepseek-v3-671b-smoke equal what ``api.init_params`` allocates on
+   the card (``torch.cuda.memory_allocated`` before and after, each
+   leaf's bytes rounded to the caching allocator's 512-byte blocks, and
+   the leaves' own bytes exactly), and ``elastic.reshard`` moves a
+   smoke tree onto that mesh bit for bit.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -1857,21 +1893,43 @@ def cache_leaves(tree, path=()):
             yield path + (k,), v
 
 
-def prefill_both_paths(params, cfg, tokens, swaps, dtype, tensor_core=()):
+def prefill_both_paths(params, cfg, tokens, swaps, dtype, tensor_core=(),
+                       moved=None):
     """One whole-prompt prefill through the kernels and through their
     plain versions (``swaps``: (module, wrapper name, plain function)
     each) on the same tokens, in ``dtype``; returns the max |d logit| of
     the last position and the worst max |d| / max |ref| over the
     handed-off cache leaves (every layer). The kernel pass's launches of
     a kernel in ``tensor_core`` take the tensor-core route in bf16, and
-    every other launch the CUDA-core route."""
+    every other launch the CUDA-core route. ``moved`` (a list): the
+    plain pass replays the kernel pass's MoE routing, as phase 5 replays
+    a tick's, and ``moved`` gets the count of routed tokens whose own
+    routing would have picked other experts, then the routed total."""
     cfg = replace(cfg, dtype=str(dtype)[6:])
     p = tree_map(lambda t: t.to(dtype), params)
+    real_dispatch, routes = moe_mod._top_k_dispatch, []
+
+    def record(*args, **kw):
+        routes.append(real_dispatch(*args, **kw))
+        return routes[-1]
+
+    def replay(*args, **kw):
+        own = real_dispatch(*args, **kw)[0].any(-1)     # (G, S, E)
+        rec = routes[moved[2]]
+        moved[0] += int((own != rec[0].any(-1)).any(-1).sum())
+        moved[1] += int(rec[0].any(-1).any(-1).sum())
+        moved[2] += 1
+        return rec
+    if moved is not None:
+        moved[:] = [0, 0, 0]
     out = []
     for plain in (False, True):
         ctx = contextlib.ExitStack()
         for swap in (swaps if plain else ()):
             ctx.enter_context(mock.patch.object(*swap))
+        if moved is not None:
+            ctx.enter_context(mock.patch.object(
+                moe_mod, "_top_k_dispatch", replay if plain else record))
         ops.reset_launch_counts()
         with ctx, torch.no_grad():
             out.append(tfm.prefill(p, tokens, cfg, cache_len=tokens.shape[1],
@@ -1883,6 +1941,8 @@ def prefill_both_paths(params, cfg, tokens, swaps, dtype, tensor_core=()):
     (lk, ck), (lp, cp) = out
     if not bool(torch.isfinite(lk).all()):
         raise AssertionError("prefill: non-finite logits")
+    if moved is not None:
+        del moved[2:]
     d_logit = float((lk.float() - lp.float()).abs().max())
     d_state = 0.0
     got_leaves = dict(cache_leaves(ck))
@@ -3877,6 +3937,338 @@ def phase_front_static_train(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The moe family on the static path, and the dry run
+
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_STATIC = [(MOE_ARCH, None), (DS_ARCH, DS_LAYERS)]
+MOE_PROMPT = 512
+# A moe-family prefill through the kernel vs the plain path: (max |d
+# logit| of the last position, max |d| / max |ref| of every layer's
+# handed-off cache). fp32 at 1e-4: only summation order differs. bf16
+# (bound stated before the first run on the card, as QWEN_PREFILL): each
+# flash call agrees with its plain version at one bf16 ulp (FlashHold),
+# and that difference carries through 24 residual layers. A near-tie of
+# two gates parted by it moves a token to other experts (the first card
+# run, without a replay: bf16 logits 0.369 apart, K/V 0.238), so the
+# plain pass replays the kernel pass's routing, as phase 5 replays a
+# tick's
+MOE_PREFILL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.25, 0.05)}
+# decode_mla's contiguous rows: L (a multiple of 34, and a prime padded
+# to 9 blocks of 64), C, the rows' dtype
+MLA_CONTIG = [(L, c, dt) for L in (544, 541) for c in (1, 16)
+              for dt in (torch.bfloat16, torch.float32)]
+DRYRUN_CELLS = [("qwen1.5-4b", "decode_32k", False),
+                (MOE_ARCH, "train_4k", False),
+                (DS_ARCH, "prefill_32k", True)]
+DRYRUN_OUT = Path(__file__).resolve().parent / "results" / "dryrun_torch"
+ALLOC_BLOCK = 512             # the caching allocator's rounding (bytes)
+
+
+def moe_static_one(arch, layers, smi) -> dict:
+    """One moe-family config through ``launch/serve.py``'s static path
+    (``--static --wbits 8``): warm and measured ``run_static``, launches
+    (flash once an attention layer of a ``moe`` block in the prefill, no
+    kernel for MLA, none in the decode), then for a config that launches
+    flash every call held (:class:`FlashHold`), and the whole prefill
+    through the kernel against the plain path (:data:`MOE_PREFILL`): in
+    fp32 and bf16, or bf16 alone where the fp32 weights would not fit."""
+    full = get_config(arch)
+    cfg = full if layers is None else replace(full, n_layers=layers)
+    cut = ("no cut" if layers is None else
+           f"cut to {layers} of {full.n_layers} layers with "
+           f"dataclasses.replace")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, device="cuda", wbits=8)
+    params = serve.dequantize_tree(params, getattr(torch, cfg.dtype))
+    torch.cuda.synchronize()
+    gib = torch.cuda.memory_allocated() / 2**30
+    kinds = [k for k, _ in tfm.layer_plan(cfg)]
+    print(f"[static-moe] {cfg.name} ({smi}): {cfg.n_layers} layers {kinds} "
+          f"({cut}), d {cfg.d_model}, {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_tok}, {cfg.dtype} weights ({gib:.2f} GiB, "
+          f"int8-packed as drawn, dequantized once) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    args = types.SimpleNamespace(slots=STATIC_SLOTS, prompt_len=MOE_PROMPT,
+                                 tokens=STATIC_NEW, seed=0)
+    serve.run_static(params, cfg, types.SimpleNamespace(
+        **{**vars(args), "tokens": 2, "seed": 1}), "cuda")
+    ops.reset_launch_counts()
+    r = serve.run_static(params, cfg, args, "cuda")
+    routes = ops.launch_counts(routes=True)
+    check_routes(routes, ("flash_attention",), f"{cfg.name} static")
+    want = {"flash_attention": n for k, n in tfm.layer_plan(cfg)
+            if k == "moe"}
+    counts = {k: c for k, c in ops.launch_counts().items() if c}
+    if r["launches_prefill"] != want or r["launches_decode"] or \
+            counts != want:
+        raise AssertionError(f"{cfg.name}: launches prefill "
+                             f"{r['launches_prefill']}, decode "
+                             f"{r['launches_decode']}; want {want}, none")
+    toks = r["tokens"]
+    if toks.shape != (STATIC_SLOTS, STATIC_NEW) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: tokens {tuple(toks.shape)}")
+    n_dec = STATIC_SLOTS * (STATIC_NEW - 1)
+    row = {"layers": cfg.n_layers, "kinds": kinds, "cut": cut,
+           "weights_gib": gib, "prefill_ms": r["prefill_s"] * 1e3,
+           "decode_tok_s": n_dec / r["decode_s"], "launches": want,
+           "routes": {k: routes[k] for k in want}}
+    print(f"[static-moe] {cfg.name} ({smi}): prefill {STATIC_SLOTS}x"
+          f"{MOE_PROMPT} {row['prefill_ms']:.2f} ms, decode {n_dec} tokens "
+          f"{row['decode_tok_s']:.1f} tok/s; launches {want or 'none'} in "
+          f"the prefill, none in {STATIC_NEW - 1} decode steps")
+    del r
+    if want:
+        hold = FlashHold(attn_mod.flash_attention)
+        with mock.patch.object(attn_mod, "flash_attention", hold):
+            ops.reset_launch_counts()
+            serve.run_static(params, cfg, types.SimpleNamespace(
+                **{**vars(args), "tokens": 1, "seed": 2}), "cuda")
+            torch.cuda.synchronize()
+            launched = {k: c for k, c in ops.launch_counts().items() if c}
+        held = hold.take()
+        n = want["flash_attention"]
+        if launched != want or not held_ok(held) or {
+                k: h[0] for k, h in held.items()} != {
+                "flash_attention": n, "flash_attention fp32": n}:
+            raise AssertionError(f"{cfg.name}: flash held {held}, "
+                                 f"launched {launched}")
+        row["held"] = held
+        print(f"[static-moe] {cfg.name}: every flash call held vs plain: "
+              + "; ".join(f"{dt}: {c} calls, max|err| {e:.3g}"
+                          for dt, (c, e, *_) in held.items()))
+    # fp32 where the weights' fp32 copy fits beside them (granite's 5
+    # GiB, not deepseek's 59); with no kernel in the prefill the kernel
+    # path is the plain one
+    tokens = api.make_smoke_batch(2, cfg, STATIC_SLOTS, MOE_PROMPT,
+                                  device="cuda")["tokens"]
+    row["prefill_vs_plain"] = {}
+    for dtype in ((torch.float32, torch.bfloat16) if want
+                  else (torch.bfloat16,)):
+        moved = []
+        dl, ds, std = prefill_both_paths(params, cfg, tokens, (FLASH_SWAP,),
+                                         dtype, ("flash_attention",), moved)
+        row["prefill_vs_plain"][str(dtype)[6:]] = (dl, ds, *moved)
+        print(f"[static-moe] {cfg.name}: prefill kernel vs plain, "
+              f"{str(dtype)[6:]}: max|d logit| {dl:.4g} (logit std "
+              f"{std:.3g}), handed-off cache max|d|/max|ref| {ds:.3g}; "
+              f"routing replayed: {moved[0]} of {moved[1]} routed tokens "
+              f"would have picked other experts")
+        if dl > MOE_PREFILL[dtype][0] or ds > MOE_PREFILL[dtype][1]:
+            raise AssertionError(f"{cfg.name} prefill ({dtype}): kernel "
+                                 f"path disagrees with the plain path")
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[static-moe] {cfg.name} ({smi}): peak device memory "
+          f"{row['peak_gib']:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def mla_contiguous_check(smi) -> dict:
+    """``ops.decode_mla(table=None, backend="cuda")`` on the card against
+    the same call on CPU copies (the kernels' plain versions walking the
+    same arena view) at deepseek-v3's widths (B 4, H 128, kvr 512, rope
+    64): rows stale past their fill, a hole, a decode row padded to C and
+    a free row; live rows at ``ATTN_TOL``. One launch a call, on
+    ``pa.mla_route``'s route (bf16: tensor-core, fp32: CUDA-core); the
+    launches are counted here, apart from the main path's."""
+    rs = np.random.RandomState(21)
+    rows, counted = [], {"mla_paged": dict.fromkeys(pa.ROUTES, 0),
+                         "mla_paged_chunk": dict.fromkeys(pa.ROUTES, 0)}
+    with uncounted():
+        for L, c, dt in MLA_CONTIG:
+            B = 4
+            cl = rs.randn(B, L, KVR).astype(np.float32)
+            kr = rs.randn(B, L, ROPE).astype(np.float32)
+            fills = (L - c, L // 2, 7, 0)
+            pos = np.full((B, L), pa.EMPTY_POS, np.int32)
+            t = np.zeros((B, c), np.int32)
+            for b, f in enumerate(fills):
+                pos[b, :f + c] = np.arange(f + c)
+                t[b] = np.arange(f, f + c)
+            pos[0, 3] = pa.EMPTY_POS                  # a hole
+            t[2, 1:] = -1                             # decode row padded
+            t[3] = -1                                 # a free row
+            qa = rs.randn(B, c, DS_H, KVR).astype(np.float32)
+            qr = rs.randn(B, c, DS_H, ROPE).astype(np.float32)
+            cpu = [torch.from_numpy(a) for a in (qa, qr, cl, kr)]
+            cpu = [a.to(dt) for a in cpu] + [torch.from_numpy(pos),
+                                             torch.from_numpy(t)]
+            kw = dict(scale=MLA_SCALE, table=None, backend="cuda")
+            want = ops.decode_mla(*cpu, **kw)
+            ops.reset_launch_counts()
+            got = ops.decode_mla(*(a.cuda() for a in cpu), **kw)
+            torch.cuda.synchronize()
+            name = "mla_paged" if c == 1 else "mla_paged_chunk"
+            route = dict(ops.launch_counts(routes=True)[name])
+            bl = ops.mla_contiguous_block_len(L)
+            want_route = pa.mla_route(dt, KVR, ROPE, bl, -(-L // bl) * bl)
+            if route != {**dict.fromkeys(pa.ROUTES, 0), want_route: 1} or \
+                    want_route != ("tensor_core" if dt == torch.bfloat16
+                                   else "cuda_core"):
+                raise AssertionError(f"decode_mla contiguous L {L} C {c} "
+                                     f"{dt}: launches {route}")
+            counted[name][want_route] += 1
+            live = torch.from_numpy(t >= 0)[:, :, None, None].cuda()
+            tol = ATTN_TOL[dt]
+            h = held_row(got, want.cuda(), tol, tol, live).tolist()
+            rows.append({"L": L, "C": c, "dtype": str(dt)[6:],
+                         "block_len": bl, "route": want_route,
+                         "max_abs_err": h[0], "excess": h[1],
+                         "finite": h[2] == 1.0})
+            if h[1] > 0 or h[2] != 1.0:
+                raise AssertionError(f"decode_mla contiguous L {L} C {c} "
+                                     f"{dt}: max|err| {h[0]}")
+    print(f"[static-moe] decode_mla contiguous cuda route vs plain ({smi}): "
+          + "; ".join(f"L {r['L']} (blocks of {r['block_len']}) C {r['C']} "
+                      f"{r['dtype']} {r['route']} max|err| "
+                      f"{r['max_abs_err']:.3g}" for r in rows))
+    return {"rows": rows, "launches": counted,
+            "max_abs_err": {n: max(r["max_abs_err"] for r in rows
+                                   if (r["C"] == 1) == (n == "mla_paged"))
+                            for n in counted}}
+
+
+def start_dryrun() -> list:
+    """The dry-run cells as subprocesses on the CPU (one thread each),
+    started together; phase 22 reads them."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--force", "--save-hlo",
+                "--results", str(DRYRUN_OUT)] + (["--multi-pod"] if multi
+                                                 else [])
+        procs.append(subprocess.Popen(argv, env=env, cwd=str(root),
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def phase_static_moe(smi: str) -> dict:
+    """Phase 21: the moe family's static path and decode_mla's contiguous
+    route."""
+    out = {a: moe_static_one(a, layers, smi) for a, layers in MOE_STATIC}
+    out["mla_contiguous"] = mla_contiguous_check(smi)
+    return out
+
+
+def host_param_bytes(cfg, mesh) -> tuple:
+    """The dry run's per-device parameter bytes of ``cfg`` on ``mesh``
+    (fake parameters, nothing allocated), each leaf rounded up to the
+    caching allocator's block."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.parallel import sharding as shd
+    with FakeTensorMode():
+        p = api.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+        sh = shd.param_shardings(p, cfg, mesh)
+        leaves = []
+        shd.zip_map(lambda t, s: leaves.append(s.local_bytes(t)), p, sh)
+    return sum(leaves), sum(-(-n // ALLOC_BLOCK) * ALLOC_BLOCK
+                            for n in leaves)
+
+
+def phase_dryrun(procs, smi: str) -> dict:
+    """Phase 22: the dry-run cells' records, then the 1 x 1 host mesh of
+    the card (a one-rank NCCL group): parameter bytes against the card's
+    allocation, and a smoke tree resharded onto it bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.training import elastic
+    out = {"cells": {}}
+    for (arch, shape, multi), proc in zip(DRYRUN_CELLS, procs):
+        log, _ = proc.communicate(timeout=900)
+        tag = f"{arch}__{shape}__{'pod2' if multi else 'pod1'}"
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {tag} exited {proc.returncode}:"
+                                 f"\n{log[-3000:]}")
+        rec = json.loads((DRYRUN_OUT / f"{tag}.json").read_text())
+        mem = rec["memory_analysis"]
+        r = rec["roofline"]
+        if rec["cuda_initialized"] or rec["compile_s"] is not None or \
+                mem["temp_size_in_bytes"] is not None or \
+                not rec["hlo"]["flops"] > 0:
+            raise AssertionError(f"dry run {tag}: {rec}")
+        out["cells"][tag] = {
+            "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+            "collective_s": r["collective_s"], "bottleneck": r["bottleneck"],
+            "argument_bytes_per_device": mem["argument_size_in_bytes"],
+            "bytes_per_device": rec["bytes_per_device"],
+            "counted_s": rec["lower_s"], "layer_cuts": rec["layer_cuts"]}
+        print(f"[dryrun] {tag} ({rec['n_chips']} stand-in chips, counted on "
+              f"the CPU in {rec['lower_s']}s over cuts "
+              f"{rec['layer_cuts']}): compute {r['compute_s'] * 1e3:.3f} ms,"
+              f" memory {r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms <- {r['bottleneck']}; "
+              f"arguments {mem['argument_size_in_bytes']} B/device, "
+              f"{rec['bytes_per_device']} B/device in all; CUDA never "
+              f"initialised")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1)
+    try:
+        host = mesh_mod.make_host_mesh(1)
+        if tuple(host.shape) != (1, 1) or host.device_type != "cuda":
+            raise AssertionError(f"host mesh {host}")
+        out["host_mesh"] = {}
+        for arch in ("qwen1.5-4b-smoke", "deepseek-v3-671b-smoke"):
+            cfg = get_config(arch)
+            exact, rounded = host_param_bytes(cfg, host)
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            params = api.init_params(0, cfg, device="cuda")
+            torch.cuda.synchronize()
+            allocated = torch.cuda.memory_allocated() - before
+            own = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+            out["host_mesh"][arch] = {"dry_run_bytes": exact,
+                                      "dry_run_blocks": rounded,
+                                      "leaf_bytes": own,
+                                      "allocated": allocated}
+            print(f"[dryrun] {arch} on the 1x1 host mesh ({smi}): dry run "
+                  f"{exact} B of parameters ({rounded} B in 512-byte "
+                  f"blocks); init_params on the card: leaves {own} B, "
+                  f"memory_allocated +{allocated} B")
+            if exact != own or rounded != allocated:
+                raise AssertionError(f"{arch}: dry run {exact}/{rounded}, "
+                                     f"card {own}/{allocated}")
+            del params
+        cfg = get_config("qwen1.5-4b-smoke")
+        tree = api.init_params(0, cfg, device="cpu")
+        moved = elastic.reshard(tree, shd.param_shardings(tree, cfg, host))
+        same = all(torch.equal(m.to_local().cpu(), t) and
+                   m.to_local().is_cuda for t, m in
+                   zip(tree_leaves(tree), tree_leaves(moved)))
+        if not same:
+            raise AssertionError("reshard onto the card's mesh changed bits")
+        out["reshard_leaves"] = len(tree_leaves(tree))
+        print(f"[dryrun] elastic.reshard: {out['reshard_leaves']} leaves of "
+              f"qwen1.5-4b-smoke onto the card's 1x1 NCCL mesh, bit for bit")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3934,7 +4326,19 @@ def main() -> int:
     hyb = lap("serve (hybrid)", phase_hybrid_serve)
     ssm_eng = lap("serve (ssm)", phase_ssm_serve)
     aud = lap("serve (audio)", phase_audio_serve)
-    front = lap("static+train (frontends)", phase_front_static_train, smi)
+    # the dry run counts on the CPU (~70 s for deepseek's 32k prefill):
+    # it runs beside phases 20 and 21, which keep the card busy
+    dry_procs = start_dryrun()
+    try:
+        front = lap("static+train (frontends)", phase_front_static_train,
+                    smi)
+        moe_static = lap("static (moe)", phase_static_moe, smi)
+        lap("dry run", phase_dryrun, dry_procs, smi)
+    finally:
+        for proc in dry_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     front_flash = {a: r["launches"]["flash_attention"]
                    for a, r in front["static"].items()}
     blocks_k = [get_config("rubicall").kernel_sizes[i] for i in KERNEL_BLOCKS]
@@ -4072,6 +4476,13 @@ def main() -> int:
                      f"0..{MLA_POSITIONS[0] - 1}, C="
                      f"{1 if name == 'mla_paged' else 16}",
             "launches_by_route": ds_routes[name],
+            # decode_mla's contiguous cuda route, held in phase 21 (check
+            # launches, not the main path's: --static decodes on gather)
+            "contiguous_route_checks": {
+                "launches_by_route": moe_static["mla_contiguous"][
+                    "launches"][name],
+                "max_abs_err": moe_static["mla_contiguous"][
+                    "max_abs_err"][name]},
             "per_call": row,
             **{f"per_call_{n}_positions": mla_kern["timing"][(name, n)]
                for n in (FULL_POSITIONS, MLA_POSITIONS[1])
@@ -4093,7 +4504,9 @@ def main() -> int:
         flash = name == "flash_attention"
         new = ({f"{AUDIO_ARCH} admissions (engine)":
                 aud["launches"][name],
-                **{f"{a} static": c for a, c in front_flash.items()}}
+                **{f"{a} static": c for a, c in front_flash.items()},
+                f"{MOE_ARCH} static":
+                    moe_static[MOE_ARCH]["launches"][name]}
                if flash else {})
         kernels.append({
             "name": name, "route": "cuda",
@@ -4110,7 +4523,7 @@ def main() -> int:
                if key != "shape"},
             "shape": f"sum over one {arch} prefill's {n} launches, "
                      f"{row['shape']}",
-            # phases 19 and 20 assert their flash launches tensor-core
+            # phases 19, 20 and 21 assert their flash launches tensor-core
             "launches_by_route": {
                 r: run["routes"][name][r] + hyb_static["routes"][name][r]
                 + (sum(new.values()) if r == "tensor_core" else 0)

@@ -2,9 +2,10 @@
 
 The port's own copy of ``repro.config`` (field for field, so a config
 compares equal across the two packages). Registered: the paper's
-basecaller family and the LM configs ported so far (``LM_ARCHS``).
-Reduced ("smoke") variants are derived mechanically with
-:meth:`ModelConfig.smoke`.
+basecaller family (``PAPER_ARCHS``) and the ten assigned LM archs
+(``ASSIGNED_ARCHS``). Reduced ("smoke") variants are derived
+mechanically with :meth:`ModelConfig.smoke`. The dry run's cells are
+(arch x :data:`SHAPES`), where :func:`shape_applicable`.
 """
 from __future__ import annotations
 
@@ -100,6 +101,11 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """sub-quadratic archs that run the long_500k shape."""
+        return self.family in ("ssm", "hybrid")
+
     def smoke(self) -> "ModelConfig":
         """Mechanically reduced config of the same family for CPU tests."""
         def cap(v, m):
@@ -146,16 +152,56 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shapes
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+    microbatch: int = 0       # 0 -> auto
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k":
+        return cfg.supports_long_context
+    return True
+
+
+# ---------------------------------------------------------------------------
 # Registry
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
+ASSIGNED_ARCHS = (
+    "command-r-plus-104b",
+    "qwen1.5-4b",
+    "chatglm3-6b",
+    "llama3-405b",
+    "internvl2-1b",
+    "hymba-1.5b",
+    "mamba2-130m",
+    "granite-moe-1b-a400m",
+    "deepseek-v3-671b",
+    "whisper-tiny",
+)
+
 PAPER_ARCHS = ("rubicall", "bonito", "causalcall")
-LM_ARCHS = ("qwen1.5-4b", "chatglm3-6b", "command-r-plus-104b",
-            "llama3-405b", "internvl2-1b", "deepseek-v3-671b",
-            "granite-moe-1b-a400m", "mamba2-130m", "hymba-1.5b",
-            "whisper-tiny")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -164,7 +210,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def _ensure_loaded() -> None:
-    for arch in PAPER_ARCHS + LM_ARCHS:
+    for arch in ASSIGNED_ARCHS + PAPER_ARCHS:
         if arch not in _REGISTRY:
             importlib.import_module("repro_torch.configs." + arch.replace(
                 "-", "_").replace(".", "_"))
@@ -177,3 +223,8 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    _ensure_loaded()
+    return dict(_REGISTRY)

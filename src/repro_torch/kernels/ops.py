@@ -17,7 +17,8 @@ Decode attention has two backends (:func:`decode_gqa`, and
 masked-dense reference over a gathered logical view, and ``cuda``, the
 paged kernels reading the block arena in place (``gqa_paged`` /
 ``mla_paged`` for single-token ticks, ``gqa_paged_chunk`` /
-``mla_paged_chunk`` for C > 1 chunks).
+``mla_paged_chunk`` for C > 1 chunks). Both also take contiguous rows
+(no table), which the ``cuda`` backend views as an arena of blocks.
 """
 from __future__ import annotations
 
@@ -167,20 +168,52 @@ def _paged(q, *args, chunk: bool, **kw):
     return fn(q, *args, **kw)
 
 
-@functools.lru_cache(maxsize=None)
-def contiguous_block_len(L: int, hd: int) -> int:
-    """The block length a contiguous row of ``L`` positions at head dim
-    ``hd`` is viewed in on the card. The CUDA-core kernel stages a whole
-    block in shared memory, so a block is at most
-    ``pa.cuda_core_max_block(hd)`` long (Whisper's 1500 encoder frames
-    in one block would take ~786 KB at hd 64). Of those lengths, the
-    largest divisor of L, so the rows reshape in place (375 at 1500 and
-    hd 64); where that divisor is under half the longest (a prime L),
-    the longest, and :func:`decode_gqa` pads each row with masked
-    positions."""
-    cap = min(L, pa.cuda_core_max_block(hd))
+def _block_len(L: int, cap: int) -> int:
+    """Of the lengths up to ``min(L, cap)``, the largest divisor of L, so
+    rows of L positions reshape in place; where that divisor is under
+    half the longest (a prime L), the longest, and the rows are padded
+    with masked positions (:func:`_rows_as_arena`)."""
+    cap = min(L, cap)
     bl = next(b for b in range(cap, 0, -1) if L % b == 0)
     return bl if 2 * bl >= cap else cap
+
+
+@functools.lru_cache(maxsize=None)
+def contiguous_block_len(L: int, hd: int) -> int:
+    """The block length a contiguous GQA row of ``L`` positions at head
+    dim ``hd`` is viewed in on the card. The CUDA-core kernel stages a
+    whole block in shared memory, so a block is at most
+    ``pa.cuda_core_max_block(hd)`` long (Whisper's 1500 encoder frames
+    in one block would take ~786 KB at hd 64); :func:`_block_len` picks
+    among those (375 at 1500 and hd 64)."""
+    return _block_len(L, pa.cuda_core_max_block(hd))
+
+
+@functools.lru_cache(maxsize=None)
+def mla_contiguous_block_len(L: int) -> int:
+    """The block length a contiguous latent row of ``L`` positions is
+    viewed in on the card: at most the MLA CUDA-core kernel's longest
+    block, ``pa.MLA_CORE_MAX_BLOCK`` (64), so either route takes it
+    (34 at 544; 64 at a prime L, padded)."""
+    return _block_len(L, pa.MLA_CORE_MAX_BLOCK)
+
+
+def _rows_as_arena(rows, pos: torch.Tensor, bl: int):
+    """Contiguous rows ``(B, L, ...)`` and their positions (B, L) as an
+    arena of blocks of ``bl`` positions: row b's blocks in table row b,
+    in order, each row padded with masked positions (``EMPTY_POS``)
+    where ``bl`` does not divide L. Returns (arenas, pos, table)."""
+    B, L = pos.shape
+    pad = -L % bl
+    if pad:
+        rows = [torch.cat([a, a.new_zeros(B, pad, *a.shape[2:])], dim=1)
+                for a in rows]
+        pos = torch.cat([pos, pos.new_full((B, pad), pa.EMPTY_POS)], dim=1)
+    n = (L + pad) // bl
+    rows = [a.reshape(B * n, bl, *a.shape[2:]) for a in rows]
+    table = torch.arange(B * n, dtype=torch.int32,
+                         device=pos.device).reshape(B, n)
+    return rows, pos, table
 
 
 def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -213,19 +246,8 @@ def decode_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "fp32 directly)")
         if backend != "cuda":
             return pa.gqa_reference(q, k, v, pos, t, window=window)
-        L = k.shape[1]
-        bl = contiguous_block_len(L, hd)
-        pad = -L % bl
-        if pad:
-            k, v = (torch.cat([a, a.new_zeros(B, pad, Hkv, hd)], dim=1)
-                    for a in (k, v))
-            pos = torch.cat([pos, pos.new_full((B, pad), pa.EMPTY_POS)],
-                            dim=1)
-        n = (L + pad) // bl
-        k = k.reshape(B * n, bl, Hkv, hd)
-        v = v.reshape(B * n, bl, Hkv, hd)
-        table = torch.arange(B * n, dtype=torch.int32,
-                             device=k.device).reshape(B, n)
+        (k, v), pos, table = _rows_as_arena(
+            (k, v), pos, contiguous_block_len(k.shape[1], hd))
     bl = k.shape[1]
     if backend == "cuda":
         kw = dict(window=window, k_scale=k_scale, v_scale=v_scale)
@@ -262,21 +284,39 @@ def _mla_paged(q_abs, *args, chunk: bool, **kw):
 
 def decode_mla(q_abs: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
                k_rope: torch.Tensor, pos: torch.Tensor, t: torch.Tensor, *,
-               scale: float, table: torch.Tensor,
+               scale: float, table: Optional[torch.Tensor] = None,
                backend: Optional[str] = None,
                c_scale: Optional[torch.Tensor] = None,
                kr_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Absorbed-form MLA decode over the paged latent pool. q_abs: (B, C,
-    H, kvr); q_rope: (B, C, H, rope); c/k_rope: latent arenas (n_blocks,
-    block_len, kvr|rope); pos: (B, T*block_len); t: (B, C) (< 0 = pad
-    row); table: (B, T) (-1 = unassigned). Returns o_lat (B, C, H, kvr)
-    fp32; the caller applies the absorbed value projection.
+    """Absorbed-form MLA decode over the latent cache. q_abs: (B, C, H,
+    kvr); q_rope: (B, C, H, rope); pos: (B, L); t: (B, C) (< 0 = pad
+    row). Returns o_lat (B, C, H, kvr) fp32; the caller applies the
+    absorbed value projection.
+
+    ``table`` (B, T) (-1 = unassigned): c/k_rope are the paged pool's
+    latent arenas (n_blocks, block_len, kvr|rope), L = T * block_len.
+    ``table`` None: c/k_rope are contiguous rows (B, L, kvr|rope), the
+    static path's cache.
 
     ``backend`` ``gather``/None: the reference over the gathered logical
-    view. ``cuda``: single-token steps (C == 1) run ``mla_paged``, C > 1
-    chunks ``mla_paged_chunk``. ``c_scale``/``kr_scale``: int8 arena
-    scales (n_blocks, block_len)."""
+    view (the rows themselves when contiguous). ``cuda``: single-token
+    steps (C == 1) run ``mla_paged``, C > 1 chunks ``mla_paged_chunk``;
+    contiguous rows go as an arena of :func:`mla_contiguous_block_len`
+    blocks (padded with masked positions where that length does not
+    divide L), row b's in table row b, in order. ``c_scale``/
+    ``kr_scale``: int8 arena scales (n_blocks, block_len), paged layout
+    only."""
     B, C, H, kvr = q_abs.shape
+    if table is None:
+        if c_scale is not None or kr_scale is not None:
+            raise ValueError("decode_mla: int8 latent scales need the "
+                             "paged layout (contiguous rows store bf16, "
+                             "fp8 or fp32 directly)")
+        if backend != "cuda":
+            return pa.mla_reference(q_abs, q_rope, c, k_rope, pos, t,
+                                    scale=scale)
+        (c, k_rope), pos, table = _rows_as_arena(
+            (c, k_rope), pos, mla_contiguous_block_len(c.shape[1]))
     if backend == "cuda":
         if q_rope.dtype != q_abs.dtype:
             # the kernel reads both in one dtype; widening is exact and it

@@ -113,6 +113,17 @@ def paged_writes(table: torch.Tensor, t: torch.Tensor, n_blocks: int,
     return PagedWrites(b, c, wblk[b, c], off[b, c], lw[b, c])
 
 
+def contiguous_writes(t: torch.Tensor, L: int) -> PagedWrites:
+    """The writes of tokens at positions ``t`` (B, C) (< 0 = pad) into
+    contiguous rows of ``L`` positions, as :class:`PagedWrites` with row
+    b as its own block: ``blk = b`` and ``off = lw = t % L``. Pad tokens
+    write nothing; called with a host ``t`` it costs no device
+    synchronisation, as :func:`paged_writes`."""
+    b, c = torch.nonzero(t >= 0, as_tuple=True)
+    slot = t[b, c].long() % L
+    return PagedWrites(b, c, b, slot, slot)
+
+
 def valid_mask(pos: torch.Tensor, t: torch.Tensor,
                window: int = 0) -> torch.Tensor:
     """(B, C, L) participation mask of cached ``pos`` (B, L) for query
@@ -526,6 +537,7 @@ MLA_GROUP = 16         # query rows of a row group (4 warps)
 MLA_MAX_STEPS = 64     # steps a CTA stages the positions of (2048)
 MLA_MAX_SPLITS = 8     # CTAs of a split walk: one cluster (portable size)
 MLA_SPLIT_CTAS = 80    # CTAs of a split walk's grid (clusters at once)
+MLA_CORE_MAX_BLOCK = 64  # the CUDA-core kernel's longest block (csrc BL_MAX)
 
 
 class MlaPlan(NamedTuple):

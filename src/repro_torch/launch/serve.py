@@ -75,18 +75,22 @@ roofline-prior order) and ``--per-group`` adds the per-layer-group
 refinement. It prints the table ranked by decode tok/s per cache byte
 and the best knobs as flags.
 
-The static path (``--static``, every LM family but moe)
--------------------------------------------------------
+The static path (``--static``, every LM family)
+-----------------------------------------------
 ``python -m repro_torch.launch.serve --arch mamba2-130m --static
 --slots 4 --prompt-len 2048 --tokens 32`` runs the reference's legacy
 single-shot loop: one fixed batch of ``--slots`` random prompts of
 ``--prompt-len`` tokens, one whole-prompt prefill into contiguous caches
 (the ``ssd_scan`` kernel for mamba2's SSD layers, ``flash_attention``
 for qwen1.5-4b's attention, both for hymba-1.5b's full-attention
-layers and ``ssd_scan`` alone for its sliding-window ones; Whisper's
-encoder runs the kernel without the causal mask over its seeded frames,
-and internvl2-1b's seeded patch embeddings sit before the prompt), then
-``--tokens`` - 1 lockstep greedy decode steps. ``--wbits`` packs the
+layers and ``ssd_scan`` alone for its sliding-window ones,
+``flash_attention`` for granite-moe-1b-a400m's attention and no kernel
+for deepseek-v3-671b's MLA, whose prefill runs the plain
+``blockwise_attn`` as the reference's; Whisper's encoder runs the
+kernel without the causal mask over its seeded frames, and
+internvl2-1b's seeded patch embeddings sit before the prompt), then
+``--tokens`` - 1 lockstep greedy decode steps (MLA over contiguous
+latent rows, MoE with the batch as one dispatch group). ``--wbits`` packs the
 weights as they are drawn and dequantizes them once, up front, as the
 reference's static path does. It prints the prefill time, decode tok/s
 and the kernel launches of each half.

@@ -2,11 +2,12 @@
 the reference: ``dense``, ``moe`` (GQA or MLA, with the MTP head),
 ``ssm``, ``hybrid``, ``vlm`` (patch embeddings prepended) and
 ``audio`` (Whisper's encoder-decoder) in training; all but ``vlm``
-through the serving engine, as the reference; ``dense``, ``ssm``,
-``hybrid``, ``vlm`` and ``audio`` through the static path): parameter
-init, the loss and train step, the serving engine, the whole-prompt
-prefill and lockstep decode steps and smoke batches, on the device a
-caller names; parameter counts from shapes alone.
+through the serving engine, as the reference; all of them through
+the static path): parameter init, the loss and train step, the serving
+engine, the whole-prompt prefill and lockstep decode steps and smoke
+batches, on the device a caller names; parameter counts from shapes
+alone; the dry run's batch shapes (:func:`batch_struct`,
+:func:`batch_specs`).
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``); without a card and without that request they
@@ -274,6 +275,56 @@ def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev), params)
     return ServingEngine(params, cfg, device=dev, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Batch shapes of the dry run
+
+
+def batch_struct(cfg: ModelConfig, shape, *, device="meta") -> Dict:
+    """The batch of one ``ShapeConfig`` step as empty tensors on
+    ``device`` (default ``meta``: shapes and dtypes, no storage; the dry
+    run makes them under ``FakeTensorMode`` on the CPU): the reference's
+    ``batch_struct``, leaf for leaf. Decode takes one token a row and
+    its position ``t`` (0-d)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def sd(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=device)
+    if cfg.family == "basecaller":
+        return {"signal": sd((B, S, 1), f32),
+                "labels": sd((B, S // 8), i32),
+                "label_lengths": sd((B,), i32)}
+    if shape.kind == "decode":
+        return {"tokens": sd((B, 1), i32), "t": sd((), i32)}
+    tok = {"tokens": sd((B, S), i32)}
+    if cfg.family == "vlm":
+        Pt = cfg.frontend_tokens
+        tok = {"tokens": sd((B, S - Pt), i32),
+               "patch_embeds": sd((B, Pt, cfg.d_model), f32)}
+    if cfg.family == "audio":
+        tok["frames"] = sd((B, cfg.frontend_tokens, cfg.d_model), f32)
+    if shape.kind == "train":
+        lab = (B, S - cfg.frontend_tokens) if cfg.family == "vlm" else (B, S)
+        tok["labels"] = sd(lab, i32)
+    return tok
+
+
+def batch_specs(cfg: ModelConfig, shape, mesh_axes: Tuple[str, ...]
+                ) -> Dict:
+    """Partition specs matching :func:`batch_struct`: the batch dim over
+    every non-'model' axis (filtered against the mesh's sizes where the
+    shardings are made), the rest replicated; a 0-d leaf replicated."""
+    from repro_torch.parallel.sharding import Spec
+    dp = tuple(a for a in mesh_axes if a != "model")
+
+    def spec_of(leaf):
+        if not leaf.shape:
+            return Spec()
+        return Spec(dp if leaf.shape[0] > 1 else None,
+                    *([None] * (leaf.ndim - 1)))
+    return {k: spec_of(v) for k, v in batch_struct(cfg, shape).items()}
 
 
 # ---------------------------------------------------------------------------

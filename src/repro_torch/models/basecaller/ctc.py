@@ -12,6 +12,7 @@ from typing import List
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 NEG = -1e30
 BLANK = 0
@@ -38,7 +39,13 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     ``exp(lp) - gamma``, not ``-gamma``: the two agree only through
     ``log_softmax``'s backward, so gradients match the reference's with
     respect to the logits or the parameters, never ``log_probs``.
+
+    On fake tensors (the dry run's counter) :func:`ctc_loss_ref` stands
+    in: ``F.ctc_loss``'s shapes depend on the lengths' values, which a
+    fake tensor has not.
     """
+    if is_fake(log_probs):
+        return ctc_loss_ref(log_probs, labels, label_lengths)
     B, T, _ = log_probs.shape
     dev = log_probs.device
     labels = labels.to(device=dev, dtype=torch.int64)

@@ -11,10 +11,13 @@ is ``nope + rope`` (192 at full width).
 Decode uses the *absorbed* form: scores and values are computed in the
 (kv_lora_rank + rope) latent space, so each layer caches one latent
 ``c (kvr,)`` and one rope key ``k_rope (rope,)`` per position, shared by
-every head, instead of per-head K/V. The latents live in shared block
-arenas ``(n_blocks, block_len, kvr|rope)`` addressed through the pool's
-block table, with positions per slot, as for GQA
-(``repro_torch.models.lm.attention``). The arenas are updated in place.
+every head, instead of per-head K/V. The serving pool keeps the latents
+in shared block arenas ``(n_blocks, block_len, kvr|rope)`` addressed
+through its block table, with positions per slot, as for GQA
+(``repro_torch.models.lm.attention``); the static path keeps them in
+contiguous rows ``(B, L, kvr|rope)`` with per-row positions ``(B, L)``
+(:func:`init_mla_cache`, :func:`mla_decode`). Caches are updated in
+place.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.ops import decode_mla
 from repro_torch.models.lm.attention import blockwise_attn
 from repro_torch.kernels.paged_attention import (EMPTY_POS, PagedWrites,
+                                                 contiguous_writes,
                                                  paged_writes, put_rows,
                                                  quantize_kv)
 from repro_torch.models.lm.common import (Params, dense, kernel_of,
@@ -103,6 +107,39 @@ def mla_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
                                                        "k_rope": k_rope}
 
 
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   dtype=torch.bfloat16, *, lead=(), device=None) -> Dict:
+    """Empty contiguous latent cache, stacked over ``lead``: ``c (*lead,
+    B, L, kvr)`` and ``k_rope (*lead, B, L, rope)`` in ``dtype``, and
+    positions per row, ``pos (*lead, B, L)``, empty. One shared ``(L,)``
+    vector would cross-mask a batched decode whose rows sit at
+    different positions, so the positions are per row, as the
+    reference's."""
+    _, _, kvr, _, rope_d, _ = _dims(cfg)
+    rows = (*lead, batch, cache_len)
+    return {"c": torch.zeros((*rows, kvr), dtype=dtype, device=device),
+            "k_rope": torch.zeros((*rows, rope_d), dtype=dtype,
+                                  device=device),
+            "pos": torch.full(rows, EMPTY_POS, dtype=torch.int32,
+                              device=device)}
+
+
+# the reference's slot layout is the one-shot cache's
+init_mla_cache_slots = init_mla_cache
+
+
+def fill_mla_cache(cache: Dict, kv: Dict) -> Dict:
+    """Write a prefill's hand-off ``{"c": (B, S, kvr), "k_rope": (B, S,
+    rope)}`` into the first S positions of ``cache``, in place, and mark
+    them at positions 0..S-1."""
+    S = kv["c"].shape[1]
+    cache["c"][:, :S] = kv["c"].to(cache["c"].dtype)
+    cache["k_rope"][:, :S] = kv["k_rope"].to(cache["k_rope"].dtype)
+    cache["pos"][:, :S] = torch.arange(S, dtype=torch.int32,
+                                       device=cache["pos"].device)
+    return cache
+
+
 def init_mla_cache_paged(cfg: ModelConfig, n_slots: int, cache_len: int,
                          n_blocks: int, block_len: int, *,
                          dtype=torch.bfloat16, lead=(), device=None) -> Dict:
@@ -145,36 +182,67 @@ def mla_cache_slot_axes(quantized: bool = False) -> Dict[str, bool]:
     return axes
 
 
+def mla_decode(p: Params, x: torch.Tensor, cache: Dict, t,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-form decode over the contiguous latent cache, updated in
+    place. x: (B, 1, d); t: an int (every row's position, the lockstep
+    static decode), or a tensor of one position, (B,) or (B, 1). Runs
+    :func:`mla_decode_slots` with no table, as the reference's. An int
+    ``t`` writes every row at ``t % L`` with no device synchronisation."""
+    B = x.shape[0]
+    writes = None
+    if isinstance(t, int):
+        rows = torch.arange(B)
+        slot = torch.full((B,), t % cache["c"].shape[1], dtype=torch.long)
+        writes = PagedWrites(rows, torch.zeros_like(rows), rows, slot,
+                             slot).to(x.device)
+        t = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    else:
+        t = torch.as_tensor(t).to(x.device, torch.int32).reshape(
+            -1, 1).expand(B, 1)
+    return mla_decode_slots(p, x, cache, t, cfg, table=None, writes=writes)
+
+
 def mla_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
                      t: torch.Tensor, cfg: ModelConfig, *,
-                     table: torch.Tensor, attn_backend: Optional[str] = None,
+                     table: Optional[torch.Tensor] = None,
+                     attn_backend: Optional[str] = None,
                      writes: Optional[PagedWrites] = None
                      ) -> Tuple[torch.Tensor, Dict]:
-    """Slot-batched absorbed-MLA step over the paged latent arena: row b's
-    C tokens sit at positions ``t[b]`` (< 0 = pad). x: (B, C, d); t:
-    (B, C) int32; table: (B, T) int32, both on x's device.
+    """Slot-batched absorbed-MLA step: row b's C tokens sit at positions
+    ``t[b]`` (< 0 = pad). x: (B, C, d); t: (B, C) int32 on x's device.
+
+    ``table`` (B, T) int32: ``cache`` is the paged pool's, latent arenas
+    addressed through the table. ``table`` None: ``cache`` is contiguous
+    rows (:func:`init_mla_cache`), token b's written at ``t % L``; int8
+    latent scales need the paged layout and raise, as the reference.
 
     The tokens' latents (int8 arenas: quantized per token, the scale
     written at the same index) and positions are written into ``cache``
     in place before the read, so a chunk attends causally within itself;
     pad tokens and tokens whose block is unassigned write nothing
     (``writes``: those writes filtered on the host, as
-    ``attention.attn_decode_slots`` takes them). The read is
+    ``attention.attn_decode_slots`` takes them; without it they are
+    filtered from ``t``, which reads ``t`` on the host). The read is
     ``decode_mla`` with ``attn_backend``: ``q_abs = q_nope · W_uk``
     scores against the latent, ``o = o_lat · W_uv`` then ``wo``, with
     ``wukv`` dequantized in fp32 and cast to the compute dtype (bf16 for
     1-byte arenas). Returns (out (B, C, d), cache)."""
     B, C, _ = x.shape
     H, qr, kvr, nope, rope_d, vd = _dims(cfg)
+    quantized = "c_scale" in cache
+    if table is None and quantized:
+        raise ValueError("mla_decode_slots: int8 latent scales need the "
+                         "paged layout (a table)")
     tq = t.clamp(min=0)
     q_nope, q_rope = _project_q(p, x, tq, cfg)            # (B, C, H, *)
     c_new, kr_new = _project_kv_latent(p, x, tq, cfg)     # (B, C, *)
-    Nb, bl = cache["c"].shape[:2]
     if writes is None:
-        writes = paged_writes(table, t, Nb, bl)
+        writes = (contiguous_writes(t.cpu(), cache["c"].shape[1])
+                  if table is None else
+                  paged_writes(table, t, *cache["c"].shape[:2])).to(x.device)
     w = writes
     cn, krn = c_new[w.b, w.c], kr_new[w.b, w.c]           # (n, kvr|rope)
-    quantized = "c_scale" in cache
     at = (w.blk, w.off)
     if quantized:
         (cq, cs), (krq, krs) = quantize_kv(cn), quantize_kv(krn)

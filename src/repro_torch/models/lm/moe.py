@@ -9,7 +9,9 @@ the chosen experts. The reference then runs every expert densely over a
 computes the same function over only the experts that received a token:
 it gathers those experts' rows, dequantizes each expert as ``kernel_of``
 does, and sums the outputs with the same dispatch and combine weights
-(an expert's empty capacity slots add zero in the reference).
+(an expert's empty capacity slots add zero in the reference). Fake
+tensors (the dry run's counter) have no routing to read, so there the
+reference's dense form runs (:func:`_routed_dense`).
 """
 from __future__ import annotations
 
@@ -18,11 +20,13 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import (Packer, PackedTensor, dequantize,
                                            quantize_tensor)
-from repro_torch.models.lm.common import (Params, dense, make_dense_params,
+from repro_torch.models.lm.common import (Params, dense, kernel_of,
+                                          make_dense_params,
                                           make_mlp_params, mlp,
                                           truncated_normal_init)
 
@@ -170,6 +174,24 @@ def _routed(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
     return y.to(dt).reshape(G, S, d)
 
 
+def _routed_dense(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
+                  combine: torch.Tensor) -> torch.Tensor:
+    """:func:`_routed` in the reference's capacity-padded einsum form:
+    every expert runs its ``capacity`` slots of every group, filled or
+    not, so no shape depends on the routing. The same sum, in other
+    rounding; for fake tensors (the dry run's counter), whose routing
+    cannot be read."""
+    G, S, d = x.shape
+    dt = x.dtype
+    wi, wg, wo = (kernel_of(p[n], dt) for n in ("wi", "wg", "wo"))
+    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), x)
+    h = F.silu(torch.einsum("egcd,edf->egcf", xe, wg)) * torch.einsum(
+        "egcd,edf->egcf", xe, wi)
+    ye = torch.einsum("egcf,efd->egcd", h, wo)
+    return torch.einsum("gsec,egcd->gsd", combine.to(dt).float(),
+                        ye.float()).to(dt)
+
+
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             capacity_factor: float = 1.25, decode: bool = False,
             pad_mask: Optional[torch.Tensor] = None
@@ -192,7 +214,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     gates = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = _top_k_dispatch(gates, k, capacity,
                                              mask=pad_mask)
-    y = _routed(p, x, dispatch, combine)
+    y = (_routed_dense if is_fake(x) else _routed)(p, x, dispatch, combine)
     if "shared" in p:
         y = y + mlp(p["shared"], x, cfg=cfg, tag="moe/shared")
     return y, aux.float()

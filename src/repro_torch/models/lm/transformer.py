@@ -22,10 +22,14 @@ axis in a Python loop where the reference scans. Ported block kinds:
               decoder)
 
 The vlm family runs dense blocks over its projected patch embeddings
-(``vision_proj``) prepended to the tokens. Training runs every kind
-above; the slot path serves ``SLOT_KINDS``; the static path
-(``prefill``, ``decode_step``) runs ``STATIC_KINDS``. A hybrid block's
-cache nests ``{"kv": attention cache, "ssm": SSM state}``; an SSM
+(``vision_proj``) prepended to the tokens. Training, the slot path
+(``SLOT_KINDS``) and the static path (``prefill``, ``decode_step``:
+``STATIC_KINDS``) each run every kind above, so every LM family serves
+under ``--static``. On the static path an MLA block caches contiguous
+latent rows with per-row positions (``mla.init_mla_cache``) and decodes
+through ``mla.mla_decode``; an MoE block's decode folds the batch into
+one dispatch group (``moe_ffn(decode=True)``), as the reference's. A
+hybrid block's cache nests ``{"kv": attention cache, "ssm": SSM state}``; an SSM
 group has no block table in the paged pool (its state is per slot); an
 xdec group's encoder K/V sits beside its cache under ``gname +
 "/enc_kv"`` on the static path, and in the runner's per-slot buffer
@@ -58,7 +62,8 @@ from repro_torch.models.lm.common import (Params, dense, make_dense_params,
 # every kind whose parameters the port builds.
 SLOT_KINDS = ("dense", "moe", "ssm", "mla_dense", "mla_moe", "hybrid_full",
               "hybrid_swa", "xdec")
-STATIC_KINDS = ("dense", "ssm", "hybrid_full", "hybrid_swa", "xdec")
+STATIC_KINDS = ("dense", "moe", "ssm", "mla_dense", "mla_moe",
+                "hybrid_full", "hybrid_swa", "xdec")
 PARAM_KINDS = SLOT_KINDS
 MLA_KINDS = ("mla_dense", "mla_moe")
 MOE_KINDS = ("moe", "mla_moe")
@@ -440,10 +445,14 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
                      device=None, state_dtype=torch.float32) -> Dict:
     """Empty contiguous cache of one block kind, stacked over ``lead``:
     attention K/V in ``dtype`` (a ``hybrid_swa`` layer's a ring of its
-    window); SSM state h fp32 and conv in ``state_dtype`` (fp32 as the
-    reference's ``init_ssm_cache``; a prefill fills it with the
-    activation dtype's hand-off)."""
+    window); MLA latent rows in ``dtype`` with per-row positions; SSM
+    state h fp32 and conv in ``state_dtype`` (fp32 as the reference's
+    ``init_ssm_cache``; a prefill fills it with the activation dtype's
+    hand-off)."""
     _check_kind(kind, STATIC_KINDS, "static")
+    if kind in MLA_KINDS:
+        return mla_mod.init_mla_cache(cfg, batch, cache_len, dtype,
+                                      lead=lead, device=device)
     attn = dict(window=_block_window(cfg, kind), dtype=dtype, device=device)
     if kind == "ssm":
         one = ssm_mod.init_ssm_cache(cfg, batch, state_dtype, device=device)
@@ -460,7 +469,10 @@ def fill_block_cache(cfg: ModelConfig, kind: str, cache: Dict,
                      kv: Dict) -> Dict:
     """One layer's cache from its prefill hand-off, written into
     ``cache`` in place: attention K/V (a ring keeps the last positions);
-    the SSM state as handed off (h fp32, the conv window)."""
+    MLA's latent ``{"c", "k_rope"}``; the SSM state as handed off (h
+    fp32, the conv window)."""
+    if kind in MLA_KINDS:
+        return mla_mod.fill_mla_cache(cache, kv)
     if kind == "ssm":
         for name in ("h", "conv"):
             cache[name].copy_(kv[name])
@@ -519,13 +531,17 @@ def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
                  ) -> Tuple[torch.Tensor, Dict]:
     """One block of the lockstep decode; x: (B, 1, d); t: the position;
     ``enc_kv``: an xdec layer's encoder K/V (read by the dense einsum,
-    as the reference's static decode reads it)."""
+    as the reference's static decode reads it). MLA reads its latent
+    rows through ``decode_mla``'s gather route, as the reference's; MoE
+    routes the batch as one dispatch group."""
     _check_kind(kind, STATIC_KINDS, "static")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
         mix, nc = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg)
         return x + mix, nc
-    if kind in HYBRID_KINDS:
+    if kind in MLA_KINDS:
+        mix, nc = mla_mod.mla_decode(p["attn"], h, cache, t, cfg)
+    elif kind in HYBRID_KINDS:
         ya, nkv = attn_mod.attn_decode(p["attn"], h, cache["kv"], t, cfg,
                                        window=_block_window(cfg, kind))
         ys, nst = ssm_mod.ssm_decode(p["ssm"], h, cache["ssm"], cfg)
@@ -536,7 +552,11 @@ def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
     if kind == "xdec":
         x = _cross(p, x, enc_kv, cfg)
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], h2, cfg=cfg, tag="mlp", act=_mlp_act(cfg)), nc
+    if kind in MOE_KINDS:
+        y, _ = moe_mod.moe_ffn(p["ffn"], h2, cfg, decode=True)
+    else:
+        y = mlp(p["ffn"], h2, cfg=cfg, tag="mlp", act=_mlp_act(cfg))
+    return x + y, nc
 
 
 def decode_step(params: Params, caches: Dict, tokens: torch.Tensor, t: int,
@@ -570,8 +590,9 @@ def _copy_back(cache: Dict, new: Dict) -> None:
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 cache_dtype=torch.bfloat16, device=None) -> Dict:
     """Empty contiguous caches of the static path, per group stacked
-    over its layers; an xdec group's encoder K/V (``frontend_tokens``
-    positions) zero beside it."""
+    over its layers (:func:`init_block_cache`: MLA groups hold latent
+    rows with per-row positions); an xdec group's encoder K/V
+    (``frontend_tokens`` positions) zero beside it."""
     caches: Dict[str, Any] = {}
     for gname, kind, n in group_names(cfg):
         caches[gname] = init_block_cache(cfg, kind, batch, cache_len,

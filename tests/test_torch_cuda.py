@@ -3,7 +3,8 @@ and MLA paged attention, flash attention and the SSD scan) and of
 training on the card (the CTC loss, a train step, checkpoints, the
 packed identity gate, the LM training forward's gradients and the
 prefill kernels' refusal of inputs that require grad), the contiguous
-layout of ``decode_gqa`` and the audio runner's staging; ``-m gpu``;
+layouts of ``decode_gqa`` and ``decode_mla`` and the audio runner's
+staging; ``-m gpu``;
 they skip without a card. This
 file imports neither JAX nor the JAX package, so it runs on a GPU
 machine that has only the port's requirements:
@@ -585,12 +586,15 @@ def test_cuda_ssd_scan_routes_and_values(B, S, nh, hd, N, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "qwen1.5-4b-smoke"])
+@pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "qwen1.5-4b-smoke",
+                                  "granite-moe-1b-a400m-smoke",
+                                  "deepseek-v3-671b-smoke"])
 def test_cuda_static_prefill_matches_the_cpu_path(arch):
     """On a card: the static path at smoke width (the kernels through
     their padded head dims) against the same prefill and decode steps on
     the CPU (plain versions), fp32: logits and every cache leaf at 1e-4;
-    the prefill launches the slice's kernel once per layer."""
+    the prefill launches the slice's kernel once per layer (MLA's
+    prefill and every decode step launch none)."""
     _cuda()
     from repro_torch.config import get_config
     from repro_torch.core.quant.policy import tree_map
@@ -614,7 +618,7 @@ def test_cuda_static_prefill_matches_the_cpu_path(arch):
         out.append((logits.cpu(), step.cpu(), caches, counts))
     (lc, sc, cc, _), (lg, sg, cg, counts) = out
     kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
-    assert counts == {kernel: cfg.n_layers}
+    assert counts == ({} if cfg.mla else {kernel: cfg.n_layers})
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(sg, sc, rtol=1e-4, atol=1e-4)
     for g, tree in cc.items():
@@ -1002,6 +1006,51 @@ def test_cuda_decode_gqa_contiguous_matches_plain(B, C, Se, H, Hkv, hd,
     tol = (CROSS_TOL if arena == "bf16q_fp32" else
            dict(rtol=ATTN_TOL[arena], atol=ATTN_TOL[arena]))
     torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("L", [544, 541])
+def test_cuda_decode_mla_contiguous_matches_plain(L, C, dtype):
+    """On a card: ``decode_mla`` over contiguous latent rows
+    (``table=None``, the static path's layout) through the MLA kernels,
+    the rows viewed as blocks of ``mla_contiguous_block_len`` (34 at 544;
+    64 at the prime 541, padded with masked positions), against the same
+    call on the CPU (the kernels' plain versions) at deepseek-v3's widths
+    (H 128, kvr 512, rope 64): stale rows past each fill, a hole, a
+    decode row padded to C and a free row; live rows at the attention
+    tolerance of the rows' dtype (fp32 on the CUDA-core route, bf16 on
+    the tensor-core route); one launch a call."""
+    _cuda()
+    rs = np.random.RandomState(L + C)
+    B, H, kvr, rd = 4, 128, 512, 64
+    pos = np.full((B, L), pa.EMPTY_POS, np.int32)
+    t = np.zeros((B, C), np.int32)
+    for b, f in enumerate((L - C, L // 2, 1, 0)):
+        pos[b, :f + C] = np.arange(f + C)
+        t[b] = np.arange(f, f + C)
+    pos[0, 3] = pa.EMPTY_POS
+    t[2, 1:] = -1
+    t[3] = -1
+    args = [torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dtype)
+            for shape in ((B, C, H, kvr), (B, C, H, rd), (B, L, kvr),
+                          (B, L, rd))] + [torch.from_numpy(pos),
+                                          torch.from_numpy(t)]
+    kw = dict(scale=(128 + rd) ** -0.5, table=None, backend="cuda")
+    want = ops.decode_mla(*args, **kw)
+    ops.reset_launch_counts()
+    got = ops.decode_mla(*(a.cuda() for a in args), **kw)
+    torch.cuda.synchronize()
+    name = "mla_paged" if C == 1 else "mla_paged_chunk"
+    route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    assert ops.launch_counts(routes=True)[name][route] == 1
+    assert ops.launch_counts()[name] == 1
+    assert got.shape == (B, C, H, kvr) and got.dtype == torch.float32
+    live = torch.from_numpy(t >= 0)
+    tol = ATTN_TOL["fp32" if dtype == torch.float32 else "bf16"]
+    torch.testing.assert_close(got.cpu()[live], want[live], rtol=tol,
+                               atol=tol)
 
 
 @pytest.mark.gpu

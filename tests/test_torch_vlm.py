@@ -30,7 +30,7 @@ from repro.models import api as japi
 from repro.models.lm import encdec as jencdec
 from repro.models.lm import transformer as jtfm
 from repro.training import optimizer as jopt
-from repro_torch.config import LM_ARCHS, get_config
+from repro_torch.config import ASSIGNED_ARCHS, get_config
 from repro_torch.data.tokens import token_batches
 from repro_torch.launch import serve
 from repro_torch.models import api
@@ -90,7 +90,7 @@ def _kw(params, b, cfg, enc):
 
 @pytest.mark.parametrize("arch", NEW)
 def test_config_matches_reference_field_by_field(arch):
-    assert arch in LM_ARCHS
+    assert arch in ASSIGNED_ARCHS
     for name in (arch, arch + "-smoke"):
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jget_config(name))
@@ -100,8 +100,8 @@ def test_count_params_analytic_matches_reference_for_every_lm_arch():
     """All ten LM archs, from shapes alone on both sides (the port's
     init under FakeTensorMode, the reference's under ``eval_shape``),
     and active params (MoE: shared + top-k routed)."""
-    assert len(LM_ARCHS) == 10
-    for arch in LM_ARCHS:
+    assert len(ASSIGNED_ARCHS) == 10
+    for arch in ASSIGNED_ARCHS:
         cfg, jcfg = get_config(arch), jget_config(arch)
         want = japi.count_params_analytic(jcfg)
         assert api.count_params_analytic(cfg) == want, arch
