@@ -275,10 +275,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    pad rows; the route of every launch asserted (these check launches
    are counted apart from the main path's).
 22. dry run — ``python -m repro_torch.launch.dryrun`` as subprocesses
-   (started before phase 20, CPU only, one thread each) on qwen1.5-4b x decode_32k,
-   granite-moe-1b-a400m x train_4k and deepseek-v3-671b x prefill_32k
-   on the multi-pod mesh: each record's roofline terms and per-device
-   bytes printed, CUDA never initialised in them. Then on a one-rank
+   (started before phase 17, CPU only, one thread each, at the lowest
+   priority, all held to two of the host's cores, so phases 17 to 21
+   run beside them on the other six) on qwen1.5-4b x decode_32k, granite-moe-1b-a400m x
+   train_4k and deepseek-v3-671b x prefill_32k on the multi-pod mesh,
+   each under the reference's schedule (``""``: the full masked grid)
+   and the variants ``tri``, ``bf16attn`` and ``qc1024``: each record's
+   roofline terms and per-device bytes printed, CUDA never initialised
+   in them; the bmm flops of each train and prefill cell under the
+   grid over the triangle, beside the reference's block pairs. Then on a one-rank
    NCCL group over the card: the dry run's per-device parameter bytes
    on the 1 x 1 host mesh for qwen1.5-4b-smoke and
    deepseek-v3-671b-smoke equal what ``api.init_params`` allocates on
@@ -286,6 +291,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    leaf's bytes rounded to the caching allocator's 512-byte blocks, and
    the leaves' own bytes exactly), and ``elastic.reshard`` moves a
    smoke tree onto that mesh bit for bit.
+23. train (data-parallel) — a one-rank NCCL group over a file store (no
+   socket) and ``train_loop.run(mesh=make_host_mesh(1))``: rubicall-smoke
+   trained 20 steps data-parallel (BatchNorm's statistics and the
+   activation amax all-reduced over the data group, the gradients
+   averaged, rank 0's checkpoints behind a barrier) against the plain
+   one-device loop from the same seed on the same batches: step 1's
+   loss equal, steps 2 to ``DP_EARLY`` within ``DP_EARLY_RTOL`` and
+   every step within ``DP_RTOL`` relative, two checkpoints written; a
+   second plain run gives the card's own spread beside it; the step's
+   wall ms of each, beside the card's name and power limit.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -3961,8 +3976,28 @@ MLA_CONTIG = [(L, c, dt) for L in (544, 541) for c in (1, 16)
 DRYRUN_CELLS = [("qwen1.5-4b", "decode_32k", False),
                 (MOE_ARCH, "train_4k", False),
                 (DS_ARCH, "prefill_32k", True)]
+# each cell under the reference's schedule ("": the full masked grid)
+# and the three attention variants
+DRYRUN_VARIANTS = ("", "tri", "bf16attn", "qc1024")
 DRYRUN_OUT = Path(__file__).resolve().parent / "results" / "dryrun_torch"
+# the dry run's subprocesses share this many of the host's cores (its
+# last) with one another, beside phases 17 to 21
+DRYRUN_CORES = 2
 ALLOC_BLOCK = 512             # the caching allocator's rounding (bytes)
+# phase 23: rubicall-smoke data-parallel on the card's 1 x 1 NCCL mesh
+# against the plain one-device loop, both from seed 0 on the same
+# batches. On one rank every reduction is the identity and the two steps
+# take the same formulas, so on the CPU they agree bit for bit
+# (tests/test_torch_distributed.py). On the card CTC's backward adds
+# with atomics, so two plain runs part too, slowly (H100 80GB HBM3,
+# 700 W): in five runs of 20 steps the first three losses of the
+# data-parallel run equaled the plain run's; in eight, the two parted
+# by up to 1.89e-4 later on, and two plain runs by up to 1.53e-4.
+# Step 1's loss, before any update, must be equal, steps 2 to DP_EARLY
+# within DP_EARLY_RTOL relative (where a fault of the data-parallel step
+# would show), and every step within DP_RTOL (the card's own spread).
+DP_ARCH, DP_STEPS, DP_BATCH, DP_SEQ = "rubicall-smoke", 20, 8, 2048
+DP_EARLY, DP_EARLY_RTOL, DP_RTOL = 3, 1e-6, 5e-4
 
 
 def moe_static_one(arch, layers, smi) -> dict:
@@ -4135,21 +4170,51 @@ def mla_contiguous_check(smi) -> dict:
                             for n in counted}}
 
 
+def dryrun_tag(arch: str, shape: str, multi: bool, variant: str) -> str:
+    tag = f"{arch}__{shape}__{'pod2' if multi else 'pod1'}"
+    return tag + (f"__{variant}" if variant else "")
+
+
 def start_dryrun() -> list:
-    """The dry-run cells as subprocesses on the CPU (one thread each),
-    started together; phase 22 reads them."""
+    """Every dry-run cell under every variant as a subprocess on the CPU
+    (one thread each, at the lowest priority, all held to the host's
+    last :data:`DRYRUN_CORES` cores, so the phases that run beside them
+    keep the rest of the host), started together; phase 22 reads them."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))[-DRYRUN_CORES:]
+
+    def confine():
+        os.nice(19)
+        os.sched_setaffinity(0, cores)
     procs = []
     for arch, shape, multi in DRYRUN_CELLS:
-        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                arch, "--shape", shape, "--force", "--save-hlo",
-                "--results", str(DRYRUN_OUT)] + (["--multi-pod"] if multi
-                                                 else [])
-        procs.append(subprocess.Popen(argv, env=env, cwd=str(root),
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
+        for variant in DRYRUN_VARIANTS:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--force",
+                    "--save-hlo", "--variant", variant, "--results",
+                    str(DRYRUN_OUT)] + (["--multi-pod"] if multi else [])
+            procs.append(subprocess.Popen(
+                argv, env=env, cwd=str(root), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, preexec_fn=confine))
     return procs
+
+
+def reference_pairs(s: int, q_chunk: int = 512, kv_chunk: int = 1024
+                    ) -> tuple:
+    """The reference's blockwise attention block pairs at Sq = Sk = s:
+    its full grid and ``_blockwise_tri``'s triangle (chunks the largest
+    divisors of s not above 512 and 1024)."""
+    def chunk(n, pref):
+        c = min(n, pref)
+        while n % c:
+            c -= 1
+        return c
+    qc, kc = chunk(s, q_chunk), chunk(s, kv_chunk)
+    grid = (s // qc) * (s // kc)
+    tri = sum(1 for i in range(s // qc) for j in range(s // kc)
+              if j * kc <= i * qc + qc - 1)
+    return grid, tri
 
 
 def phase_static_moe(smi: str) -> dict:
@@ -4186,10 +4251,11 @@ def phase_dryrun(procs, smi: str) -> dict:
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.parallel import sharding as shd
     from repro_torch.training import elastic
-    out = {"cells": {}}
-    for (arch, shape, multi), proc in zip(DRYRUN_CELLS, procs):
+    out = {"cells": {}, "grid_to_tri": {}}
+    runs = [(cell, v) for cell in DRYRUN_CELLS for v in DRYRUN_VARIANTS]
+    for ((arch, shape, multi), variant), proc in zip(runs, procs):
         log, _ = proc.communicate(timeout=900)
-        tag = f"{arch}__{shape}__{'pod2' if multi else 'pod1'}"
+        tag = dryrun_tag(arch, shape, multi, variant)
         if proc.returncode != 0:
             raise AssertionError(f"dry run {tag} exited {proc.returncode}:"
                                  f"\n{log[-3000:]}")
@@ -4214,6 +4280,28 @@ def phase_dryrun(procs, smi: str) -> dict:
               f"arguments {mem['argument_size_in_bytes']} B/device, "
               f"{rec['bytes_per_device']} B/device in all; CUDA never "
               f"initialised")
+    # the schedules side by side: every bmm of a cell (the attention's
+    # and, in a moe layer, the dispatch einsums') under "" and tri; the
+    # attention's own ratio is the CPU test's gate (test_torch_dryrun.py)
+    from repro_torch.config import SHAPES
+    for arch, shape, multi in DRYRUN_CELLS:
+        if SHAPES[shape].kind == "decode":
+            continue                      # no blockwise pass in a decode
+        tables = [json.loads((DRYRUN_OUT / f"{dryrun_tag(arch, shape, multi, v)}"
+                              f".ops.json").read_text())["bmm"]
+                  for v in ("", "tri")]
+        grid, tri = reference_pairs(SHAPES[shape].seq_len)
+        ratio = tables[0]["flops"] / tables[1]["flops"]
+        out["grid_to_tri"][f"{arch}__{shape}"] = {
+            "bmm_flops": [tables[0]["flops"], tables[1]["flops"]],
+            "ratio": ratio, "reference_pairs": [grid, tri]}
+        print(f"[dryrun] {arch} x {shape}: bmm flops under the full grid / "
+              f"the triangle = {tables[0]['flops']:.6g} / "
+              f"{tables[1]['flops']:.6g} = {ratio:.4f} (the reference's "
+              f"attention block pairs {grid} / {tri} = {grid / tri:.4f})")
+        if not 1 < ratio <= grid / tri:
+            raise AssertionError(f"{arch} x {shape}: grid/tri {ratio}, "
+                                 f"reference pairs {grid}/{tri}")
     torch.cuda.set_device(0)
     dist.init_process_group(
         "nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
@@ -4259,6 +4347,79 @@ def phase_dryrun(procs, smi: str) -> dict:
               f"qwen1.5-4b-smoke onto the card's 1x1 NCCL mesh, bit for bit")
     finally:
         dist.destroy_process_group()
+    return out
+
+
+def phase_dp_train(smi: str) -> dict:
+    """Phase 23: ``train_loop.run(mesh=make_host_mesh(1))`` on a one-rank
+    NCCL group over a file store (no socket): rubicall-smoke trained
+    data-parallel on the card against the plain one-device run on the
+    same batches; the step's wall ms of each (the loop reads each
+    logged step's loss back, so a step's wall time is its device time
+    and its host time)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import data_for
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import AdamWConfig
+    cfg = get_config(DP_ARCH)
+
+    def one(mesh, ckpt_dir):
+        return train_loop.run(
+            cfg, AdamWConfig(lr=2e-3, total_steps=DP_STEPS),
+            train_loop.TrainLoopConfig(steps=DP_STEPS, log_every=1,
+                                       ckpt_every=DP_STEPS // 2,
+                                       ckpt_dir=ckpt_dir),
+            data_for(cfg, DP_BATCH, DP_SEQ), mesh=mesh,
+            device=None if mesh is not None else "cuda")
+
+    def step_ms(run):
+        wall = [r["wall_s"] for r in run["history"]]
+        return (wall[-1] - wall[0]) / (len(wall) - 1) * 1e3
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = mesh_mod.make_host_mesh(1)
+            if tuple(mesh.shape) != (1, 1) or mesh.device_type != "cuda":
+                raise AssertionError(f"host mesh {mesh}")
+            dp = one(mesh, f"{tmp}/dp")
+        finally:
+            dist.destroy_process_group()
+        plain = one(None, f"{tmp}/plain")
+        again = one(None, f"{tmp}/again")
+        saved = sorted(x.name for x in Path(f"{tmp}/dp").iterdir())
+
+    def rel_diff(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    dl = [r["loss"] for r in dp["history"]]
+    pl = [r["loss"] for r in plain["history"]]
+    rel = rel_diff(dl, pl)
+    early = rel_diff(dl[1:DP_EARLY], pl[1:DP_EARLY])
+    rel_again = rel_diff([r["loss"] for r in again["history"]], pl)
+    out = {"arch": DP_ARCH, "steps": DP_STEPS,
+           "batch": [DP_BATCH, DP_SEQ], "loss_dp": dl, "loss_plain": pl,
+           "max_rel_loss_diff": rel, "max_rel_early": early,
+           "max_rel_plain_rerun": rel_again,
+           "checkpoints": saved,
+           "step_ms_dp": step_ms(dp), "step_ms_plain": step_ms(plain)}
+    print(f"[dp] {DP_ARCH} {DP_BATCH} x {DP_SEQ}, {DP_STEPS} steps on the "
+          f"1x1 NCCL mesh vs one device ({smi}): losses "
+          f"{dl[0]:.5f} -> {dl[-1]:.5f} vs {pl[0]:.5f} -> {pl[-1]:.5f}, "
+          f"step 1 {'equal' if dl[0] == pl[0] else 'DIFFERS'}, steps 2-"
+          f"{DP_EARLY} within {early:.3g} (bound {DP_EARLY_RTOL}), max "
+          f"relative difference {rel:.3g} (bound {DP_RTOL}; the plain "
+          f"run against itself {rel_again:.3g}); step "
+          f"{out['step_ms_dp']:.2f} ms data-parallel, "
+          f"{out['step_ms_plain']:.2f} ms plain; checkpoints {saved}")
+    if (not all(np.isfinite(dl)) or dl[0] != pl[0]
+            or early > DP_EARLY_RTOL or rel > DP_RTOL or len(saved) != 2):
+        raise AssertionError(f"data-parallel run: {out}")
     return out
 
 
@@ -4323,17 +4484,19 @@ def main() -> int:
     lap("lm_train", phase_lm_train, smi)
     rub = lap("rubicon", phase_rubicon)
     knob_routes = rub["launches"]
-    hyb = lap("serve (hybrid)", phase_hybrid_serve)
-    ssm_eng = lap("serve (ssm)", phase_ssm_serve)
-    aud = lap("serve (audio)", phase_audio_serve)
-    # the dry run counts on the CPU (~70 s for deepseek's 32k prefill):
-    # it runs beside phases 20 and 21, which keep the card busy
+    # the dry run counts on the CPU (~200 s for deepseek's 32k prefill
+    # under the full grid): it runs, at the lowest priority, beside
+    # phases 17 to 21, which keep the card busy
     dry_procs = start_dryrun()
     try:
+        hyb = lap("serve (hybrid)", phase_hybrid_serve)
+        ssm_eng = lap("serve (ssm)", phase_ssm_serve)
+        aud = lap("serve (audio)", phase_audio_serve)
         front = lap("static+train (frontends)", phase_front_static_train,
                     smi)
         moe_static = lap("static (moe)", phase_static_moe, smi)
         lap("dry run", phase_dryrun, dry_procs, smi)
+        lap("train (data-parallel)", phase_dp_train, smi)
     finally:
         for proc in dry_procs:
             if proc.poll() is None:

@@ -40,7 +40,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
-COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter")
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
 
 # indexed reads and writes: the first operand is the source / destination
 # of which only the indexed rows move
@@ -143,7 +144,8 @@ def totals(table: Dict) -> Dict[str, float]:
 
 # leaves whose 'model'-sharded input makes each use end in an all-reduce
 # of its output (the vocab-sharded embedding lookup, the row-parallel
-# output projections, the expert-parallel MoE combine)
+# output projections); an expert stack's (the MoE combine) ends in an
+# all-to-all instead
 _ROW_PARALLEL = re.compile(r"(^embed|(wo|out_proj)/kernel|ffn/wo)(/0)?$")
 _DP_AXES = ("pod", "data")
 
@@ -154,9 +156,22 @@ def _axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def moe_slots(n_experts: int, experts_per_tok: int, groups: int,
+              group_len: int, dp: int, capacity_factor: float = 1.25
+              ) -> float:
+    """One MoE layer's dispatch slots on one data shard: ``n_experts x
+    groups x capacity / dp``, the rows of the (E, G, capacity, d)
+    dispatch tensor (``moe.moe_ffn``'s capacity rule: ``max(ceil(
+    group_len x k / E x capacity_factor), 4)``)."""
+    cap = max(int(math.ceil(group_len * experts_per_tok / n_experts
+                            * capacity_factor)), 4)
+    return n_experts * groups * cap / dp
+
+
 def collective_bytes(leaves, sizes: Dict[str, int], *, n_micro: int,
                      train: bool, tokens: int, frames: int,
-                     act_bytes: int) -> Dict[str, float]:
+                     act_bytes: int, moe_slots: float = 0.0
+                     ) -> Dict[str, float]:
     """Per-device bytes of one step's collectives under the FSDP pattern:
     ``leaves`` are ``(path, shape, itemsize, spec)`` of every parameter
     (the spec filtered to the mesh of axis ``sizes``).
@@ -171,7 +186,16 @@ def collective_bytes(leaves, sizes: Dict[str, int], *, n_micro: int,
       of each use of a 'model'-sharded embedding, row-parallel
       projection or MoE combine, per forward and again in the backward;
       ``tokens`` is one microbatch's tokens on one data shard
-      (``frames`` for the audio encoder's leaves).
+      (``frames`` for the audio encoder's leaves);
+    - all-to-all: where an expert stack (``ffn/wo``) shards its expert
+      dim on 'model', each MoE layer's dispatch sends the (E, G,
+      capacity, d) dispatch tensor to the experts' shards and its
+      combine sends the experts' outputs back, one all-to-all each per
+      pass, each the device's ``moe_slots / model`` rows of ``d``
+      (:func:`moe_slots`). The combine is carried by this all-to-all,
+      not by an all-reduce of the layer's output;
+    - collective-permute: none (the port has no pipeline or ring); a
+      key because the reference's record has one.
 
     A collective over one device moves nothing."""
     dp_world = math.prod(sizes.get(a, 1) for a in _DP_AXES)
@@ -190,8 +214,12 @@ def collective_bytes(leaves, sizes: Dict[str, int], *, n_micro: int,
             out["all-reduce"] += gathered
         if mp > 1 and _ROW_PARALLEL.search(path):
             # layers stacked before (din, dout), or before (E, ff, d)
-            moe = path.endswith(("ffn/wo", "ffn/wo/0"))
-            uses = math.prod(shape[:-3] if moe else shape[:-2])
+            if path.endswith(("ffn/wo", "ffn/wo/0")):
+                uses = math.prod(shape[:-3])
+                out["all-to-all"] += passes * uses * 2 * moe_slots / mp \
+                    * shape[-1] * act_bytes
+                continue
+            uses = math.prod(shape[:-2])
             n_tok = frames if path.startswith("encoder/") else tokens
             out["all-reduce"] += passes * uses * n_tok * shape[-1] \
                 * act_bytes

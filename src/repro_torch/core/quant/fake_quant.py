@@ -6,39 +6,45 @@ through unchanged (STE). Serving converts to true packed integers via
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.quant.policy import tree_map
 
 
-def _scales(x: torch.Tensor, bits: int, axis: Optional[int]) -> torch.Tensor:
+def _scales(x: torch.Tensor, bits: int, axis: Optional[int],
+            amax_reduce: Optional[Callable]) -> torch.Tensor:
     qmax = 2.0 ** (bits - 1) - 1.0
     if axis is None:
         amax = x.abs().amax()
+        if amax_reduce is not None:
+            amax = amax_reduce(amax)
     else:
         red = tuple(i for i in range(x.ndim) if i != axis)
         amax = x.abs().amax(dim=red, keepdim=True)
     return amax.clamp_min(1e-8) / qmax
 
 
-def fake_quant(x: torch.Tensor, bits: int,
-               axis: Optional[int] = None) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, bits: int, axis: Optional[int] = None, *,
+               amax_reduce: Optional[Callable] = None) -> torch.Tensor:
     """Round x to a symmetric b-bit grid, straight-through gradient
     (``x + (q(x) - x).detach()`` — exact pass-through everywhere,
     including the clip boundary; the scale is an observer statistic,
     not a gradient path).
 
     ``axis`` selects per-channel scales (reduce over all other axes);
-    ``None`` = per-tensor.
+    ``None`` = per-tensor. ``amax_reduce`` maps a per-tensor amax to the
+    one the scale is taken from: the activation quantizers of a
+    data-parallel step pass ``parallel/data_parallel.all_max_``, the
+    maximum over the data group.
     """
     if bits <= 0 or bits >= 32:
         return x
     dt = x.dtype
     xf = x.float()
     with torch.no_grad():
-        s = _scales(xf, bits, axis)
+        s = _scales(xf, bits, axis, amax_reduce)
     qmax = 2.0 ** (bits - 1) - 1.0
     q = torch.clamp(torch.round(xf / s), -qmax - 1, qmax) * s
     return (xf + (q - xf).detach()).to(dt)

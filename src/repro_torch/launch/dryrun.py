@@ -37,16 +37,24 @@ reference's:
 
 A train cell counts one microbatch's gradients, times ``n_micro``, and
 one AdamW update; a decode cell one step at position ``seq_len - 1``.
-The variants ``bf16attn``, ``qc1024`` and ``tri`` switch knobs of the
-reference's blockwise attention that the port's has not, and raise.
+Attention is counted as the reference's program runs it
+(``attention.REFERENCE_SCHEDULE``): a prompt through ``blockwise_attn``,
+whose causal schedule is the full masked grid, or under ``tri`` the
+triangle of block pairs at or below the diagonal. ``bf16attn`` (bf16
+scores and probabilities), ``qc1024`` (query chunks of 1024) and
+``tri`` set the reference's knobs, ``REPRO_ATTN_BF16``,
+``REPRO_ATTN_QCHUNK`` and ``REPRO_ATTN_TRI``, as its ``build_cell``
+does; :func:`run_cell` gives the caller's settings back after the cell.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
 import math
+import os
 import time
 import traceback
 from pathlib import Path
@@ -68,7 +76,42 @@ VARIANTS = ("", "w8", "w4", "kvq8", "bf16attn", "micro4", "opt8",
 #   kvq8      — fp8 KV-cache storage (decode)
 #   micro4    — 4 grad-accum microbatches instead of the token rule
 #   opt8      — int8-quantized AdamW moments (train memory)
-_NOT_PORTED = ("bf16attn", "qc1024", "tri")
+#   bf16attn  — bf16 blockwise-attention scores (train/prefill)
+#   qc1024    — 1024-query chunks in blockwise attention
+#   tri       — blockwise attention over the causal triangle only
+_KNOBS = (("bf16attn", "REPRO_ATTN_BF16", "1"),
+          ("qc1024", "REPRO_ATTN_QCHUNK", "1024"),
+          ("tri", "REPRO_ATTN_TRI", "1"))
+
+
+def _set_knobs(variant: str) -> None:
+    """The reference's ``build_cell``: each attention knob set for its
+    variant and cleared for the others; and attention switched to the
+    reference's program (``REFERENCE_SCHEDULE``)."""
+    from repro_torch.models.lm import attention
+    for name, var, value in _KNOBS:
+        if variant == name:
+            os.environ[var] = value
+        else:
+            os.environ.pop(var, None)
+    attention.REFERENCE_SCHEDULE = True
+
+
+@contextlib.contextmanager
+def restored_knobs():
+    """Gives back the attention knobs and schedule as they were."""
+    from repro_torch.models.lm import attention
+    env = {var: os.environ.get(var) for _, var, _ in _KNOBS}
+    schedule = attention.REFERENCE_SCHEDULE
+    try:
+        yield
+    finally:
+        attention.REFERENCE_SCHEDULE = schedule
+        for var, value in env.items():
+            if value is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = value
 
 
 def _params(cfg: ModelConfig, variant: str):
@@ -105,16 +148,14 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     and ``out_shardings``, and ``n_micro`` (train cells). A train cell's
     outputs come from one AdamW update on the cell's parameters, whose
     per-op table is ``update``; the others' are the logits and the
-    caches the step returns."""
+    caches the step returns. Sets the variant's attention knobs
+    (:func:`_set_knobs`) for the count that follows."""
     from repro_torch.analysis import hlo
     from repro_torch.core.quant.policy import tree_map
     from repro_torch.models.lm import transformer as tfm
     from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                                 init_opt_state)
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(
-            f"variant {variant!r} switches a knob of the reference's "
-            f"blockwise attention that the port's has not")
+    _set_knobs(variant)
     params = _params(cfg, variant)
     psh = shd.param_shardings(params, cfg, mesh)
     batch = api.batch_struct(cfg, shape, device="cpu")
@@ -241,6 +282,39 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, *, variant: str = "",
     return table, [(c.n_layers, c.n_dense_layers) for c in cuts]
 
 
+def cell_collectives(cfg: ModelConfig, shape: ShapeConfig, sizes: dict,
+                     leaves, n_micro: int) -> dict:
+    """The per-device collective bytes of a cell's step
+    (``hlo.collective_bytes``) on a mesh of axis ``sizes``, from its
+    parameter ``leaves`` (:func:`_param_leaves`)."""
+    from repro_torch.analysis import hlo
+    dp = math.prod(s for a, s in sizes.items() if a != "model")
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    return hlo.collective_bytes(
+        leaves, sizes, n_micro=n_micro, train=_train_like(cfg, shape),
+        tokens=max(tokens // n_micro // dp, 1),
+        frames=max(shape.global_batch // n_micro * cfg.frontend_tokens
+                   // dp, 1),
+        act_bytes=getattr(torch, cfg.dtype).itemsize,
+        moe_slots=_moe_slots(cfg, shape, n_micro, dp))
+
+
+def _moe_slots(cfg: ModelConfig, shape: ShapeConfig, n_micro: int,
+               dp: int) -> float:
+    """One MoE layer's dispatch slots on one data shard a microbatch
+    (``hlo.moe_slots``): a batch row is a GShard group; a decode step
+    folds its batch into one group (``moe.moe_ffn``)."""
+    from repro_torch.analysis import hlo
+    if not cfg.n_experts:
+        return 0.0
+    B = shape.global_batch
+    groups, group_len = ((1, B) if shape.kind == "decode"
+                         else (B // n_micro, shape.seq_len))
+    return hlo.moe_slots(cfg.n_experts, cfg.experts_per_tok, groups,
+                         group_len, dp)
+
+
 def _param_leaves(params, psh):
     """(path, shape, itemsize, filtered spec) of every parameter."""
     paths, out = [], []
@@ -277,33 +351,30 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
     mesh = make_production_mesh(multi_pod=multi_pod)
     n_chips = mesh.size()
-    with FakeTensorMode():
-        cell = build_cell(cfg, shape, mesh, variant=variant)
-        args, ash = cell["args"], cell["arg_shardings"]
-        arg_bytes = sum(shd.per_device_bytes(a, s) for a, s in zip(args, ash))
-        alias = sum(shd.per_device_bytes(args[i], ash[i])
-                    for i in cell["donated"])
-        out_bytes = shd.per_device_bytes(cell["outputs"],
-                                         cell["out_shardings"])
-        train = _train_like(cfg, shape)
-        leaves = _param_leaves(args[0].params if train else args[0],
-                               ash[0].params if train else ash[0])
-    n_micro = cell["n_micro"]
-    t0 = time.time()
-    table, cuts = count_step(cfg, shape, variant=variant, n_micro=n_micro)
-    table = hlo.merge_tables(table, cell["update"])
-    t_count = time.time() - t0
+    with restored_knobs():
+        with FakeTensorMode():
+            cell = build_cell(cfg, shape, mesh, variant=variant)
+            args, ash = cell["args"], cell["arg_shardings"]
+            arg_bytes = sum(shd.per_device_bytes(a, s)
+                            for a, s in zip(args, ash))
+            alias = sum(shd.per_device_bytes(args[i], ash[i])
+                        for i in cell["donated"])
+            out_bytes = shd.per_device_bytes(cell["outputs"],
+                                             cell["out_shardings"])
+            train = _train_like(cfg, shape)
+            leaves = _param_leaves(args[0].params if train else args[0],
+                                   ash[0].params if train else ash[0])
+        n_micro = cell["n_micro"]
+        t0 = time.time()
+        table, cuts = count_step(cfg, shape, variant=variant,
+                                 n_micro=n_micro)
+        table = hlo.merge_tables(table, cell["update"])
+        t_count = time.time() - t0
 
     sizes = shd.axis_sizes(mesh)
-    dp = math.prod(s for a, s in sizes.items() if a != "model")
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                    else 1)
-    coll = hlo.collective_bytes(
-        leaves, sizes, n_micro=n_micro, train=train,
-        tokens=max(tokens // n_micro // dp, 1),
-        frames=max(shape.global_batch // n_micro * cfg.frontend_tokens
-                   // dp, 1),
-        act_bytes=getattr(torch, cfg.dtype).itemsize)
+    coll = cell_collectives(cfg, shape, sizes, leaves, n_micro)
     rec_hlo = hlo.per_device(hlo.totals(table), n_chips, coll)
     terms = roofline_terms(
         rec_hlo, int8_frac=0.9 if variant in ("w8", "w4") else 0.0)

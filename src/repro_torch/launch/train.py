@@ -12,8 +12,20 @@ gradient compression) and prints the metric history, one JSON row per
 logged step. Runs on CUDA; ``--device cpu`` trains on the CPU, and
 without a card and without it the launcher raises.
 
-One device only: ``--coordinator`` (multi-host) and ``--model-parallel``
-above 1 are refused.
+Data-parallel over processes, one a device: ``--coordinator host:port
+--num-hosts N --host-id i`` starts process ``i`` of ``N`` in a
+``torch.distributed`` group (NCCL on ``cuda``, each process on card
+``i`` modulo the cards it sees; gloo on ``--device cpu``), and the loop
+trains on ``make_host_mesh(--model-parallel)`` (``launch/mesh.py``):
+every process reads the same global batch and takes its own rows.
+Where ``--model-parallel`` does not divide the world the model axis
+falls back to 1, as the reference's does; a model axis above 1 (tensor
+parallelism) is refused.
+
+    python -m repro_torch.launch.train --arch rubicall --smoke --device cpu \
+        --coordinator 127.0.0.1:29500 --num-hosts 2 --host-id 0 &
+    python -m repro_torch.launch.train --arch rubicall --smoke --device cpu \
+        --coordinator 127.0.0.1:29500 --num-hosts 2 --host-id 1
 """
 from __future__ import annotations
 
@@ -22,7 +34,11 @@ import json
 import os
 import tempfile
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.config import get_config
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_loop import TrainLoopConfig, run
 
@@ -55,28 +71,48 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--coordinator", default="",
-                    help="host:port of a multi-host run (not ported)")
+                    help="host:port of process 0's rendezvous: trains "
+                    "data-parallel over --num-hosts processes")
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--host-id", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.coordinator or args.num_hosts > 1 or args.model_parallel > 1:
-        raise NotImplementedError(
-            "multi-host and model-parallel training (--coordinator, "
-            "--num-hosts, --model-parallel) are not ported: the port "
-            "trains on one device")
-    cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
-    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
-    loop = TrainLoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
-                           ckpt_every=args.ckpt_every,
-                           n_micro=args.n_micro,
-                           grad_compress_bits=args.grad_compress_bits)
-    out = run(cfg, opt_cfg, loop, data_for(cfg, args.batch, args.seq),
-              device=args.device)
+    # without --coordinator the run is this one process, as the
+    # reference's: a world of 1, whose model axis is 1 whatever
+    # --model-parallel asks
+    try:
+        mesh = _start_group(args) if args.coordinator else None
+        cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+        opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
+        loop = TrainLoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
+                               ckpt_every=args.ckpt_every,
+                               n_micro=args.n_micro,
+                               grad_compress_bits=args.grad_compress_bits)
+        # a mesh whose model axis is above 1 makes run() refuse
+        out = run(cfg, opt_cfg, loop, data_for(cfg, args.batch, args.seq),
+                  device=None if mesh is not None else args.device,
+                  mesh=mesh)
+    finally:
+        if args.coordinator and dist.is_initialized():
+            dist.destroy_process_group()
     for row in out["history"]:
         print(json.dumps(row))
+
+
+def _start_group(args):
+    """This process's place in the run's process group (NCCL on a card,
+    gloo on the CPU), and the host mesh over it, one device a
+    process."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(args.host_id % torch.cuda.device_count())
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://{args.coordinator}",
+                            rank=args.host_id, world_size=args.num_hosts)
+    return make_host_mesh(args.model_parallel)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ from torch._subclasses.fake_tensor import is_fake
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.fake_quant import fake_quant
 from repro_torch.core.quant.policy import PackedTensor, dequantize
+from repro_torch.parallel import data_parallel
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -53,7 +54,8 @@ def _maybe_quant(w, x, cfg: ModelConfig, tag: str):
         if wb:
             w = fake_quant(w, wb, axis=w.ndim - 1)
         if ab:
-            x = fake_quant(x, ab, axis=None)
+            x = fake_quant(x, ab, axis=None,
+                           amax_reduce=data_parallel.all_max_)
     return w, x
 
 
@@ -61,7 +63,7 @@ def _act_quant(h, cfg: ModelConfig, tag: str):
     if cfg.quant.enabled:
         _, ab = cfg.quant.bits_for(tag + "/act")
         if ab:
-            h = fake_quant(h, ab)
+            h = fake_quant(h, ab, amax_reduce=data_parallel.all_max_)
     return h
 
 
@@ -90,11 +92,17 @@ def make_bn_state(c: int) -> State:
 
 def batchnorm(p: Params, s: State, x: torch.Tensor, *, train: bool,
               momentum: float = 0.9) -> Tuple[torch.Tensor, State]:
-    """Biased batch variance; running stats ``0.9*old + 0.1*new``."""
+    """Biased batch variance; running stats ``0.9*old + 0.1*new``. The
+    statistics are the sum over (batch, time), then the sum of squares
+    about the mean, each over n values: in a data-parallel step
+    (``parallel/data_parallel.batch_stats_over``) both sums and n are
+    the global batch's, summed over the data group; alone, the local
+    batch's."""
     xf = x.float()
     if train:
-        mean = xf.mean(dim=(0, 1))
-        var = xf.var(dim=(0, 1), correction=0)
+        n = xf.shape[0] * xf.shape[1] * data_parallel.group_size()
+        mean = data_parallel.all_sum(xf.sum(dim=(0, 1))) / n
+        var = data_parallel.all_sum(((xf - mean) ** 2).sum(dim=(0, 1))) / n
         new_s = {"mean": momentum * s["mean"] + (1 - momentum) * mean,
                  "var": momentum * s["var"] + (1 - momentum) * var}
     else:

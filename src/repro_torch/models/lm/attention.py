@@ -14,7 +14,8 @@ every prompt: the TPU kernel takes no window in either package, so the
 route is chosen by the layer's kind. The kernel has no backward, so a
 training forward (``train=True``) runs :func:`blockwise_attn`, the port
 of the reference's XLA attention and plain autograd-differentiable
-PyTorch, as the reference trains through it. The contiguous decode
+PyTorch, as the reference trains through it; so does a prompt in the
+dry run (:data:`REFERENCE_SCHEDULE`). The contiguous decode
 runs no kernel; a windowed layer's contiguous cache is a ring of
 ``min(window, cache_len)`` positions.
 
@@ -26,6 +27,7 @@ masked until its new owner writes it. The arena is updated in place.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -43,6 +45,38 @@ from repro_torch.models.lm.rope import apply_rope
 # ---------------------------------------------------------------------------
 # Blockwise attention (the training forward's)
 
+# Which program attention runs. False (the eager default): the causal
+# schedule stops at the diagonal, and a whole prompt of a full-attention
+# layer goes to ``ops.flash_attention``. True (``launch/dryrun.build_cell``
+# sets it, so the dry run counts the reference's program): a whole
+# prompt runs :func:`blockwise_attn`, as the reference's prefill does,
+# and the causal schedule is the reference's, the full masked grid,
+# or the triangle under ``REPRO_ATTN_TRI=1`` when Sq == Sk. Values are
+# equal either way: past the diagonal p underflows to 0. The dry run
+# counts on fake CPU tensors; a CUDA input with the setting on raises
+# (:func:`_reference_schedule`), so it never takes a prompt on the card
+# past the kernel.
+REFERENCE_SCHEDULE = False
+
+
+def _reference_schedule(t: torch.Tensor) -> bool:
+    """:data:`REFERENCE_SCHEDULE` for an input ``t``; raises where it is
+    set and ``t`` lies on the card."""
+    if REFERENCE_SCHEDULE and t.is_cuda:
+        raise RuntimeError(
+            "attention.REFERENCE_SCHEDULE is set (the dry run's count of "
+            "the reference's program, on CPU tensors) with an input on "
+            "the card, where a prompt would skip ops.flash_attention")
+    return REFERENCE_SCHEDULE
+
+
+def _score_dtype() -> torch.dtype:
+    """The chunk scores' and probabilities' dtype, read at call time as
+    the reference reads it: bf16 under ``REPRO_ATTN_BF16=1``, else fp32.
+    The statistics ``m``, ``l`` and the accumulator stay fp32."""
+    return (torch.bfloat16 if os.environ.get("REPRO_ATTN_BF16") == "1"
+            else torch.float32)
+
 
 def _chunk(n: int, pref: int) -> int:
     """Largest divisor of n that is <= pref (every chunk the same size)."""
@@ -54,48 +88,59 @@ def _chunk(n: int, pref: int) -> int:
     return c
 
 
-def _blockwise_tri(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor, *,
-                   Kc: int, group: int, scale: float, q_offset: int,
-                   causal: bool, dtype) -> torch.Tensor:
-    """Online softmax of each query chunk over the KV chunks it can see.
+def _online(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor, *,
+            Kc: int, group: int, scale: float, q_offset: int, causal: bool,
+            tri: bool, dtype) -> torch.Tensor:
+    """Online softmax of each query chunk over the KV chunks.
     qs: (Tq, B, H, Qc, hd); ks/vs: (Tk, B, Hkv, Kc, hd | hd_v). Returns
     (Tq, B, H, Qc, hd_v) in ``dtype``.
 
-    Causal: only the KV chunks at or below the diagonal, the reference's
-    triangular schedule (``_blockwise_tri``). A chunk past the diagonal
-    is masked for every query of the chunk, so the reference's full grid
-    adds exactly nothing there (p underflows to 0, the correction is 1):
-    skipping it changes no value. Scores, probabilities and the
-    statistics in fp32. The chunk stacks are unbound once, so the
-    backward stacks the chunks' gradients in one op."""
+    ``tri``: only the KV chunks at or below the diagonal, the reference's
+    triangular schedule (``_blockwise_tri``: its pairs ``j * Kc <=
+    q_offset + i * Qc + Qc - 1``); else every chunk, masked when
+    ``causal`` (the reference's full grid). A chunk past the diagonal is
+    masked for every query of the chunk, so it adds exactly nothing (p
+    underflows to 0, the correction is 1). Scores and probabilities in
+    :func:`_score_dtype`, each P·V product rounded to it and summed in
+    fp32. The chunk stacks are unbound once, so the backward stacks the
+    chunks' gradients in one op."""
     _, B, H, Qc, _ = qs.shape
     dev = qs.device
+    sdt = _score_dtype()
+    # the reference scales by the scale rounded to the score dtype
+    sc = scale if sdt == torch.float32 else float(torch.tensor(scale,
+                                                               dtype=sdt))
     ks, vs = ks.unbind(0), vs.unbind(0)
+    kpos = torch.arange(len(ks) * Kc, device=dev) if causal else None
     outs = []
     for i, qc in enumerate(qs.unbind(0)):
         q0 = q_offset + i * Qc
-        qpos = q0 + torch.arange(Qc, device=dev)
-        qf = qc.float()
+        if causal:
+            # the keys each query of the chunk may not see, in every chunk
+            future = kpos[None, :] > q0 + torch.arange(Qc,
+                                                       device=dev)[:, None]
+        qf = qc.to(sdt)
         m = torch.full((B, H, Qc), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, Qc), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, H, Qc, vs[0].shape[-1]), dtype=torch.float32,
                           device=dev)
         for j in range(len(ks)):
-            if causal and j * Kc > q0 + Qc - 1:
+            if tri and j * Kc > q0 + Qc - 1:
                 break
-            kc = ks[j].repeat_interleave(group, dim=1).float()
-            vc = vs[j].repeat_interleave(group, dim=1).float()
-            s = torch.einsum("bhqd,bhkd->bhqk", qf, kc) * scale
+            kc, vc = ks[j], vs[j]
+            if group > 1:
+                kc = kc.repeat_interleave(group, dim=1)
+                vc = vc.repeat_interleave(group, dim=1)
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, kc.to(sdt)) * sc
             if causal:
-                kpos = j * Kc + torch.arange(Kc, device=dev)
-                s = torch.where(kpos[None, :] <= qpos[:, None], s,
-                                torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
+                s = s.masked_fill(future[:, j * Kc:(j + 1) * Kc], NEG_INF)
+            vc = vc.to(sdt)
+            m_new = torch.maximum(m, s.amax(dim=-1).float())
+            p = torch.exp(s - m_new[..., None].to(sdt))
             corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd",
-                                                       p, vc)
+            l = l * corr + p.float().sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p, vc).float()
             m = m_new
         outs.append((acc / l.clamp_min(1e-30)[..., None]).to(dtype))
     return torch.stack(outs)
@@ -103,7 +148,7 @@ def _blockwise_tri(qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor, *,
 
 def blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0, q_offset: int = 0,
-                   q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+                   q_chunk: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
     """The reference's ``blockwise_attn``: q (B, Sq, H, hd); k (B, Sk,
     Hkv, hd); v (B, Sk, Hkv, hd_v), hd_v taken from v (MLA's value width
     differs from its query width). Returns (B, Sq, H, hd_v) in q's dtype.
@@ -111,14 +156,19 @@ def blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset + i``.
 
     Never materialises (Sq, Sk) scores: query chunks of ``q_chunk`` (the
-    largest divisor of Sq not above it) against KV chunks of
-    ``kv_chunk`` with an online softmax, scores in fp32. ``window > 0``:
-    sliding-window attention, each query seeing the ``window`` positions
-    up to itself, through one KV window of ``window + q_chunk``
-    positions a query chunk. Plain PyTorch, differentiable by autograd;
-    memory in training is bounded by the block-level rematerialisation
-    (``transformer.forward``), where the reference also remats each KV
-    step."""
+    largest divisor of Sq not above it; 0 reads ``REPRO_ATTN_QCHUNK``,
+    default 512, at call time as the reference does) against KV chunks
+    of ``kv_chunk`` with an online softmax (:func:`_online`; the causal
+    schedule as :data:`REFERENCE_SCHEDULE` says). Scores in fp32, or
+    bf16 under ``REPRO_ATTN_BF16=1`` (:func:`_score_dtype`).
+    ``window > 0``: sliding-window attention, each query seeing the
+    ``window`` positions up to itself, through one KV window of ``window
+    + q_chunk`` positions a query chunk. Plain PyTorch, differentiable
+    by autograd; memory in training is bounded by the block-level
+    rematerialisation (``transformer.forward``), where the reference
+    also remats each KV step."""
+    if not q_chunk:
+        q_chunk = int(os.environ.get("REPRO_ATTN_QCHUNK", "512"))
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
@@ -129,6 +179,9 @@ def blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qs = q.reshape(B, Tq, Qc, H, hd).permute(1, 0, 3, 2, 4)
     dev = q.device
     if window > 0:
+        sdt = _score_dtype()
+        sc = scale if sdt == torch.float32 else float(torch.tensor(
+            scale, dtype=sdt))
         W = min(window, Sk)
         Wpad = W + Qc if Sk >= W + Qc else Sk
         outs = []
@@ -141,21 +194,23 @@ def blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kpos = start + torch.arange(Wpad, device=dev)
             mask = ((kpos[None, :] <= qpos[:, None])
                     & (kpos[None, :] > qpos[:, None] - W))
-            s = torch.einsum("bhqd,bkhd->bhqk", qc.float(),
-                             kw.float()) * scale
+            s = torch.einsum("bhqd,bkhd->bhqk", qc.to(sdt),
+                             kw.to(sdt)) * sc
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            p = torch.softmax(s, dim=-1)
-            outs.append(torch.einsum("bhqk,bkhd->bhqd", p,
-                                     vw.float()).to(q.dtype))
+            p = torch.softmax(s.float(), dim=-1)
+            outs.append(torch.einsum("bhqk,bkhd->bhqd", p.to(sdt),
+                                     vw.to(sdt)).float().to(q.dtype))
         out = torch.stack(outs)
     else:
         Kc = _chunk(Sk, kv_chunk)
         Tk = Sk // Kc
         ks = k.reshape(B, Tk, Kc, Hkv, hd).permute(1, 0, 3, 2, 4)
         vs = v.reshape(B, Tk, Kc, Hkv, hd_v).permute(1, 0, 3, 2, 4)
-        out = _blockwise_tri(qs, ks, vs, Kc=Kc, group=group, scale=scale,
-                             q_offset=q_offset, causal=causal,
-                             dtype=q.dtype)
+        tri = causal and (not _reference_schedule(q) or (
+            os.environ.get("REPRO_ATTN_TRI") == "1" and Sq == Sk))
+        out = _online(qs, ks, vs, Kc=Kc, group=group, scale=scale,
+                      q_offset=q_offset, causal=causal, tri=tri,
+                      dtype=q.dtype)
     return out.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, hd_v)
 
 
@@ -194,14 +249,16 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     """Whole-prompt attention. x: (B, S, d); positions: (B, S). Returns
     (out (B, S, d), {"k", "v": (B, S, Hkv, hd)} for the cache).
     ``window > 0`` (each query sees the ``window`` positions up to
-    itself) and ``train`` (the training forward, differentiable) run
-    :func:`blockwise_attn`; otherwise ``ops.flash_attention`` (the
-    kernel on a card, which refuses inputs that require grad and takes
-    no window, as the reference's TPU kernel takes none)."""
+    itself), ``train`` (the training forward, differentiable) and
+    :data:`REFERENCE_SCHEDULE` (the dry run's count of the reference's
+    program) run :func:`blockwise_attn`; otherwise
+    ``ops.flash_attention`` (the kernel on a card, which refuses inputs
+    that require grad and takes no window, as the reference's TPU kernel
+    takes none)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, positions, cfg)
     o = (blockwise_attn(q, k, v, causal=causal, window=window)
-         if train or window > 0
+         if train or window > 0 or _reference_schedule(q)
          else flash_attention(q, k, v, causal=causal))
     o = o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return dense(p["wo"], o, cfg=cfg, tag="attn/wo"), {"k": k, "v": v}

@@ -97,12 +97,14 @@ def dense(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "",
     else:
         if quantize and cfg.quant.enabled:
             from repro_torch.core.quant.fake_quant import fake_quant
+            from repro_torch.parallel import data_parallel
             wb, ab = cfg.quant.bits_for(tag)
             if wb:
                 w = fake_quant(w, wb,
                                axis=0 if cfg.quant.per_channel else None)
             if ab:
-                x = fake_quant(x, ab, axis=None)
+                x = fake_quant(x, ab, axis=None,
+                               amax_reduce=data_parallel.all_max_)
         w = w.to(dt)
     y = x.to(dt) @ w
     if "bias" in p:

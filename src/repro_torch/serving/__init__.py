@@ -1,0 +1,72 @@
+"""Continuous-batching serving on the H100: one engine for the LMs, the
+audio family and the basecaller itself.
+
+Layers
+======
+
+``engine``   :class:`ServingEngine`, pure host-side scheduling (a copy
+             of the reference's): FIFO queue, fixed slot pool,
+             admission, the unified mixed tick (prefill chunks and
+             decode tokens in one runner step), preemption of the
+             youngest with resume by re-prefill, backpressure, metrics.
+             It imports no model code.
+``runner``   the :class:`ModelRunner` protocol and its registry
+             (:func:`make_runner`): ``TokenRunner`` (token-only LMs over
+             the paged KV pool), ``EncoderPrefixRunner`` (the audio
+             family: the encoder once at admission, cross-attention K/V
+             staged per slot) and ``BasecallerRunner`` (squiggle in,
+             bases out, halo-padded windows, live streams and
+             read-until). Each runner's step runs the models eagerly on
+             the device; ``plan`` keys the tick buckets, whose
+             ``retraces`` are 0 since nothing is compiled.
+``cache``    :class:`CachePool`, the paged KV pool: one block arena a
+             layer group on the device, host block tables, per-slot
+             positions; storage ``bf16``, ``fp8``, ``int8`` (with scale
+             arenas written at the same indices), ``fp16`` or ``fp32``,
+             each stored as asked.
+``sampling`` :class:`SamplingParams`: stopping criteria and per-request
+             temperature, top-k, top-p and seed, sampled on the device.
+``stream``   :class:`StreamingRequest` and :class:`ReadUntil`: live reads
+             and selective sequencing for the basecaller.
+
+The decode reads of the pool go through ``kernels/ops.decode_gqa`` and
+``decode_mla``: ``cuda`` launches the hand-written paged-attention
+kernels, ``gather`` is the plain reference (the parity oracle), and
+``auto`` takes ``cuda`` on a card.
+
+Invariants
+==========
+
+Of the reference's enforced invariants, the port keeps:
+
+``no-materialization``
+    The ``cuda`` backend's kernels read the arena block by block and
+    never build the ``(B, T*block_len)`` logical view; the ``gather``
+    backend keeps it, as the reference's XLA path does. Not yet checked
+    by a tool (the port has no ``analysis`` linters).
+``precision``
+    Softmax statistics, scale math and accumulation in the attention
+    and ``qmatmul`` kernels stay fp32; bf16, fp16, fp8 and int8 are
+    storage and matmul-input types only.
+``host-sync``
+    The tick path's deliberate device-to-host reads (the tick's token
+    readback, the CTC merge's, the MoE routing's) carry a ``# sync:
+    <reason>`` comment, as the reference's do; no tool checks it yet.
+
+The reference's ``compat`` (its JAX version shims) and
+``trace-stability`` (its jit cache) have no counterpart: the port
+imports no JAX and compiles no tick program.
+"""
+from repro_torch.serving.cache import CachePool
+from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.runner import (BasecallerRunner, EncoderPrefixRunner,
+                                        ModelRunner, TokenRunner, make_runner,
+                                        register_runner)
+from repro_torch.serving.sampling import GREEDY, SamplingParams
+from repro_torch.serving.stream import ReadUntil, StreamingRequest
+
+__all__ = ["CachePool", "Request", "ServingEngine", "ServingMetrics",
+           "SamplingParams", "GREEDY", "ModelRunner", "TokenRunner",
+           "EncoderPrefixRunner", "BasecallerRunner", "make_runner",
+           "register_runner", "StreamingRequest", "ReadUntil"]

@@ -1,8 +1,21 @@
 """Training loop: train step + checkpoint/restart + optional int8
 gradient compression, for every family the port trains: the basecaller
 (its BatchNorm state threads through TrainCarry) and the LMs
-(``dense``, ``moe``, ``ssm``; ``model_state`` is ``{}``). One device;
-meshes are not ported.
+(``dense``, ``moe``, ``ssm``; ``model_state`` is ``{}``).
+
+On one device, or data-parallel over a ``(data=n, model=1)`` mesh
+(``launch/mesh.make_host_mesh``, one process a device): each rank takes
+its own rows of the same global batch (its share of every
+microbatch), the gradients are averaged over
+the data group (before the int8 round trip, which acts on the reduced
+gradient as the reference's acts on the global one), and every rank
+applies the same update, so every rank holds the same carry. The step
+equals the one-process step on the global batch: the statistics that
+read the batch (BatchNorm's mean and variance, per-tensor activation
+fake-quant's amax) reduce over the data group while the gradients are
+taken (``parallel/data_parallel.py``), and the losses average exactly
+because every rank's rows are as many. A model axis above 1 (tensor
+parallelism) is not ported.
 """
 from __future__ import annotations
 
@@ -13,11 +26,13 @@ import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.parallel import data_parallel
 from repro_torch.training import grad_compress
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
@@ -36,17 +51,29 @@ class TrainLoopConfig:
 
 
 def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                               n_micro: int) -> Callable:
-    """train_step variant that round-trips the averaged gradients
-    through int8 with error feedback before the optimizer:
-    ``(carry, err_state, batch) -> (carry, err_state, metrics)``."""
+                               n_micro: int, *, group=None,
+                               compress: bool = True) -> Callable:
+    """The loop's train step, ``(carry, err_state, batch) -> (carry,
+    err_state, metrics)``: ``api.make_train_step``'s (the averaged
+    gradients of ``n_micro`` microbatches, one AdamW update), with the
+    gradients round-tripped through int8 with error feedback before the
+    optimizer; ``compress=False`` leaves the round trip out
+    (``err_state`` passes through).
+
+    ``group``: the data group of a data-parallel step, over which the
+    batch statistics reduce and the gradients and loss are averaged
+    before the round trip (``batch`` is this rank's rows)."""
     loss_fn = api.make_loss_fn(cfg)
 
     def train_step(carry, err_state, batch):
         params, opt_state, mstate = carry
-        grads, loss, mstate = api.microbatch_grads(loss_fn, params, mstate,
-                                                   batch, n_micro)
-        grads, err_state = grad_compress.roundtrip_tree(grads, err_state)
+        with data_parallel.batch_stats_over(group):
+            grads, loss, mstate = api.microbatch_grads(
+                loss_fn, params, mstate, batch, n_micro)
+        if group is not None:
+            grads, loss = data_parallel.mean_over(group, grads, loss)
+        if compress:
+            grads, err_state = grad_compress.roundtrip_tree(grads, err_state)
         new_params, new_opt, om = adamw_update(params, grads, opt_state,
                                                opt_cfg)
         return (api.TrainCarry(new_params, new_opt, mstate), err_state,
@@ -55,9 +82,42 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def _mesh_group(mesh):
+    """(the data group, this rank in it, its size) of a ``(data,
+    model)`` mesh; a model axis above 1 raises."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a model axis of {sizes['model']} (tensor parallelism) is not "
+            f"ported: the loop trains data-parallel only (ROADMAP.md, "
+            f"Queue 1)")
+    group = mesh.get_group("data")
+    return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+def _rows(batch: Dict, rank: int, n: int, n_micro: int = 1) -> Dict:
+    """This rank's rows of a global batch (numpy or torch leaves): its
+    share of each of the ``n_micro`` microbatches, in order. The
+    one-process step cuts the global batch into contiguous microbatches
+    (``api.microbatch_grads``), so global microbatch ``i`` is every
+    rank's ``i``-th piece, and the statistics a microbatch takes over
+    the data group are that microbatch's."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % (n * n_micro):
+            raise ValueError(
+                f"a global batch of {v.shape[0]} rows ({k!r}) does not "
+                f"split into {n_micro} microbatches over {n} "
+                f"data-parallel ranks")
+        b = v.shape[0] // (n * n_micro)
+        out[k] = v.reshape((n_micro, n, b) + v.shape[1:])[:, rank].reshape(
+            (n_micro * b,) + v.shape[1:])
+    return out
+
+
 def run(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
         data_iter: Iterator[Dict], gen: Optional[torch.Generator] = None,
-        *, device=None) -> Dict[str, Any]:
+        *, device=None, mesh=None) -> Dict[str, Any]:
     """Train for ``loop.steps`` on ``device`` (CUDA unless the caller
     asks for the CPU); returns the final carry, the metric history and
     the checkpoint manager. Params are drawn in fp32 (the master leaves
@@ -69,7 +129,24 @@ def run(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
     latest valid checkpoint in ``loop.ckpt_dir``. Batches move to the
     device as they are taken; metrics are read back (``float``) only on
     logged steps: rows of ``loss``, ``grad_norm``, ``lr``, ``step`` and
-    ``wall_s``."""
+    ``wall_s``.
+
+    ``mesh``: a ``(data=n, model=1)`` mesh over the caller's process
+    group (``launch/mesh.make_host_mesh``): the step is data-parallel
+    (module docstring); ``data_iter`` yields the same global batch on
+    every rank, whose rows ``n * loop.n_micro`` must divide, and each
+    rank takes its share of every microbatch (:func:`_rows`);
+    ``device`` defaults to the
+    mesh's (the current CUDA device under NCCL). Every rank draws the
+    same params from the same seed and restores the same checkpoint;
+    rank 0 alone writes checkpoints, and no rank returns before its
+    writes have landed (a barrier after the last)."""
+    group, rank, n = None, 0, 1
+    if mesh is not None:
+        group, rank, n = _mesh_group(mesh)
+        if device is None:
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if mesh.device_type == "cuda" else mesh.device_type)
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device="cpu" if cfg.family == "basecaller"
@@ -86,27 +163,29 @@ def run(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
     if loop.resume and ckpt.latest_valid() is not None:
         start_step, carry = ckpt.restore(carry)
 
-    if loop.grad_compress_bits == 8:
-        step_fn = make_compressed_train_step(cfg, opt_cfg, loop.n_micro)
-    else:
-        base = api.make_train_step(cfg, opt_cfg, loop.n_micro)
-
-        def step_fn(c, e, b):
-            c2, m = base(c, b)
-            return c2, e, m
+    step_fn = make_compressed_train_step(
+        cfg, opt_cfg, loop.n_micro, group=group,
+        compress=loop.grad_compress_bits == 8)
 
     history = []
     t0 = time.time()
     for step in range(start_step, loop.steps):
+        batch = next(data_iter)
+        if group is not None:
+            batch = _rows(batch, rank, n, loop.n_micro)
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True)
-                 for k, v in next(data_iter).items()}
+                 for k, v in batch.items()}
         carry, err_state, metrics = step_fn(carry, err_state, batch)
         if (step + 1) % loop.log_every == 0 or step == loop.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}   # sync: logged
             m["step"] = step + 1
             m["wall_s"] = round(time.time() - t0, 2)
             history.append(m)
-        if (step + 1) % loop.ckpt_every == 0:
+        if (step + 1) % loop.ckpt_every == 0 and rank == 0:
             ckpt.save_async(step + 1, carry)
     ckpt.wait()
+    if group is not None:
+        # no rank returns (and may restore) before rank 0's writes land
+        dist.barrier(group, device_ids=[dev.index] if dev.type == "cuda"
+                     else None)
     return {"carry": carry, "history": history, "ckpt": ckpt}

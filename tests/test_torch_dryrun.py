@@ -7,10 +7,15 @@ Specs are compared entry for entry with the reference's
 trees under ``FakeTensorMode``, the reference's under
 ``jax.eval_shape``). A production mesh stands on a ``fake`` process
 group of 256 or 512 ranks, torn down after each test that makes one.
+The attention knobs and schedule are held against the reference's
+``blockwise_attn``, the full grid's count against the triangle's by the
+reference's block pairs, and the MoE all-to-all against arithmetic over
+the reference's specs; ``analysis/report.py`` renders a CLI record.
 """
 import ast
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -22,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import SUBPROCESS_ENV
 import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -61,8 +67,10 @@ MEM_KEYS = ("generated_code_size_in_bytes", "argument_size_in_bytes",
 
 @pytest.fixture
 def world():
-    """Tears down whatever process group a test made."""
-    yield
+    """Tears down whatever process group a test made, and gives back
+    the attention knobs and schedule that a cell's ``build_cell`` set."""
+    with dryrun.restored_knobs():
+        yield
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -427,16 +435,24 @@ def test_fake_tensors_take_the_static_moe_and_ctc_forms():
 # the CLI
 
 
-def test_dryrun_cli_writes_a_record_with_every_reference_key(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+@pytest.fixture(scope="module")
+def cli_results(tmp_path_factory):
+    """One dry-run cell written by the CLI: (its directory, its stdout)."""
+    out = tmp_path_factory.mktemp("dryrun")
+    env = dict(os.environ, **SUBPROCESS_ENV, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "qwen1.5-4b-smoke", "--shape", "decode_32k", "--save-hlo",
-         "--results", str(tmp_path)], env=env, capture_output=True,
+         "--results", str(out)], env=env, capture_output=True,
         text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "[ok]   qwen1.5-4b-smoke__decode_32k__pod1" in r.stdout
+    return out, r.stdout
+
+
+def test_dryrun_cli_writes_a_record_with_every_reference_key(cli_results):
+    tmp_path, stdout = cli_results
+    assert "[ok]   qwen1.5-4b-smoke__decode_32k__pod1" in stdout
     rec = json.loads((tmp_path /
                       "qwen1.5-4b-smoke__decode_32k__pod1.json").read_text())
     assert set(REFERENCE_KEYS) <= set(rec)
@@ -466,6 +482,205 @@ def test_cells_and_variants_are_the_reference_s():
     assert list(dryrun.all_cells()) == [
         (a, s) for a in jconfig.ASSIGNED_ARCHS for s in jconfig.SHAPES] + [
         ("rubicall", "train_4k"), ("bonito", "train_4k")]
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        dryrun.build_cell(config.get_config("qwen1.5-4b-smoke"),
-                          config.SHAPES["train_4k"], None, variant="tri")
+    # every variant counts: ``tri`` (once refused) walks the triangle
+    assert not getattr(dryrun, "_NOT_PORTED", ())
+    shape = config.ShapeConfig("prefill_2k", 2048, 1, "prefill")
+    calls = {}
+    with dryrun.restored_knobs():
+        for variant in ("", "tri"):
+            dryrun._set_knobs(variant)
+            table, _ = dryrun.count_step(
+                config.get_config("qwen1.5-4b-smoke"), shape,
+                variant=variant)
+            calls[variant] = table["bmm"]["calls"]
+    # 4 query chunks of 512 x 2 KV chunks of 1024: 8 pairs, 6 in the
+    # triangle; two matmuls a pair, two layers
+    assert calls == {"": 8 * 2 * 2, "tri": 6 * 2 * 2}
+
+
+# ---------------------------------------------------------------------------
+# attention knobs and the causal schedule (the reference's blockwise_attn)
+
+_ENV_KNOBS = ("REPRO_ATTN_BF16", "REPRO_ATTN_QCHUNK", "REPRO_ATTN_TRI")
+
+
+@pytest.mark.parametrize("env,reference_schedule,kw,tol", [
+    ({"REPRO_ATTN_BF16": "1"}, False, dict(q_chunk=16, kv_chunk=32), 2e-2),
+    ({"REPRO_ATTN_BF16": "1"}, True, dict(q_chunk=16, kv_chunk=32), 2e-2),
+    ({"REPRO_ATTN_BF16": "1"}, False, dict(q_chunk=16, window=24), 2e-2),
+    ({"REPRO_ATTN_QCHUNK": "1024"}, False, {}, 1e-5),
+    ({}, True, dict(q_chunk=16, kv_chunk=32), 1e-5),
+    ({"REPRO_ATTN_TRI": "1"}, True, dict(q_chunk=16, kv_chunk=32), 1e-5),
+    ({}, True, dict(q_chunk=16, kv_chunk=32, causal=False), 1e-5),
+], ids=["bf16", "bf16-grid", "bf16-window", "qchunk1024", "grid", "tri",
+        "grid-noncausal"])
+def test_blockwise_attn_knobs_match_the_reference(
+        env, reference_schedule, kw, tol, monkeypatch):
+    """The port's ``blockwise_attn`` under the reference's knobs, read at
+    call time, and under the dry run's schedule, against the reference's
+    under the same settings; the full grid and the triangle give the
+    eager default's outputs bit for bit (past the diagonal p is 0)."""
+    from repro.models.lm import attention as jattn
+    from repro_torch.models.lm import attention as attn
+    for var in _ENV_KNOBS:
+        monkeypatch.delenv(var, raising=False)
+    S = 2048 if "REPRO_ATTN_QCHUNK" in env else 64
+    rs = np.random.RandomState(0)
+    q, k, v = (rs.randn(1, S, h, 16).astype(np.float32) for h in (4, 2, 2))
+    default = attn.blockwise_attn(*map(torch.from_numpy, (q, k, v)), **kw)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(attn, "REFERENCE_SCHEDULE", reference_schedule)
+    want = np.asarray(jattn.blockwise_attn(*map(jnp.asarray, (q, k, v)),
+                                           **kw))
+    got = attn.blockwise_attn(*map(torch.from_numpy, (q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    if "REPRO_ATTN_BF16" not in env:
+        assert torch.equal(got, default)
+
+
+def test_reference_schedule_refuses_an_input_on_the_card(monkeypatch):
+    """The dry run's schedule is for its fake CPU tensors: on the CPU a
+    whole prompt runs; set with an input on the card (fake CUDA tensors
+    here) it raises, in ``blockwise_attn`` and in the whole prompt's
+    attention, where it would take the prompt past
+    ``ops.flash_attention``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models.lm import attention as attn
+    monkeypatch.setattr(attn, "REFERENCE_SCHEDULE", True)
+    cfg = config.get_config("qwen1.5-4b-smoke")
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    with FakeTensorMode():
+        p = attn.make_attn_params(torch.Generator().manual_seed(0), cfg)
+        x = torch.zeros(1, 8, cfg.d_model)
+        pos = torch.arange(8)[None]
+        assert attn.attn_forward(p, x, pos, cfg)[0].shape == x.shape
+        q = torch.zeros(1, 8, H, hd, device="cuda")
+        with pytest.raises(RuntimeError, match="REFERENCE_SCHEDULE"):
+            attn.blockwise_attn(q, q, q, causal=True)
+        monkeypatch.setattr(attn, "_project_qkv", lambda *a: (q, q, q))
+        with pytest.raises(RuntimeError, match="REFERENCE_SCHEDULE"):
+            attn.attn_forward(p, x, pos, cfg)
+
+
+@pytest.fixture(scope="module")
+def prefill_counts():
+    """qwen1.5-4b-smoke's prefill of one 4096-token row, counted under
+    each attention variant: {variant: the ``bmm`` row of its table}."""
+    shape = config.ShapeConfig("prefill_4k", 4096, 1, "prefill")
+    out = {}
+    with dryrun.restored_knobs():
+        for variant in ("", "tri", "qc1024", "bf16attn"):
+            dryrun._set_knobs(variant)
+            table, _ = dryrun.count_step(
+                config.get_config("qwen1.5-4b-smoke"), shape,
+                variant=variant)
+            out[variant] = table["bmm"]
+    return out
+
+
+def test_grid_to_triangle_flops_are_the_reference_s(prefill_counts):
+    """Queue 3's gate: the ``""`` count of attention matmul flops is to
+    the ``tri`` count as the reference's full grid is to its triangle,
+    the block-pair lists of its ``blockwise_attn`` (the full scan of
+    ``Tq x Tk`` chunk pairs, and ``_blockwise_tri``'s ``pairs``)."""
+    from repro.models.lm import attention as jattn
+    S, q_offset = 4096, 0
+    Qc, Kc = jattn._chunk(S, 512), jattn._chunk(S, 1024)
+    Tq, Tk = S // Qc, S // Kc
+    grid = [(i, j) for i in range(Tq) for j in range(Tk)]
+    tri = [(i, j) for i in range(Tq) for j in range(Tk)
+           if j * Kc <= q_offset + i * Qc + Qc - 1]
+    assert (len(grid), len(tri)) == (32, 20)
+    full, half = prefill_counts[""], prefill_counts["tri"]
+    assert full["flops"] * len(tri) == half["flops"] * len(grid)
+    assert full["calls"] * len(tri) == half["calls"] * len(grid)
+
+
+def test_bf16attn_and_qc1024_change_what_the_reference_s_change(
+        prefill_counts):
+    """bf16 scores: the same matmul flops over fewer bytes; 1024-query
+    chunks: the same flops in half the chunk pairs."""
+    base = prefill_counts[""]
+    bf16, qc = prefill_counts["bf16attn"], prefill_counts["qc1024"]
+    assert bf16["flops"] == base["flops"] == qc["flops"]
+    assert bf16["bytes"] < 0.6 * base["bytes"]
+    assert 2 * qc["calls"] == base["calls"]
+
+
+@pytest.mark.parametrize("variant", ["bf16attn", "qc1024", "tri"])
+def test_every_attention_variant_gives_a_record(variant, tmp_path, world):
+    """The variants that once raised write their records, and the
+    caller's knobs come back afterwards."""
+    rec = dryrun.run_cell("qwen1.5-4b-smoke", "decode_32k", False,
+                          variant=variant, results=tmp_path)
+    assert rec["variant"] == variant
+    assert rec["cell"] == f"qwen1.5-4b-smoke__decode_32k__pod1__{variant}"
+    assert rec["hlo"]["flops"] > 0
+    assert (tmp_path / f"{rec['cell']}.json").exists()
+    assert all(os.environ.get(v) is None for v in _ENV_KNOBS)
+    from repro_torch.models.lm import attention as attn
+    assert attn.REFERENCE_SCHEDULE is False
+
+
+# ---------------------------------------------------------------------------
+# the MoE all-to-all and the report
+
+
+def test_moe_all_to_all_of_granite_train_4k_is_the_specs_arithmetic(world):
+    """granite-moe-1b-a400m x train_4k on 16 x 16: the dispatch and the
+    combine each move the device's share of the (E, G, capacity, d)
+    dispatch tensor, per MoE layer and pass; the combine adds no
+    all-reduce of its own. The arithmetic reads the reference's specs
+    and config."""
+    cfg, shape = config.get_config("granite-moe-1b-a400m"), \
+        config.SHAPES["train_4k"]
+    mesh = tmesh.make_production_mesh()
+    with FakeTensorMode():
+        cell = dryrun.build_cell(cfg, shape, mesh)
+        leaves = dryrun._param_leaves(cell["args"][0].params,
+                                      cell["arg_shardings"][0].params)
+    sizes = shd.axis_sizes(mesh)
+    coll = dryrun.cell_collectives(cfg, shape, sizes, leaves,
+                                   cell["n_micro"])
+
+    jcfg = jconfig.get_config("granite-moe-1b-a400m")
+    jstruct = jax.eval_shape(lambda: japi.init_params(jax.random.key(0),
+                                                      jcfg))
+    specs, leaves_j = _jpaths(jshd.param_specs(jstruct, jcfg)), \
+        _jpaths(jstruct)
+    wo = [p for p in specs if p.endswith("ffn/wo")]
+    assert len(wo) == 1 and tuple(specs[wo[0]]) == (None, "model", None,
+                                                    "data")
+    L, E, _, d = leaves_j[wo[0]].shape
+    dp, mp = 16, 16
+    n_micro = japi.n_microbatches(jcfg, shape.global_batch, shape.seq_len,
+                                  dp=dp)
+    assert n_micro == cell["n_micro"]
+    groups = shape.global_batch // n_micro // dp        # rows a shard
+    cap = max(math.ceil(shape.seq_len * jcfg.experts_per_tok / E * 1.25), 4)
+    passes = 2 * n_micro                                # forward, backward
+    want = passes * L * 2 * (E // mp) * groups * cap * d * 2   # bf16
+    assert coll["all-to-all"] == want == 8053063680
+    assert coll["collective-permute"] == 0
+    assert set(coll) == set(hlo.COLLECTIVE_KINDS) == {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute"}
+    rest = [lf for lf in leaves if not lf[0].endswith("ffn/wo")]
+    assert dryrun.cell_collectives(cfg, shape, sizes, rest, n_micro)[
+        "all-reduce"] == coll["all-reduce"]
+
+
+def test_report_renders_the_cli_s_record(cli_results, capsys):
+    from repro_torch.analysis import report
+    out_dir, _ = cli_results
+    report.main(["--results", str(out_dir)])
+    text = capsys.readouterr().out
+    rec = json.loads((out_dir / "qwen1.5-4b-smoke__decode_32k__pod1.json")
+                     .read_text())
+    t = rec["roofline"]
+    assert (f"| qwen1.5-4b-smoke | decode_32k | pod1 | "
+            f"{t['compute_s']:.3f} | {t['memory_s']:.3f} | "
+            f"{t['collective_s']:.3f} | {t['bottleneck'][:-2]} |") in text
+    assert "## Hillclimb variants" in text
+    assert "ops" not in "".join(report.load(out_dir))

@@ -10,11 +10,13 @@ import pathlib
 import subprocess
 import sys
 
+from _torch_threads import SUBPROCESS_ENV
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _run_example(script: str, args) -> str:
-    env = dict(os.environ)
+    env = dict(os.environ, **SUBPROCESS_ENV)
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     res = subprocess.run(

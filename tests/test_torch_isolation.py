@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -18,8 +19,45 @@ SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _modules():
-    return sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
-                  for p in PORT.rglob("*.py"))
+    """Every module of the port, a package by its own name."""
+    names = set()
+    for p in PORT.rglob("*.py"):
+        parts = p.relative_to(ROOT / "src").with_suffix("").parts
+        names.add(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return sorted(names)
+
+
+def _reference_names(path: Path):
+    """The names a reference ``__init__`` re-exports, read with ``ast``:
+    its ``__all__``, else every name its imports bind (none where the
+    file holds only a docstring or does not exist)."""
+    if not path.exists():
+        return []
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", "") == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+        if isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+    return names
+
+
+INITS = ["", "configs", "core", "core/qabas", "core/quant", "kernels",
+         "serving"]
+
+
+@pytest.mark.parametrize("package", INITS, ids=lambda p: p or "repro_torch")
+def test_package_init_re_exports_the_reference_s_names(package):
+    """Each package ``__init__`` of the port exports what its twin does
+    (``src/repro/__init__.py`` does not exist: the top level exports
+    nothing), and every exported name resolves."""
+    want = _reference_names(ROOT / "src" / "repro" / package / "__init__.py")
+    name = ".".join(["repro_torch", *filter(None, package.split("/"))])
+    mod = importlib.import_module(name)
+    assert list(mod.__all__) == list(want)
+    assert all(hasattr(mod, n) for n in mod.__all__)
+    assert (PORT / package / "__init__.py").read_text().startswith('"""')
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():

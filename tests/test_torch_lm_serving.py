@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one torch thread)
 
 from repro.config import QuantPolicy as JQuantPolicy
 from repro.config import get_config as jget_config

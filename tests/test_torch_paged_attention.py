@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one torch thread)
 
 from repro.kernels import ops as jops
 from repro.kernels import paged_attention as jpa

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one torch thread)
 
 from repro.core.quant.policy import quantize_tensor as jquantize_tensor
 from repro.kernels import ops as jops

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one torch thread)
 
 from repro.analysis import roofline as jroofline
 from repro.config import get_config as jget_config

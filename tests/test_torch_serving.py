@@ -7,6 +7,7 @@ bases must be identical."""
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one torch thread)
 
 from repro.models.basecaller import model as jbc
 from repro.models.basecaller.ctc import greedy_decode as jgreedy_decode

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import SUBPROCESS_ENV
 
 from repro.config import QuantPolicy as JQuantPolicy
 from repro.config import get_config as jget_config
@@ -213,7 +214,8 @@ def test_train_launcher_prints_history_rows(tmp_path):
          "rubicall", "--smoke", "--steps", "4", "--batch", "2", "--seq",
          "256", "--device", "cpu", "--ckpt-dir", str(tmp_path)],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        env={**os.environ, **SUBPROCESS_ENV,
+             "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     rows = [json.loads(line) for line in out.stdout.splitlines()]
     assert rows[-1]["step"] == 4 and np.isfinite(rows[-1]["loss"])
@@ -233,14 +235,28 @@ def test_train_launcher_trains_an_lm(tmp_path, capsys):
     assert (tmp_path / "step_0000000004" / "manifest.json").exists()
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--coordinator", "localhost:1"], "not ported"),
-    (["--model-parallel", "2"], "not ported"),
-])
-def test_train_launcher_refuses_what_is_not_ported(argv, match):
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=match):
-        train.main(argv + ["--device", "cpu", "--steps", "1"])
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_train_launcher_refuses_what_is_not_ported(multi_pod, tmp_path):
+    """A model axis above 1 (tensor parallelism) is not ported: the loop
+    refuses the production meshes (model axis 16, on stand-in ranks)
+    before it draws a parameter. ``--coordinator`` and a
+    ``--model-parallel`` that gives a model axis of 1 train
+    data-parallel (tests/test_torch_distributed.py, which also runs the
+    launcher's refusal over two processes)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = get_config("rubicall-smoke")
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        with pytest.raises(NotImplementedError,
+                           match="model axis of 16 .*not ported"):
+            train_loop.run(cfg, opt.AdamWConfig(), train_loop.TrainLoopConfig(
+                steps=1, ckpt_dir=str(tmp_path)), iter(()), device="cpu",
+                mesh=mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
