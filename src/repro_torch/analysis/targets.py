@@ -1,0 +1,297 @@
+"""Trace targets: the REAL serving programs the trace rules inspect.
+
+The analyzer does not check toy re-derivations — it records the same
+tick programs serving runs, each run once on a fresh runner:
+
+- ``serving_step_targets``: every cache family the engine serves
+  (dense/GQA, hybrid sliding-window ring, absorbed-MLA) x both decode-
+  attention backends (``gather``, the reference's ``xla``: the gathered
+  logical view; ``cuda``, its ``pallas``: the paged kernels, or on the
+  CPU their plain versions, which walk the arena as the kernels do),
+  through the :class:`~repro_torch.serving.runner.TokenRunner`'s plan
+  callables (``("decode", 1, "greedy")`` for the lockstep C == 1 tick,
+  ``("mixed", C, "greedy")`` for the co-batched mixed tick) at smoke
+  scale, with the arguments ``TokenRunner.dispatch`` builds — plus an
+  int8-arena variant so the dequant paths are covered. Each target
+  carries its pool's ARENA SIGNATURES (``(n_blocks, block_len) -> T``),
+  which is how the materialization rule recognizes a logical-view
+  gather without false-positiving on embedding lookups of similar
+  size.
+- ``attention_op_targets``: ``repro_torch.kernels.ops``'s decode-
+  attention dispatch (GQA + MLA, fp32/bf16/int8 arenas, C == 1 and
+  chunk) and the quantized ``qmatmul`` — the programs the precision
+  rule audits for fp32 softmax stats / accumulators.
+- ``basecaller_stream_targets``: the streaming basecall tick — the
+  batched halo-window forward exactly as ``BasecallerRunner.dispatch``
+  runs it, with and without the co-executed read-until classifier
+  head. No KV arena (``arena_sigs`` stays empty, so the
+  materialization rule skips them); the precision rule walks them and
+  the trace-stability audit re-ticks the live runner.
+
+A target is recorded by running it (:func:`~repro_torch.analysis.
+jaxpr_walk.record`) on ``device``: CUDA unless the caller asks for the
+CPU. On the card the ``cuda`` targets launch the paged kernels and
+``qmatmul``, recorded as launch sites with their routes; on the CPU the
+wrappers run the plain versions, whose ops are recorded instead. At
+smoke scale a full sweep takes seconds.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.jaxpr_walk import OpTrace, record
+from repro_torch.device import resolve_device
+
+# Smoke arch per cache family (matches the tier-1 parity suites).
+SERVING_FAMILIES: Tuple[Tuple[str, str], ...] = (
+    ("gqa", "qwen1.5-4b-smoke"),          # dense/GQA full attention
+    ("swa", "hymba-1.5b-smoke"),          # hybrid sliding-window ring
+    ("mla", "deepseek-v3-671b-smoke"),    # absorbed-MLA latent cache
+)
+# the reference's ("xla", "pallas"), in the port's names
+BACKENDS: Tuple[str, ...] = ("gather", "cuda")
+
+# Smoke-scale pool geometry shared by every serving target.
+N_SLOTS, CACHE_LEN, BLOCK_LEN, CHUNK = 2, 16, 4, 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceTarget:
+    """One recorded program + the metadata rules need to judge it."""
+    name: str                 # e.g. "step[qwen1.5-4b-smoke/cuda/mixed]"
+    jaxpr: OpTrace            # the recorded ops (the reference's jaxpr)
+    kind: str                 # "serving-step" | "attn-op" | "qmatmul"
+    backend: Optional[str]    # "gather" | "cuda" | None
+    quantized: bool           # int8 arena (scale leaves ride along)
+    n_slots: int = 0
+    block_len: int = 0
+    # (n_blocks, block_len) -> min blocks-per-slot T among matching
+    # groups: how a rule recognizes an arena-shaped gather operand.
+    arena_sigs: Dict[Tuple[int, int], int] = dataclasses.field(
+        default_factory=dict)
+
+    def view_floor(self, operand_shape: Sequence[int]) -> Optional[int]:
+        """Size of the ``(B, T*block_len, ...)`` logical view a gather
+        from an arena-shaped operand would materialize — None when the
+        operand is not arena-shaped for this target."""
+        if len(operand_shape) < 3:
+            return None
+        T = self.arena_sigs.get((operand_shape[0], operand_shape[1]))
+        if T is None:
+            return None
+        feat = math.prod(operand_shape[2:])
+        return self.n_slots * T * self.block_len * feat
+
+
+def _pool_sigs(pool) -> Dict[Tuple[int, int], int]:
+    sigs: Dict[Tuple[int, int], int] = {}
+    for g, T in pool.layout.items():
+        key = (pool.n_blocks[g], pool.block_len)
+        sigs[key] = min(T, sigs.get(key, T))
+    return sigs
+
+
+def _build_runner(arch: str, backend: str, quant: Optional[str] = None,
+                  device=None):
+    """A smoke :class:`TokenRunner` at the shared pool geometry: fp32
+    weights drawn from seed 0 on ``device``, an fp32 arena (``quant``
+    ``"int8"``: an int8 one), the ``backend`` read path."""
+    from repro_torch.config import get_config
+    from repro_torch.models import api
+    from repro_torch.serving.runner import TokenRunner
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    params = api.init_params(0, cfg, device=dev)
+    return TokenRunner(params, cfg, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                       prefill_chunk=CHUNK, cache_dtype=torch.float32,
+                       block_len=BLOCK_LEN, attn_backend=backend,
+                       quant_policy=quant, device=dev)
+
+
+def serving_step_targets(
+        families: Sequence[Tuple[str, str]] = SERVING_FAMILIES,
+        backends: Sequence[str] = BACKENDS,
+        quant_archs: Sequence[str] = ("qwen1.5-4b-smoke",),
+        device=None) -> List[TraceTarget]:
+    """Record the real runner tick programs per family x backend x tick
+    shape (plus int8-arena variants of ``quant_archs``)."""
+    out: List[TraceTarget] = []
+    for _family, arch in families:
+        for backend in backends:
+            variants = [(None, "")]
+            if arch in quant_archs:
+                variants.append(("int8", "/int8"))
+            for quant, tag in variants:
+                runner = _build_runner(arch, backend, quant, device)
+                out.extend(record_runner_steps(
+                    runner, f"{arch}/{backend}{tag}",
+                    quantized=quant == "int8"))
+    return out
+
+
+def tick_args(runner, kind: str) -> tuple:
+    """The host arguments ``TokenRunner.dispatch`` builds for one greedy
+    tick: ``decode``, every row a decode token at positions 3, 4, ...;
+    ``mixed``, row 0 a fresh chunk at positions ``0..C-1`` beside decode
+    rows at position 5, padded to the full chunk width."""
+    B, C = runner.n_slots, runner.chunk_tokens
+    chain = torch.zeros((B,), dtype=torch.int32)
+    if kind == "decode":
+        tok = torch.zeros((B, 1), dtype=torch.int32)
+        t = torch.arange(3, 3 + B, dtype=torch.int32).reshape(B, 1)
+        return tok, t, chain, None, None, None
+    tok = torch.zeros((B, C), dtype=torch.int32)
+    t = torch.full((B, C), -1, dtype=torch.int32)
+    t[0] = torch.arange(C, dtype=torch.int32)
+    t[1:, 0] = 5
+    fresh = torch.zeros((B,), dtype=torch.int32)
+    fresh[0] = 1
+    last = torch.zeros((B,), dtype=torch.int32)
+    last[0] = C - 1
+    return tok, t, chain, fresh, last, None
+
+
+def record_runner_steps(runner, label: str, quantized: bool
+                        ) -> List[TraceTarget]:
+    """Record one runner's decode-only and mixed tick programs (its plan
+    callables, with the argument layout ``TokenRunner.dispatch``
+    builds) on its pool, each slot backed for the positions they
+    write."""
+    pool = runner.pool
+    upto = max(8, runner.chunk_tokens)
+    for slot in range(runner.n_slots):
+        if not pool.alloc(slot, upto):
+            raise ValueError(f"{label}: the arena cannot back {upto} "
+                             f"positions a slot")
+    meta = dict(kind="serving-step", backend=pool.attn_backend,
+                quantized=quantized, n_slots=runner.n_slots,
+                block_len=pool.block_len, arena_sigs=_pool_sigs(pool))
+    out = []
+    for kind, key in (("decode", ("decode", 1, "greedy")),
+                      ("mixed", ("mixed", runner.chunk_tokens, "greedy"))):
+        _, trace = record(runner.plans.fn(key), *tick_args(runner, kind))
+        out.append(TraceTarget(name=f"step[{label}/{kind}]", jaxpr=trace,
+                               **meta))
+    return out
+
+
+def canned_works(runner, upto: int = 8) -> Tuple[list, list]:
+    """``(works_decode, works_mixed)``: one fixed decode-only tick (rows
+    0 and 1 decoding at positions 3 and 5) and one fixed mixed tick (a
+    fresh 4-token prompt chunk in row 0 beside row 1's decode token),
+    each slot of ``runner`` backed up to ``upto`` positions; slots past
+    the second idle."""
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.runner import DecodeWork, PrefillWork
+    for slot in range(runner.n_slots):
+        runner.alloc_pool(slot, upto)
+    r0, r1 = Request(0, [1, 2, 3, 4]), Request(1, [1, 2])
+    idle = [None] * (runner.n_slots - 2)
+    works_decode = [DecodeWork(1, 3, r0), DecodeWork(2, 5, r1)] + idle
+    works_mixed = [PrefillWork([1, 2, 3, 4], 4, 0, True, False, r0),
+                   DecodeWork(2, 5, r1)] + idle
+    return works_decode, works_mixed
+
+
+def _build_basecaller_runner(read_until: bool, device=None):
+    from repro_torch.config import get_config
+    from repro_torch.core.quant.policy import tree_map
+    from repro_torch.models import api
+    from repro_torch.models.basecaller import classifier as rc
+    from repro_torch.serving.runner import BasecallerRunner
+    from repro_torch.serving.stream import ReadUntil
+    dev = resolve_device(device)
+    cfg = get_config("bonito-smoke")
+    params = tree_map(lambda t: t.to(dev), api.init_params(
+        torch.Generator().manual_seed(0), cfg))
+    ru = None
+    if read_until:
+        # untrained head, threshold -inf: the PROGRAM is what's audited
+        ru = ReadUntil(params=rc.init_params(torch.Generator().manual_seed(1)),
+                       eject_after_chunks=2, threshold=-1e9)
+    return BasecallerRunner(params, cfg, n_slots=N_SLOTS,
+                            chunk_samples=300, read_until=ru, device=dev)
+
+
+def basecaller_stream_targets(device=None) -> List[TraceTarget]:
+    """Record the streaming basecall tick program (batched halo-window
+    forward; ``/read_until`` adds the fused classifier head) with the
+    exact argument layout ``BasecallerRunner.dispatch`` builds."""
+    out: List[TraceTarget] = []
+    for read_until, tag in ((False, ""), (True, "/read_until")):
+        runner = _build_basecaller_runner(read_until, device)
+        W = runner.core + 2 * runner.halo
+        wins = np.zeros((N_SLOTS, W, 1), np.float32)
+        start = np.zeros((N_SLOTS,), np.int32)
+        read_len = np.full((N_SLOTS,), W, np.int32)
+        _, trace = record(runner._forward, runner.plans.fn(runner._plan_key),
+                          wins, start, read_len)
+        out.append(TraceTarget(
+            name=f"step[bonito-smoke/stream{tag}]", jaxpr=trace,
+            kind="serving-step", backend=None, quantized=False,
+            n_slots=N_SLOTS))
+    return out
+
+
+def attention_op_targets(backends: Sequence[str] = BACKENDS,
+                         device=None) -> List[TraceTarget]:
+    """Record the decode-attention dispatch + quantized matmul."""
+    from repro_torch.kernels import ops
+    dev = resolve_device(device)
+    out: List[TraceTarget] = []
+    B, Hkv, hd, bl, T, Nb = 2, 2, 16, 4, 4, 10
+    i32 = dict(dtype=torch.int32, device=dev)
+    pos = torch.full((B, T * bl), -1, **i32)
+    table = torch.zeros((B, T), **i32)
+    sigs = {(Nb, bl): T}
+    meta = dict(kind="attn-op", n_slots=B, block_len=bl, arena_sigs=sigs)
+
+    def run(fn, *args):
+        with torch.inference_mode():
+            return record(fn, *args)[1]
+    for backend in backends:
+        for C, ctag in ((1, "decode"), (4, "chunk")):
+            q = torch.zeros((B, C, 2 * Hkv, hd), device=dev)
+            t = torch.zeros((B, C), **i32)
+            for cdt, scales, qtag in (
+                    (torch.float32, False, "fp32"),
+                    (torch.bfloat16, False, "bf16"),
+                    (torch.int8, True, "int8")):
+                k = torch.zeros((Nb, bl, Hkv, hd), dtype=cdt, device=dev)
+                sc = (torch.zeros((Nb, bl, Hkv), device=dev) if scales
+                      else None)
+                trace = run(lambda: ops.decode_gqa(
+                    q, k, k, pos, t, table=table, backend=backend,
+                    k_scale=sc, v_scale=sc))
+                out.append(TraceTarget(
+                    name=f"decode_gqa[{backend}/{ctag}/{qtag}]",
+                    jaxpr=trace, backend=backend, quantized=scales, **meta))
+        # absorbed-MLA (latent + rope halves), C == 1
+        kvr, rope_d = 16, 8
+        qa = torch.zeros((B, 1, 4, kvr), device=dev)
+        qr = torch.zeros((B, 1, 4, rope_d), device=dev)
+        t = torch.zeros((B, 1), **i32)
+        for cdt, scales, qtag in ((torch.float32, False, "fp32"),
+                                  (torch.int8, True, "int8")):
+            c = torch.zeros((Nb, bl, kvr), dtype=cdt, device=dev)
+            kr = torch.zeros((Nb, bl, rope_d), dtype=cdt, device=dev)
+            sc = torch.zeros((Nb, bl), device=dev) if scales else None
+            trace = run(lambda: ops.decode_mla(
+                qa, qr, c, kr, pos, t, scale=0.17, table=table,
+                backend=backend, c_scale=sc, kr_scale=sc))
+            out.append(TraceTarget(
+                name=f"decode_mla[{backend}/{qtag}]", jaxpr=trace,
+                backend=backend, quantized=scales, **meta))
+    # quantized-weight matmul (int8 weights, fp32 activations/acc)
+    x = torch.zeros((128, 128), device=dev)
+    w = torch.zeros((128, 128), dtype=torch.int8, device=dev)
+    s = torch.zeros((128,), device=dev)
+    out.append(TraceTarget(name="qmatmul[int8]",
+                           jaxpr=run(lambda: ops.qmatmul(x, w, s)),
+                           kind="qmatmul", backend=None, quantized=True))
+    return out

@@ -5,6 +5,12 @@ into ``build/lib<name>-<hash>.so`` at the repository root, the hash
 covering the source and the flags, so an edited source rebuilds and an
 unchanged one loads from the last build. Nothing here runs at import:
 the first kernel call (or :func:`build_all`) compiles.
+
+The port's "compile" is this module's work: ``COUNTS`` keeps the
+sources built and the libraries loaded, so a load audit can tell a
+kernel whose library first loads in the middle of traffic. Every
+wrapper counts its launches through :func:`count_launch`, which also
+tells the analyzer's recorder (``ON_LAUNCH``), when one is recording.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
@@ -23,6 +29,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 LOGS: Dict[str, str] = {}            # nvcc output per source (ptxas -v)
+COUNTS: Dict[str, int] = {"builds": 0, "loads": 0}
+# (kernel, route) -> None: the analyzer's recorder while it records
+ON_LAUNCH: Optional[Callable[[str, str], None]] = None
+
+
+def count_launch(wrapper: Callable, kernel: str, route: str) -> None:
+    """One launch of ``kernel`` on ``route``: the wrapper's ``.launches``
+    and ``.routes[route]`` counts, and the recorder's site, if any."""
+    wrapper.launches += 1
+    wrapper.routes[route] += 1
+    if ON_LAUNCH is not None:
+        ON_LAUNCH(kernel, route)
 
 
 def _nvcc() -> str:
@@ -69,6 +87,7 @@ def build_all(names: Optional[List[str]] = None) -> List[str]:
     running = [(n, *_start(n)) for n in todo]
     for n, out, tmp, proc in running:
         _finish(n, out, tmp, proc)
+    COUNTS["builds"] += len(todo)
     return todo
 
 
@@ -78,4 +97,5 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
+        COUNTS["loads"] += 1
     return lib

@@ -105,8 +105,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.routes[route(q.dtype)] += 1
+    _build.count_launch(flash_attention_cuda, "flash_attention",
+                        route(q.dtype))
     return out[..., :d].contiguous() if dk != d else out
 
 

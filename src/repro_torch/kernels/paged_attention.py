@@ -495,8 +495,7 @@ def gqa_paged_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _launch_tc if route == "tensor_core" else _launch
     out = fn(q.reshape(B, 1, Hkv * group, hd), k, v, pos, t.reshape(B, 1),
              table, window, k_scale, v_scale)
-    gqa_paged_cuda.launches += 1
-    gqa_paged_cuda.routes[route] += 1
+    _build.count_launch(gqa_paged_cuda, "gqa_paged", route)
     return out.reshape(B, Hkv, group, hd)
 
 
@@ -516,8 +515,7 @@ def gqa_paged_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route = chunk_route(k.dtype, C, hd)
     fn = _launch_tc if route == "tensor_core" else _launch
     out = fn(q, k, v, pos, t, table, window, k_scale, v_scale)
-    gqa_paged_chunk_cuda.launches += 1
-    gqa_paged_chunk_cuda.routes[route] += 1
+    _build.count_launch(gqa_paged_chunk_cuda, "gqa_paged_chunk", route)
     return out.reshape(B, C, H * hd)
 
 
@@ -753,8 +751,7 @@ def mla_paged_cuda(q_abs: torch.Tensor, q_rope: torch.Tensor,
                              q_rope.reshape(B, 1, H, q_rope.shape[-1]), c,
                              kr, pos, t.reshape(B, 1), table, scale, c_scale,
                              kr_scale, path, "mla_paged")
-    mla_paged_cuda.launches += 1
-    mla_paged_cuda.routes[route] += 1
+    _build.count_launch(mla_paged_cuda, "mla_paged", route)
     return out.reshape(B, H, kvr)
 
 
@@ -772,8 +769,7 @@ def mla_paged_chunk_cuda(q_abs: torch.Tensor, q_rope: torch.Tensor,
     one launch and one on its route."""
     out, route = _mla_launch(q_abs, q_rope, c, kr, pos, t, table, scale,
                              c_scale, kr_scale, path, "mla_paged_chunk")
-    mla_paged_chunk_cuda.launches += 1
-    mla_paged_chunk_cuda.routes[route] += 1
+    _build.count_launch(mla_paged_chunk_cuda, "mla_paged_chunk", route)
     return out
 
 

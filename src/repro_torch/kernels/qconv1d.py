@@ -145,8 +145,7 @@ def qconv1d_block_cuda(x: torch.Tensor, dw_q: torch.Tensor,
                                           stream)
     if rc != 0:
         raise RuntimeError(f"qconv1d_block launch failed: CUDA error {rc}")
-    qconv1d_block_cuda.launches += 1
-    qconv1d_block_cuda.routes[path] += 1
+    _build.count_launch(qconv1d_block_cuda, "qconv1d_block", path)
     return out
 
 

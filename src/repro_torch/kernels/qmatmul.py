@@ -160,8 +160,7 @@ def qmatmul_cuda(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                 stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul launch failed: CUDA error {rc}")
-    qmatmul_cuda.launches += 1
-    qmatmul_cuda.routes[path] += 1
+    _build.count_launch(qmatmul_cuda, "qmatmul", path)
     return out
 
 

@@ -170,8 +170,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bsz, S, nh, hp, npad, _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
-    ssd_scan_cuda.launches += 1
-    ssd_scan_cuda.routes[path] += 1
+    _build.count_launch(ssd_scan_cuda, "ssd_scan", path)
     if hp != hd or npad != N:
         y, h = y[..., :hd].contiguous(), h[:, :, :hd, :N].contiguous()
     return y, h

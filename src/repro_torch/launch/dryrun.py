@@ -266,7 +266,7 @@ def count_step(cfg: ModelConfig, shape: ShapeConfig, *, variant: str = "",
     counts (each cut counted under ``FakeTensorMode``). Returns (table,
     the cuts' ``(n_layers, n_dense_layers)``)."""
     import numpy as np
-    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.compat import FakeTensorMode
     cuts, rows, target = layer_cuts(cfg)
     tables = []
     for c in cuts:
@@ -329,7 +329,7 @@ def _param_leaves(params, psh):
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              force: bool = False, save_hlo: bool = False,
              variant: str = "", results: Path = RESULTS) -> dict:
-    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.compat import FakeTensorMode
 
     from repro_torch.analysis import hlo
     from repro_torch.analysis.roofline import (HBM_BW, model_flops,

@@ -88,7 +88,7 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     truncated-normal helpers leave a fake tensor undrawn)."""
     import math
 
-    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.compat import FakeTensorMode
     with FakeTensorMode():
         params = init_params(torch.Generator().manual_seed(0), cfg,
                              device="cpu")

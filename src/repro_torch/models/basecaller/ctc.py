@@ -12,7 +12,8 @@ from typing import List
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.compat import is_fake
 
 NEG = -1e30
 BLANK = 0

@@ -20,8 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.compat import is_fake
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import (Packer, PackedTensor, dequantize,
                                            quantize_tensor)

@@ -41,8 +41,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch.compat import Replicate, Shard
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import PackedTensor
 

@@ -37,25 +37,37 @@ kernels, ``gather`` is the plain reference (the parity oracle), and
 Invariants
 ==========
 
-Of the reference's enforced invariants, the port keeps:
+``python -m repro_torch.analysis`` enforces the reference's five, with
+the same rule ids (``--device cpu`` records the programs on the CPU;
+the tier-1 tests run it so, ``chip_smoke.py`` on the card):
 
 ``no-materialization``
     The ``cuda`` backend's kernels read the arena block by block and
     never build the ``(B, T*block_len)`` logical view; the ``gather``
-    backend keeps it, as the reference's XLA path does. Not yet checked
-    by a tool (the port has no ``analysis`` linters).
+    backend keeps it, as the reference's XLA path does (the oracle).
+    Checked on the recorded tick programs of every cache family: no
+    view-sized gather, flattening reshape or copy of an arena operand
+    on ``cuda``, one on ``gather``.
 ``precision``
     Softmax statistics, scale math and accumulation in the attention
-    and ``qmatmul`` kernels stay fp32; bf16, fp16, fp8 and int8 are
-    storage and matmul-input types only.
+    and ``qmatmul`` programs stay fp32; bf16, fp16, fp8 and int8 are
+    storage and matmul-input types only. Checked on the recorded
+    programs: no half-precision ``exp``/``amax``/``sum``/softmax, no
+    low-precision matmul output, no fp32 -> bf16 downcast reaching
+    either on a quantized path.
+``compat``
+    The version-dependent torch surfaces (the DTensor API, the private
+    fake-tensor module) are used only through ``repro_torch/compat.py``.
 ``host-sync``
     The tick path's deliberate device-to-host reads (the tick's token
-    readback, the CTC merge's, the MoE routing's) carry a ``# sync:
-    <reason>`` comment, as the reference's do; no tool checks it yet.
-
-The reference's ``compat`` (its JAX version shims) and
-``trace-stability`` (its jit cache) have no counterpart: the port
-imports no JAX and compiles no tick program.
+    readback, the CTC merge's) carry a ``# sync: <reason>`` comment in
+    ``engine.py`` and ``runner.py``, as the reference's do.
+``trace-stability``
+    Eager PyTorch compiles no tick; the port's compile is a kernel
+    library's build and load at its first launch. After ``warmup()``,
+    ticking the same bucket again loads nothing and launches the same
+    kernels on the same routes, and every schedulable tick shape has a
+    registered plan.
 """
 from repro_torch.serving.cache import CachePool
 from repro_torch.serving.engine import Request, ServingEngine

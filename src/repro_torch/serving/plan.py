@@ -61,6 +61,9 @@ class PlanCache:
     def keys(self) -> List[PlanKey]:
         return list(self._fns)
 
+    def __contains__(self, key: PlanKey) -> bool:
+        return key in self._fns
+
     def fn(self, key: PlanKey) -> Callable:
         """Raw access to a plan's callable (warmup)."""
         return self._fns[key]

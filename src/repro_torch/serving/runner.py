@@ -377,12 +377,12 @@ class BasecallerRunner(ModelRunner):
         the classifier see them, so an ejected read's bases match the
         synchronous engine exactly."""
         works, dev = handle
+        if self.read_until is None:
+            dev = (dev,)
         # sync: the CTC merge and the read-until verdict are host-side by
         # design — one readback per tick covers both
-        if self.read_until is not None:
-            lp, cls = readback(*dev)
-        else:
-            lp, cls = readback(dev)[0], None
+        lp, *cls = readback(*dev)
+        cls = cls[0] if cls else None
         f0 = self.halo // self.stride
         out: List[List[int]] = []
         for i, w in enumerate(works):

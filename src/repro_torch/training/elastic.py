@@ -25,8 +25,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import distribute_tensor
 
+from repro_torch.compat import distribute_tensor
 from repro_torch.parallel.sharding import zip_map
 
 

@@ -43,8 +43,8 @@ def _reference_names(path: Path):
     return names
 
 
-INITS = ["", "configs", "core", "core/qabas", "core/quant", "kernels",
-         "serving"]
+INITS = ["", "analysis", "configs", "core", "core/qabas", "core/quant",
+         "kernels", "serving"]
 
 
 @pytest.mark.parametrize("package", INITS, ids=lambda p: p or "repro_torch")
@@ -129,6 +129,14 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     assert bridge.from_numpy_tree({"w": np.zeros((2, 2), np.float32)},
                                   device="cpu")["w"].device.type == "cpu"
     assert chip_smoke.main() != 0
+    # the analyzer records its tick programs on the card; its AST rules
+    # need no device
+    from repro_torch.analysis import cli as analysis_cli
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis_cli.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analysis_cli.main(["--rules", "trace-stability"])
+    assert analysis_cli.main(["--rules", "compat,host-sync"]) == 0
     # asking for the CPU works, and serves a read there
     eng = api.make_serving_engine(params, cfg, device="cpu", n_slots=1)
     assert eng.runner.device.type == "cpu"
