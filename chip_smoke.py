@@ -301,6 +301,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every step within ``DP_RTOL`` relative, two checkpoints written; a
    second plain run gives the card's own spread beside it; the step's
    wall ms of each, beside the card's name and power limit.
+24. analysis — ``python -m repro_torch.analysis``'s five rules on the
+   card (its full-width half runs after phase 6).
+25. train (tensor-parallel) — two processes share the card through a
+   gloo group over a file store (NCCL refuses two ranks on one card)
+   and train on the ``(1, 2)`` host mesh through
+   ``train_loop.run(mesh=make_host_mesh(2), device="cuda")``:
+   qwen1.5-4b cut to 2 of 40 layers and granite-moe-1b-a400m cut to 4
+   of 24, at published widths, 4 x 1024 tokens, 3 steps (qwen: 10 of 20
+   heads, 3456 of 6912 MLP columns and 75968 of 151936 vocabulary rows
+   a rank; granite: 8 of 16 query and 4 of 8 KV heads, 16 of 32
+   experts, its odd vocabulary whole), against the one-process bf16
+   run from the same seed on the same batches, a second one-process
+   run's spread beside it: step 1's loss within ``TP_RTOL_FIRST`` and
+   steps 2-3 within ``TP_RTOL`` relative, both ranks' losses equal,
+   each rank's parameter bytes equal to ``sharding.per_device_bytes``
+   on the mesh, and granite's step-3 checkpoint (whole leaves, gathered
+   over the model group, written by rank 0) against the one-process
+   one leaf by leaf. Prints the all-reduces a step (calls and bytes,
+   ``tensor_parallel.COUNTS``), each rank's peak memory, parameter and
+   AdamW bytes, and the step ms of each run. This phase says nothing
+   about speed: the ranks' all-reduces go through the host.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -4645,6 +4666,248 @@ def phase_analysis_full(served: dict, smi: str) -> dict:
             "record_s": t_rec, "audit_s": t_audit}
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: tensor-parallel training, two ranks sharing the card
+
+# (arch, layers kept, batch rows, sequence, checkpoint compared): the
+# published widths, depth cut with dataclasses.replace
+TP_RUNS = [("qwen1.5-4b", 2, 4, 1024, False),
+           ("granite-moe-1b-a400m", 4, 4, 1024, True)]
+TP_STEPS = 3
+# bf16 compute: the row-parallel products are rounded per rank before
+# their sum, so the runs part at bf16's precision, not fp32's
+TP_RTOL_FIRST, TP_RTOL = 1e-3, 1e-2
+# a weight's step-3 difference: where a gradient near 0 takes the other
+# sign in one run, AdamW's update (|u| about 1 in its first steps) moves
+# the weight the other way, by up to 2 lr a step; 2x that over 3 steps
+TP_PARAM_ATOL = 2 * 2 * LM_LR * 3
+
+
+def tp_cfg(arch: str, layers: int):
+    return replace(get_config(arch), n_layers=layers)
+
+
+def tp_loop(ckpt_dir: str, ckpt: bool) -> TrainLoopConfig:
+    return TrainLoopConfig(steps=TP_STEPS, log_every=1,
+                           ckpt_every=TP_STEPS if ckpt else 10 ** 9,
+                           ckpt_dir=ckpt_dir)
+
+
+TP_OPT = AdamWConfig(lr=LM_LR, warmup_steps=1, total_steps=TP_STEPS)
+
+
+def tp_step_ms(run) -> float:
+    wall = [r["wall_s"] for r in run["history"]]
+    return (wall[-1] - wall[0]) / (len(wall) - 1) * 1e3
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tp_rank_main(rank: int, store: str, out: str) -> int:
+    """One of the two ranks of phase 25: a gloo group over a file store
+    (no socket) whose ranks share card 0; each of :data:`TP_RUNS`
+    trained through ``train_loop.run(mesh=make_host_mesh(2),
+    device="cuda")``; this rank's figures as JSON under ``out``."""
+    import torch.distributed as dist
+
+    from repro_torch.compat import FakeTensorMode
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor_parallel as tp
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    mesh = make_host_mesh(2)
+    res = {}
+    for arch, layers, batch, seq, ckpt in TP_RUNS:
+        cfg = tp_cfg(arch, layers)
+        with FakeTensorMode():
+            whole = api.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device="cpu", dtype=torch.float32)
+        want = shd.per_device_bytes(whole, shd.param_shardings(whole, cfg,
+                                                               mesh))
+        dims = tp.split_dims(whole, cfg, 2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tp.reset_counts()
+        run = train_loop.run(cfg, TP_OPT, tp_loop(f"{out}/ckpt-{arch}", ckpt),
+                             train_launcher.data_for(cfg, batch, seq),
+                             device="cuda", mesh=mesh)
+        carry = run["carry"]
+        # the step-3 checkpoint's gather: every split leaf of the params
+        # and of AdamW's m and v, whole, once
+        split = [t for t, d in zip(tree_leaves(carry.params),
+                                   tree_leaves(dims)) if d is not None]
+        gather = ((3 * len(split), 3 * 2 * sum(
+            t.numel() * t.element_size() for t in split)) if ckpt
+            else (0, 0))
+        res[arch] = {
+            "loss": [r["loss"] for r in run["history"]],
+            "step_ms": tp_step_ms(run),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "param_bytes": tree_bytes(carry.params),
+            "per_device_bytes": want,
+            "opt_bytes": tree_bytes(carry.opt_state.m)
+            + tree_bytes(carry.opt_state.v),
+            "allreduce_calls_per_step":
+                (tp.COUNTS["calls"] - gather[0]) / TP_STEPS,
+            "allreduce_bytes_per_step":
+                (tp.COUNTS["bytes"] - gather[1]) / TP_STEPS,
+            "gather": gather}
+        del run, carry
+    dist.destroy_process_group()
+    Path(f"{out}/rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def checkpoint_diffs(got_dir: Path, want_dir: Path) -> dict:
+    """Leaf by leaf, two checkpoints of one step: the same keys, shapes
+    and dtypes, every leaf finite; max |difference| by leaf class
+    (params, m, v, step)."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    got, want = (CheckpointManager(str(d)).latest_valid()
+                 for d in (got_dir, want_dir))
+    if got is None or want is None or got[0] != want[0]:
+        raise AssertionError(f"checkpoints {got} and {want}")
+    mg, mw = (json.loads((c[1] / "manifest.json").read_text())["leaves"]
+              for c in (got, want))
+    if set(mg) != set(mw):
+        raise AssertionError(f"checkpoint keys differ: "
+                             f"{sorted(set(mg) ^ set(mw))[:8]}")
+    diffs = {}
+    for k in mw:
+        if (mg[k]["shape"], mg[k]["dtype"]) != (mw[k]["shape"],
+                                                mw[k]["dtype"]):
+            raise AssertionError(f"{k}: {mg[k]} against {mw[k]}")
+        a = np.load(got[1] / mg[k]["file"])
+        b = np.load(want[1] / mw[k]["file"])
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{k}: not finite")
+        cls = k.split("/")[0] if k.startswith(".params") else \
+            k.split("/")[1] if "/" in k else k
+        d = float(np.abs(a.astype(np.float64) - b).max()) if a.size else 0.0
+        diffs[cls] = max(diffs.get(cls, 0.0), d)
+    return {"step": got[0], "leaves": len(mw), "max_abs_diff": diffs}
+
+
+def phase_tp_train(smi: str) -> dict:
+    """Phase 25: tensor-parallel training at full width. Two processes
+    share the one H100 through a gloo group over a file store (NCCL
+    refuses two ranks on one card); each trains :data:`TP_RUNS` on the
+    ``(1, 2)`` host mesh through ``train_loop.run`` (``tp_rank_main``).
+    Held against the one-process bf16 run on the card from the same seed
+    and batches, a second one-process run's spread beside it: step 1's
+    loss within ``TP_RTOL_FIRST`` relative, steps 2-3 within
+    ``TP_RTOL``; each rank's parameter bytes equal to
+    ``sharding.per_device_bytes`` on the mesh; rank 0's step-3
+    checkpoint of whole leaves against the one-process checkpoint, leaf
+    by leaf. Printed: the all-reduces a step (the helper's counter),
+    each rank's peak memory and parameter and AdamW bytes, step ms."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = {}
+        for arch, layers, batch, seq, ckpt in TP_RUNS:
+            cfg = tp_cfg(arch, layers)
+            runs = []
+            for i in range(2):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                run = train_loop.run(
+                    cfg, TP_OPT, tp_loop(f"{tmp}/plain{i}-{arch}",
+                                         ckpt and i == 0),
+                    train_launcher.data_for(cfg, batch, seq),
+                    device="cuda")
+                runs.append({
+                    "loss": [r["loss"] for r in run["history"]],
+                    "step_ms": tp_step_ms(run),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "param_bytes": tree_bytes(run["carry"].params),
+                    "opt_bytes": tree_bytes(run["carry"].opt_state.m)
+                    + tree_bytes(run["carry"].opt_state.v)})
+                del run
+            plain[arch] = runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+             str(r), f"{tmp}/store", tmp]) for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t_ranks = time.perf_counter() - t
+        if rcs != [0, 0]:
+            raise AssertionError(f"tensor-parallel ranks exited {rcs}")
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+                 for r in range(2)]
+        ckpts = {arch: checkpoint_diffs(Path(f"{tmp}/ckpt-{arch}"),
+                                        Path(f"{tmp}/plain0-{arch}"))
+                 for arch, *_, ckpt in TP_RUNS if ckpt}
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    ok = True
+    for arch, layers, batch, seq, ckpt in TP_RUNS:
+        p0, p1 = plain[arch]
+        r0, r1 = ranks[0][arch], ranks[1][arch]
+        d = rel(r0["loss"], p0["loss"])
+        spread = rel(p1["loss"], p0["loss"])
+        row = {"layers": layers, "batch": [batch, seq], "plain": p0,
+               "plain_again": p1, "ranks": [r0, r1],
+               "max_rel_first": d[0], "max_rel": max(d),
+               "plain_spread": max(spread),
+               "checkpoint": ckpts.get(arch)}
+        out[arch] = row
+        print(f"[tp] {arch} cut to {layers} of {get_config(arch).n_layers} "
+              f"layers, {batch} x {seq} tokens, {TP_STEPS} steps on a (1, 2) "
+              f"gloo mesh, two ranks sharing cuda:0 ({smi}): losses "
+              f"{', '.join(f'{v:.5f}' for v in r0['loss'])} against one "
+              f"process {', '.join(f'{v:.5f}' for v in p0['loss'])}: step 1 "
+              f"within {d[0]:.3g} (bound {TP_RTOL_FIRST}), steps 2-3 "
+              f"{max(d[1:]):.3g} (bound {TP_RTOL}); a second one-process run "
+              f"parts by {max(spread):.3g}; rank losses "
+              f"{'equal' if r0['loss'] == r1['loss'] else 'DIFFER'}")
+        print(f"[tp] {arch}: {r0['allreduce_calls_per_step']:.0f} "
+              f"all-reduces a step, {r0['allreduce_bytes_per_step'] / 2**20:.2f}"
+              f" MiB; params {r0['param_bytes'] / 2**30:.3f} GiB a rank "
+              f"(per_device_bytes {r0['per_device_bytes'] / 2**30:.3f}) against"
+              f" {p0['param_bytes'] / 2**30:.3f} GiB in one process, AdamW "
+              f"m+v {r0['opt_bytes'] / 2**30:.3f} against "
+              f"{p0['opt_bytes'] / 2**30:.3f} GiB; peak "
+              f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB a rank "
+              f"against {p0['peak_gib']:.2f} GiB; step {r0['step_ms']:.1f} / "
+              f"{r1['step_ms']:.1f} ms a rank against {p0['step_ms']:.1f} ms "
+              f"(again {p1['step_ms']:.1f} ms) ({smi})")
+        if ckpt:
+            print(f"[tp] {arch}: rank 0's step-{ckpts[arch]['step']} "
+                  f"checkpoint, {ckpts[arch]['leaves']} whole leaves against "
+                  f"the one-process one: max |difference| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in
+                              ckpts[arch]["max_abs_diff"].items())
+                  + f" (params bound {TP_PARAM_ATOL:g})")
+        ok &= (np.isfinite(r0["loss"]).all() and r0["loss"] == r1["loss"]
+               and d[0] <= TP_RTOL_FIRST and max(d) <= TP_RTOL
+               and all(r["param_bytes"] == r["per_device_bytes"]
+                       for r in (r0, r1))
+               and (not ckpt or ckpts[arch]["max_abs_diff"][".params"]
+                    <= TP_PARAM_ATOL))
+    print(f"[tp] both ranks in {t_ranks:.1f}s, start-up included")
+    if not ok:
+        raise AssertionError(f"tensor-parallel run: {out}")
+    return out
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -4731,6 +4994,7 @@ def main() -> int:
         lap("dry run", phase_dryrun, dry_procs, smi)
         lap("train (data-parallel)", phase_dp_train, smi)
         lap("analysis", phase_analysis, smi)
+        lap("train (tensor-parallel)", phase_tp_train, smi)
     finally:
         for proc in dry_procs:
             if proc.poll() is None:
@@ -4943,4 +5207,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -18,11 +18,11 @@ def _scales(x: torch.Tensor, bits: int, axis: Optional[int],
     qmax = 2.0 ** (bits - 1) - 1.0
     if axis is None:
         amax = x.abs().amax()
-        if amax_reduce is not None:
-            amax = amax_reduce(amax)
     else:
         red = tuple(i for i in range(x.ndim) if i != axis)
         amax = x.abs().amax(dim=red, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     return amax.clamp_min(1e-8) / qmax
 
 
@@ -34,10 +34,12 @@ def fake_quant(x: torch.Tensor, bits: int, axis: Optional[int] = None, *,
     not a gradient path).
 
     ``axis`` selects per-channel scales (reduce over all other axes);
-    ``None`` = per-tensor. ``amax_reduce`` maps a per-tensor amax to the
-    one the scale is taken from: the activation quantizers of a
-    data-parallel step pass ``parallel/data_parallel.all_max_``, the
-    maximum over the data group.
+    ``None`` = per-tensor. ``amax_reduce`` maps the amax (per tensor or
+    per channel) to the one the scale is taken from: the activation
+    quantizers of a data-parallel step pass
+    ``parallel/data_parallel.all_max_``, the maximum over the data
+    group, and a weight or input split over a tensor-parallel model
+    group ``parallel/tensor_parallel.all_max_``.
     """
     if bits <= 0 or bits >= 32:
         return x

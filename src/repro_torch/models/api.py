@@ -122,7 +122,10 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
     metrics ``ce`` (and ``moe_aux``, ``mtp``). A vlm batch's
     ``patch_embeds`` are prepended and their positions cut off the
     hidden states before the unembedding; an audio batch's ``frames``
-    go through the training encoder first."""
+    go through the training encoder first. Over a tensor-parallel model
+    group the logits are this rank's vocabulary columns and
+    ``cross_entropy`` reduces its terms over the group, so both sums
+    come out whole on every rank."""
     if cfg.family == "basecaller":
         from repro_torch.models.basecaller import model as bc
 
@@ -139,7 +142,7 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
         if cfg.family == "vlm":
             h = h[:, batch["patch_embeds"].shape[1]:]
         lsum, wsum = cross_entropy(tfm.unembed(params, h, cfg),
-                                   batch["labels"])
+                                   batch["labels"], vocab_size=cfg.vocab_size)
         loss = lsum / wsum.clamp_min(1.0)
         metrics = {"ce": loss}
         if cfg.n_experts:
@@ -187,7 +190,8 @@ def _mtp_loss(params, h: torch.Tensor, batch: Dict, cfg: ModelConfig
     x, _, _ = tfm.block_forward(mtp["block"], x, positions, cfg,
                                 "mla_dense" if cfg.mla else "dense",
                                 train=True)
-    lsum, wsum = cross_entropy(tfm.unembed(params, x, cfg), labels[:, 1:])
+    lsum, wsum = cross_entropy(tfm.unembed(params, x, cfg), labels[:, 1:],
+                               vocab_size=cfg.vocab_size)
     return lsum / wsum.clamp_min(1.0)
 
 

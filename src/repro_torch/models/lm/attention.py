@@ -40,6 +40,7 @@ from repro_torch.kernels.paged_attention import (EMPTY_POS, NEG_INF,
                                                  quantize_kv)
 from repro_torch.models.lm.common import Params, dense, make_dense_params
 from repro_torch.models.lm.rope import apply_rope
+from repro_torch.parallel import tensor_parallel as tp
 
 
 # ---------------------------------------------------------------------------
@@ -227,13 +228,23 @@ def make_attn_params(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
     }
 
 
+def _heads_split(p: Params, cfg: ModelConfig) -> bool:
+    """Whether ``p`` holds this rank's heads of attention split over a
+    tensor-parallel model group (``parallel/tensor_parallel``)."""
+    return (tp.size() > 1 and p["wq"]["kernel"].shape[-1]
+            != cfg.n_heads * cfg.resolved_head_dim)
+
+
 def _project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, parallel: str = ""):
+    """q, k, v over the heads ``p`` holds (all of them, or this rank's
+    with ``parallel="col"``), roped."""
     B, S, _ = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = dense(p["wq"], x, cfg=cfg, tag="attn/wq").reshape(B, S, H, hd)
-    kk = dense(p["wk"], x, cfg=cfg, tag="attn/wk").reshape(B, S, Hkv, hd)
-    vv = dense(p["wv"], x, cfg=cfg, tag="attn/wv").reshape(B, S, Hkv, hd)
+    hd = cfg.resolved_head_dim
+    kw = dict(cfg=cfg, parallel=parallel)
+    q = dense(p["wq"], x, tag="attn/wq", **kw).reshape(B, S, -1, hd)
+    kk = dense(p["wk"], x, tag="attn/wk", **kw).reshape(B, S, -1, hd)
+    vv = dense(p["wv"], x, tag="attn/wv", **kw).reshape(B, S, -1, hd)
     rope = dict(head_dim=hd, theta=cfg.rope_theta, two_d=cfg.rope_2d)
     return (apply_rope(q, positions, **rope), apply_rope(kk, positions, **rope),
             vv)
@@ -254,14 +265,24 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     program) run :func:`blockwise_attn`; otherwise
     ``ops.flash_attention`` (the kernel on a card, which refuses inputs
     that require grad and takes no window, as the reference's TPU kernel
-    takes none)."""
+    takes none).
+
+    Over a tensor-parallel model group whose size divides both head
+    counts, ``p`` holds this rank's ``H/M`` query and ``Hkv/M`` KV heads
+    (the reference's q/k/v and output pinned on ``model`` by heads):
+    ``x`` enters through ``copy_to_model``, and ``wo`` is row-parallel,
+    its product summed over the group."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, positions, cfg)
+    split = _heads_split(p, cfg)
+    col, row = ("col", "row") if split else ("", "")
+    q, k, v = _project_qkv(p, tp.copy_to_model(x, split), positions, cfg,
+                           col)
     o = (blockwise_attn(q, k, v, causal=causal, window=window)
          if train or window > 0 or _reference_schedule(q)
          else flash_attention(q, k, v, causal=causal))
-    o = o.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
-    return dense(p["wo"], o, cfg=cfg, tag="attn/wo"), {"k": k, "v": v}
+    o = o.reshape(B, S, -1)
+    return (dense(p["wo"], o, cfg=cfg, tag="attn/wo", parallel=row),
+            {"k": k, "v": v})
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, cache_len: int, *,

@@ -9,8 +9,12 @@ which applies the per-layer quantization policy: fake-quant for
 unpacked weights, and for serving-time packed int8/int4 weights the
 ``qmatmul`` kernel when the config carries 4- or 8-bit weights for the
 layer and the shapes meet the reference kernel's tiling contract.
-There is no device mesh, so the reference's sharding constraints have
-no counterpart here.
+Where the reference pins an activation on the ``model`` axis
+(``constrain``), a training step over a model group splits the unit
+instead (``parallel/tensor_parallel``): :func:`dense` takes column- or
+row-parallel use from its caller, :func:`mlp` splits its hidden width
+and :func:`cross_entropy` its vocabulary. Without a group every such
+step is the identity.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.compat import is_fake
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import PackedTensor, dequantize
+from repro_torch.parallel import tensor_parallel as tp
 
 Params = Dict[str, Any]
 
@@ -71,7 +76,7 @@ def _qmatmul_tiles(m: int, k: int, n: int, bits: int) -> bool:
 
 
 def dense(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "",
-          quantize: bool = True) -> torch.Tensor:
+          quantize: bool = True, parallel: str = "") -> torch.Tensor:
     """Quantization-aware dense layer (``y = x @ W (+ b)``).
 
     A packed weight takes the ``qmatmul`` kernel when the config's
@@ -79,7 +84,16 @@ def dense(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "",
     holds, and dequantizes on read otherwise. An unpacked weight under
     an enabled policy is fake-quantized with one scale per input row
     (``axis=0``, as the reference does) and, with activation bits,
-    ``x`` per tensor."""
+    ``x`` per tensor.
+
+    ``parallel``: ``"col"`` where ``W`` holds this rank's columns of a
+    unit split over the model group (``x`` whole), ``"row"`` where it
+    holds this rank's rows (``x`` this rank's part): the row-parallel
+    product is summed over the group before the bias is added, once. A
+    fake-quant scale whose extent the group splits takes the group's
+    maximum: a column-parallel weight's per-row scale (and any split
+    weight's per-tensor one), a row-parallel input's per-tensor
+    scale."""
     dt = getattr(torch, cfg.dtype)
     w = p["kernel"]
     if isinstance(w, PackedTensor):
@@ -89,27 +103,32 @@ def dense(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "",
                 and _qmatmul_tiles(m, x.shape[-1], w.data.shape[-1],
                                    w.bits)):
             from repro_torch.kernels.ops import qmatmul
-            y = qmatmul(x.to(dt), w)
-            if "bias" in p:
-                y = y + p["bias"].to(dt)
-            return y
+            return _bias(p, tp.reduce_from_model(qmatmul(x.to(dt), w),
+                                                 parallel == "row"), dt)
         w = kernel_of(p, dt)
     else:
         if quantize and cfg.quant.enabled:
             from repro_torch.core.quant.fake_quant import fake_quant
             from repro_torch.parallel import data_parallel
             wb, ab = cfg.quant.bits_for(tag)
+            per_row = cfg.quant.per_channel
             if wb:
-                w = fake_quant(w, wb,
-                               axis=0 if cfg.quant.per_channel else None)
+                split_scale = parallel == "col" or (parallel and not per_row)
+                w = fake_quant(w, wb, axis=0 if per_row else None,
+                               amax_reduce=tp.all_max_ if split_scale
+                               else None)
             if ab:
-                x = fake_quant(x, ab, axis=None,
-                               amax_reduce=data_parallel.all_max_)
+                def amax(t):
+                    t = data_parallel.all_max_(t)
+                    return tp.all_max_(t) if parallel == "row" else t
+                x = fake_quant(x, ab, axis=None, amax_reduce=amax)
         w = w.to(dt)
-    y = x.to(dt) @ w
-    if "bias" in p:
-        y = y + p["bias"].to(dt)
-    return y
+    return _bias(p, tp.reduce_from_model(x.to(dt) @ w, parallel == "row"),
+                 dt)
+
+
+def _bias(p: Params, y: torch.Tensor, dt) -> torch.Tensor:
+    return y + p["bias"].to(dt) if "bias" in p else y
 
 
 # ---------------------------------------------------------------------------
@@ -157,28 +176,56 @@ def make_mlp_params(gen: torch.Generator, d: int, ff: int, *,
 
 
 def mlp(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "mlp",
-        act: str = "silu") -> torch.Tensor:
+        act: str = "silu", d_ff: int = 0) -> torch.Tensor:
     """Gated SiLU MLP ``(silu(x Wg) * (x Wi)) Wo`` when ``p`` has ``wg``;
     else ``act(x Wi) Wo``. ``act="gelu"`` is the tanh approximation, as
-    ``jax.nn.gelu`` computes by default."""
-    h = dense(p["wi"], x, cfg=cfg, tag=tag + "/wi")
+    ``jax.nn.gelu`` computes by default. Where ``p`` holds this rank's
+    part of a hidden width of ``d_ff`` (default ``cfg.d_ff``) split over
+    the model group, ``Wi``/``Wg`` are column- and ``Wo`` row-parallel
+    (the reference's hidden pinned on ``model``)."""
+    split = (tp.size() > 1
+             and p["wi"]["kernel"].shape[-1] != (d_ff or cfg.d_ff))
+    x = tp.copy_to_model(x, split)
+    col, row = ("col", "row") if split else ("", "")
+    h = dense(p["wi"], x, cfg=cfg, tag=tag + "/wi", parallel=col)
     if "wg" in p:
-        g = dense(p["wg"], x, cfg=cfg, tag=tag + "/wg")
+        g = dense(p["wg"], x, cfg=cfg, tag=tag + "/wg", parallel=col)
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
-    return dense(p["wo"], h, cfg=cfg, tag=tag + "/wo")
+    return dense(p["wo"], h, cfg=cfg, tag=tag + "/wo", parallel=row)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_id: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+                  ignore_id: int = -1, vocab_size: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy in fp32 (logsumexp over the vocabulary). Labels
     equal to ``ignore_id`` weigh 0. Returns (sum of the losses, sum of
-    the weights), so microbatches can be averaged."""
+    the weights), so microbatches can be averaged.
+
+    Vocabulary-parallel where ``logits`` are this rank's columns of a
+    vocabulary of ``vocab_size`` split over the model group: the
+    row maximum, the sum of exponentials and the picked logit are each
+    reduced over the group (maximum, sum, sum; three fp32 values a
+    token), and each rank's gradient stays on its own columns. Without
+    a group the same formula is the local logsumexp."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
+    n = lf.shape[-1]
+    split = tp.size() > 1 and n != (vocab_size or n)
+    m = lf.detach().amax(dim=-1, keepdim=True)
+    if split:
+        tp.all_max_(m)
+    sumexp = tp.reduce_from_model((lf - m).exp().sum(dim=-1), split)
+    lse = sumexp.log() + m[..., 0]
     # an ignored label still needs an index to gather from
     idx = torch.where(labels == ignore_id, 0, labels).long()
-    picked = torch.gather(lf, -1, idx[..., None])[..., 0]
+    if split:
+        idx = idx - tp.rank() * n
+        mine = (idx >= 0) & (idx < n)
+        picked = torch.gather(lf, -1, torch.where(mine, idx, 0)[..., None])
+        picked = tp.reduce_from_model(
+            torch.where(mine, picked[..., 0], 0.0))
+    else:
+        picked = torch.gather(lf, -1, idx[..., None])[..., 0]
     w = (labels != ignore_id).float()
     return ((lse - picked) * w).sum(), w.sum()

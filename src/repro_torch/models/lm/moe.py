@@ -12,6 +12,13 @@ does, and sums the outputs with the same dispatch and combine weights
 (an expert's empty capacity slots add zero in the reference). Fake
 tensors (the dry run's counter) have no routing to read, so there the
 reference's dense form runs (:func:`_routed_dense`).
+
+Expert parallelism (a tensor-parallel training step,
+``parallel/tensor_parallel``): where the model group's size divides
+``n_experts``, each rank holds ``E/M`` experts of every stack. The
+router and the dispatch stay whole and are the same on every rank;
+:func:`_routed` walks this rank's experts and sums their fp32 outputs
+over the group before the one rounding to the activation dtype.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from repro_torch.models.lm.common import (Params, dense, kernel_of,
                                           make_dense_params,
                                           make_mlp_params, mlp,
                                           truncated_normal_init)
+from repro_torch.parallel import tensor_parallel as tp
 
 # Experts drawn (and packed) at a time: one draw of a whole full-width
 # stack (256 x 7168 x 2048) would be 15 GB of fp32 before its cast.
@@ -137,13 +145,26 @@ def _expert(w: PackedTensor, e: int, dtype) -> torch.Tensor:
 
 
 def _routed(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
-            combine: torch.Tensor) -> torch.Tensor:
+            combine: torch.Tensor, split: bool = False) -> torch.Tensor:
     """sum over the (token, expert) pairs of ``dispatch`` of
     ``combine · expert(x)``, the expert a gated SiLU MLP in x's dtype;
     combine weights rounded to x's dtype, the sum in fp32, rounded once.
-    x: (G, S, d). Returns (G, S, d)."""
+    x: (G, S, d). Returns (G, S, d).
+
+    ``split``: ``p`` holds this rank's experts of a stack split over the
+    model group: the pairs of those experts only, every one of them
+    walked (tokens or none, so that each rank's backward reaches the
+    all-reduces of ``x``'s and the weights' gradients), and the fp32
+    sum reduced over the group before its rounding."""
     G, S, d = x.shape
     dt = x.dtype
+    n_local = (p["wi"].data if isinstance(p["wi"], PackedTensor)
+               else p["wi"]).shape[0]
+    lo = tp.rank() * n_local if split else 0
+    # a token takes a slot of an expert at most once: its pair's weight
+    # is the sum over the capacity slots
+    cw = tp.copy_to_model(combine.sum(dim=-1), split)     # (G, S, E)
+    x = tp.copy_to_model(x, split)
     # float stacks are cast once and unbound: the backward stacks the
     # experts' gradients in one op, where indexing an expert would fill a
     # zero tensor of the whole stack for each expert's gradient
@@ -155,23 +176,31 @@ def _routed(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
         return _expert(w, e, dt) if isinstance(w, PackedTensor) else w[e]
     # sync: the loop below runs on the host over the experts that
     # received a token, so the routing is read back once per layer
-    nz = torch.nonzero(dispatch).cpu()                  # (n, 4) g, s, e, c
+    nz = torch.nonzero(dispatch.any(dim=-1)).cpu()      # (n, 3) g, s, e
+    if split:
+        nz = nz[(nz[:, 2] >= lo) & (nz[:, 2] < lo + n_local)]
     nz = nz[torch.argsort(nz[:, 2], stable=True)]
-    experts, counts = torch.unique_consecutive(nz[:, 2], return_counts=True)
+    if split:
+        experts = torch.arange(lo, lo + n_local)
+        counts = torch.bincount(nz[:, 2] - lo, minlength=n_local)
+    else:
+        experts, counts = torch.unique_consecutive(nz[:, 2],
+                                                   return_counts=True)
     idx = nz.to(x.device, non_blocking=True)
     rows = idx[:, 0] * S + idx[:, 1]
-    w = combine[idx[:, 0], idx[:, 1], idx[:, 2], idx[:, 3]].to(dt).float()
+    w = cw[idx[:, 0], idx[:, 1], idx[:, 2]].to(dt).float()
     xf = x.reshape(G * S, d)
     y = torch.zeros((G * S, d), dtype=torch.float32, device=x.device)
     off = 0
     for e, n in zip(experts.tolist(), counts.tolist()):
         r = rows[off:off + n]
         xe = xf[r]
-        h = F.silu(xe @ expert("wg", e)) * (xe @ expert("wi", e))
-        ye = h @ expert("wo", e)
+        h = (F.silu(xe @ expert("wg", e - lo))
+             * (xe @ expert("wi", e - lo)))
+        ye = h @ expert("wo", e - lo)
         y.index_add_(0, r, w[off:off + n, None] * ye.float())
         off += n
-    return y.to(dt).reshape(G, S, d)
+    return tp.reduce_from_model(y, split).to(dt).reshape(G, S, d)
 
 
 def _routed_dense(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
@@ -214,7 +243,12 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     gates = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = _top_k_dispatch(gates, k, capacity,
                                              mask=pad_mask)
-    y = (_routed_dense if is_fake(x) else _routed)(p, x, dispatch, combine)
+    if is_fake(x):
+        y = _routed_dense(p, x, dispatch, combine)
+    else:
+        y = _routed(p, x, dispatch, combine, split=tp.size() > 1 and (
+            p["wi"].shape[-3] != E))
     if "shared" in p:
-        y = y + mlp(p["shared"], x, cfg=cfg, tag="moe/shared")
+        y = y + mlp(p["shared"], x, cfg=cfg, tag="moe/shared",
+                    d_ff=(cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts)
     return y, aux.float()

@@ -56,6 +56,7 @@ from repro_torch.models.lm.common import (Params, dense, make_dense_params,
                                           make_mlp_params,
                                           make_rmsnorm_params, mlp, rmsnorm,
                                           truncated_normal_init)
+from repro_torch.parallel import tensor_parallel as tp
 
 # Layer kinds the slot-batched serving path covers in the port, the kinds
 # the static path (whole-prompt prefill + lockstep decode) covers, and
@@ -262,16 +263,41 @@ def param_layer_views(params: Params, cfg: ModelConfig
 # Forward pieces
 
 
+def vocab_split(params: Params, cfg: ModelConfig) -> bool:
+    """Whether ``params`` hold this rank's rows of a vocabulary split over
+    a tensor-parallel model group (``parallel/tensor_parallel``): the
+    ``embed`` rows and the ``lm_head`` columns split together."""
+    return tp.size() > 1 and params["embed"].shape[0] != cfg.vocab_size
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    """The tokens' embedding rows in ``cfg.dtype``. Vocabulary-parallel
+    (:func:`vocab_split`): each rank looks up the tokens among its rows,
+    -0.0 for the others, and the lookups are summed over the group; one
+    rank holds each row, so the sum is the row itself."""
+    dt = getattr(torch, cfg.dtype)
+    emb = params["embed"]
+    if not vocab_split(params, cfg):
+        return emb[tokens.long()].to(dt)
+    n = emb.shape[0]
+    idx = tokens.long() - tp.rank() * n
+    mine = (idx >= 0) & (idx < n)
+    x = emb[torch.where(mine, idx, 0)].to(dt)
+    return tp.reduce_from_model(torch.where(mine[..., None], x, -0.0))
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
+    """Logits over the vocabulary, tied or not; vocabulary-parallel
+    (:func:`vocab_split`): this rank's columns, for
+    ``common.cross_entropy(vocab_size=)``."""
+    split = vocab_split(params, cfg)
+    x = tp.copy_to_model(x, split)
     if cfg.tie_embeddings:
         return x @ params["embed"].to(x.dtype).T
-    return dense(params["lm_head"], x, cfg=cfg, tag="lm_head")
+    return dense(params["lm_head"], x, cfg=cfg, tag="lm_head",
+                 parallel="col" if split else "")
 
 
 def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,

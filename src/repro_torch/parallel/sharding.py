@@ -29,8 +29,12 @@ d carries the axis, else ``Replicate()``; a dim over several axes is
 split major axis first, as the reference's).
 
 The reference's ``constrain_tree`` (a GSPMD hint inside a jitted
-program) has no twin: the port's model runs on plain tensors, and a
-DTensor program carries its placements op by op.
+program) has no twin: the port's model runs on plain tensors. A
+tensor-parallel train step (``parallel/tensor_parallel``) holds each
+rank's shard of the leaves :func:`model_split_dim` splits, the
+``model`` entries of these specs under a rule of whole units (whole
+heads, not :func:`_filter_axes`'s flat divisibility), and sums the
+split units at the reference's ``constrain`` points.
 """
 from __future__ import annotations
 
@@ -96,6 +100,60 @@ def spec_for_path(path: str, ndim: int, cfg: ModelConfig) -> Spec:
                 return _replicated(ndim)
             return Spec(*((None,) * (ndim - len(base)) + tuple(base)))
     return _replicated(ndim)
+
+
+# The units a model axis splits in training (``parallel/tensor_parallel``),
+# each with the counts that every split of it must divide: attention by
+# whole heads (query and KV), the dense MLP by its hidden width, the
+# vocabulary, the expert stacks. Every other leaf stays whole on each rank.
+_ATTN_UNIT = re.compile(r"(^|/)attn/(wq|wk|wv)/(kernel|bias)$"
+                        r"|(^|/)attn/wo/kernel$")
+_MLP_UNIT = re.compile(r"ffn/(shared/)?(wi|wg|wo)/kernel$")
+_VOCAB_UNIT = re.compile(r"(^|/)embed$|(^|/)lm_head/kernel$")
+_EXPERT_UNIT = re.compile(r"ffn/(wi|wg|wo)$")
+
+
+def _unit_counts(path: str, shape, cfg: ModelConfig) -> Tuple[int, ...]:
+    """The counts a model axis must divide for ``path``'s unit to split
+    (none: the leaf is in no unit)."""
+    if cfg.family == "basecaller":
+        return ()
+    if _ATTN_UNIT.search(path):
+        return (cfg.n_heads, cfg.n_kv_heads)
+    if _VOCAB_UNIT.search(path):
+        return (cfg.vocab_size,)
+    if _EXPERT_UNIT.search(path):
+        return (cfg.n_experts,)
+    if _MLP_UNIT.search(path):
+        # the hidden width: wi/wg's columns, wo's rows
+        return (shape[-2] if path.endswith("wo/kernel") else shape[-1],)
+    return ()
+
+
+def model_split_dim(path: str, shape, cfg: ModelConfig,
+                    model: int) -> Optional[int]:
+    """The dim of a whole leaf (``path``, ``shape``) that a model axis of
+    ``model`` ranks splits in training, or None where it stays whole:
+    the dim :func:`spec_for_path` puts ``model`` on, where ``model``
+    divides every count of the leaf's unit. Unlike :func:`_filter_axes`,
+    which divides a flat dim, this cuts attention only into whole heads
+    (``wk`` at ``n_kv_heads * head_dim`` columns stays whole where the
+    axis does not divide ``n_kv_heads``)."""
+    counts = _unit_counts(path, shape, cfg)
+    if model <= 1 or not counts or any(c % model for c in counts):
+        return None
+    spec = spec_for_path(path, len(shape), cfg)
+    dims = [d for d, e in enumerate(spec)
+            if e == "model" or (isinstance(e, tuple) and "model" in e)]
+    return dims[0] if dims else None
+
+
+def model_coordinate(mesh: DeviceMesh) -> Tuple[int, int]:
+    """(this rank's index on the mesh's ``model`` axis, the axis's size);
+    (0, 1) on a mesh without one."""
+    if "model" not in (mesh.mesh_dim_names or ()):
+        return 0, 1
+    return mesh.get_local_rank("model"), axis_sizes(mesh)["model"]
 
 
 def axis_sizes(mesh: DeviceMesh) -> dict:

@@ -12,6 +12,12 @@
 - **Async**: ``save_async`` snapshots to host tensors on the caller's
   thread (one sync) and writes on a background thread.
 - **Bounded**: keeps the newest ``keep`` checkpoints.
+- **Whole leaves**: the layout knows nothing of sharding. A
+  tensor-parallel run gathers its shards into whole leaves before it
+  writes (:meth:`CheckpointManager.save_flat_async` takes the gathered
+  snapshot), and restores by reading whole leaves and slicing each
+  rank's shard (``restore(shard=)``), so a checkpoint written at any
+  model size, or by the reference, restores at any other.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import shutil
 import threading
 import zlib
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +67,7 @@ def _rebuild(like, fn, prefix: str = ""):
     return fn(prefix[:-1], like)
 
 
-def _snapshot(tree) -> Dict[str, torch.Tensor]:
+def snapshot(tree) -> Dict[str, torch.Tensor]:
     """Host copies of every leaf: asynchronous device-to-host copies,
     then one wait for them all."""
     flat = {k: v.detach().to("cpu", non_blocking=True, copy=True)
@@ -80,11 +86,16 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------
     def save(self, step: int, tree: Any) -> Path:
-        return self._write(step, _snapshot(tree))
+        return self._write(step, snapshot(tree))
 
     def save_async(self, step: int, tree: Any) -> None:
         """Snapshot now, write in the background."""
-        flat = _snapshot(tree)
+        self.save_flat_async(step, snapshot(tree))
+
+    def save_flat_async(self, step: int,
+                        flat: Dict[str, torch.Tensor]) -> None:
+        """Write a :func:`snapshot` (``{key: host tensor}``) in the
+        background."""
         self.wait()
         self._thread = threading.Thread(target=self._write,
                                         args=(step, flat), daemon=True)
@@ -151,10 +162,14 @@ class CheckpointManager:
                 return int(path.name.split("_")[1]), path
         return None
 
-    def restore(self, like_tree: Any, path: Optional[Path] = None
+    def restore(self, like_tree: Any, path: Optional[Path] = None, *,
+                shard: Optional[Callable[[str, torch.Tensor],
+                                         torch.Tensor]] = None
                 ) -> Tuple[int, Any]:
         """Restore into the structure of ``like_tree``, each leaf on the
-        device of the leaf it replaces. Returns (step, tree)."""
+        device of the leaf it replaces. Returns (step, tree).
+        ``shard(key, whole leaf)``: the part of each whole leaf this
+        rank keeps (a tensor-parallel rank's shard)."""
         if path is None:
             latest = self.latest_valid()
             if latest is None:
@@ -164,6 +179,8 @@ class CheckpointManager:
         leaves = meta["leaves"]
 
         def load(key, like):
-            arr = np.load(path / leaves[key]["file"])
-            return torch.from_numpy(arr).to(like.device)
+            t = torch.from_numpy(np.load(path / leaves[key]["file"]))
+            if shard is not None:
+                t = shard(key, t)
+            return t.to(like.device)
         return meta["step"], _rebuild(like_tree, load)

@@ -10,9 +10,11 @@ Policy (for the many-host posture; simulated in tests):
    whole (the TP degree is a property of the checkpointed layout) and
    the data axis shrinks; stragglers are excluded the same way.
 3. Parameters and optimizer state are restored from the latest valid
-   checkpoint (one file per leaf, layout-free) and **resharded** onto
-   the new mesh (:func:`reshard`: ``distribute_tensor`` with the new
-   placements).
+   checkpoint (one file per leaf, layout-free: whole leaves) and
+   **resharded** onto the new mesh (:func:`reshard`: ``distribute_tensor``
+   with the new placements, or, given a config and a model size, this
+   rank's shard of each whole leaf, as a tensor-parallel train step
+   holds it).
 4. Training resumes with the grad-accumulation count re-derived so the
    global batch is kept (synchronous data-parallel semantics unchanged,
    so loss curves reproduce across restarts).
@@ -51,10 +53,21 @@ def rebuild_mesh(ranks: Sequence[int], model_parallel: int) -> DeviceMesh:
     return DeviceMesh(dev, grid, mesh_dim_names=("data", "model"))
 
 
-def reshard(tree: Any, shardings: Any) -> Any:
+def reshard(tree: Any, shardings: Any = None, *, cfg=None,
+            model: int = 1, index: int = 0) -> Any:
     """Move a host (or differently placed) tree onto new shardings
     (:class:`repro_torch.parallel.sharding.Sharding` leaves): each leaf
-    becomes a DTensor on the sharding's mesh with its placements."""
+    becomes a DTensor on the sharding's mesh with its placements.
+
+    Without ``shardings``: part ``index`` of ``model`` of each whole
+    leaf of a parameter tree of ``cfg``, the shard that rank ``index``
+    of a model axis of ``model`` keeps in training
+    (``tensor_parallel.split_dims``); whole leaves stay whole."""
+    if shardings is None:
+        from repro_torch.parallel import tensor_parallel as tp
+        return tp.shard_tree(tree, tp.split_dims(tree, cfg, model), index,
+                             model)
+
     def one(x, sh):
         t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                             else x)

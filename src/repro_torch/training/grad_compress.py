@@ -6,7 +6,9 @@ gradient bytes 4x against fp32. Error feedback (Karimireddy et al.)
 keeps the quantization residual locally and re-injects it the next
 step, which keeps Adam's convergence. On one device the round trip is
 what the reduction would see; ``train_loop`` runs it when
-``grad_compress_bits=8``.
+``grad_compress_bits=8``. A tensor-parallel rank's shard of a split leaf
+takes the whole leaf's per-tensor scale (the maximum over the model
+group); its error state stays local.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.core.quant.policy import tree_map
+from repro_torch.parallel import tensor_parallel as tp
 
 
 def init_error_state(params) -> Any:
@@ -22,11 +25,16 @@ def init_error_state(params) -> Any:
                                           device=p.device), params)
 
 
-def compress(g: torch.Tensor, err: torch.Tensor
+def compress(g: torch.Tensor, err: torch.Tensor, split=None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (q int8, scale, new_err). Per-tensor symmetric scale."""
+    """Returns (q int8, scale, new_err). Per-tensor symmetric scale;
+    ``split`` (a split dim, not None): ``g`` is this rank's shard of a
+    leaf split over the model group, whose amax is the group's."""
     gf = g.float() + err
-    scale = gf.abs().amax().clamp_min(1e-12) / 127.0
+    amax = gf.abs().amax()
+    if split is not None:
+        tp.all_max_(amax)
+    scale = amax.clamp_min(1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     new_err = gf - q.float() * scale
     return q, scale, new_err
@@ -36,11 +44,14 @@ def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_tree(grads, err_state):
+def compress_tree(grads, err_state, split=None):
     """Tree version: (quantized payload tree, scales, new errors). The
     payload is what crosses the wire (int8); the scales are 0-d fp32
-    tensors reduced beside it."""
-    out = tree_map(compress, grads, err_state)
+    tensors reduced beside it. ``split``: the leaves' split dims
+    (``tensor_parallel.split_dims``; None: none)."""
+    if split is None:
+        split = tree_map(lambda _: None, grads)
+    out = tree_map(compress, grads, err_state, split)
     return tuple(tree_map(lambda t: t[i], out) for i in range(3))
 
 
@@ -48,8 +59,8 @@ def decompress_tree(qs, scales):
     return tree_map(decompress, qs, scales)
 
 
-def roundtrip_tree(grads, err_state):
+def roundtrip_tree(grads, err_state, split=None):
     """compress + decompress in one step: (gradients as the reduction
     sees them, new errors)."""
-    qs, scales, errs = compress_tree(grads, err_state)
+    qs, scales, errs = compress_tree(grads, err_state, split)
     return decompress_tree(qs, scales), errs

@@ -7,6 +7,12 @@ int8 state and applies the decay in another order: this update is
 as the reference's. State mirrors the param tree (nested dicts and
 lists); every value stays on the params' device, the step and the
 metrics as 0-d tensors, so an update reads nothing back to the host.
+
+Over a tensor-parallel model group (``parallel/tensor_parallel``) a
+rank holds its shards of the split leaves: ``split`` names them, and
+the two reductions that read a whole leaf (the global norm's sum of
+squares, an int8 moment's scale) take the group's sum or maximum, so
+every rank's update is its shard of the one-process update.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch.core.quant.policy import tree_leaves, tree_map
+from repro_torch.parallel import tensor_parallel as tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +48,11 @@ class OptState(NamedTuple):
     v_scale: Any
 
 
-def _q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    s = x.abs().amax().clamp_min(1e-12) / 127.0
+def _q8(x: torch.Tensor, split=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    amax = x.abs().amax()
+    if split is not None:
+        tp.all_max_(amax)
+    s = amax.clamp_min(1e-12) / 127.0
     return torch.clamp(torch.round(x / s), -128, 127).to(torch.int8), s
 
 
@@ -85,20 +95,41 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
                     tree_map(zeros32, params), None, None)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _flags(split, like) -> list:
+    """Per leaf of ``like``: whether ``split`` (a tree of split dims,
+    ``tensor_parallel.split_dims``; None: nothing split) splits it."""
+    if split is None:
+        return [False] * len(tree_leaves(like))
+    return [d is not None for d in tree_leaves(split)]
+
+
+def clip_by_global_norm(grads, max_norm: float, split=None):
     """``(grads * min(1, max_norm / |grads|), |grads|)``: the global L2
-    norm over every leaf, in fp32."""
-    gn = torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(grads)))
+    norm over every leaf, in fp32. ``split``: which leaves are this
+    rank's shards over the model group; their sums of squares are
+    summed over it, and the whole leaves' counted once."""
+    sq = [g.float().square().sum() for g in tree_leaves(grads)]
+    flags = _flags(split, grads)
+    total = sum(s for s, f in zip(sq, flags) if not f)
+    parts = [s for s, f in zip(sq, flags) if f]
+    if parts:
+        total = total + tp.all_reduce_(sum(parts))
+    gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / gn.clamp_min(1e-12), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
 
 
-def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
+def adamw_update(params, grads, state: OptState, cfg: AdamWConfig, *,
+                 split=None):
     """Returns (new_params, new_state, metrics). Params may be bf16 — the
     update math runs in fp32 and casts back. New tensors throughout (no
-    in-place update), so a snapshot of the old carry stays valid."""
+    in-place update), so a snapshot of the old carry stays valid.
+    ``split``: the split dims of a tensor-parallel rank's leaves (module
+    docstring)."""
+    if split is None:
+        split = tree_map(lambda _: None, params)
     with torch.no_grad():
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, split)
         step = state.step + 1
         lr = schedule_lr(cfg, step)
         sf = step.float()
@@ -119,11 +150,11 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
             return tree_map(lambda t: t[i], tree)
 
         if cfg.state_bits == 8:
-            def upd(p, g, mq, vq, ms, vs):
+            def upd(p, g, mq, vq, ms, vs, dim):
                 m, v = moments(g, _dq8(mq, ms), _dq8(vq, vs))
-                return (apply(p, m, v),) + _q8(m) + _q8(v)
+                return (apply(p, m, v),) + _q8(m, dim) + _q8(v, dim)
             out = tree_map(upd, params, grads, state.m, state.v,
-                           state.m_scale, state.v_scale)
+                           state.m_scale, state.v_scale, split)
             new_state = OptState(step, pick(out, 1), pick(out, 3),
                                  pick(out, 2), pick(out, 4))
         else:

@@ -3,19 +3,33 @@ gradient compression, for every family the port trains: the basecaller
 (its BatchNorm state threads through TrainCarry) and the LMs
 (``dense``, ``moe``, ``ssm``; ``model_state`` is ``{}``).
 
-On one device, or data-parallel over a ``(data=n, model=1)`` mesh
-(``launch/mesh.make_host_mesh``, one process a device): each rank takes
-its own rows of the same global batch (its share of every
-microbatch), the gradients are averaged over
-the data group (before the int8 round trip, which acts on the reduced
-gradient as the reference's acts on the global one), and every rank
-applies the same update, so every rank holds the same carry. The step
-equals the one-process step on the global batch: the statistics that
-read the batch (BatchNorm's mean and variance, per-tensor activation
-fake-quant's amax) reduce over the data group while the gradients are
-taken (``parallel/data_parallel.py``), and the losses average exactly
-because every rank's rows are as many. A model axis above 1 (tensor
-parallelism) is not ported.
+On one device, or over a ``(data=n, model=M)`` mesh
+(``launch/mesh.make_host_mesh``, one process a device).
+
+Data-parallel over ``data``: each data rank takes its own rows of the
+same global batch (its share of every microbatch), the gradients are
+averaged over the data group (before the int8 round trip, which acts
+on the reduced gradient as the reference's acts on the global one), and
+every rank applies the same update. The statistics that read the batch
+(BatchNorm's mean and variance, per-tensor activation fake-quant's
+amax) reduce over the data group while the gradients are taken
+(``parallel/data_parallel.py``), and the losses average exactly
+because every rank's rows are as many.
+
+Tensor-parallel over ``model`` (M > 1; ``parallel/tensor_parallel.py``):
+the model ranks of one data rank take the same rows, every rank draws
+the whole tree from the same seed and keeps its shard of each leaf
+that a unit splits (attention heads, the MLP's hidden width, the
+vocabulary, the experts), and the model code sums the split units over
+the model group where the reference pins activations on ``model``; the
+optimizer's norm and the int8 round trip's scales read the whole
+leaves through the same group. The basecaller, which the reference
+keeps whole on ``model``, replicates over it. The ``mla_dense``,
+``mla_moe``, ``ssm``, ``hybrid_*`` and ``xdec`` kinds split in other
+ways, not ported yet: a model axis above 1 on them raises.
+
+Either way the step equals the one-process step on the global batch,
+up to the order of fp32 sums. Checkpoints hold whole leaves.
 """
 from __future__ import annotations
 
@@ -33,8 +47,9 @@ from repro_torch.core.quant.policy import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.parallel import data_parallel
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.training import grad_compress
-from repro_torch.training.checkpoint import CheckpointManager
+from repro_torch.training.checkpoint import CheckpointManager, snapshot
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             init_opt_state)
 
@@ -50,9 +65,25 @@ class TrainLoopConfig:
     resume: bool = True
 
 
+def step_grads(loss_fn: Callable, params, mstate, batch: Dict,
+               n_micro: int, group=None):
+    """(gradients, loss, model state) of one step on this rank's rows
+    (``api.microbatch_grads``), averaged over the data group ``group``
+    (``None``: one process), which the batch statistics reduce over.
+    Under ``tensor_parallel.over_model`` the gradients are this rank's
+    shards'."""
+    with data_parallel.batch_stats_over(group):
+        grads, loss, mstate = api.microbatch_grads(loss_fn, params, mstate,
+                                                   batch, n_micro)
+    if group is not None:
+        grads, loss = data_parallel.mean_over(group, grads, loss)
+    return grads, loss, mstate
+
+
 def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                               n_micro: int, *, group=None,
-                               compress: bool = True) -> Callable:
+                               n_micro: int, *, group=None, model_group=None,
+                               split=None, compress: bool = True
+                               ) -> Callable:
     """The loop's train step, ``(carry, err_state, batch) -> (carry,
     err_state, metrics)``: ``api.make_train_step``'s (the averaged
     gradients of ``n_micro`` microbatches, one AdamW update), with the
@@ -62,37 +93,60 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
     ``group``: the data group of a data-parallel step, over which the
     batch statistics reduce and the gradients and loss are averaged
-    before the round trip (``batch`` is this rank's rows)."""
+    before the round trip (``batch`` is this rank's rows).
+    ``model_group``: the model group of a tensor-parallel step, whose
+    split units (``split``: the carry's split dims,
+    ``tensor_parallel.split_dims``) reduce over it."""
     loss_fn = api.make_loss_fn(cfg)
 
     def train_step(carry, err_state, batch):
         params, opt_state, mstate = carry
-        with data_parallel.batch_stats_over(group):
-            grads, loss, mstate = api.microbatch_grads(
-                loss_fn, params, mstate, batch, n_micro)
-        if group is not None:
-            grads, loss = data_parallel.mean_over(group, grads, loss)
-        if compress:
-            grads, err_state = grad_compress.roundtrip_tree(grads, err_state)
-        new_params, new_opt, om = adamw_update(params, grads, opt_state,
-                                               opt_cfg)
+        with tp.over_model(model_group):
+            grads, loss, mstate = step_grads(loss_fn, params, mstate,
+                                             batch, n_micro, group)
+            if compress:
+                grads, err_state = grad_compress.roundtrip_tree(
+                    grads, err_state, split)
+            new_params, new_opt, om = adamw_update(
+                params, grads, opt_state, opt_cfg, split=split)
         return (api.TrainCarry(new_params, new_opt, mstate), err_state,
                 {"loss": loss, **om})
 
     return train_step
 
 
-def _mesh_group(mesh):
-    """(the data group, this rank in it, its size) of a ``(data,
-    model)`` mesh; a model axis above 1 raises."""
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a model axis of {sizes['model']} (tensor parallelism) is not "
-            f"ported: the loop trains data-parallel only (ROADMAP.md, "
-            f"Queue 1)")
+# block kinds whose split over a model axis is not ported (ROADMAP.md,
+# Queue 1 item 6): MLA's, the SSM's, the hybrid's and the
+# encoder-decoder's split in other ways
+UNSPLIT_KINDS = ("mla_dense", "mla_moe", "ssm", "hybrid_full",
+                 "hybrid_swa", "xdec")
+
+
+def _mesh_group(mesh, cfg: ModelConfig):
+    """(the data group, this rank's index on ``data``, its size; the
+    model group, this rank's index on ``model``, its size) of a
+    ``(data, model)`` mesh. The model group is None where nothing
+    splits over it: a model axis of 1, or the basecaller, which
+    replicates over it. A model axis above 1 on a block kind in
+    :data:`UNSPLIT_KINDS` raises."""
+    from repro_torch.parallel.sharding import axis_sizes, model_coordinate
     group = mesh.get_group("data")
-    return group, dist.get_rank(group), dist.get_world_size(group)
+    data = (mesh.get_local_rank("data"), axis_sizes(mesh)["data"])
+    mrank, m = model_coordinate(mesh)
+    if m == 1 or cfg.family == "basecaller":
+        return group, *data, None, mrank, m
+    from repro_torch.models.lm.transformer import layer_plan
+    for kind, _ in layer_plan(cfg):
+        if kind in UNSPLIT_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: a model axis of {m} (tensor parallelism) "
+                f"does not split the {kind!r} block kind yet (ROADMAP.md, "
+                f"Queue 1 item 6); it trains on a model axis of 1")
+    if set(mesh.mesh_dim_names) != {"data", "model"}:
+        raise NotImplementedError(
+            f"the loop trains on a (data, model) mesh "
+            f"(launch/mesh.make_host_mesh), not {mesh.mesh_dim_names}")
+    return group, *data, mesh.get_group("model"), mrank, m
 
 
 def _rows(batch: Dict, rank: int, n: int, n_micro: int = 1) -> Dict:
@@ -131,19 +185,22 @@ def run(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
     logged steps: rows of ``loss``, ``grad_norm``, ``lr``, ``step`` and
     ``wall_s``.
 
-    ``mesh``: a ``(data=n, model=1)`` mesh over the caller's process
+    ``mesh``: a ``(data=n, model=M)`` mesh over the caller's process
     group (``launch/mesh.make_host_mesh``): the step is data-parallel
-    (module docstring); ``data_iter`` yields the same global batch on
-    every rank, whose rows ``n * loop.n_micro`` must divide, and each
-    rank takes its share of every microbatch (:func:`_rows`);
-    ``device`` defaults to the
-    mesh's (the current CUDA device under NCCL). Every rank draws the
-    same params from the same seed and restores the same checkpoint;
-    rank 0 alone writes checkpoints, and no rank returns before its
-    writes have landed (a barrier after the last)."""
-    group, rank, n = None, 0, 1
+    over ``data`` and tensor-parallel over ``model`` (module
+    docstring); ``data_iter`` yields the same global batch on every
+    rank, whose rows ``n * loop.n_micro`` must divide, and each data
+    rank takes its share of every microbatch (:func:`_rows`); ``device``
+    defaults to the mesh's (the current CUDA device under NCCL; a gloo
+    group's ranks may share one card, ``device="cuda"``). Every rank
+    draws the same whole tree from the same seed, keeps its shards
+    (``carry`` holds them) and restores its shards of the same whole
+    checkpoint; the model group of data rank 0 gathers whole leaves and
+    rank 0 alone writes them, and no rank returns before its writes
+    have landed (barriers after the last)."""
+    group, drank, n, mgroup, mrank, m = None, 0, 1, None, 0, 1
     if mesh is not None:
-        group, rank, n = _mesh_group(mesh)
+        group, drank, n, mgroup, mrank, m = _mesh_group(mesh, cfg)
         if device is None:
             device = (torch.device("cuda", torch.cuda.current_device())
                       if mesh.device_type == "cuda" else mesh.device_type)
@@ -153,6 +210,11 @@ def run(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
                               else dev).manual_seed(0)
     params = tree_map(lambda t: t.to(dev),
                       api.init_params(gen, cfg, dtype=torch.float32))
+    dims = None
+    if mgroup is not None:
+        dims = tp.split_dims(params, cfg, m)
+        params = tp.shard_tree(params, dims, mrank, m)
+    key_dim = tp.carry_key_dims(dims) if dims is not None else None
     mstate = tree_map(lambda t: t.to(dev), api.init_model_state(cfg))
     carry = api.TrainCarry(params, init_opt_state(params, opt_cfg), mstate)
     err_state = (grad_compress.init_error_state(params)
@@ -161,31 +223,44 @@ def run(cfg: ModelConfig, opt_cfg: AdamWConfig, loop: TrainLoopConfig,
     ckpt = CheckpointManager(loop.ckpt_dir)
     start_step = 0
     if loop.resume and ckpt.latest_valid() is not None:
-        start_step, carry = ckpt.restore(carry)
+        start_step, carry = ckpt.restore(carry, shard=None if dims is None
+                                         else lambda k, t: tp.shard(
+                                             t, key_dim(k), mrank, m))
 
     step_fn = make_compressed_train_step(
-        cfg, opt_cfg, loop.n_micro, group=group,
-        compress=loop.grad_compress_bits == 8)
+        cfg, opt_cfg, loop.n_micro, group=group, model_group=mgroup,
+        split=dims, compress=loop.grad_compress_bits == 8)
 
     history = []
     t0 = time.time()
     for step in range(start_step, loop.steps):
         batch = next(data_iter)
         if group is not None:
-            batch = _rows(batch, rank, n, loop.n_micro)
+            batch = _rows(batch, drank, n, loop.n_micro)
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True)
                  for k, v in batch.items()}
         carry, err_state, metrics = step_fn(carry, err_state, batch)
         if (step + 1) % loop.log_every == 0 or step == loop.steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}   # sync: logged
-            m["step"] = step + 1
-            m["wall_s"] = round(time.time() - t0, 2)
-            history.append(m)
-        if (step + 1) % loop.ckpt_every == 0 and rank == 0:
-            ckpt.save_async(step + 1, carry)
+            row = {k: float(v) for k, v in metrics.items()}   # sync: logged
+            row["step"] = step + 1
+            row["wall_s"] = round(time.time() - t0, 2)
+            history.append(row)
+        if (step + 1) % loop.ckpt_every == 0 and drank == 0:
+            if mgroup is None:
+                if mrank == 0:
+                    ckpt.save_async(step + 1, carry)
+            else:
+                # every rank of data rank 0's model group gathers; the
+                # first writes
+                flat = {k: tp.whole(t, key_dim(k), mgroup)
+                        for k, t in snapshot(carry).items()}
+                if mrank == 0:
+                    ckpt.save_flat_async(step + 1, flat)
     ckpt.wait()
     if group is not None:
-        # no rank returns (and may restore) before rank 0's writes land
-        dist.barrier(group, device_ids=[dev.index] if dev.type == "cuda"
-                     else None)
+        # no rank returns (and may restore) before rank 0's writes land:
+        # its model group waits for it, then each data group for those
+        nccl = dist.get_backend(group) == "nccl"
+        for g in (mesh.get_group("model"), group):
+            dist.barrier(g, device_ids=[dev.index] if nccl else None)
     return {"carry": carry, "history": history, "ckpt": ckpt}
