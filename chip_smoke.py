@@ -306,19 +306,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 25. train (tensor-parallel) — two processes share the card through a
    gloo group over a file store (NCCL refuses two ranks on one card)
    and train on the ``(1, 2)`` host mesh through
-   ``train_loop.run(mesh=make_host_mesh(2), device="cuda")``:
-   qwen1.5-4b cut to 2 of 40 layers and granite-moe-1b-a400m cut to 4
-   of 24, at published widths, 4 x 1024 tokens, 3 steps (qwen: 10 of 20
-   heads, 3456 of 6912 MLP columns and 75968 of 151936 vocabulary rows
-   a rank; granite: 8 of 16 query and 4 of 8 KV heads, 16 of 32
-   experts, its odd vocabulary whole), against the one-process bf16
-   run from the same seed on the same batches, a second one-process
-   run's spread beside it: step 1's loss within ``TP_RTOL_FIRST`` and
-   steps 2-3 within ``TP_RTOL`` relative, both ranks' losses equal,
-   each rank's parameter bytes equal to ``sharding.per_device_bytes``
-   on the mesh, and granite's step-3 checkpoint (whole leaves, gathered
-   over the model group, written by rank 0) against the one-process
-   one leaf by leaf. Prints the all-reduces a step (calls and bytes,
+   ``train_loop.run(mesh=make_host_mesh(2), device="cuda")``, at
+   published widths, 3 steps each (``TP_RUNS``): qwen1.5-4b cut to 2 of
+   40 layers and granite-moe-1b-a400m cut to 4 of 24, 4 x 1024 tokens
+   (qwen: 10 of 20 heads, 3456 of 6912 MLP columns and 75968 of 151936
+   vocabulary rows a rank; granite: 8 of 16 query and 4 of 8 KV heads,
+   16 of 32 experts, its odd vocabulary whole); mamba2-130m cut to 8 of
+   24 layers, 4 x 1024 (12 of 24 SSM heads a rank, B and C whole on
+   both); hymba-1.5b cut to 4 of 32 layers (a ``hybrid_swa`` layer
+   among them), 1 x 2048 (its 25/5 attention heads whole, 25 of 50 SSM
+   heads a rank: the hybrid's mixed case); whisper-tiny whole, 4 x 448 over 1500 frames
+   (3 of 6 heads of every attention a rank, its odd vocabulary whole);
+   deepseek-v3-671b cut to one ``mla_moe`` layer and its ``mtp`` block,
+   8 of 256 experts and 16160 of 129280 vocabulary rows (the share of
+   one of 32 and of 8 cards), 1 x 256 (64 of 128 MLA heads, 4 of 8
+   experts a rank). Each against the one-process bf16 run from the same
+   seed on the same batches (qwen's and granite's with a second
+   one-process run's spread beside it): step 1's loss within
+   ``TP_RTOL_FIRST`` and steps 2-3 within ``TP_RTOL`` relative, both ranks' losses equal, each rank's parameter
+   bytes equal to ``sharding.per_device_bytes`` on the mesh but for the
+   leaves named where the unit rule and ``_filter_axes`` part
+   (``TP_UNIT_PARTS``), and granite's and mamba2's step-3 checkpoints
+   (whole leaves, gathered over the model group, written by rank 0;
+   mamba2's ``in_proj`` and conv in segments) against the one-process
+   ones leaf by leaf. Prints the all-reduces a step (calls and bytes,
    ``tensor_parallel.COUNTS``), each rank's peak memory, parameter and
    AdamW bytes, and the step ms of each run. This phase says nothing
    about speed: the ranks' all-reduces go through the host.
@@ -4669,10 +4680,46 @@ def phase_analysis_full(served: dict, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 25: tensor-parallel training, two ranks sharing the card
 
-# (arch, layers kept, batch rows, sequence, checkpoint compared): the
-# published widths, depth cut with dataclasses.replace
-TP_RUNS = [("qwen1.5-4b", 2, 4, 1024, False),
-           ("granite-moe-1b-a400m", 4, 4, 1024, True)]
+# (arch, config fields cut, batch rows, sequence, checkpoint compared, a
+# second one-process run for the card's own spread): the published
+# widths, depth cut with dataclasses.replace. The MLA, SSM, hybrid and
+# encoder-decoder runs (mamba2, hymba, whisper, deepseek) take no second
+# one-process run, mamba2 a third of its depth and hymba one row, so the
+# script stays near its limit (the whole script took 1057.9 s with them whole, phase
+# 25 125.3 s of it, on an H100 80GB HBM3 at 700.00 W). deepseek-v3
+# keeps one mla_moe layer and its mtp block (the mla_dense one), 8 of
+# its 256 experts and an eighth of its vocabulary, the share of one of
+# 32 and of 8 cards: whole, its vocabulary alone is 1.85 B parameters,
+# and this loop's step holds about 44 bytes a parameter at its peak
+# (fp32 masters, gradients, the clipped gradients and AdamW's m and v,
+# old and new, and the bf16 weights the backward keeps), so one process
+# could not train it on one card; with 16 experts the two ranks' peaks
+# (34.3 and 41.0 GiB allocated, 0.994 B parameters a rank) overran the
+# card's 79.2 GiB
+TP_RUNS = [("qwen1.5-4b", dict(n_layers=2), 4, 1024, False, True),
+           ("granite-moe-1b-a400m", dict(n_layers=4), 4, 1024, True, True),
+           ("mamba2-130m", dict(n_layers=8), 4, 1024, True, False),
+           ("hymba-1.5b", dict(n_layers=4), 1, 2048, False, False),
+           ("whisper-tiny", {}, 4, 448, False, False),
+           ("deepseek-v3-671b", dict(n_layers=1, n_dense_layers=0,
+                                     n_experts=8, vocab_size=16160),
+            1, 256, False, False)]
+# the leaves (their names under a group) where a rank's bytes part from
+# ``sharding.per_device_bytes``: the unit rule keeps whole what
+# ``_filter_axes`` cuts by flat dims (hymba's 25/5 attention heads at 2,
+# MLA's down-projections, mtp's projection to the replicated residual),
+# splits by heads the SSM's per-head vectors the specs keep whole, and
+# keeps B's and C's segments whole inside in_proj and the conv
+_SSM_PARTS = {"ssm/in_proj/kernel", "ssm/conv_w", "ssm/conv_b", "ssm/A_log",
+              "ssm/D", "ssm/dt_bias"}
+TP_UNIT_PARTS = {
+    "mamba2-130m": _SSM_PARTS,
+    "hymba-1.5b": _SSM_PARTS | {f"attn/{w}/kernel"
+                                for w in ("wq", "wk", "wv", "wo")},
+    "deepseek-v3-671b": {"attn/wdq/kernel", "attn/wdkv/kernel",
+                         "mtp/block/attn/wdq/kernel",
+                         "mtp/block/attn/wdkv/kernel", "mtp/proj/kernel"},
+}
 TP_STEPS = 3
 # bf16 compute: the row-parallel products are rounded per rank before
 # their sum, so the runs part at bf16's precision, not fp32's
@@ -4683,8 +4730,22 @@ TP_RTOL_FIRST, TP_RTOL = 1e-3, 1e-2
 TP_PARAM_ATOL = 2 * 2 * LM_LR * 3
 
 
-def tp_cfg(arch: str, layers: int):
-    return replace(get_config(arch), n_layers=layers)
+def tp_cfg(arch: str, cut: dict):
+    return replace(get_config(arch), **cut)
+
+
+def tp_cut_text(arch: str, cut: dict) -> str:
+    """How a run of :data:`TP_RUNS` is cut, in words."""
+    full = get_config(arch)
+    if not cut:
+        return f"whole ({full.n_layers} layers)"
+    return "cut to " + ", ".join(
+        f"{k} {v} of {getattr(full, k)}" for k, v in cut.items())
+
+
+def tp_leaf_name(path: str) -> str:
+    """A leaf's name under its layer group (``groups/g0_ssm/`` off)."""
+    return re.sub(r"^groups/g\d+_[a-z_]+/", "", path)
 
 
 def tp_loop(ckpt_dir: str, ckpt: bool) -> TrainLoopConfig:
@@ -4713,6 +4774,7 @@ def tp_rank_main(rank: int, store: str, out: str) -> int:
     import torch.distributed as dist
 
     from repro_torch.compat import FakeTensorMode
+    from repro_torch.core.quant.policy import tree_items
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import tensor_parallel as tp
@@ -4723,13 +4785,15 @@ def tp_rank_main(rank: int, store: str, out: str) -> int:
                             rank=rank, world_size=2)
     mesh = make_host_mesh(2)
     res = {}
-    for arch, layers, batch, seq, ckpt in TP_RUNS:
-        cfg = tp_cfg(arch, layers)
+    for arch, cut, batch, seq, ckpt, _ in TP_RUNS:
+        cfg = tp_cfg(arch, cut)
         with FakeTensorMode():
             whole = api.init_params(torch.Generator().manual_seed(0), cfg,
                                     device="cpu", dtype=torch.float32)
-        want = shd.per_device_bytes(whole, shd.param_shardings(whole, cfg,
-                                                               mesh))
+        psh = shd.param_shardings(whole, cfg, mesh)
+        want = shd.per_device_bytes(whole, psh)
+        spec = []
+        shd.zip_map(lambda t, sh: spec.append(sh.local_bytes(t)), whole, psh)
         dims = tp.split_dims(whole, cfg, 2)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4739,12 +4803,17 @@ def tp_rank_main(rank: int, store: str, out: str) -> int:
                              train_launcher.data_for(cfg, batch, seq),
                              device="cuda", mesh=mesh)
         carry = run["carry"]
+        local = {k: t.numel() * t.element_size()
+                 for k, t in tree_items(carry.params)}
+        spec = dict(zip((k for k, _ in tree_items(whole)), spec))
+        parted = {k for k in local if local[k] != spec[k]}
         # the step-3 checkpoint's gather: every split leaf of the params
-        # and of AdamW's m and v, whole, once
-        split = [t for t, d in zip(tree_leaves(carry.params),
-                                   tree_leaves(dims)) if d is not None]
-        gather = ((3 * len(split), 3 * 2 * sum(
-            t.numel() * t.element_size() for t in split)) if ckpt
+        # and of AdamW's m and v, whole (a buffer of the whole leaf
+        # summed over the group), once
+        split = [w for w, d in zip(tree_leaves(whole), tree_leaves(dims))
+                 if d is not None]
+        gather = ((3 * len(split), 3 * sum(
+            w.numel() * w.element_size() for w in split)) if ckpt
             else (0, 0))
         res[arch] = {
             "loss": [r["loss"] for r in run["history"]],
@@ -4752,6 +4821,9 @@ def tp_rank_main(rank: int, store: str, out: str) -> int:
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "param_bytes": tree_bytes(carry.params),
             "per_device_bytes": want,
+            "unit_rule_parts": sorted({tp_leaf_name(k) for k in parted}),
+            "parted_bytes": [sum(local[k] for k in parted),
+                             sum(spec[k] for k in parted)],
             "opt_bytes": tree_bytes(carry.opt_state.m)
             + tree_bytes(carry.opt_state.v),
             "allreduce_calls_per_step":
@@ -4807,15 +4879,17 @@ def phase_tp_train(smi: str) -> dict:
     ``sharding.per_device_bytes`` on the mesh; rank 0's step-3
     checkpoint of whole leaves against the one-process checkpoint, leaf
     by leaf. Printed: the all-reduces a step (the helper's counter),
-    each rank's peak memory and parameter and AdamW bytes, step ms."""
+    each rank's peak memory and parameter and AdamW bytes (the leaves
+    where the unit rule and ``_filter_axes`` part named,
+    :data:`TP_UNIT_PARTS`), step ms."""
     import tempfile
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         plain = {}
-        for arch, layers, batch, seq, ckpt in TP_RUNS:
-            cfg = tp_cfg(arch, layers)
+        for arch, cut, batch, seq, ckpt, rerun in TP_RUNS:
+            cfg = tp_cfg(arch, cut)
             runs = []
-            for i in range(2):
+            for i in range(2 if rerun else 1):
                 gc.collect()
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
@@ -4853,30 +4927,33 @@ def phase_tp_train(smi: str) -> dict:
                  for r in range(2)]
         ckpts = {arch: checkpoint_diffs(Path(f"{tmp}/ckpt-{arch}"),
                                         Path(f"{tmp}/plain0-{arch}"))
-                 for arch, *_, ckpt in TP_RUNS if ckpt}
+                 for arch, _, _, _, ckpt, _ in TP_RUNS if ckpt}
 
     def rel(a, b):
         return [abs(x - y) / abs(y) for x, y in zip(a, b)]
     ok = True
-    for arch, layers, batch, seq, ckpt in TP_RUNS:
-        p0, p1 = plain[arch]
+    for arch, cut, batch, seq, ckpt, rerun in TP_RUNS:
+        p0, p1 = (plain[arch] + [None])[:2]
         r0, r1 = ranks[0][arch], ranks[1][arch]
         d = rel(r0["loss"], p0["loss"])
-        spread = rel(p1["loss"], p0["loss"])
-        row = {"layers": layers, "batch": [batch, seq], "plain": p0,
+        spread = rel(p1["loss"], p0["loss"]) if p1 else [None]
+        parts = TP_UNIT_PARTS.get(arch, set())
+        row = {"cut": cut, "batch": [batch, seq], "plain": p0,
                "plain_again": p1, "ranks": [r0, r1],
                "max_rel_first": d[0], "max_rel": max(d),
-               "plain_spread": max(spread),
+               "plain_spread": max(spread) if p1 else None,
                "checkpoint": ckpts.get(arch)}
         out[arch] = row
-        print(f"[tp] {arch} cut to {layers} of {get_config(arch).n_layers} "
-              f"layers, {batch} x {seq} tokens, {TP_STEPS} steps on a (1, 2) "
+        print(f"[tp] {arch} {tp_cut_text(arch, cut)}, {batch} x {seq} tokens, "
+              f"{TP_STEPS} steps on a (1, 2) "
               f"gloo mesh, two ranks sharing cuda:0 ({smi}): losses "
               f"{', '.join(f'{v:.5f}' for v in r0['loss'])} against one "
               f"process {', '.join(f'{v:.5f}' for v in p0['loss'])}: step 1 "
               f"within {d[0]:.3g} (bound {TP_RTOL_FIRST}), steps 2-3 "
-              f"{max(d[1:]):.3g} (bound {TP_RTOL}); a second one-process run "
-              f"parts by {max(spread):.3g}; rank losses "
+              f"{max(d[1:]):.3g} (bound {TP_RTOL}); "
+              + (f"a second one-process run parts by {max(spread):.3g}"
+                 if p1 else "no second one-process run")
+              + f"; rank losses "
               f"{'equal' if r0['loss'] == r1['loss'] else 'DIFFER'}")
         print(f"[tp] {arch}: {r0['allreduce_calls_per_step']:.0f} "
               f"all-reduces a step, {r0['allreduce_bytes_per_step'] / 2**20:.2f}"
@@ -4888,7 +4965,14 @@ def phase_tp_train(smi: str) -> dict:
               f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB a rank "
               f"against {p0['peak_gib']:.2f} GiB; step {r0['step_ms']:.1f} / "
               f"{r1['step_ms']:.1f} ms a rank against {p0['step_ms']:.1f} ms "
-              f"(again {p1['step_ms']:.1f} ms) ({smi})")
+              + (f"(again {p1['step_ms']:.1f} ms) " if p1 else "")
+              + f"({smi})")
+        if r0["unit_rule_parts"]:
+            print(f"[tp] {arch}: the unit rule and _filter_axes part on "
+                  f"{', '.join(r0['unit_rule_parts'])}: "
+                  f"{r0['parted_bytes'][0] / 2**20:.2f} MiB a rank against "
+                  f"per_device_bytes' {r0['parted_bytes'][1] / 2**20:.2f} "
+                  f"MiB; every other leaf equal ({smi})")
         if ckpt:
             print(f"[tp] {arch}: rank 0's step-{ckpts[arch]['step']} "
                   f"checkpoint, {ckpts[arch]['leaves']} whole leaves against "
@@ -4898,7 +4982,9 @@ def phase_tp_train(smi: str) -> dict:
                   + f" (params bound {TP_PARAM_ATOL:g})")
         ok &= (np.isfinite(r0["loss"]).all() and r0["loss"] == r1["loss"]
                and d[0] <= TP_RTOL_FIRST and max(d) <= TP_RTOL
-               and all(r["param_bytes"] == r["per_device_bytes"]
+               and all(set(r["unit_rule_parts"]) == parts
+                       and r["param_bytes"] == r["per_device_bytes"]
+                       - r["parted_bytes"][1] + r["parted_bytes"][0]
                        for r in (r0, r1))
                and (not ckpt or ckpts[arch]["max_abs_diff"][".params"]
                     <= TP_PARAM_ATOL))

@@ -18,13 +18,12 @@ group (NCCL on ``cuda``, each process on card ``i`` modulo the cards it
 sees; gloo on ``--device cpu``), and the loop trains on
 ``make_host_mesh(--model-parallel)`` (``launch/mesh.py``), a ``(data,
 model)`` mesh: every process reads the same global batch, each data
-rank takes its own rows, and a model axis above 1 splits the dense,
-vlm and moe families' attention heads, MLP hidden width, vocabulary
-and experts over it (tensor parallelism; the basecaller replicates over
-it). Where ``--model-parallel`` does not divide the world the model
-axis falls back to 1, as the reference's does; a model axis above 1 on
-an MLA, SSM, hybrid or encoder-decoder arch raises
-``NotImplementedError`` (ROADMAP.md).
+rank takes its own rows, and a model axis above 1 splits every LM
+arch over it (tensor parallelism: attention, MLA, cross-attention and
+SSM heads, MLP hidden width, vocabulary and experts, each where the
+axis divides it; the basecaller replicates over it). Where
+``--model-parallel`` does not divide the world the model axis falls
+back to 1, as the reference's does.
 
     python -m repro_torch.launch.train --arch rubicall --smoke --device cpu \
         --coordinator 127.0.0.1:29500 --num-hosts 2 --host-id 0 &
@@ -94,8 +93,6 @@ def main(argv=None) -> None:
                                ckpt_every=args.ckpt_every,
                                n_micro=args.n_micro,
                                grad_compress_bits=args.grad_compress_bits)
-        # a model axis above 1 on a kind it does not split makes run()
-        # refuse
         out = run(cfg, opt_cfg, loop, data_for(cfg, args.batch, args.seq),
                   device=None if mesh is not None else args.device,
                   mesh=mesh)

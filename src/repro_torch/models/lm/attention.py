@@ -228,7 +228,7 @@ def make_attn_params(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
     }
 
 
-def _heads_split(p: Params, cfg: ModelConfig) -> bool:
+def heads_split(p: Params, cfg: ModelConfig) -> bool:
     """Whether ``p`` holds this rank's heads of attention split over a
     tensor-parallel model group (``parallel/tensor_parallel``)."""
     return (tp.size() > 1 and p["wq"]["kernel"].shape[-1]
@@ -256,7 +256,8 @@ def _project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig, *, window: int = 0, causal: bool = True,
-                 train: bool = False) -> Tuple[torch.Tensor, Dict]:
+                 train: bool = False, reduce: bool = True
+                 ) -> Tuple[torch.Tensor, Dict]:
     """Whole-prompt attention. x: (B, S, d); positions: (B, S). Returns
     (out (B, S, d), {"k", "v": (B, S, Hkv, hd)} for the cache).
     ``window > 0`` (each query sees the ``window`` positions up to
@@ -271,10 +272,12 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     counts, ``p`` holds this rank's ``H/M`` query and ``Hkv/M`` KV heads
     (the reference's q/k/v and output pinned on ``model`` by heads):
     ``x`` enters through ``copy_to_model``, and ``wo`` is row-parallel,
-    its product summed over the group."""
+    its product summed over the group (``reduce=False``: left as this
+    rank's partial sum, for a caller that sums it with another)."""
     B, S, _ = x.shape
-    split = _heads_split(p, cfg)
-    col, row = ("col", "row") if split else ("", "")
+    split = heads_split(p, cfg)
+    col, row = (("col", "row" if reduce else "partial") if split
+                else ("", ""))
     q, k, v = _project_qkv(p, tp.copy_to_model(x, split), positions, cfg,
                            col)
     o = (blockwise_attn(q, k, v, causal=causal, window=window)

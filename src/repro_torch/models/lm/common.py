@@ -84,17 +84,18 @@ def dense(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "",
     holds, and dequantizes on read otherwise. An unpacked weight under
     an enabled policy is fake-quantized with one scale per input row
     (``axis=0``, as the reference does) and, with activation bits,
-    ``x`` per tensor.
+    ``x`` per tensor (:func:`dense_operands`).
 
     ``parallel``: ``"col"`` where ``W`` holds this rank's columns of a
     unit split over the model group (``x`` whole), ``"row"`` where it
     holds this rank's rows (``x`` this rank's part): the row-parallel
-    product is summed over the group before the bias is added, once. A
-    fake-quant scale whose extent the group splits takes the group's
-    maximum: a column-parallel weight's per-row scale (and any split
-    weight's per-tensor one), a row-parallel input's per-tensor
-    scale."""
+    product is summed over the group before the bias is added, once;
+    ``"partial"``: row-parallel, the product left unsummed for a caller
+    that sums it with another (no bias)."""
     dt = getattr(torch, cfg.dtype)
+    if parallel == "partial" and "bias" in p:
+        raise ValueError(f"{tag}: a partial row-parallel product takes no "
+                         f"bias (each rank would add it)")
     w = p["kernel"]
     if isinstance(w, PackedTensor):
         wb, _ = cfg.quant.bits_for(tag)
@@ -105,26 +106,42 @@ def dense(p: Params, x: torch.Tensor, *, cfg: ModelConfig, tag: str = "",
             from repro_torch.kernels.ops import qmatmul
             return _bias(p, tp.reduce_from_model(qmatmul(x.to(dt), w),
                                                  parallel == "row"), dt)
-        w = kernel_of(p, dt)
-    else:
-        if quantize and cfg.quant.enabled:
-            from repro_torch.core.quant.fake_quant import fake_quant
-            from repro_torch.parallel import data_parallel
-            wb, ab = cfg.quant.bits_for(tag)
-            per_row = cfg.quant.per_channel
-            if wb:
-                split_scale = parallel == "col" or (parallel and not per_row)
-                w = fake_quant(w, wb, axis=0 if per_row else None,
-                               amax_reduce=tp.all_max_ if split_scale
-                               else None)
-            if ab:
-                def amax(t):
-                    t = data_parallel.all_max_(t)
-                    return tp.all_max_(t) if parallel == "row" else t
-                x = fake_quant(x, ab, axis=None, amax_reduce=amax)
-        w = w.to(dt)
-    return _bias(p, tp.reduce_from_model(x.to(dt) @ w, parallel == "row"),
-                 dt)
+    x, w = dense_operands(p, x, cfg=cfg, tag=tag, quantize=quantize,
+                          parallel=parallel)
+    return _bias(p, tp.reduce_from_model(x @ w, parallel == "row"), dt)
+
+
+def dense_operands(p: Params, x: torch.Tensor, *, cfg: ModelConfig,
+                   tag: str = "", quantize: bool = True,
+                   parallel: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, W) in the compute dtype as :func:`dense` multiplies them
+    without the kernel: a packed ``W`` dequantized, an unpacked one
+    fake-quantized under an enabled policy, ``x`` too with activation
+    bits. A fake-quant scale whose extent the model group splits takes
+    the group's maximum: a column-parallel weight's per-row scale (and
+    any split weight's per-tensor one), a row-parallel input's
+    per-tensor scale."""
+    dt = getattr(torch, cfg.dtype)
+    w = p["kernel"]
+    if isinstance(w, PackedTensor):
+        return x.to(dt), kernel_of(p, dt)
+    if quantize and cfg.quant.enabled:
+        from repro_torch.core.quant.fake_quant import fake_quant
+        from repro_torch.parallel import data_parallel
+        wb, ab = cfg.quant.bits_for(tag)
+        per_row = cfg.quant.per_channel
+        row = parallel in ("row", "partial")
+        if wb:
+            split_scale = parallel == "col" or (parallel and not per_row)
+            w = fake_quant(w, wb, axis=0 if per_row else None,
+                           amax_reduce=tp.all_max_ if split_scale
+                           else None)
+        if ab:
+            def amax(t):
+                t = data_parallel.all_max_(t)
+                return tp.all_max_(t) if row else t
+            x = fake_quant(x, ab, axis=None, amax_reduce=amax)
+    return x.to(dt), w.to(dt)
 
 
 def _bias(p: Params, y: torch.Tensor, dt) -> torch.Tensor:

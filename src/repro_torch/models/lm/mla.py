@@ -36,6 +36,7 @@ from repro_torch.models.lm.common import (Params, dense, kernel_of,
                                           make_dense_params,
                                           make_rmsnorm_params, rmsnorm)
 from repro_torch.models.lm.rope import apply_rope
+from repro_torch.parallel import tensor_parallel as tp
 
 
 def _dims(cfg: ModelConfig):
@@ -60,14 +61,26 @@ def make_mla_params(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
     }
 
 
+def heads_split(p: Params, cfg: ModelConfig) -> bool:
+    """Whether ``p`` holds this rank's query heads of an MLA block split
+    over a tensor-parallel model group (``parallel/tensor_parallel``)."""
+    H, qr, kvr, nope, rope_d, vd = _dims(cfg)
+    return (tp.size() > 1
+            and p["wuq"]["kernel"].shape[-1] != H * (nope + rope_d))
+
+
 def _project_q(p: Params, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig):
+               cfg: ModelConfig, split: bool = False):
+    """(q_nope, q_rope) over the heads ``p`` holds (all of them, or this
+    rank's where ``split``: the whole latent ``cq`` enters ``wuq``'s
+    columns through ``copy_to_model``)."""
     B, S, _ = x.shape
     H, qr, kvr, nope, rope_d, vd = _dims(cfg)
     cq = rmsnorm(p["q_norm"], dense(p["wdq"], x, cfg=cfg, tag="mla/wdq"),
                  cfg.norm_eps)
-    q = dense(p["wuq"], cq, cfg=cfg, tag="mla/wuq").reshape(
-        B, S, H, nope + rope_d)
+    q = dense(p["wuq"], tp.copy_to_model(cq, split), cfg=cfg, tag="mla/wuq",
+              parallel="col" if split else "").reshape(
+        B, S, -1, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, head_dim=rope_d,
                         theta=cfg.rope_theta)
@@ -91,20 +104,33 @@ def mla_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     up-projects to per-head K = [k_nope, k_rope] (the rope key shared
     by every head) and V, then :func:`blockwise_attn` (causal, value
     width ``mla_v_dim``). Returns (out (B, S, d), {"c": (B, S, kvr),
-    "k_rope": (B, S, rope)})."""
+    "k_rope": (B, S, rope)}).
+
+    Over a tensor-parallel model group whose size divides ``n_heads``,
+    ``p`` holds this rank's ``H/M`` query heads of ``wuq`` and ``wukv``
+    and their rows of ``wo`` (the reference's q, k, v and output pinned
+    on ``model`` by heads). The latents are computed whole on every
+    rank from ``x``, which passes no copy, so ``wdq``'s and ``wdkv``'s
+    gradients come out whole; each whole tensor that feeds the split
+    heads (``cq``, ``c``, ``k_rope``) passes ``copy_to_model`` once,
+    and ``wo`` is row-parallel."""
     B, S, _ = x.shape
     H, qr, kvr, nope, rope_d, vd = _dims(cfg)
-    q_nope, q_rope = _project_q(p, x, positions, cfg)
+    split = heads_split(p, cfg)
+    q_nope, q_rope = _project_q(p, x, positions, cfg, split)
     c, k_rope = _project_kv_latent(p, x, positions, cfg)
-    kv = dense(p["wukv"], c, cfg=cfg, tag="mla/wukv").reshape(
-        B, S, H, nope + vd)
+    kv = dense(p["wukv"], tp.copy_to_model(c, split), cfg=cfg,
+               tag="mla/wukv", parallel="col" if split else "").reshape(
+        B, S, -1, nope + vd)
     k_nope, v = kv[..., :nope], kv[..., nope:]
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope_d)],
+    kr = tp.copy_to_model(k_rope, split)
+    k = torch.cat([k_nope, kr[:, :, None].expand(B, S, kv.shape[2], rope_d)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    o = blockwise_attn(q, k, v, causal=True).reshape(B, S, H * vd)
-    return dense(p["wo"], o, cfg=cfg, tag="mla/wo"), {"c": c,
-                                                       "k_rope": k_rope}
+    o = blockwise_attn(q, k, v, causal=True).reshape(B, S, -1)
+    return (dense(p["wo"], o, cfg=cfg, tag="mla/wo",
+                  parallel="row" if split else ""),
+            {"c": c, "k_rope": k_rope})
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int,

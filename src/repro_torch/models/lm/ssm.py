@@ -34,8 +34,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import EMPTY_POS
 from repro_torch.kernels.ref import ssd_chunked
-from repro_torch.models.lm.common import (Params, dense, make_dense_params,
+from repro_torch.models.lm.common import (Params, dense, dense_operands,
+                                          make_dense_params,
                                           truncated_normal_init)
+from repro_torch.parallel import tensor_parallel as tp
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -73,6 +75,12 @@ def make_ssm_params(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
     }
 
 
+def ssm_ranks(p: Params, cfg: ModelConfig) -> int:
+    """How many ranks of a tensor-parallel model group split the heads
+    of ``p`` (1: ``p`` holds every head)."""
+    return ssm_dims(cfg)[1] // p["A_log"].shape[-1]
+
+
 def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
     d_in, nh, N, _ = ssm_dims(cfg)
     z = zxbcdt[..., :d_in]
@@ -81,6 +89,26 @@ def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
     Cm = zxbcdt[..., 2 * d_in + N:2 * d_in + 2 * N]
     dt = zxbcdt[..., 2 * d_in + 2 * N:]
     return z, x, Bm, Cm, dt
+
+
+def _in_proj(p: Params, x: torch.Tensor, cfg: ModelConfig, m: int):
+    """(z, x, B, C, dt) from ``in_proj``. Where ``m`` ranks split the
+    heads, ``p`` holds this rank's z, x and dt columns and all of B's
+    and C's (``sharding.Segments``): the split columns read
+    ``copy_to_model(x)``, and B and C read ``x`` as it is, so ``x``'s
+    gradient sums the ranks' parts of the split columns and takes B's
+    and C's, whole on every rank, once. The operands are fake-quantized
+    once, over the whole leaf, as one product would take them."""
+    if m == 1:
+        return _split_proj(dense(p, x, cfg=cfg, tag="ssm/in_proj"), cfg)
+    d_in, nh, N, _ = ssm_dims(cfg)
+    dl = d_in // m
+    xq, w = dense_operands(p, x, cfg=cfg, tag="ssm/in_proj", parallel="col")
+    xc = tp.copy_to_model(xq)
+    zx = xc @ w[..., :2 * dl]
+    bc = xq @ w[..., 2 * dl:2 * dl + 2 * N]
+    dt = xc @ w[..., 2 * dl + 2 * N:]
+    return zx[..., :dl], zx[..., dl:], bc[..., :N], bc[..., N:], dt
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -97,22 +125,33 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                train: bool = False) -> Tuple[torch.Tensor, Dict]:
+                train: bool = False, reduce: bool = True
+                ) -> Tuple[torch.Tensor, Dict]:
     """Whole-prompt forward. x: (B, S, d). Returns (y (B, S, d), the
     decode hand-off {"h": (B, nh, hd, N) fp32, "conv": the last K - 1
     pre-conv positions (B, K - 1, conv_ch)}). ``train``: the scan is
     :func:`ssd_chunked` (differentiable); otherwise
     ``ops.ssd_chunk_scan`` (the kernel on a card, which refuses inputs
-    that require grad)."""
+    that require grad).
+
+    Over a tensor-parallel model group whose size M divides the heads,
+    ``p`` holds this rank's ``nh/M`` heads (:func:`_in_proj`; the conv's
+    x channels, ``A_log``, ``D``, ``dt_bias`` and ``out_proj``'s rows)
+    and B's and C's whole columns and channels (the reference's x and y
+    pinned on ``model``). B and C leave the conv whole on every rank and
+    pass ``copy_to_model``, since every rank's heads read them; the scan
+    runs over this rank's heads, and ``out_proj`` is row-parallel
+    (``reduce=False``: its partial sum left to the caller)."""
     B, S, _ = x.shape
+    m = ssm_ranks(p, cfg)
     d_in, nh, N, _ = ssm_dims(cfg)
-    zxbcdt = dense(p["in_proj"], x, cfg=cfg, tag="ssm/in_proj")
-    z, xs, Bm, Cm, dtr = _split_proj(zxbcdt, cfg)
+    d_in, nh = d_in // m, nh // m
+    z, xs, Bm, Cm, dtr = _in_proj(p["in_proj"], x, cfg, m)
     xbc = torch.cat([xs, Bm, Cm], dim=-1)
     conv_state = xbc[:, -(cfg.ssm_conv - 1):].clone()  # not a view of xbc
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs, Bm, Cm = (xbc[..., :d_in], xbc[..., d_in:d_in + N],
-                  xbc[..., d_in + N:])
+    bc = tp.copy_to_model(xbc[..., d_in:], m > 1)
+    xs, Bm, Cm = xbc[..., :d_in], bc[..., :N], bc[..., N:]
     dtv = F.softplus(dtr.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = xs.reshape(B, S, nh, cfg.ssm_headdim)
@@ -120,7 +159,8 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             else ops.ssd_chunk_scan(xh, dtv, A, Bm, Cm, p["D"],
                                     chunk=cfg.ssm_chunk))
     y = y.reshape(B, S, d_in) * F.silu(z)
-    out = dense(p["out_proj"], y, cfg=cfg, tag="ssm/out_proj")
+    row = ("row" if reduce else "partial") if m > 1 else ""
+    out = dense(p["out_proj"], y, cfg=cfg, tag="ssm/out_proj", parallel=row)
     return out, {"h": h.float(), "conv": conv_state}
 
 

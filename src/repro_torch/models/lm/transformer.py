@@ -326,12 +326,18 @@ def _mlp_act(cfg: ModelConfig) -> str:
 def enc_kv_for_layer(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
                      ) -> Dict[str, torch.Tensor]:
     """One decoder layer's cross-attention K/V (B, Se, Hkv, hd) from the
-    encoder's output (B, Se, d); ``p`` is the layer's ``xattn``."""
+    encoder's output (B, Se, d); ``p`` is the layer's ``xattn``. Over a
+    tensor-parallel model group that splits the cross-attention, this
+    rank's ``Hkv/M`` heads: ``enc_out`` enters ``wk``/``wv``'s columns
+    through ``copy_to_model``."""
     B, Se, _ = enc_out.shape
-    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    k = dense(p["wk"], enc_out, cfg=cfg, tag="xattn/wk")
-    v = dense(p["wv"], enc_out, cfg=cfg, tag="xattn/wv")
-    return {"k": k.reshape(B, Se, Hkv, hd), "v": v.reshape(B, Se, Hkv, hd)}
+    hd = cfg.resolved_head_dim
+    split = attn_mod.heads_split(p, cfg)
+    kw = dict(cfg=cfg, parallel="col" if split else "")
+    e = tp.copy_to_model(enc_out, split)
+    k = dense(p["wk"], e, tag="xattn/wk", **kw)
+    v = dense(p["wv"], e, tag="xattn/wv", **kw)
+    return {"k": k.reshape(B, Se, -1, hd), "v": v.reshape(B, Se, -1, hd)}
 
 
 def _cross_attn(p: Params, x: torch.Tensor, enc_kv: Dict, cfg: ModelConfig,
@@ -342,11 +348,16 @@ def _cross_attn(p: Params, x: torch.Tensor, enc_kv: Dict, cfg: ModelConfig,
     1) runs ``ops.decode_gqa`` over the buffer as contiguous rows (every
     position visible), K/V upcast to fp32 as the reference does; every
     other call (prefill, training, a chunk of several tokens) the dense
-    fp32 einsum, the same math on every backend."""
+    fp32 einsum, the same math on every backend. Over a tensor-parallel
+    model group that splits it, over this rank's ``H/M`` query and
+    ``Hkv/M`` KV heads (:func:`enc_kv_for_layer`): ``x`` enters ``wq``
+    through ``copy_to_model``, and ``wo`` is row-parallel."""
     B, S, _ = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
     dt = x.dtype
-    q = dense(p["wq"], x, cfg=cfg, tag="xattn/wq").reshape(B, S, H, hd)
+    split = attn_mod.heads_split(p, cfg)
+    q = dense(p["wq"], tp.copy_to_model(x, split), cfg=cfg, tag="xattn/wq",
+              parallel="col" if split else "").reshape(B, S, -1, hd)
     if attn_backend == "cuda" and S == 1:
         Se = enc_kv["k"].shape[1]
         pos = torch.arange(Se, dtype=torch.int32,
@@ -355,13 +366,14 @@ def _cross_attn(p: Params, x: torch.Tensor, enc_kv: Dict, cfg: ModelConfig,
         o = decode_gqa(q, enc_kv["k"].float(), enc_kv["v"].float(), pos, t,
                        backend=attn_backend).to(dt)
         return dense(p["wo"], o, cfg=cfg, tag="xattn/wo")
-    k = enc_kv["k"].repeat_interleave(H // Hkv, dim=2).float()
-    v = enc_kv["v"].repeat_interleave(H // Hkv, dim=2).float()
+    group = q.shape[2] // enc_kv["k"].shape[2]
+    k = enc_kv["k"].repeat_interleave(group, dim=2).float()
+    v = enc_kv["v"].repeat_interleave(group, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * hd ** -0.5
     prob = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", prob, v)
-    return dense(p["wo"], o.reshape(B, S, H * hd).to(dt), cfg=cfg,
-                 tag="xattn/wo")
+    return dense(p["wo"], o.reshape(B, S, -1).to(dt), cfg=cfg,
+                 tag="xattn/wo", parallel="row" if split else "")
 
 
 def _cross(p: Params, x: torch.Tensor, enc_kv: Optional[Dict],
@@ -391,11 +403,23 @@ def _mixer_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     if kind == "ssm":
         return ssm_mod.ssm_forward(p["ssm"], x, cfg, train=train)
     if kind in HYBRID_KINDS:
+        # over a model group each split branch's row-parallel output is
+        # left as this rank's partial sum: where both split, their mean
+        # is summed over the group once; a whole branch is added after
+        # the other's sum, so it counts once
         ya, kv = attn_mod.attn_forward(p["attn"], x, positions, cfg,
                                        window=_block_window(cfg, kind),
-                                       train=train)
-        ys, st = ssm_mod.ssm_forward(p["ssm"], x, cfg, train=train)
-        return 0.5 * (ya + ys), {"kv": kv, "ssm": st}
+                                       train=train, reduce=False)
+        ys, st = ssm_mod.ssm_forward(p["ssm"], x, cfg, train=train,
+                                     reduce=False)
+        sa = attn_mod.heads_split(p["attn"], cfg)
+        ss = ssm_mod.ssm_ranks(p["ssm"], cfg) > 1
+        if sa and ss:
+            y = tp.reduce_from_model(0.5 * (ya + ys))
+        else:
+            y = 0.5 * (tp.reduce_from_model(ya, sa)
+                       + tp.reduce_from_model(ys, ss))
+        return y, {"kv": kv, "ssm": st}
     return attn_mod.attn_forward(p["attn"], x, positions, cfg, train=train)
 
 

@@ -33,8 +33,9 @@ program) has no twin: the port's model runs on plain tensors. A
 tensor-parallel train step (``parallel/tensor_parallel``) holds each
 rank's shard of the leaves :func:`model_split_dim` splits, the
 ``model`` entries of these specs under a rule of whole units (whole
-heads, not :func:`_filter_axes`'s flat divisibility), and sums the
-split units at the reference's ``constrain`` points.
+heads, not :func:`_filter_axes`'s flat divisibility; the SSM's
+``in_proj`` and conv split in :class:`Segments`, their B and C whole),
+and sums the split units at the reference's ``constrain`` points.
 """
 from __future__ import annotations
 
@@ -104,13 +105,35 @@ def spec_for_path(path: str, ndim: int, cfg: ModelConfig) -> Spec:
 
 # The units a model axis splits in training (``parallel/tensor_parallel``),
 # each with the counts that every split of it must divide: attention by
-# whole heads (query and KV), the dense MLP by its hidden width, the
-# vocabulary, the expert stacks. Every other leaf stays whole on each rank.
-_ATTN_UNIT = re.compile(r"(^|/)attn/(wq|wk|wv)/(kernel|bias)$"
-                        r"|(^|/)attn/wo/kernel$")
+# whole heads (query and KV; an xdec block's cross-attention too), MLA by
+# its query heads (its latent has no KV heads of its own: ``wukv``
+# expands it to every query head), the SSM by its heads, the dense MLP
+# by its hidden width, the vocabulary, the expert stacks. Every other
+# leaf stays whole on each rank.
+_ATTN_UNIT = re.compile(r"(^|/)x?attn/(wq|wk|wv)/(kernel|bias)$"
+                        r"|(^|/)x?attn/wo/kernel$")
+_MLA_UNIT = re.compile(r"(^|/)attn/(wuq|wukv|wo)/kernel$")
+_SSM_UNIT = re.compile(r"(^|/)ssm/(in_proj/kernel|conv_w|conv_b|A_log|D"
+                       r"|dt_bias|out_proj/kernel)$")
 _MLP_UNIT = re.compile(r"ffn/(shared/)?(wi|wg|wo)/kernel$")
 _VOCAB_UNIT = re.compile(r"(^|/)embed$|(^|/)lm_head/kernel$")
 _EXPERT_UNIT = re.compile(r"ffn/(wi|wg|wo)$")
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A leaf a model axis splits in part: along ``dim``, the whole
+    leaf's consecutive segments, each ``(length, split)``. A rank holds
+    its part of every split segment (the ``index``-th of ``model`` equal
+    parts) and all of every whole one, in the same order. The SSM's
+    ``in_proj`` columns (z, x and dt by heads; B and C, which every head
+    reads, whole) and its conv channels (x by heads; B and C whole)."""
+    dim: int
+    parts: Tuple[Tuple[int, bool], ...]
+
+    def lengths(self, model: int) -> Tuple[int, ...]:
+        """Each segment's length on one rank of ``model``."""
+        return tuple(n // model if s else n for n, s in self.parts)
 
 
 def _unit_counts(path: str, shape, cfg: ModelConfig) -> Tuple[int, ...]:
@@ -118,8 +141,13 @@ def _unit_counts(path: str, shape, cfg: ModelConfig) -> Tuple[int, ...]:
     (none: the leaf is in no unit)."""
     if cfg.family == "basecaller":
         return ()
+    if cfg.mla and _MLA_UNIT.search(path):
+        return (cfg.n_heads,)
     if _ATTN_UNIT.search(path):
         return (cfg.n_heads, cfg.n_kv_heads)
+    if _SSM_UNIT.search(path):
+        from repro_torch.models.lm.ssm import ssm_dims
+        return (ssm_dims(cfg)[1],)
     if _VOCAB_UNIT.search(path):
         return (cfg.vocab_size,)
     if _EXPERT_UNIT.search(path):
@@ -130,18 +158,43 @@ def _unit_counts(path: str, shape, cfg: ModelConfig) -> Tuple[int, ...]:
     return ()
 
 
+def _ssm_split(path: str, shape, cfg: ModelConfig):
+    """An SSM leaf's split where the spec does not give it: ``in_proj``
+    and the conv in :class:`Segments`, the per-head vectors along their
+    last dim (None: ``out_proj``, whose rows the spec gives)."""
+    from repro_torch.models.lm.ssm import ssm_dims
+    d_in, nh, N, _ = ssm_dims(cfg)
+    last = len(shape) - 1
+    if path.endswith("in_proj/kernel"):
+        return Segments(last, ((d_in, True), (d_in, True), (2 * N, False),
+                               (nh, True)))
+    if path.endswith(("conv_w", "conv_b")):
+        return Segments(last, ((d_in, True), (2 * N, False)))
+    if path.endswith(("A_log", "D", "dt_bias")):
+        return last
+    return None
+
+
 def model_split_dim(path: str, shape, cfg: ModelConfig,
-                    model: int) -> Optional[int]:
-    """The dim of a whole leaf (``path``, ``shape``) that a model axis of
-    ``model`` ranks splits in training, or None where it stays whole:
-    the dim :func:`spec_for_path` puts ``model`` on, where ``model``
-    divides every count of the leaf's unit. Unlike :func:`_filter_axes`,
-    which divides a flat dim, this cuts attention only into whole heads
-    (``wk`` at ``n_kv_heads * head_dim`` columns stays whole where the
-    axis does not divide ``n_kv_heads``)."""
+                    model: int) -> Optional[Any]:
+    """How a model axis of ``model`` ranks splits a whole leaf (``path``,
+    ``shape``) in training: the dim it cuts into ``model`` equal parts,
+    a :class:`Segments` where only some segments of a dim split, or None
+    where the leaf stays whole. The dim is the one :func:`spec_for_path`
+    puts ``model`` on (an SSM's per-head leaves, which the spec keeps
+    whole, split by heads), where ``model`` divides every count of the
+    leaf's unit. Unlike :func:`_filter_axes`, which divides a flat dim,
+    this cuts only whole units (``wk`` at ``n_kv_heads * head_dim``
+    columns stays whole where the axis does not divide ``n_kv_heads``;
+    an MLA block's ``wo`` splits with its ``wuq`` and ``wukv`` by query
+    heads)."""
     counts = _unit_counts(path, shape, cfg)
     if model <= 1 or not counts or any(c % model for c in counts):
         return None
+    if _SSM_UNIT.search(path):
+        split = _ssm_split(path, shape, cfg)
+        if split is not None:
+            return split
     spec = spec_for_path(path, len(shape), cfg)
     dims = [d for d, e in enumerate(spec)
             if e == "model" or (isinstance(e, tuple) and "model" in e)]

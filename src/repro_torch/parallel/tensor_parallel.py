@@ -33,14 +33,15 @@ from __future__ import annotations
 
 import contextlib
 import re
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import tree_map, tree_map_with_path
-from repro_torch.parallel.sharding import model_coordinate, model_split_dim
+from repro_torch.parallel.sharding import (Segments, model_coordinate,
+                                          model_split_dim)
 
 _GROUP: Optional[dist.ProcessGroup] = None
 
@@ -144,9 +145,9 @@ def reduce_from_model(x: torch.Tensor, is_split: bool = True
 
 
 def split_dims(tree, cfg: ModelConfig, model: int):
-    """A tree matching a whole parameter tree: each leaf's split dim at
-    a model axis of ``model`` (``sharding.model_split_dim``), None where
-    it stays whole."""
+    """A tree matching a whole parameter tree: how a model axis of
+    ``model`` splits each leaf (``sharding.model_split_dim``: a dim, a
+    ``Segments``, or None where it stays whole)."""
     return tree_map_with_path(
         lambda path, leaf: model_split_dim(path, tuple(leaf.shape), cfg,
                                            model), tree)
@@ -161,13 +162,25 @@ def local_shard(leaf: torch.Tensor, path: str, cfg: ModelConfig,
                  index, model)
 
 
-def shard(leaf: torch.Tensor, dim: Optional[int], index: int,
+def _segments(t: torch.Tensor, seg: Segments, lengths):
+    """``t``'s consecutive pieces along ``seg.dim``, of ``lengths``."""
+    return t.split(list(lengths), seg.dim)
+
+
+def shard(leaf: torch.Tensor, split, index: int,
           model: int) -> torch.Tensor:
-    """Part ``index`` of ``model`` of ``leaf`` along ``dim`` (a copy, so
-    the whole leaf can be freed; the leaf itself for ``dim=None``)."""
-    if dim is None:
+    """Part ``index`` of ``model`` of ``leaf`` under ``split`` (a copy,
+    so the whole leaf can be freed; the leaf itself for ``split=None``):
+    along a dim, or of each split segment of a ``Segments``, every whole
+    segment kept."""
+    if split is None:
         return leaf
-    return leaf.chunk(model, dim)[index].clone()
+    if isinstance(split, Segments):
+        pieces = _segments(leaf, split, [n for n, _ in split.parts])
+        return torch.cat([p.chunk(model, split.dim)[index] if s else p
+                          for p, (_, s) in zip(pieces, split.parts)],
+                         dim=split.dim)
+    return leaf.chunk(model, split)[index].clone()
 
 
 def shard_tree(tree, dims, index: int, model: int):
@@ -175,39 +188,66 @@ def shard_tree(tree, dims, index: int, model: int):
     return tree_map(lambda t, d: shard(t, d, index, model), tree, dims)
 
 
-def whole(t: torch.Tensor, dim: Optional[int],
-          group: dist.ProcessGroup) -> torch.Tensor:
-    """The whole leaf of which ``t`` is this rank's part along ``dim``,
+def split_parts(t: torch.Tensor, split) -> Tuple[list, list]:
+    """(this rank's parts of split segments, whole segments) of a
+    rank's leaf ``t`` under ``split``, so that a sum over the whole leaf
+    (the global norm's squares) sums the split parts over the model
+    group and counts a replicated segment once."""
+    if split is None:
+        return [], [t]
+    if not isinstance(split, Segments):
+        return [t], []
+    pieces = _segments(t, split, split.lengths(size()))
+    return ([p for p, (_, s) in zip(pieces, split.parts) if s],
+            [p for p, (_, s) in zip(pieces, split.parts) if not s])
+
+
+def whole(t: torch.Tensor, split, group: dist.ProcessGroup) -> torch.Tensor:
+    """The whole leaf of which ``t`` is this rank's part under ``split``,
     on every rank of ``group``: each part written into its place in a
     buffer of -0.0 and the buffers summed (``x + -0.0`` is ``x`` for
-    every ``x``, a signed zero too, so the sum is exact). On ``t``'s
-    device, or on the current card where the group runs NCCL."""
-    if dim is None:
+    every ``x``, a signed zero too, so the sum is exact). A whole
+    segment of a ``Segments`` is written by rank 0 alone, so it too is
+    summed with -0.0 only. On ``t``'s device, or on the current card
+    where the group runs NCCL."""
+    if split is None:
         return t
     m, r = dist.get_world_size(group), dist.get_rank(group)
     dev = t.device
     if dist.get_backend(group) == "nccl" and dev.type != "cuda":
         t = t.to("cuda")
+    if isinstance(split, Segments):
+        dim, lengths = split.dim, split.lengths(m)
+        places = [(n, s, p) for (n, s), p in
+                  zip(split.parts, _segments(t, split, lengths))]
+    else:
+        dim = split
+        places = [(t.shape[dim] * m, True, t)]
     shape = list(t.shape)
-    n = shape[dim]
-    shape[dim] = n * m
+    shape[dim] = sum(n for n, _, _ in places)
     fill = -0.0 if t.is_floating_point() else 0
     buf = torch.full(shape, fill, dtype=t.dtype, device=t.device)
-    buf.narrow(dim, r * n, n).copy_(t)
+    at = 0
+    for n, s, p in places:
+        if s:
+            buf.narrow(dim, at + r * p.shape[dim], p.shape[dim]).copy_(p)
+        elif r == 0:
+            buf.narrow(dim, at, n).copy_(p)
+        at += n
     return all_reduce_(buf, group=group).to(dev)
 
 
 _CARRY_PREFIX = re.compile(r"^\.params/|^\.opt_state/\.[mv]/")
 
 
-def carry_key_dims(dims) -> Callable[[str], Optional[int]]:
-    """The split dim of each checkpoint key of a ``TrainCarry`` (the
-    params and AdamW's ``m``/``v`` mirror :func:`split_dims`; the step,
-    int8 moments' scales and model state are whole)."""
+def carry_key_dims(dims) -> Callable[[str], Any]:
+    """The split of each checkpoint key of a ``TrainCarry`` (the params
+    and AdamW's ``m``/``v`` mirror :func:`split_dims`; the step, int8
+    moments' scales and model state are whole)."""
     flat: Dict[str, Any] = {}
     tree_map_with_path(lambda path, d: flat.__setitem__(path, d), dims)
 
-    def of(key: str) -> Optional[int]:
+    def of(key: str) -> Any:
         if not _CARRY_PREFIX.search(key):
             return None
         return flat.get(_CARRY_PREFIX.sub("", key))

@@ -28,8 +28,9 @@ def init_error_state(params) -> Any:
 def compress(g: torch.Tensor, err: torch.Tensor, split=None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (q int8, scale, new_err). Per-tensor symmetric scale;
-    ``split`` (a split dim, not None): ``g`` is this rank's shard of a
-    leaf split over the model group, whose amax is the group's."""
+    ``split`` (not None: a split dim or segments): ``g`` is this rank's
+    shard of a leaf split over the model group, whose amax is the
+    group's (a replicated segment's maximum is its own on every rank)."""
     gf = g.float() + err
     amax = gf.abs().amax()
     if split is not None:

@@ -9,10 +9,11 @@ lists); every value stays on the params' device, the step and the
 metrics as 0-d tensors, so an update reads nothing back to the host.
 
 Over a tensor-parallel model group (``parallel/tensor_parallel``) a
-rank holds its shards of the split leaves: ``split`` names them, and
-the two reductions that read a whole leaf (the global norm's sum of
-squares, an int8 moment's scale) take the group's sum or maximum, so
-every rank's update is its shard of the one-process update.
+rank holds its shards of the split leaves: ``split`` names them (a
+split dim, or the segments of a leaf split in part), and the two
+reductions that read a whole leaf (the global norm's sum of squares, an
+int8 moment's scale) take the group's sum or maximum, so every rank's
+update is its shard of the one-process update.
 """
 from __future__ import annotations
 
@@ -95,23 +96,21 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
                     tree_map(zeros32, params), None, None)
 
 
-def _flags(split, like) -> list:
-    """Per leaf of ``like``: whether ``split`` (a tree of split dims,
-    ``tensor_parallel.split_dims``; None: nothing split) splits it."""
-    if split is None:
-        return [False] * len(tree_leaves(like))
-    return [d is not None for d in tree_leaves(split)]
-
-
 def clip_by_global_norm(grads, max_norm: float, split=None):
     """``(grads * min(1, max_norm / |grads|), |grads|)``: the global L2
-    norm over every leaf, in fp32. ``split``: which leaves are this
-    rank's shards over the model group; their sums of squares are
-    summed over it, and the whole leaves' counted once."""
-    sq = [g.float().square().sum() for g in tree_leaves(grads)]
-    flags = _flags(split, grads)
-    total = sum(s for s, f in zip(sq, flags) if not f)
-    parts = [s for s, f in zip(sq, flags) if f]
+    norm over every leaf, in fp32. ``split``: how a tensor-parallel
+    rank's leaves split over the model group
+    (``tensor_parallel.split_dims``; None: nothing split): the sums of
+    squares of split leaves and split segments are summed over the
+    group, and whole leaves' and whole segments' counted once."""
+    leaves = tree_leaves(grads)
+    splits = ([None] * len(leaves) if split is None
+              else tree_leaves(split))
+    total, parts = 0, []
+    for g, s in zip(leaves, splits):
+        mine, whole = tp.split_parts(g, s)
+        total = total + sum(w.float().square().sum() for w in whole)
+        parts += [p.float().square().sum() for p in mine]
     if parts:
         total = total + tp.all_reduce_(sum(parts))
     gn = torch.sqrt(total)

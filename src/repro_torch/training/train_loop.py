@@ -1,7 +1,7 @@
 """Training loop: train step + checkpoint/restart + optional int8
 gradient compression, for every family the port trains: the basecaller
-(its BatchNorm state threads through TrainCarry) and the LMs
-(``dense``, ``moe``, ``ssm``; ``model_state`` is ``{}``).
+(its BatchNorm state threads through TrainCarry) and the LMs (every
+block kind; ``model_state`` is ``{}``).
 
 On one device, or over a ``(data=n, model=M)`` mesh
 (``launch/mesh.make_host_mesh``, one process a device).
@@ -19,14 +19,14 @@ because every rank's rows are as many.
 Tensor-parallel over ``model`` (M > 1; ``parallel/tensor_parallel.py``):
 the model ranks of one data rank take the same rows, every rank draws
 the whole tree from the same seed and keeps its shard of each leaf
-that a unit splits (attention heads, the MLP's hidden width, the
-vocabulary, the experts), and the model code sums the split units over
-the model group where the reference pins activations on ``model``; the
-optimizer's norm and the int8 round trip's scales read the whole
-leaves through the same group. The basecaller, which the reference
-keeps whole on ``model``, replicates over it. The ``mla_dense``,
-``mla_moe``, ``ssm``, ``hybrid_*`` and ``xdec`` kinds split in other
-ways, not ported yet: a model axis above 1 on them raises.
+that a unit splits (attention and MLA heads, cross-attention heads,
+SSM heads with the B and C segments of their leaves whole, the MLP's
+hidden width, the vocabulary, the experts), and the model code sums the
+split units over the model group where the reference pins activations
+on ``model``; the optimizer's norm and the int8 round trip's scales
+read the whole leaves through the same group. Every LM block kind
+splits. The basecaller, which the reference keeps whole on ``model``,
+replicates over it.
 
 Either way the step equals the one-process step on the global batch,
 up to the order of fp32 sums. Checkpoints hold whole leaves.
@@ -115,33 +115,18 @@ def make_compressed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
-# block kinds whose split over a model axis is not ported (ROADMAP.md,
-# Queue 1 item 6): MLA's, the SSM's, the hybrid's and the
-# encoder-decoder's split in other ways
-UNSPLIT_KINDS = ("mla_dense", "mla_moe", "ssm", "hybrid_full",
-                 "hybrid_swa", "xdec")
-
-
 def _mesh_group(mesh, cfg: ModelConfig):
     """(the data group, this rank's index on ``data``, its size; the
     model group, this rank's index on ``model``, its size) of a
     ``(data, model)`` mesh. The model group is None where nothing
     splits over it: a model axis of 1, or the basecaller, which
-    replicates over it. A model axis above 1 on a block kind in
-    :data:`UNSPLIT_KINDS` raises."""
+    replicates over it. Any other mesh raises."""
     from repro_torch.parallel.sharding import axis_sizes, model_coordinate
     group = mesh.get_group("data")
     data = (mesh.get_local_rank("data"), axis_sizes(mesh)["data"])
     mrank, m = model_coordinate(mesh)
     if m == 1 or cfg.family == "basecaller":
         return group, *data, None, mrank, m
-    from repro_torch.models.lm.transformer import layer_plan
-    for kind, _ in layer_plan(cfg):
-        if kind in UNSPLIT_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: a model axis of {m} (tensor parallelism) "
-                f"does not split the {kind!r} block kind yet (ROADMAP.md, "
-                f"Queue 1 item 6); it trains on a model axis of 1")
     if set(mesh.mesh_dim_names) != {"data", "model"}:
         raise NotImplementedError(
             f"the loop trains on a (data, model) mesh "

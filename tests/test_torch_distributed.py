@@ -312,13 +312,19 @@ def test_launcher_trains_over_two_processes(tmp_path):
 
 def test_launcher_refuses_a_model_axis(tmp_path):
     """``--model-parallel 2`` over 2 ranks gives a model axis of 2, which
-    tensor parallelism does not split the SSM kind over yet
-    (mamba2-130m-smoke): the launcher says so, naming the kind."""
-    for rc, out, err in _launch(tmp_path, "--model-parallel", "2",
-                                arch="mamba2-130m"):
-        assert rc != 0
-        assert "NotImplementedError" in err and "ROADMAP.md" in err
-        assert "'ssm'" in err
+    tensor parallelism now splits the SSM kind over (mamba2-130m-smoke:
+    its 8 heads, 4 a rank, B and C whole): the launcher trains it, both
+    processes printing the same losses, and refuses nothing."""
+    outs = _launch(tmp_path, "--model-parallel", "2", "--seq", "32",
+                   arch="mamba2-130m")
+    for rc, out, err in outs:
+        assert rc == 0, out + err
+        assert "NotImplementedError" not in err
+    rows = [[json.loads(line) for line in out.splitlines()]
+            for _, out, _ in outs]
+    assert [r["step"] for r in rows[0]] == [2]
+    assert np.isfinite(rows[0][0]["loss"])
+    assert [r["loss"] for r in rows[0]] == [r["loss"] for r in rows[1]]
     assert not dist.is_initialized()
 
 

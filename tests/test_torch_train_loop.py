@@ -237,25 +237,40 @@ def test_train_launcher_trains_an_lm(tmp_path, capsys):
 
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_train_launcher_refuses_what_is_not_ported(multi_pod, tmp_path):
-    """A model axis above 1 on a block kind that tensor parallelism does
-    not split yet (the SSM's, mamba2-130m-smoke) is refused on the
-    production meshes (model axis 16, on stand-in ranks) before a
-    parameter is drawn. The dense, vlm and moe families and the
-    basecaller train on a model axis above 1
-    (tests/test_torch_tensor_parallel.py; tests/test_torch_distributed.py
-    runs the launcher's refusal over two processes)."""
+    """The production meshes (model axis 16, on stand-in ranks): every
+    block kind takes a model axis, and the unit rule at 16 keeps
+    mamba2-130m-smoke's 8 SSM heads whole (every leaf of its blocks on
+    every rank) while its vocabulary of 256 splits; the single-pod mesh
+    gives the loop its model group of 16. The multi-pod mesh, whose
+    ``pod`` axis the loop does not train over, is refused before a
+    parameter is drawn."""
+    import torch
     import torch.distributed as dist
 
+    from repro_torch.compat import FakeTensorMode
+    from repro_torch.core.quant.policy import tree_items
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import api
+    from repro_torch.parallel import tensor_parallel as tp
     cfg = get_config("mamba2-130m-smoke")
+    with FakeTensorMode():
+        params = api.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu", dtype=torch.float32)
+    dims = dict(tree_items(tp.split_dims(params, cfg, 16)))
+    assert all(d is None for k, d in dims.items() if "/ssm/" in k)
+    assert dims["embed"] == 0
     try:
         mesh = make_production_mesh(multi_pod=multi_pod)
-        with pytest.raises(NotImplementedError,
-                           match="model axis of 16 .*does not split the "
-                           "'ssm' block kind"):
-            train_loop.run(cfg, opt.AdamWConfig(), train_loop.TrainLoopConfig(
-                steps=1, ckpt_dir=str(tmp_path)), iter(()), device="cpu",
-                mesh=mesh)
+        if multi_pod:
+            with pytest.raises(NotImplementedError,
+                               match="trains on a \\(data, model\\) mesh"):
+                train_loop.run(cfg, opt.AdamWConfig(),
+                               train_loop.TrainLoopConfig(
+                                   steps=1, ckpt_dir=str(tmp_path)),
+                               iter(()), device="cpu", mesh=mesh)
+        else:
+            got = train_loop._mesh_group(mesh, cfg)
+            assert got[3] is not None and got[5] == 16
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
