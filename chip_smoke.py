@@ -138,8 +138,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (CUDA events, host enqueue beside it), samples/s, peak device memory
    and one traced step. Then the offline identity gate on the benchmark
    simulator (``training/evaluate.py``): rubicall-smoke under
-   QuantPolicy(8, 8) trained 300 steps, and full-width RUBICALL for as
-   many steps as fit in about 60 s; each basecalls its held-out reads
+   QuantPolicy(8, 8) trained 300 steps, and full-width RUBICALL for
+   ``FULL_TRAIN_STEPS`` steps (a fixed count: a time budget made the
+   count follow the host, and near the onset of emission, ~100 steps,
+   kernel and plain parted); each basecalls its held-out reads
    with float weights, with int8-packed weights through qconv1d_block
    (3 launches a forward on the CUDA-core route at smoke, packed with
    min_size=1; 19 on the tensor-core route at full width, packed as
@@ -333,6 +335,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``tensor_parallel.COUNTS``), each rank's peak memory, parameter and
    AdamW bytes, and the step ms of each run. This phase says nothing
    about speed: the ranks' all-reduces go through the host.
+26. graphs (runs after phase 19) — the tick plans as CUDA graphs
+   (``serving/plan.py``: each plan bucket captured once at warmup and
+   replayed every tick) against eager plans (``graphs=False``). First
+   scatter_rows, the tick's fixed-shape KV, scale and position writes
+   with dropped sentinels, held byte for byte against its plain version
+   (the filtered ``index_put_``) at the main path's row shapes (qwen's
+   bf16, fp8, int8 and fp16 K/V and int8 scales, deepseek's latent and
+   rope key, hymba's and whisper's K/V, the int32 positions), 4 and 64
+   writes with every fourth dropped, and timed over one qwen1.5-4b
+   decode tick's 120 launches beside its byte bound. Then RUBICALL at
+   B = 4 with read-until (phase 13's classifier), qwen1.5-4b (6
+   requests, 16 new: decode and mixed ticks, greedy and sampled),
+   hymba-1.5b (4 requests, 8 new), mamba2-130m (phase 18's 8 short
+   requests: the SSM-only runner) and whisper-tiny (phase 19's
+   traffic) each drained through an engine with graph plans and one
+   with eager plans: the same tokens, bases, statuses and ejections,
+   the same launches by route, retraces 0, one graph a plan and none;
+   so are qwen1.5-4b over an int8 and over an fp8 arena and on the
+   ``gather`` backend (the served paths phase 16 drives eagerly). Each
+   captured graph is read node by node (``cudaGraphDebugDotPrint``):
+   the port's kernels in it, by source, equal the launches its capture
+   tallied, and the traced tick's graph holds what the same tick
+   launches eagerly, so a launch counted under graphs is a node the
+   device runs. One tick's outputs (RUBICALL's log-probs and
+   classifier logits; a mixed and a decode tick's logits for the LMs,
+   over one pool state) through a captured graph and eagerly, bit for
+   bit or within an eager rerun's spread; each plan kind's tick traced
+   (host enqueue, device, wall to readback; for the int8, fp8 and
+   gather paths an all-pad decode tick). Every trace (this phase's and
+   those of phases 3, 6, 9, 11-15 and 17) prints the port's kernels
+   that torch.profiler saw start beside the launches counted (the
+   profiler has lost a few kernels of a long run). Phases that swap or
+   watch a kernel wrapper in Python (16-19) serve through eager plans;
+   the MoE runners (deepseek, phase 8) keep eager plans and say why
+   (``plan_stats()``).
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -374,6 +411,7 @@ from repro_torch.kernels import _build, ops, qconv1d, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import qmatmul as qmm  # noqa: E402
+from repro_torch.kernels import scatter_rows as sr  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
@@ -386,6 +424,7 @@ from repro_torch.models.lm import moe as moe_mod  # noqa: E402
 from repro_torch.models.lm import transformer as tfm  # noqa: E402
 from repro_torch.serving.engine import Request  # noqa: E402
 from repro_torch.serving import runner as runner_mod  # noqa: E402
+from repro_torch.serving.plan import PlanCache  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
 from repro_torch.core import pruning, skipclip  # noqa: E402
 from repro_torch.core.qabas.search import (QABASConfig,  # noqa: E402
@@ -393,7 +432,7 @@ from repro_torch.core.qabas.search import (QABASConfig,  # noqa: E402
 from repro_torch.core.qabas.space import TINY_SPACE  # noqa: E402
 from repro_torch.core.quant.policy import (quantize_tree,  # noqa: E402
                                            tree_size_bytes)
-from repro_torch.data.squiggle import SquiggleConfig  # noqa: E402
+from repro_torch.data.squiggle import SquiggleConfig, normalize  # noqa: E402
 from repro_torch.data.squiggle import batches as squiggle_batches  # noqa: E402
 from repro_torch.data.tokens import token_batches  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
@@ -678,14 +717,137 @@ def tick_both_paths(runner, cfg, window):
     return out
 
 
+# the port's kernels by CUDA source: the wrappers that count their
+# launches there, and the kernels that start each counted launch, once
+# (a split's combine or finish kernel and ssd's chunk pass follow it)
+OWN_KERNELS = {
+    "qmatmul.cu": (("qmatmul",), ("qmatmul_kernel", "qmatmul_tc_kernel")),
+    "paged_attention.cu": (("gqa_paged", "gqa_paged_chunk"),
+                           ("gqa_paged_kernel", "gqa_chunk_tc_kernel")),
+    "mla_paged_attention.cu": (("mla_paged", "mla_paged_chunk"),
+                               ("mla_paged_kernel", "mla_tc_kernel")),
+    "qconv1d.cu": (("qconv1d_block",),
+                   ("qconv1d_block_kernel", "qconv1d_tc_kernel")),
+    "ssd_scan.cu": (("ssd_scan",), ("ssd_kernel", "ssd_state_tc_kernel")),
+    "flash_attention.cu": (("flash_attention",),
+                           ("flash_kernel", "flash_tc_kernel")),
+    "scatter_rows.cu": (("scatter_rows",), ("scatter_rows_kernel",))}
+OWN_FOLLOWERS = ("qmatmul_finish", "gqa_chunk_combine", "ssd_chunk_tc_kernel")
+
+
+@contextlib.contextmanager
+def kept_graphs():
+    """CUDA graphs made inside keep their ``cudaGraph_t`` after they are
+    instantiated (``keep_graph=True``), so that :func:`graph_census`
+    can read their nodes."""
+    base = torch.cuda.CUDAGraph
+
+    class Kept(base):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, keep_graph=True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(keep_graph=True)
+    with mock.patch.object(torch.cuda, "CUDAGraph", Kept):
+        yield
+
+
+# a kernel node of cudaGraphDebugDotPrint's verbose output: "{ID | 3
+# (topoId: 0) | <mangled name>\<\<\<..."
+DOT_KERNEL = re.compile(r"\{ID \| \d+ \(topoId: \d+\) \| ([^\\\s|}]+)")
+
+
+def graph_nodes(graph) -> dict:
+    """The port's kernels in one captured graph, read from the graph
+    itself: {CUDA source: kernel nodes that start a launch}. A mangled
+    name holds each identifier behind its length."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        names = DOT_KERNEL.findall(Path(path).read_text())
+    out = {}
+    for src, (_, heads) in OWN_KERNELS.items():
+        n = sum(any(f"{len(h)}{h}" in name for h in heads) for name in names)
+        if n:
+            out[src] = n
+    return out
+
+
+def tally_by_source(tally) -> dict:
+    """A capture's tally ({(wrapper, kernel, route): n}) by CUDA source."""
+    out = {}
+    for (_, kernel, _), n in tally.items():
+        src = next(s for s, (ws, _) in OWN_KERNELS.items() if kernel in ws)
+        out[src] = out.get(src, 0) + n
+    return out
+
+
+def graph_census(plans, where: str) -> dict:
+    """Every captured plan of ``plans`` (made under :func:`kept_graphs`,
+    not replayed yet; instantiated here, as a graph that is not kept is
+    at the end of its capture): the port's kernel nodes in its graph,
+    by source, against the launches its capture tallied, which each
+    replay counts. They must be equal: a launch counted under graphs is
+    then a node the device runs at every replay. Returns {plan key:
+    {source: nodes}}."""
+    out = {}
+    for key, st in plans._staged.items():
+        if st.graph is None:
+            continue
+        # a kept graph is instantiated at its first replay, not at the
+        # end of its capture: here, before any tick is timed
+        st.graph.instantiate()
+        nodes, tallied = graph_nodes(st.graph), tally_by_source(st.tally)
+        if nodes != tallied:
+            raise AssertionError(f"{where} plan {key}: the graph holds "
+                                 f"{nodes} of the port's kernels, its "
+                                 f"capture tallied {tallied}")
+        out[key] = nodes
+    print(f"[graphs] {where}: {len(out)} graphs read node by node, the "
+          f"port's kernels in each equal to its capture's tally "
+          f"(e.g. {next(iter(out.items()), None)})")
+    return out
+
+
+def kernel_name(key: str) -> str:
+    """The function name in a profiler kernel key such as ``void
+    (anonymous namespace)::qmatmul_tc_kernel<8, 1>(...)``."""
+    m = re.search(r"(\w+)[<(]", key)
+    return m.group(1) if m else key
+
+
+def own_launches(prof, counted: dict) -> dict:
+    """The port's kernels that torch.profiler saw start, by CUDA source,
+    beside the launches the wrappers counted in the same call:
+    ``{source: [counted, profiled]}``, sources with either."""
+    seen = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_name(e.key)
+            seen[name] = seen.get(name, 0) + e.count
+    out = {}
+    for src, (wrappers, heads) in OWN_KERNELS.items():
+        pair = [sum(counted.get(w, 0) for w in wrappers),
+                sum(seen.get(h, 0) for h in heads)]
+        if any(pair):
+            out[src] = pair
+    return out
+
+
 def trace(label: str, enqueue, share: tuple = (), fetch=None) -> dict:
     """Where one served tick's time goes. ``enqueue()`` enqueues the
     tick and returns its output on the card; ``fetch(out)`` reads it
     back (default ``out.cpu()``). Without the profiler: host time to
     enqueue, device time from the first enqueue to the last kernel (CUDA
     events), and wall time to the readback. Under torch.profiler
-    (CUPTI): the device time of every kernel, summed and by kernel, and
-    the share of the kernels whose names hold one of ``share``."""
+    (CUPTI): the device time of every kernel, summed and by kernel, the
+    share of the kernels whose names hold one of ``share``, and the
+    port's kernels it saw start beside the launches the wrappers counted
+    in that call (``own_launches``; printed, not a gate: the profiler
+    has lost kernels of a long process, 2 of a graphed tick's 281
+    qmatmul in one whole run; :func:`graph_census` reads a graph's own
+    nodes)."""
     from torch.profiler import ProfilerActivity, profile
     fetch = fetch or (lambda out: out.cpu())
     enqueue()
@@ -702,11 +864,13 @@ def trace(label: str, enqueue, share: tuple = (), fetch=None) -> dict:
     print(f"[trace] {label}: host enqueue {t_host * 1e3:.2f} ms, device "
           f"{a.elapsed_time(b):.2f} ms from first enqueue to last kernel, "
           f"wall to readback {t_wall * 1e3:.2f} ms")
+    before = ops.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fetch(enqueue())
         t_prof = time.perf_counter() - t0
+    counted = {k: n - before[k] for k, n in ops.launch_counts().items()}
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
@@ -716,11 +880,19 @@ def trace(label: str, enqueue, share: tuple = (), fetch=None) -> dict:
           f"{busy:.2f} ms in {sum(r[1] for r in rows)} launches, wall "
           f"{t_prof * 1e3:.2f} ms (device busy {busy / (t_prof * 1e3):.1%})")
     # the top 8, then the port's own kernels further down
+    own_names = {h for _, heads in OWN_KERNELS.values() for h in heads}
+    own_names.update(OWN_FOLLOWERS)
     for i, (us, n, key) in enumerate(rows):
-        if i < 8 or key.startswith("void (anonymous namespace)::"):
+        if i < 8 or kernel_name(key) in own_names:
             print(f"[trace]   {us / 1e3:8.3f} ms  {n:4d}x  {key[:90]}")
+    own = own_launches(prof, counted)
+    parted = any(c != p for c, p in own.values())
+    print(f"[trace] {label}: the port's kernels by source, launches "
+          f"counted / started under the profiler "
+          f"{ {s: f'{c}/{p}' for s, (c, p) in own.items()} }"
+          + (" (the profiler lost or gained events)" if parted else ""))
     out = {"host_ms": t_host * 1e3, "device_ms": a.elapsed_time(b),
-           "wall_ms": t_wall * 1e3, "busy_ms": busy}
+           "wall_ms": t_wall * 1e3, "busy_ms": busy, "own_launches": own}
     out["launches"] = sum(r[1] for r in rows)
     if share:
         mine = [r for r in rows if any(k in r[2] for k in share)]
@@ -819,8 +991,8 @@ def phase_serve() -> dict:
                 or agree < bound[2]:
             raise AssertionError(f"served tick ({name}): kernel path "
                                  f"disagrees with the plain path")
-    fwd = runner.plans.fn(runner._plan_key)
-    trace("one tick", lambda: runner._forward(fwd, *window))
+    fwd = runner.plans.fn(runner._plan_key)        # eager: phase 26 graphs
+    trace("one tick", lambda: fwd(*window))
     return {"launches": launches, "routes": routes["qconv1d_block"]}
 
 # ---------------------------------------------------------------------------
@@ -1307,7 +1479,8 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple,
     per_tick = qmatmul_per_tick(cfg)
     want = {"qmatmul": per_tick * ticks,
             attn[0]: cfg.n_layers * narrow,
-            attn[1]: cfg.n_layers * (ticks - narrow)}
+            attn[1]: cfg.n_layers * (ticks - narrow),
+            "scatter_rows": scatter_per_tick(cfg) * ticks}
     for name, n in want.items():
         if counts[name] != n or n == 0:
             raise AssertionError(f"{name} launched {counts[name]} times in "
@@ -1321,6 +1494,7 @@ def phase_lm_serve(cfg, attn: tuple, bounds: tuple,
         raise AssertionError(f"qmatmul routes {by_route['qmatmul']}, want "
                              f"{want['qmatmul']} on tensor_core")
     st = engine.metrics.summary()
+    check_plan_stats(runner, cfg, st)
     decode_ticks = sum(n for (kind, _, _), n in calls.items()
                        if kind == "decode")
     print(f"[serve-lm] {cfg.name}: {st['requests_done']} requests (8 "
@@ -1460,7 +1634,7 @@ def phase_lm_trace(served: dict) -> dict:
                 else (tok, t, zeros, None, None))
 
         def enqueue():
-            return fn(*args, None)
+            return fn(*args, runner.pool.host_tables(), None)
         out[kind] = trace(f"one {kind} tick ({served['cfg'].name}, B={B}, "
                           f"C={t.shape[1]})", enqueue)
     return out
@@ -2175,7 +2349,10 @@ def streamed_run(engine, args, where: str, **kw) -> dict:
     runner.step = timed(counted, "step_s")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = serve.run_streamed(engine, types.SimpleNamespace(**args), **kw)
+    # warmup: stream_engine warmed the engine, so the launcher's report
+    # gates on retraces as after --warmup
+    out = serve.run_streamed(engine, types.SimpleNamespace(
+        **args, warmup=True), **kw)
     torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - t0
     launches = ops.launch_counts()["qconv1d_block"]
@@ -2455,6 +2632,7 @@ def phase_stream() -> dict:
                                  "samples_saved":
                                      run["summary"]["samples_saved"]}
     out["forced"] = forced
+    out["ru"] = ru                        # phase 26 serves with it
     print(f"[stream] forced verdicts: +1e9 ejected all {STREAM['requests']} "
           f"reads after {2 * core} samples each (saved "
           f"{forced['+1e+09']['samples_saved']:.0f}); -1e9 ejected none, "
@@ -2470,9 +2648,12 @@ TRAIN = dict(batch=8, seq=2048, steps=50, ckpt_every=25)   # the launcher's
 TRAIN_TIMED = 20            # steps timed one by one after the loop
 IDENT_BATCHES = 4           # held-out batches of 8 reads (evaluate.py)
 SMOKE_STEPS = 300           # the reference identity test's setting
-FULL_TRAIN_S = 20.0         # full-width training budget, seconds: the
-#                             gate compares kernel and plain identity and
-#                             sets no absolute one
+FULL_TRAIN_STEPS = 160      # full-width training steps: the gate compares
+#                             kernel and plain identity and sets no absolute
+#                             one. A fixed count past the onset of emission
+#                             (kernel 0.4118, plain 0.4087 in two runs on an
+#                             H100 80GB HBM3 at 700 W); near ~100 steps,
+#                             where emission starts, the two parted by 0.0104
 IDENT_TOL = 0.005           # kernel identity vs plain identity
 REF_SMOKE_IDENTITY = 0.018  # the reference's, on the CPU (ROADMAP Queue 3)
 
@@ -2614,22 +2795,9 @@ def phase_train() -> dict:
     out["smoke"] = identity_gate(
         "rubicall-smoke", smoke, p, s,
         quantize_tree(p, QuantPolicy(8, 0), min_size=1), 3, "cuda_core")
-    # full width: as many steps as fit in FULL_TRAIN_S at the rate of 8
-    # steps of this shape enqueued back to back, as train_model runs them
-    b0 = {k: torch.from_numpy(v).cuda()
-          for k, v in next(train_eval.data_iter(0)).items()}
-    q = tree_map(lambda x: x.cuda(), api.init_params(
-        torch.Generator().manual_seed(0), cfg))
-    warm = api.TrainCarry(q, init_opt_state(q, opt_cfg), tree_map(
-        lambda x: x.cuda(), api.init_model_state(cfg)))
-    for i in range(10):
-        if i == 2:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        warm, _ = step(warm, b0)
-    torch.cuda.synchronize()
-    steps = max(50, int(FULL_TRAIN_S / ((time.perf_counter() - t0) / 8)))
-    del warm, q
+    # full width: a fixed step count (its identity does not follow the
+    # host's speed)
+    steps = FULL_TRAIN_STEPS
     t0 = time.perf_counter()
     p, s, loss = train_eval.train_model(cfg, steps=steps, device="cuda")
     t_full = time.perf_counter() - t0
@@ -3168,6 +3336,8 @@ def phase_rubicon() -> dict:
                 (tfm, "decode_step_slots", watch.step)):
             stack.enter_context(mock.patch.object(
                 mod, name, hook(getattr(mod, name))))
+        # the watch hooks Python wrappers and the step: eager plans
+        stack.enter_context(eager_plans())
         serve.main(KNOB_ARGV)
     search_s = time.perf_counter() - t0
     total = ops.launch_counts(routes=True)
@@ -3210,9 +3380,13 @@ def phase_rubicon() -> dict:
         if not same_tokens:
             raise AssertionError(f"{where}: drains served other tokens")
         others = {n: v for n, v in got.items() if sum(v.values()) and
-                  n not in ATTN_KERNELS + ("qmatmul",)}
-        if others:
-            raise AssertionError(f"{where}: launched {others}")
+                  n not in ATTN_KERNELS + ("qmatmul", "scatter_rows")}
+        sc = ticks * scatter_per_tick(cfg, int8=k.quant_policy == "int8")
+        if others or got["scatter_rows"] != {"tensor_core": 0,
+                                             "cuda_core": sc}:
+            raise AssertionError(f"{where}: launched {others}, scatter_rows "
+                                 f"{got['scatter_rows']} (want {sc} on "
+                                 f"cuda_core)")
         rows.append({"knobs": k.label(), "tok_s": r.decode_tok_s,
                      "cache_bytes": r.cache_bytes,
                      "tok_s_per_mib": r.score * 2 ** 20,
@@ -3406,10 +3580,12 @@ def serve_held(params, cfg, backend: str, reqs,
     against its plain version and each row's top logits kept. Returns
     the engine, the launches by kernel and route, the plans' calls, the
     held calls by bucket and the ticks held of the ticks served."""
+    # eager plans: the watch and the flash hold wrap Python functions,
+    # which a graph's replay never calls
     engine = api.make_serving_engine(
         params, cfg, device="cuda", n_slots=LM_SLOTS, cache_len=cache_len,
         prefill_chunk=LM_CHUNK, block_len=BLOCK, cache_dtype=torch.bfloat16,
-        attn_backend=backend)
+        attn_backend=backend, graphs=False)
     runner = engine.runner
     engine.warmup()
     watch = HeldWatch(hold_from)
@@ -3463,14 +3639,18 @@ def check_served(cfg, r: dict, want: dict, where: str) -> tuple:
     ticks = sum(calls.values())
     narrow = sum(n for (_, w, _), n in calls.items() if w == 1)
     counts = {k: c for k, c in r["counts"].items() if c}
+    sc = scatter_per_tick(cfg)
     expect = {k: a * narrow + b * (ticks - narrow)
-              for k, (a, b) in want.items()}
+              for k, (a, b) in {**want, "scatter_rows": (sc, sc)}.items()}
     expect = {k: n for k, n in expect.items() if n}
     if counts != expect:
         raise AssertionError(f"{where}: launches {counts} in {ticks} ticks "
                              f"({narrow} of width 1), want {expect}")
-    check_routes({k: r["routes"][k] for k in counts}, tuple(counts), where)
-    if set(r["held"]) != set(counts) or not held_ok(r["held"]):
+    # the tick's writes (scatter_rows, a byte copy on CUDA cores) are held
+    # in phase 26, at full width, not call by call here
+    mma = tuple(k for k in counts if k != "scatter_rows")
+    check_routes({k: r["routes"][k] for k in counts}, mma, where)
+    if set(r["held"]) != set(mma) or not held_ok(r["held"]):
         raise AssertionError(f"{where}: kernels vs plain over the drain "
                              f"{r['held']}, launched {counts}")
     return ticks, narrow
@@ -3725,7 +3905,9 @@ def check_audio_served(cfg, r: dict, where: str) -> tuple:
             "gqa_paged_chunk": {"tensor_core": L * (ticks - narrow),
                                 "cuda_core": 0},
             "flash_attention": {"tensor_core": cfg.n_enc_layers * admits,
-                                "cuda_core": 0}}
+                                "cuda_core": 0},
+            "scatter_rows": {"tensor_core": 0,
+                             "cuda_core": scatter_per_tick(cfg) * ticks}}
     want = {k: v for k, v in want.items() if sum(v.values())}
     got = {k: v for k, v in r["routes"].items() if sum(v.values())}
     if got != want or admits != 8:
@@ -3811,7 +3993,8 @@ def phase_audio_serve() -> dict:
                if k[0] in ("decode", "mixed")}
     g_ticks = sum(g_calls.values())
     g_want = {"qmatmul": qmatmul_per_tick(cfg) * g_ticks,
-              "flash_attention": cfg.n_enc_layers * 8}
+              "flash_attention": cfg.n_enc_layers * 8,
+              "scatter_rows": scatter_per_tick(cfg) * g_ticks}
     if {k: c for k, c in gather["counts"].items() if c} != g_want:
         raise AssertionError(f"gather drain launches {gather['counts']}, "
                              f"want {g_want}")
@@ -4534,13 +4717,14 @@ def phase_dp_train(smi: str) -> dict:
 # Phase 24: the serving-invariant analyzer (python -m repro_torch.analysis)
 
 ANALYSIS_KERNELS = ("gqa_paged", "gqa_paged_chunk", "mla_paged",
-                    "mla_paged_chunk", "qmatmul")
+                    "mla_paged_chunk", "qmatmul", "scatter_rows")
 
 
 def analysis_expected(tgt) -> dict:
     """The launches a ``cuda`` smoke target of the analyzer makes on the
     card, ``{kernel: {route: n}}``, from the wrappers' own route rules:
-    a serving tick one attention kernel a layer, an attention op or
+    a serving tick one attention kernel a layer (none on ``gather``)
+    and its writes (``scatter_rows``), an attention op or
     ``qmatmul[int8]`` one launch."""
     from repro_torch.analysis import targets as atg
     name = tgt.name
@@ -4557,14 +4741,18 @@ def analysis_expected(tgt) -> dict:
     cfg = get_config(name[len("step["):].split("/")[0])
     chunk = name.endswith("/mixed]")
     L, bl = atg.CACHE_LEN, atg.BLOCK_LEN
+    writes = {"scatter_rows": {"cuda_core": scatter_per_tick(
+        cfg, int8=dt == torch.int8)}}
+    if tgt.backend != "cuda":
+        return writes
     if cfg.mla_kv_lora_rank:
-        return {("mla_paged_chunk" if chunk else "mla_paged"): {pa.mla_route(
-            dt, cfg.mla_kv_lora_rank, cfg.mla_qk_rope_dim, bl, L):
-            cfg.n_layers}}
+        return {**writes, ("mla_paged_chunk" if chunk else "mla_paged"): {
+            pa.mla_route(dt, cfg.mla_kv_lora_rank, cfg.mla_qk_rope_dim, bl,
+                         L): cfg.n_layers}}
     hd = cfg.resolved_head_dim
     route = (pa.chunk_route(dt, atg.CHUNK, hd) if chunk
              else pa.decode_route(dt, hd))
-    return {("gqa_paged_chunk" if chunk else "gqa_paged"):
+    return {**writes, ("gqa_paged_chunk" if chunk else "gqa_paged"):
             {route: cfg.n_layers}}
 
 
@@ -4595,7 +4783,9 @@ def phase_analysis(smi: str) -> dict:
     for tgt in targets:
         got = tgt.jaxpr.launches()
         want = (analysis_expected(tgt) if tgt.backend == "cuda"
-                or tgt.kind == "qmatmul" else {})
+                or tgt.kind == "qmatmul" or (tgt.kind == "serving-step"
+                                             and tgt.backend == "gather")
+                else {})
         if got != want:
             raise AssertionError(f"{tgt.name}: launched {got}, want {want}")
         for k, by in got.items():
@@ -4649,7 +4839,8 @@ def phase_analysis_full(served: dict, smi: str) -> dict:
         kernel = ("gqa_paged" if tgt.name.endswith("/decode]")
                   else "gqa_paged_chunk")
         want = {kernel: {"tensor_core": cfg.n_layers},
-                "qmatmul": {"tensor_core": per_tick}}
+                "qmatmul": {"tensor_core": per_tick},
+                "scatter_rows": {"cuda_core": scatter_per_tick(cfg)}}
         got = tgt.jaxpr.launches()
         print(f"[analysis] {tgt.name}: {len(tgt.jaxpr.ops)} ops recorded "
               f"(aten ops and kernel launches), launches {got} ({smi})")
@@ -4994,6 +5185,518 @@ def phase_tp_train(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the tick plans as CUDA graphs (serving/plan.py) against eager
+# plans, and the tick's fixed-shape writes (scatter_rows) against their
+# plain version
+
+GRAPH_LM = [(LM_ARCH, 6, 16), (HYMBA_ARCH, 4, 8)]   # (arch, requests, new)
+# qwen1.5-4b's served paths that phases 16-19 drive only through eager
+# plans (they watch Python wrappers), drained here with graph plans too:
+# (label, engine keywords)
+GRAPH_VARIANTS = [("int8 arena", {"quant_policy": "int8"}),
+                  ("fp8 arena", {"quant_policy": "fp8"}),
+                  ("gather backend", {"attn_backend": "gather"})]
+# the main path's scatter_rows shapes: (label, arena row shape, dtype);
+# qwen1.5-4b's K/V, int8 bytes and scales, deepseek's latent and rope
+# key, hymba's and whisper-tiny's K/V, every group's positions
+SCATTER_ROWS = [("qwen K/V bf16", (20, HD), torch.bfloat16),
+                ("qwen K/V fp8", (20, HD), torch.float8_e4m3fn),
+                ("qwen K/V int8", (20, HD), torch.int8),
+                ("qwen int8 scales", (20,), torch.float32),
+                ("qwen K/V fp16", (20, HD), torch.float16),
+                ("deepseek latent bf16", (512,), torch.bfloat16),
+                ("deepseek rope key bf16", (64,), torch.bfloat16),
+                ("hymba K/V bf16", (5, 64), torch.bfloat16),
+                ("whisper K/V bf16", (6, 64), torch.bfloat16),
+                ("positions int32", (), torch.int32)]
+SCATTER_BLOCKS = LM_SLOTS * LM_CACHE // BLOCK     # qwen's arena blocks
+
+
+def scatter_per_tick(cfg, int8: bool = False) -> int:
+    """scatter_rows launches of one served tick: per layer with a KV
+    cache its K and V (an MLA layer's latent and rope key) and its
+    positions, and over an int8 arena the two scale leaves."""
+    per = 5 if int8 else 3
+    return per * sum(n for _, kind, n in tfm.group_names(cfg)
+                     if kind != "ssm")
+
+
+@contextlib.contextmanager
+def eager_plans():
+    """Every runner built inside keeps eager plans (``graphs=False``): a
+    phase that swaps or watches a kernel wrapper, or hooks the step, in
+    Python would see nothing of a graph's replay."""
+    with contextlib.ExitStack() as stack:
+        for cls in (runner_mod.BasecallerRunner, runner_mod.TokenRunner):
+            stack.enter_context(mock.patch.object(
+                cls, "__init__",
+                functools.partialmethod(cls.__init__, graphs=False)))
+        yield
+
+
+def check_plan_stats(runner, cfg, summary) -> dict:
+    """A served runner's plans: every one warmed, no retrace, and one
+    CUDA graph each when the runner captures; a config with a MoE block
+    keeps eager plans and says why."""
+    st = runner.plan_stats()
+    moe = cfg.family != "basecaller" and any(
+        k in tfm.MOE_KINDS for _, k, _ in tfm.group_names(cfg))
+    want = st["plans"] if runner.plans.graphed else 0
+    if summary["retraces"] or st["warmed"] != st["plans"] or \
+            st["graphs"] != want or (moe and (
+                runner.plans.graphed
+                or st.get("eager_reason") != runner_mod.MOE_EAGER)):
+        raise AssertionError(f"{cfg.name}: plans {st}, retraces "
+                             f"{summary['retraces']}")
+    print(f"[graphs] {cfg.name}: {st['plans']} plans, {st['graphs']} CUDA "
+          f"graphs, retraces={summary['retraces']:.0f}"
+          + (f"; eager: {st['eager_reason']}" if moe else ""))
+    return st
+
+
+def scatter_inputs(rs, n: int, row: tuple, dtype):
+    """``n`` writes into an arena of ``SCATTER_BLOCKS`` blocks of
+    ``BLOCK`` rows of shape ``row`` (int32: a position table (4, 256)),
+    at distinct rows, as a tick's are, every fourth carrying the
+    sentinel (a pad token or an unassigned block); on the card."""
+    if dtype == torch.int32:
+        n0, n1 = LM_SLOTS, LM_CACHE
+        dst = torch.from_numpy(rs.randint(-9, 9, (n0, n1)).astype(np.int32))
+        src = torch.from_numpy(rs.randint(0, 999, n).astype(np.int32))
+    else:
+        n0, n1 = SCATTER_BLOCKS, BLOCK
+
+        def draw(shape):
+            if dtype == torch.int8:
+                return torch.from_numpy(rs.randint(-127, 128, shape).astype(
+                    np.int8))
+            return torch.from_numpy(rs.randn(*shape).astype(
+                np.float32)).to(dtype)
+        dst, src = draw((n0, n1, *row)), draw((n, *row))
+    flat = rs.permutation(n0 * n1)[:n]
+    i0, i1 = flat // n1, flat % n1
+    if dtype == torch.int32:
+        i1[::4] = n1                  # a pad token's position column
+    else:
+        i0[::4] = n0                  # a pad token or an unassigned block
+    return (dst.cuda(), torch.from_numpy(i0.astype(np.int64)).cuda(),
+            torch.from_numpy(i1.astype(np.int64)).cuda(), src.cuda())
+
+
+def synced_ms(calls, reps: int = 3) -> float:
+    """Median time of one call of ``calls``, each of which waits for the
+    device (the plain scatter reads its filter back): CUDA events around
+    the calls, host time included, no sleep ahead of them."""
+    for fn in calls[:2]:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for fn in calls:
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / len(calls))
+    return statistics.median(times)
+
+
+def scatter_check() -> dict:
+    """scatter_rows at the main path's shapes (a decode tick's 4 writes
+    and a mixed tick's 64, every fourth dropped) against its plain
+    version, byte for byte; then the time of one qwen1.5-4b decode
+    tick's 120 launches (40 layers' K, V and positions) for the kernel
+    and the plain version, and their byte bound."""
+    rs = np.random.RandomState(26)
+    rows = {}
+    with uncounted():
+        for label, row, dtype in SCATTER_ROWS:
+            for n in (LM_SLOTS, LM_SLOTS * LM_CHUNK):
+                dst, i0, i1, src = scatter_inputs(rs, n, row, dtype)
+                want = dst.clone()
+                ref.scatter_rows_ref(want, i0, i1, src)
+                before = dict(sr.scatter_rows_cuda.routes)
+                ops.scatter_rows(dst, i0, i1, src)
+                if sr.scatter_rows_cuda.routes != {
+                        **before, "cuda_core": before["cuda_core"] + 1}:
+                    raise AssertionError(f"scatter_rows {label}: routes "
+                                         f"{sr.scatter_rows_cuda.routes}")
+                bad = int((pa._bytes_view(dst) != pa._bytes_view(want))
+                          .sum())
+                print(f"[kernel] scatter_rows {label} n={n}: bytes that "
+                      f"differ from the plain version {bad}")
+                if bad:
+                    raise AssertionError(f"scatter_rows {label} n={n}: "
+                                         f"{bad} bytes differ")
+                rows[f"{label} n={n}"] = bad
+        # one decode tick's launches, each over its own layer's arena
+        kv = [scatter_inputs(rs, LM_SLOTS, (20, HD), torch.bfloat16)
+              for _ in range(2 * PLAIN_COPIES)]
+        posi = [scatter_inputs(rs, LM_SLOTS, (), torch.int32)
+                for _ in range(PLAIN_COPIES)]
+        k_ms = device_ms([functools.partial(ops.scatter_rows, *a)
+                          for a in kv])
+        p_ms = device_ms([functools.partial(ops.scatter_rows, *a)
+                          for a in posi])
+        k_pl = synced_ms([functools.partial(ref.scatter_rows_ref, *a)
+                          for a in kv])
+        p_pl = synced_ms([functools.partial(ref.scatter_rows_ref, *a)
+                          for a in posi])
+    L = get_config(LM_ARCH).n_layers
+    landed = LM_SLOTS - len(range(0, LM_SLOTS, 4))
+    nbytes = L * (2 * landed * 2 * (20 * HD * 2) + landed * 2 * 4
+                  + 3 * LM_SLOTS * 16)
+    bound, by = bound_ms(nbytes, 0, torch.bfloat16)
+    out = {"ms": L * (2 * k_ms + p_ms), "plain_ms": L * (2 * k_pl + p_pl),
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "max_abs_err": 0.0, "per_call_ms": {
+               "K/V bf16 (4, 20, 128)": k_ms, "positions int32": p_ms},
+           "differing_bytes": rows}
+    print(f"[kernel] scatter_rows, one qwen1.5-4b decode tick ({3 * L} "
+          f"launches, 4 writes each, one in four dropped): kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+          f"{bound:.5f} ms ({by}); per call K/V {k_ms * 1e3:.2f} us, "
+          f"positions {p_ms * 1e3:.2f} us")
+    return out
+
+
+def graph_drains(make_engine, reqs_fn, cfg, where: str) -> dict:
+    """One drain of the same traffic through an engine with graph plans
+    and through one with eager plans, each warmed up (``require_warm``
+    set) and counted from 0: the same tokens (bases) and statuses, the
+    same launches by route, no retrace, one graph a plan and none, and
+    every graph's own kernel nodes equal to its capture's tally
+    (:func:`graph_census`)."""
+    runs = {}
+    for mode in ("graph", "eager"):
+        with kept_graphs():
+            eng = make_engine(graphs=mode == "graph")
+            t0 = time.perf_counter()
+            eng.warmup()
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+        census = (graph_census(eng.runner.plans, where) if mode == "graph"
+                  else {})
+        eng.runner.plans.require_warm = True
+        reqs = reqs_fn()
+        ops.reset_launch_counts()
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = eng.metrics.summary()
+        plans = check_plan_stats(eng.runner, cfg, st)
+        runs[mode] = {
+            "engine": eng, "routes": ops.launch_counts(routes=True),
+            "tokens": {rid: (r.status, list(map(int, r.out_tokens)))
+                       for rid, r in eng.completed.items()},
+            "summary": st, "plans": plans, "warmup_s": warm,
+            "drain_s": secs,
+            "census": census}
+        print(f"[graphs] {where}, {mode} plans: warmup {warm:.2f}s, drain "
+              f"{secs:.2f}s, {st['requests_done']} requests, tick p50 "
+              f"{st['tick_latency_p50_s'] * 1e3:.2f} ms p99 "
+              f"{st['tick_latency_p99_s'] * 1e3:.2f} ms, ejections "
+              f"{st['ejections']:.0f}")
+    g, e = runs["graph"], runs["eager"]
+    if g["tokens"] != e["tokens"] or len(g["tokens"]) != len(reqs) or \
+            g["summary"]["ejections"] != e["summary"]["ejections"]:
+        raise AssertionError(f"{where}: graph plans served {g['tokens']}, "
+                             f"eager {e['tokens']}")
+    if g["routes"] != e["routes"]:
+        raise AssertionError(f"{where}: launches by route, graph "
+                             f"{g['routes']}, eager {e['routes']}")
+    if g["plans"]["graphs"] != g["plans"]["plans"] or e["plans"]["graphs"]:
+        raise AssertionError(f"{where}: graphs {g['plans']} / "
+                             f"{e['plans']}")
+    print(f"[graphs] {where}: graph and eager plans served the same "
+          f"{'bases' if cfg.family == 'basecaller' else 'tokens'} and "
+          f"statuses; launches by route equal "
+          f"{ {k: v for k, v in g['routes'].items() if sum(v.values())} }")
+    return runs
+
+
+def bitwise(where: str, got, want, rerun) -> dict:
+    """Graph output against eager, bit for bit, or within the eager
+    rerun's own spread."""
+    d = float((got.float() - want.float()).abs().max())
+    spread = float((rerun.float() - want.float()).abs().max())
+    equal = bool(torch.equal(got, want))
+    print(f"[graphs] {where}: graph vs eager max|d| {d:.3g} (bit for bit "
+          f"{equal}), eager rerun spread {spread:.3g}")
+    if not bool(torch.isfinite(got.float()).all()) or \
+            not (equal or d <= spread):
+        raise AssertionError(f"{where}: graph differs from eager by {d} "
+                             f"(eager rerun {spread})")
+    return {"max_abs_diff": d, "bitwise": equal, "rerun_spread": spread}
+
+
+def rubicall_graphs(ru) -> dict:
+    """RUBICALL through the engine at B = 4 with read-until (phase 13's
+    classifier, in the same plan): graph against eager plans, some reads
+    ejected."""
+    cfg, params = rubicall_served()
+
+    def make(graphs):
+        return api.make_serving_engine(params, cfg, device="cuda",
+                                       n_slots=B, chunk_samples=1024,
+                                       read_until=ru, graphs=graphs)
+
+    def reads():
+        """8 reads of 400-800 bases (4-7 windows: the classifier decides
+        after 2), every other one swapped for white noise of its length
+        (an off-target read, as phase 13's), so some are ejected."""
+        rs = np.random.RandomState(5)
+        out = serve.build_reads(types.SimpleNamespace(
+            requests=8, rate=1.0, read_bases=800))
+        return [r if r.rid % 2 == 0 else Request(
+            rid=r.rid, signal=normalize(rs.randn(len(r.signal)).astype(
+                np.float32))) for r in out]
+    runs = graph_drains(make, reads, cfg, "rubicall (read-until)")
+    if not runs["graph"]["summary"]["ejections"]:
+        raise AssertionError("rubicall (read-until): no read ejected, so "
+                             "the ejections compared nothing")
+    gr, er = (runs[m]["engine"].runner for m in ("graph", "eager"))
+    works = [types.SimpleNamespace(final=False, payload=gr.make_chunks(r)[0]
+                                   .payload) for r in reads()[:B]]
+    ops.reset_launch_counts()
+    lp_g, cls_g = gr.dispatch(works)[1]
+    r_g = ops.launch_counts(routes=True)
+    ops.reset_launch_counts()
+    lp_e, cls_e = er.dispatch(works)[1]
+    r_e = ops.launch_counts(routes=True)
+    lp_r, cls_r = er.dispatch(works)[1]
+    if r_g != r_e:
+        raise AssertionError(f"rubicall tick: routes {r_g} / {r_e}")
+    out = {"log_probs": bitwise("rubicall tick log-probs", lp_g, lp_e, lp_r),
+           "logits": bitwise("rubicall tick classifier logits", cls_g, cls_e,
+                             cls_r)}
+    for mode, rn in (("graph", gr), ("eager", er)):
+        out[f"trace_{mode}"] = trace(
+            f"one read-until tick (rubicall, B={B}), {mode} plan",
+            lambda: rn.dispatch(works)[1],
+            fetch=lambda o: runner_mod.readback(*o))
+    same_kernels("rubicall read-until tick",
+                 runs["graph"]["census"][gr._plan_key], out["trace_eager"])
+    out["drains"] = {m: graph_figures(r) for m, r in runs.items()}
+    return out
+
+
+def same_kernels(where: str, nodes: dict, eager: dict) -> None:
+    """A plan's graph holds, by source, as many of the port's kernels as
+    the same tick launched eagerly (``eager``: a trace's counts)."""
+    want = {s: c for s, (c, _) in eager["own_launches"].items() if c}
+    if nodes != want:
+        raise AssertionError(f"{where}: the graph holds {nodes} of the "
+                             f"port's kernels, the eager tick launched "
+                             f"{want}")
+    print(f"[graphs] {where}: the graph's kernel nodes equal the eager "
+          f"tick's launches {nodes}")
+
+
+def graph_figures(run: dict) -> dict:
+    st = run["summary"]
+    return {"tick_p50_ms": st["tick_latency_p50_s"] * 1e3,
+            "tick_p99_ms": st["tick_latency_p99_s"] * 1e3,
+            "warmup_s": run["warmup_s"], "drain_s": run["drain_s"],
+            "plans": run["plans"]["plans"], "graphs": run["plans"]["graphs"],
+            "retraces": st["retraces"],
+            "launches": {k: v for k, v in run["routes"].items()
+                         if sum(v.values())}}
+
+
+def fill_slots(runner, fn, tok) -> None:
+    """Rows 0-3 of ``runner``'s pool hold positions 0-47, written in
+    three chunk ticks of 16 (eagerly, through ``fn``)."""
+    pool = runner.pool
+    for slot in range(runner.n_slots):
+        pool.release_slot(slot)
+    for slot in range(runner.n_slots):
+        assert pool.alloc(slot, 64)
+    for c0 in (0, 16, 32):
+        t = torch.arange(c0, c0 + 16, dtype=torch.int32).repeat(LM_SLOTS, 1)
+        fn(tok[:, c0:c0 + 16], t, torch.full((LM_SLOTS,), 15,
+                                             dtype=torch.int32),
+           torch.full((LM_SLOTS,), int(c0 == 0), dtype=torch.int32),
+           pool.host_tables())
+
+
+def logits_fn(runner):
+    """A tick program returning the live logits (fp32) over the runner's
+    pool, as the runner's own plans run it."""
+    pool, cfg = runner.pool, runner.cfg
+
+    def fn(tok, t, last, fresh, tables):
+        with torch.inference_mode():
+            if fresh is not None:
+                pool.mask_fresh_rows(pool.caches, fresh)
+            logits, _ = tfm.decode_step_slots(
+                runner.params, pool.caches, tok, t, cfg, logits_at=last,
+                tables=tables, attn_backend=runner.attn_backend,
+                layers=runner.layers, enc_kv=runner.enc_kv)
+            return logits[:, 0].float()
+    return fn
+
+
+def lm_graphs(cfg, params, reqs_fn, where: str, **kw) -> dict:
+    """``cfg`` through the engine with graph and with eager plans; then a
+    mixed and a decode tick over the same pool state, captured as a CUDA
+    graph and run eagerly, logits bit for bit; each plan kind traced."""
+    def make(graphs):
+        return api.make_serving_engine(
+            params, cfg, device="cuda", n_slots=LM_SLOTS,
+            prefill_chunk=LM_CHUNK, block_len=BLOCK,
+            cache_dtype=torch.bfloat16, graphs=graphs, **kw)
+    runs = graph_drains(make, reqs_fn, cfg, where)
+    gr, er = (runs[m]["engine"].runner for m in ("graph", "eager"))
+    tok = torch.from_numpy(np.random.RandomState(1).randint(
+        1, cfg.vocab_size, (LM_SLOTS, 64)).astype(np.int32))
+    fn = logits_fn(gr)
+    fill_slots(gr, fn, tok)
+    fill_slots(er, logits_fn(er), tok)
+    leaves = [leaf for _, leaf in cache_leaves(gr.pool.caches)]
+    snap = [leaf.clone() for leaf in leaves]
+
+    def restore():
+        for leaf, saved in zip(leaves, snap):
+            leaf.copy_(saved)
+    t_mixed = torch.full((LM_SLOTS, LM_CHUNK), -1, dtype=torch.int32)
+    t_mixed[0:2] = torch.arange(48, 64, dtype=torch.int32)
+    t_mixed[2, 0] = 48                     # a decode row; row 3 is a pad
+    zeros = torch.zeros((LM_SLOTS,), dtype=torch.int32)
+    ticks = {
+        "mixed": (tok[:, 48:64], t_mixed,
+                  torch.tensor([15, 15, 0, 0], dtype=torch.int32)),
+        "decode": (tok[:, 48:49],
+                   torch.full((LM_SLOTS, 1), 48, dtype=torch.int32), None)}
+    plans = PlanCache("cuda")
+    out = {"drains": {m: graph_figures(r) for m, r in runs.items()}}
+    for kind, (tk, t, last) in ticks.items():
+        plans.register(("logits", t.shape[1], kind), fn)
+        restore()
+        with kept_graphs():
+            plans.warm(("logits", t.shape[1], kind), tk, t, last, None,
+                       gr.pool.host_tables())
+    graph_census(plans, f"{where} logits ticks")
+    for kind, (tk, t, last) in ticks.items():
+        key = ("logits", t.shape[1], kind)
+        args = (tk, t, last, None, gr.pool.host_tables())
+        restore()
+        ops.reset_launch_counts()
+        got = plans.lookup(key)(*args)
+        r_g = ops.launch_counts(routes=True)
+        restore()
+        ops.reset_launch_counts()
+        want = fn(*args)
+        r_e = ops.launch_counts(routes=True)
+        restore()
+        rerun = fn(*args)
+        if r_g != r_e:
+            raise AssertionError(f"{where} {kind} tick: routes {r_g} / "
+                                 f"{r_e}")
+        live = [0, 1, 2] if kind == "mixed" else list(range(LM_SLOTS))
+        out[kind] = bitwise(f"{where} {kind} tick logits", got[live],
+                            want[live], rerun[live])
+    restore()
+    for kind, (tk, t, last) in ticks.items():
+        key = (kind, t.shape[1], "greedy")
+        args = (tk, t, zeros, zeros if kind == "mixed" else None, last)
+        for mode, rn in (("graph", gr), ("eager", er)):
+            tick = rn.plans.lookup(key)
+            out[f"trace_{kind}_{mode}"] = trace(
+                f"one {kind} tick ({cfg.name}, B={LM_SLOTS}, C="
+                f"{t.shape[1]}), {mode} plan",
+                lambda: tick(*args, rn.pool.host_tables(), None))
+        same_kernels(f"{where} {kind} tick", runs["graph"]["census"][key],
+                     out[f"trace_{kind}_eager"])
+    for rn in (gr, er):
+        for slot in range(rn.n_slots):
+            rn.pool.release_slot(slot)
+    return out
+
+
+def variant_graphs(cfg, params, reqs_fn, where: str, **kw) -> dict:
+    """``cfg`` served with engine keywords ``kw`` (an int8 or fp8 arena,
+    the gather backend): one drain with graph plans against one with
+    eager plans, then one all-pad decode tick of each traced, the
+    port's kernels that the profiler saw start compared."""
+    def make(graphs):
+        return api.make_serving_engine(
+            params, cfg, device="cuda", n_slots=LM_SLOTS, cache_len=LM_CACHE,
+            prefill_chunk=LM_CHUNK, block_len=BLOCK,
+            cache_dtype=torch.bfloat16, graphs=graphs, **kw)
+    runs = graph_drains(make, reqs_fn, cfg, where)
+    out = {"drains": {m: graph_figures(r) for m, r in runs.items()}}
+    pad = (torch.zeros((LM_SLOTS, 1), dtype=torch.int32),
+           torch.full((LM_SLOTS, 1), -1, dtype=torch.int32),
+           torch.zeros((LM_SLOTS,), dtype=torch.int32), None, None)
+    for mode, run in runs.items():
+        rn = run["engine"].runner
+        tick = rn.plans.lookup(("decode", 1, "greedy"))
+        out[f"trace_decode_{mode}"] = trace(
+            f"one all-pad decode tick ({where}), {mode} plan",
+            lambda: tick(*pad, rn.pool.host_tables(), None))
+    same_kernels(f"{where} decode tick",
+                 runs["graph"]["census"][("decode", 1, "greedy")],
+                 out["trace_decode_eager"])
+    return out
+
+
+def phase_graphs(ru, smi: str) -> dict:
+    """Phase 26: scatter_rows against its plain version; then RUBICALL
+    with read-until, qwen1.5-4b (also over an int8 and an fp8 arena and
+    on the gather backend), hymba-1.5b, mamba2-130m and whisper-tiny
+    through the engine with graph plans and with eager plans."""
+    out = {"scatter_rows": scatter_check()}
+    out["rubicall"] = rubicall_graphs(ru)
+    for arch, n, new in GRAPH_LM:
+        cfg = replace(get_config(arch), quant=QuantPolicy(8, 0))
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = api.init_params(0, cfg, device="cuda", wbits=8)
+
+        def reqs(cfg=cfg, n=n, new=new):
+            return [Request(rid=r.rid, prompt=r.prompt, sampling=replace(
+                r.sampling, max_new_tokens=new))
+                for r in lm_requests(cfg)[:n]]
+        out[arch] = lm_graphs(cfg, params, reqs, cfg.name,
+                              cache_len=LM_CACHE)
+        for label, kw in (GRAPH_VARIANTS if arch == LM_ARCH else ()):
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[f"{arch} {label}"] = variant_graphs(
+                cfg, params, reqs, f"{cfg.name} {label}", **kw)
+        del params
+    # the SSM-only runner (no block table, no writes) on phase 18's
+    # traffic less its 1100-token prompt, which passes a window that
+    # mamba2 has not (its 69 eager chunk ticks took ~20 s of the phase)
+    cfg = replace(get_config(SSM_ARCH), quant=QuantPolicy(8, 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = api.init_params(0, cfg, device="cuda", wbits=8)
+    out[SSM_ARCH] = lm_graphs(
+        cfg, params, lambda: [r for r in engine_requests(cfg)
+                              if len(r.prompt) != LONG_PROMPT],
+        cfg.name, cache_len=HYMBA_CACHE)
+    del params
+    cfg = replace(get_config(AUDIO_ARCH), quant=QuantPolicy(8, 0))
+    params = api.init_params(0, cfg, device="cuda", wbits=8)
+    out[AUDIO_ARCH] = lm_graphs(cfg, params, lambda: audio_requests(cfg),
+                                cfg.name, cache_len=AUDIO_CACHE)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[graphs] every plan of the basecaller, token and encoder-prefix "
+          f"runners captured and replayed, the same tokens, bases and "
+          f"ejections as eager plans ({smi})")
+    return out
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -5074,6 +5777,7 @@ def main() -> int:
         hyb = lap("serve (hybrid)", phase_hybrid_serve)
         ssm_eng = lap("serve (ssm)", phase_ssm_serve)
         aud = lap("serve (audio)", phase_audio_serve)
+        graphs = lap("graphs", phase_graphs, stream.pop("ru"), smi)
         front = lap("static+train (frontends)", phase_front_static_train,
                     smi)
         moe_static = lap("static (moe)", phase_static_moe, smi)
@@ -5282,6 +5986,34 @@ def main() -> int:
                              if k != "trace"},
             **({"p_terms_max_abs_err": pre["err"]["flash_p_terms"]}
                if name == "flash_attention" else {})})
+    drains = [run["drains"][m]["launches"].get("scatter_rows", {})
+              for arch, run in graphs.items() if arch != "scatter_rows"
+              for m in ("graph", "eager")]
+    sc_phases = {LM_ARCH: lm_routes, DS_ARCH: ds_routes,
+                 "rubicon": knob_routes, HYMBA_ARCH: hyb["routes"],
+                 SSM_ARCH + " (engine)": ssm_eng["routes"],
+                 AUDIO_ARCH: aud["routes"]}
+    sc_by_phase = {k: r["scatter_rows"] for k, r in sc_phases.items()}
+    sc_by_phase["graphs (phase 26 drains)"] = {
+        r: sum(d.get(r, 0) for d in drains) for r in sr.ROUTES}
+    kernels.append({
+        "name": "scatter_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/scatter_rows.cu",
+        "replaces": "none (port-only: the reference's mode=\"drop\" "
+                    "scatter, src/repro/models/lm/attention.py:465, is "
+                    "XLA's, inside its jitted step)",
+        "launches": sum(sum(v.values()) for v in sc_by_phase.values()),
+        **{k: graphs["scatter_rows"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "shape": f"sum over one {LM_ARCH} decode tick's "
+                 f"{3 * get_config(LM_ARCH).n_layers} launches (K, V, "
+                 f"positions a layer), {LM_SLOTS} writes each, one in four "
+                 f"dropped; bf16 rows of 20 x {HD}",
+        "launches_by_phase": sc_by_phase,
+        "launches_by_route": {r: sum(v[r] for v in sc_by_phase.values())
+                              for r in sr.ROUTES},
+        "per_call_ms": graphs["scatter_rows"]["per_call_ms"]})
     print(f"[chip_smoke] all phases ok in {time.perf_counter() - t0:.1f}s "
           f"({', '.join(f'{k} {v:.0f}s' for k, v in laps.items())})")
     print(smi)

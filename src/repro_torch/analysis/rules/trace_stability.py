@@ -3,13 +3,15 @@ must compile nothing.
 
 Front-runs the "no mid-traffic compiles" hardening item. The reference
 counts jit-cache entries: a tick that RETRACES silently turns a
-microsecond dispatch into a multi-second compile, mid-traffic. Eager
-PyTorch compiles no tick; the port's compile is the ``nvcc`` build and
-the ctypes load of a kernel's library at its first launch
-(``kernels/_build.py``, counted in ``_build.COUNTS``). So the port's
-audit is a LOAD audit over the real runners: after ``warmup()``, tick
-one fixed decode-only bucket and one fixed mixed bucket twice each and
-assert that
+microsecond dispatch into a multi-second compile, mid-traffic. The
+port's counterpart of a compiled tick is a tick plan captured as a CUDA
+graph at ``warmup()`` (``serving/plan.py``), and a warmed plan captured
+again is its retrace (``PlanCache.stats()["retraces"]``); its other
+compile is the ``nvcc`` build and the ctypes load of a kernel's library
+at its first launch (``kernels/_build.py``, counted in
+``_build.COUNTS``). So the port's audit runs over the real runners:
+after ``warmup()``, tick one fixed decode-only bucket and one fixed
+mixed bucket twice each and assert that
 
 - nothing was built or loaded (the reference's "the cache did not
   grow"): ``TokenRunner.warmup`` runs all-pad ticks (``t = -1``), and
@@ -17,7 +19,8 @@ assert that
   traffic;
 - each repeat launched the same kernels on the same routes
   (``ops.launch_counts(routes=True)``; the reference's "fanout": one
-  bucket, one program).
+  bucket, one program);
+- no plan was staged or captured again (``retraces`` stayed 0).
 
 On the CPU nothing builds, loads or launches, so the audit reports
 nothing, as the reference's does on a build without the cache counter.
@@ -101,13 +104,20 @@ def bucket_coverage(runner, label: str) -> List[Finding]:
                     "trace-stability", f"{label}::bucket-coverage",
                     f"mixed width {n} rounds to bucket {b} but no "
                     f"('mixed', {b}, {flavor!r}) plan is registered"))
+    return findings + plan_retraces(runner, label)
+
+
+def plan_retraces(runner, label: str) -> List[Finding]:
+    """A warmed plan staged again (on a card: its CUDA graph captured
+    again) is a retrace, as a recompile is in the reference."""
     stats = runner.plans.stats()
-    if stats["retraces"]:
-        findings.append(Finding(
-            "trace-stability", f"{label}::plan-retrace",
-            f"{stats['retraces']} plan-cache retrace(s): a warmed plan "
-            f"compiled again mid-traffic"))
-    return findings
+    if not stats["retraces"]:
+        return []
+    return [Finding(
+        "trace-stability", f"{label}::plan-retrace",
+        f"{stats['retraces']} plan-cache retrace(s): a warmed plan was "
+        f"staged and captured again mid-traffic ({stats['graphs']} "
+        f"graphs)")]
 
 
 def audit_token_runner(runner, works_decode, works_mixed,
@@ -136,7 +146,7 @@ def check(ctx) -> List[Finding]:
     # (pre-finish payloads vary only in VALUES — UNBOUNDED read_len,
     # window content — never in shape, so repeats must load nothing)
     bc_runner, works_stream = ctx.stream_stability_setup()
-    findings += audit_program(
-        "BasecallerRunner.window[bonito-smoke/stream/read_until]",
-        lambda: bc_runner.step(works_stream), warm=bc_runner.warmup)
-    return findings
+    label = "BasecallerRunner.window[bonito-smoke/stream/read_until]"
+    findings += audit_program(label, lambda: bc_runner.step(works_stream),
+                              warm=bc_runner.warmup)
+    return findings + plan_retraces(bc_runner, label)

@@ -136,15 +136,17 @@ def serving_step_targets(
 
 def tick_args(runner, kind: str) -> tuple:
     """The host arguments ``TokenRunner.dispatch`` builds for one greedy
-    tick: ``decode``, every row a decode token at positions 3, 4, ...;
-    ``mixed``, row 0 a fresh chunk at positions ``0..C-1`` beside decode
-    rows at position 5, padded to the full chunk width."""
+    tick, the pool's block tables among them: ``decode``, every row a
+    decode token at positions 3, 4, ...; ``mixed``, row 0 a fresh chunk
+    at positions ``0..C-1`` beside decode rows at position 5, padded to
+    the full chunk width."""
     B, C = runner.n_slots, runner.chunk_tokens
     chain = torch.zeros((B,), dtype=torch.int32)
+    tables = runner.pool.host_tables()
     if kind == "decode":
         tok = torch.zeros((B, 1), dtype=torch.int32)
         t = torch.arange(3, 3 + B, dtype=torch.int32).reshape(B, 1)
-        return tok, t, chain, None, None, None
+        return tok, t, chain, None, None, tables, None
     tok = torch.zeros((B, C), dtype=torch.int32)
     t = torch.full((B, C), -1, dtype=torch.int32)
     t[0] = torch.arange(C, dtype=torch.int32)
@@ -153,7 +155,7 @@ def tick_args(runner, kind: str) -> tuple:
     fresh[0] = 1
     last = torch.zeros((B,), dtype=torch.int32)
     last[0] = C - 1
-    return tok, t, chain, fresh, last, None
+    return tok, t, chain, fresh, last, tables, None
 
 
 def record_runner_steps(runner, label: str, quantized: bool
@@ -229,8 +231,8 @@ def basecaller_stream_targets(device=None) -> List[TraceTarget]:
         wins = np.zeros((N_SLOTS, W, 1), np.float32)
         start = np.zeros((N_SLOTS,), np.int32)
         read_len = np.full((N_SLOTS,), W, np.int32)
-        _, trace = record(runner._forward, runner.plans.fn(runner._plan_key),
-                          wins, start, read_len)
+        _, trace = record(runner.plans.fn(runner._plan_key), wins, start,
+                          read_len)
         out.append(TraceTarget(
             name=f"step[bonito-smoke/stream{tag}]", jaxpr=trace,
             kind="serving-step", backend=None, quantized=False,

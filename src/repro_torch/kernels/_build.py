@@ -11,16 +11,21 @@ sources built and the libraries loaded, so a load audit can tell a
 kernel whose library first loads in the middle of traffic. Every
 wrapper counts its launches through :func:`count_launch`, which also
 tells the analyzer's recorder (``ON_LAUNCH``), when one is recording.
+While a tick plan's CUDA graph is captured (:func:`tally`) nothing
+launches yet: the capture's launches go to its tally, and each replay
+adds that tally to the counters (:func:`replay_launches`), so a graphed
+tick counts what the same tick counts eagerly.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
@@ -34,13 +39,47 @@ COUNTS: Dict[str, int] = {"builds": 0, "loads": 0}
 ON_LAUNCH: Optional[Callable[[str, str], None]] = None
 
 
+# (wrapper, kernel, route) -> launches, while a CUDA graph captures
+Tally = Dict[Tuple[Callable, str, str], int]
+_TALLY: Optional[Tally] = None
+
+
+def _count(wrapper: Callable, kernel: str, route: str, n: int) -> None:
+    wrapper.launches += n
+    wrapper.routes[route] += n
+    if ON_LAUNCH is not None:
+        for _ in range(n):
+            ON_LAUNCH(kernel, route)
+
+
 def count_launch(wrapper: Callable, kernel: str, route: str) -> None:
     """One launch of ``kernel`` on ``route``: the wrapper's ``.launches``
-    and ``.routes[route]`` counts, and the recorder's site, if any."""
-    wrapper.launches += 1
-    wrapper.routes[route] += 1
-    if ON_LAUNCH is not None:
-        ON_LAUNCH(kernel, route)
+    and ``.routes[route]`` counts, and the recorder's site, if any; or,
+    inside :func:`tally`, one launch in the capture's tally."""
+    if _TALLY is not None:
+        key = (wrapper, kernel, route)
+        _TALLY[key] = _TALLY.get(key, 0) + 1
+        return
+    _count(wrapper, kernel, route, 1)
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[Tally]:
+    """Launches counted inside go to the yielded tally, not to the
+    counters: a CUDA graph's capture records launches without running
+    them."""
+    global _TALLY
+    prev, _TALLY = _TALLY, {}
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = prev
+
+
+def replay_launches(launched: Tally) -> None:
+    """A replay of a captured graph: its tally's launches, counted."""
+    for (wrapper, kernel, route), n in launched.items():
+        _count(wrapper, kernel, route, n)
 
 
 def _nvcc() -> str:

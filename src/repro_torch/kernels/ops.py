@@ -32,6 +32,7 @@ from repro_torch.core.quant.policy import PackedTensor
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import qconv1d, qmatmul as qmm, ref
+from repro_torch.kernels import scatter_rows as sr
 from repro_torch.kernels import ssd_scan as ssd
 
 
@@ -345,6 +346,24 @@ def decode_mla(q_abs: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
                             scale=scale)
 
 
+def scatter_rows(dst: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor,
+                 src: torch.Tensor) -> None:
+    """In place ``dst[i0[w], i1[w]] = src[w]`` (cast to dst's dtype):
+    ``dst`` (n0, n1, ...); ``i0``, ``i1`` (n,) int64; ``src`` n rows of
+    dst's row shape. A write with an index outside ``[0, n0)`` or ``[0,
+    n1)`` is dropped, as the reference's ``mode="drop"`` scatter: the
+    tick's fixed-shape KV, scale and position writes
+    (:func:`repro_torch.kernels.paged_attention.paged_writes`)."""
+    vals = src.to(dst.dtype).reshape(i0.numel(), *dst.shape[2:])
+    if dst.is_cuda:
+        _no_backward("scatter_rows", vals)
+        return sr.scatter_rows_cuda(dst, i0.contiguous(), i1.contiguous(),
+                                    vals.contiguous())
+    if dst.device.type == "cpu":
+        return ref.scatter_rows_ref(dst, i0, i1, vals)
+    raise _no_kernel("scatter_rows", dst.device)
+
+
 # ---------------------------------------------------------------------------
 # Launch counters
 
@@ -355,7 +374,8 @@ _COUNTED = {"qconv1d_block": qconv1d.qconv1d_block_cuda,
             "mla_paged": pa.mla_paged_cuda,
             "mla_paged_chunk": pa.mla_paged_chunk_cuda,
             "flash_attention": fa.flash_attention_cuda,
-            "ssd_scan": ssd.ssd_scan_cuda}
+            "ssd_scan": ssd.ssd_scan_cuda,
+            "scatter_rows": sr.scatter_rows_cuda}
 
 
 def launch_counts(routes: bool = False) -> dict:

@@ -87,41 +87,56 @@ def paged_indices(table: torch.Tensor, t: torch.Tensor, n_blocks: int,
 
 
 class PagedWrites(NamedTuple):
-    """The KV/pos writes of one tick that land (dropped ones filtered
-    out): the token's batch row ``b`` and column ``c``, its arena block
-    ``blk`` and offset ``off``, and its pos column ``lw``."""
+    """The KV/pos writes of one tick at its fixed shape, flattened to
+    ``(B * C,)`` int64 on ``t``'s device, as :func:`paged_indices`
+    gives them: each token's arena block ``blk`` and in-block offset
+    ``off`` (``blk == n_blocks`` drops the KV write), its slot row
+    ``b`` and pos column ``lw`` (``lw == Leff`` drops the pos write).
+    Nothing is filtered, so the count is the same every tick of a
+    shape bucket and nothing is read on the host."""
+    blk: torch.Tensor
+    off: torch.Tensor
+    b: torch.Tensor
+    lw: torch.Tensor
+
+
+def paged_writes(table: torch.Tensor, t: torch.Tensor, n_blocks: int,
+                 block_len: int) -> PagedWrites:
+    """:func:`paged_indices` of ``table`` (B, T) and ``t`` (B, C),
+    computed where they lie (the device, on a tick), with the slot row
+    of each write beside it; written through the drop route
+    (:func:`repro_torch.kernels.ops.scatter_rows`), as the reference's
+    ``mode="drop"`` scatter."""
+    wblk, off, lw, _, _ = paged_indices(table, t, n_blocks, block_len)
+    B, C = t.shape
+    b = torch.arange(B, device=t.device)[:, None].expand(B, C)
+    return PagedWrites(*(a.reshape(-1) for a in (wblk, off, b, lw)))
+
+
+class FilteredWrites(NamedTuple):
+    """The writes of a static decode that land (no dropped ones): the
+    token's batch row ``b`` and column ``c``, its row ``blk`` and offset
+    ``off``, and its pos column ``lw``."""
     b: torch.Tensor
     c: torch.Tensor
     blk: torch.Tensor
     off: torch.Tensor
     lw: torch.Tensor
 
-    def to(self, device) -> "PagedWrites":
-        return PagedWrites(*(a.to(device, non_blocking=True) for a in self))
+    def to(self, device) -> "FilteredWrites":
+        return FilteredWrites(*(a.to(device, non_blocking=True)
+                                for a in self))
 
 
-def paged_writes(table: torch.Tensor, t: torch.Tensor, n_blocks: int,
-                 block_len: int) -> PagedWrites:
-    """:func:`paged_indices` with the dropped writes (``wblk ==
-    n_blocks``, ``lw == Leff``) filtered out, so ``index_put_`` never
-    sees an out-of-range index (a device assert on CUDA). Boolean
-    filtering reads the mask on the host: called with host (CPU)
-    ``table``/``t``, as the serving runner does once per tick and
-    group, it costs no device synchronisation."""
-    wblk, off, lw, _, _ = paged_indices(table, t, n_blocks, block_len)
-    b, c = torch.nonzero(wblk < n_blocks, as_tuple=True)
-    return PagedWrites(b, c, wblk[b, c], off[b, c], lw[b, c])
-
-
-def contiguous_writes(t: torch.Tensor, L: int) -> PagedWrites:
+def contiguous_writes(t: torch.Tensor, L: int) -> FilteredWrites:
     """The writes of tokens at positions ``t`` (B, C) (< 0 = pad) into
-    contiguous rows of ``L`` positions, as :class:`PagedWrites` with row
-    b as its own block: ``blk = b`` and ``off = lw = t % L``. Pad tokens
-    write nothing; called with a host ``t`` it costs no device
-    synchronisation, as :func:`paged_writes`."""
+    contiguous rows of ``L`` positions, with row b as its own block:
+    ``blk = b`` and ``off = lw = t % L``. Pad tokens write nothing; the
+    filter reads ``t`` where it lies, so a host ``t`` costs no device
+    synchronisation."""
     b, c = torch.nonzero(t >= 0, as_tuple=True)
     slot = t[b, c].long() % L
-    return PagedWrites(b, c, b, slot, slot)
+    return FilteredWrites(b, c, b, slot, slot)
 
 
 def valid_mask(pos: torch.Tensor, t: torch.Tensor,

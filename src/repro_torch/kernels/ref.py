@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels.paged_attention import (NEG_INF, compute_dtype,
                                                  dequantize_kv,
                                                  mla_compute_dtype,
-                                                 take_blocks)
+                                                 put_rows, take_blocks)
 
 
 def qconv1d_block_ref(x, dw_q, pw_q, dw_scale, pw_scale, gamma, beta, *,
@@ -34,6 +34,18 @@ def qconv1d_block_ref(x, dw_q, pw_q, dw_scale, pw_scale, gamma, beta, *,
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.to(x.dtype)
+
+
+def scatter_rows_ref(dst: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor,
+                     src: torch.Tensor) -> None:
+    """In place ``dst[i0[w], i1[w]] = src[w]``, the writes with an index
+    outside ``dst``'s first two dims dropped: those in range are
+    filtered out (read where ``i0``/``i1`` lie), then one
+    ``index_put_``."""
+    keep = ((i0 >= 0) & (i0 < dst.shape[0]) & (i1 >= 0)
+            & (i1 < dst.shape[1]))
+    w = torch.nonzero(keep)[:, 0]
+    put_rows(dst, (i0[w], i1[w]), src[w])
 
 
 def qmatmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,

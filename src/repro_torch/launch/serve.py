@@ -534,13 +534,22 @@ def run_static(params, cfg, args, device) -> dict:
 
 
 def print_tick_report(s, args) -> None:
+    """Dispatch section of the end-of-run report: plan-cache health (the
+    ``retraces=`` figure is the mid-traffic capture gate), the captured
+    graphs and the tick-latency percentiles."""
     print(f"[serve] ticks ({'async' if args.async_dispatch else 'sync'}): "
           f"p50 {s['tick_latency_p50_s'] * 1e3:.2f}ms "
           f"p99 {s['tick_latency_p99_s'] * 1e3:.2f}ms | idle skipped "
           f"{s['idle_ticks']:.0f} | queue hwm "
           f"{s['queue_depth_hwm']:.0f} | rejected {s['rejections']:.0f} | "
-          f"plans {s['plans']:.0f} ({s['plans_warmed']:.0f} warmed), "
-          f"hits {s['bucket_hits']:.0f} misses {s['bucket_misses']:.0f}")
+          f"plans {s['plans']:.0f} ({s['plans_warmed']:.0f} warmed, "
+          f"{s['graphs']:.0f} graphs), hits {s['bucket_hits']:.0f} misses "
+          f"{s['bucket_misses']:.0f} | retraces={s['retraces']:.0f}")
+    if args.warmup and s["retraces"] > 0:
+        raise SystemExit(
+            f"[serve] error: {s['retraces']:.0f} mid-traffic retrace(s) "
+            f"after --warmup — a warmed plan was staged and captured again "
+            f"for inputs of another shape, dtype or device")
 
 
 def run_knob_search(cfg, args, device) -> None:

@@ -274,7 +274,9 @@ def make_serving_engine(params, cfg: ModelConfig, *, device=None, **kw):
     forwarded once, when covered; ``"latency"``: live windows
     re-forwarded as frames become stable) and ``read_until`` (a
     :class:`repro_torch.serving.stream.ReadUntil` whose classifier moves
-    to ``device`` and ejects off-target reads)."""
+    to ``device`` and ejects off-target reads); for every runner
+    ``graphs`` (default True: on a card each tick plan is a CUDA graph
+    captured at warmup; False keeps the plans eager)."""
     from repro_torch.serving.engine import ServingEngine
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev), params)

@@ -33,11 +33,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.ops import decode_gqa, flash_attention
+from repro_torch.kernels.ops import decode_gqa, flash_attention, scatter_rows
 from repro_torch.kernels.paged_attention import (EMPTY_POS, NEG_INF,
                                                  PagedWrites, compute_dtype,
-                                                 paged_writes, put_rows,
-                                                 quantize_kv)
+                                                 paged_writes, quantize_kv)
 from repro_torch.models.lm.common import Params, dense, make_dense_params
 from repro_torch.models.lm.rope import apply_rope
 from repro_torch.parallel import tensor_parallel as tp
@@ -425,30 +424,28 @@ def attn_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
     The tokens' K/V (int8 arenas: quantized per token and KV head, the
     scale written at the same index) and positions are written into
     ``cache`` in place before the read, so a chunk attends causally
-    within itself through the position mask; pad tokens and tokens
-    whose block is unassigned write nothing. ``writes`` are those
-    writes precomputed (:func:`paged_writes`, once per tick and group on
-    the host); without them this layer filters on its own. The read is
-    ``decode_gqa`` with ``attn_backend``. Returns (out (B, C, d),
-    cache)."""
+    within itself through the position mask. The writes keep the tick's
+    fixed ``B * C`` shape, as the reference's ``mode="drop"`` scatter:
+    pad tokens and tokens whose block is unassigned carry the sentinel
+    index and are dropped on the device (:func:`scatter_rows`).
+    ``writes`` are those indices precomputed (:func:`paged_writes`, once
+    per tick and group on the device); without them this layer computes
+    its own. The read is ``decode_gqa`` with ``attn_backend``. Returns
+    (out (B, C, d), cache)."""
     q, k_new, v_new = _project_qkv(p, x, t.clamp(min=0), cfg)
     Nb, bl = cache["k"].shape[:2]
-    if writes is None:
-        writes = paged_writes(table, t, Nb, bl)
-    w = writes
-    kn, vn = k_new[w.b, w.c], v_new[w.b, w.c]          # (n, Hkv, hd)
-    quantized = "k_scale" in cache
-    at = (w.blk, w.off)
-    if quantized:
+    w = writes if writes is not None else paged_writes(table, t, Nb, bl)
+    kn = k_new.flatten(0, 1)                        # (B*C, Hkv, hd)
+    vn = v_new.flatten(0, 1)
+    if "k_scale" in cache:
         (kq, ks), (vq, vs) = quantize_kv(kn), quantize_kv(vn)
-        put_rows(cache["k"], at, kq)
-        put_rows(cache["v"], at, vq)
-        put_rows(cache["k_scale"], at, ks)
-        put_rows(cache["v_scale"], at, vs)
+        for name, rows in (("k", kq), ("v", vq), ("k_scale", ks),
+                           ("v_scale", vs)):
+            scatter_rows(cache[name], w.blk, w.off, rows)
     else:
-        put_rows(cache["k"], at, kn)
-        put_rows(cache["v"], at, vn)
-    put_rows(cache["pos"], (w.b, w.lw), t[w.b, w.c])
+        scatter_rows(cache["k"], w.blk, w.off, kn)
+        scatter_rows(cache["v"], w.blk, w.off, vn)
+    scatter_rows(cache["pos"], w.b, w.lw, t.reshape(-1))
     o = decode_gqa(q, cache["k"], cache["v"], cache["pos"], t,
                    window=window, table=table, backend=attn_backend,
                    k_scale=cache.get("k_scale"),

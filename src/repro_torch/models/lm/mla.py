@@ -26,9 +26,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.ops import decode_mla
+from repro_torch.kernels.ops import decode_mla, scatter_rows
 from repro_torch.models.lm.attention import blockwise_attn
-from repro_torch.kernels.paged_attention import (EMPTY_POS, PagedWrites,
+from repro_torch.kernels.paged_attention import (EMPTY_POS, FilteredWrites,
                                                  contiguous_writes,
                                                  paged_writes, put_rows,
                                                  quantize_kv)
@@ -220,8 +220,8 @@ def mla_decode(p: Params, x: torch.Tensor, cache: Dict, t,
     if isinstance(t, int):
         rows = torch.arange(B)
         slot = torch.full((B,), t % cache["c"].shape[1], dtype=torch.long)
-        writes = PagedWrites(rows, torch.zeros_like(rows), rows, slot,
-                             slot).to(x.device)
+        writes = FilteredWrites(rows, torch.zeros_like(rows), rows, slot,
+                                slot).to(x.device)
         t = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
     else:
         t = torch.as_tensor(t).to(x.device, torch.int32).reshape(
@@ -233,8 +233,7 @@ def mla_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
                      t: torch.Tensor, cfg: ModelConfig, *,
                      table: Optional[torch.Tensor] = None,
                      attn_backend: Optional[str] = None,
-                     writes: Optional[PagedWrites] = None
-                     ) -> Tuple[torch.Tensor, Dict]:
+                     writes=None) -> Tuple[torch.Tensor, Dict]:
     """Slot-batched absorbed-MLA step: row b's C tokens sit at positions
     ``t[b]`` (< 0 = pad). x: (B, C, d); t: (B, C) int32 on x's device.
 
@@ -245,12 +244,15 @@ def mla_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
 
     The tokens' latents (int8 arenas: quantized per token, the scale
     written at the same index) and positions are written into ``cache``
-    in place before the read, so a chunk attends causally within itself;
-    pad tokens and tokens whose block is unassigned write nothing
-    (``writes``: those writes filtered on the host, as
-    ``attention.attn_decode_slots`` takes them; without it they are
-    filtered from ``t``, which reads ``t`` on the host). The read is
-    ``decode_mla`` with ``attn_backend``: ``q_abs = q_nope · W_uk``
+    in place before the read, so a chunk attends causally within itself.
+    Paged, the writes keep the tick's fixed ``B * C`` shape, as the
+    reference's ``mode="drop"`` scatter: pad tokens and tokens whose
+    block is unassigned carry the sentinel index and are dropped on the
+    device (``writes``: :class:`PagedWrites`, as
+    ``attention.attn_decode_slots`` takes them). Contiguous (the static
+    decode), the writes that land are filtered from ``t`` on the host
+    (``writes``: :class:`FilteredWrites`). The read is ``decode_mla``
+    with ``attn_backend``: ``q_abs = q_nope · W_uk``
     scores against the latent, ``o = o_lat · W_uv`` then ``wo``, with
     ``wukv`` dequantized in fp32 and cast to the compute dtype (bf16 for
     1-byte arenas). Returns (out (B, C, d), cache)."""
@@ -263,23 +265,23 @@ def mla_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
     tq = t.clamp(min=0)
     q_nope, q_rope = _project_q(p, x, tq, cfg)            # (B, C, H, *)
     c_new, kr_new = _project_kv_latent(p, x, tq, cfg)     # (B, C, *)
-    if writes is None:
-        writes = (contiguous_writes(t.cpu(), cache["c"].shape[1])
-                  if table is None else
-                  paged_writes(table, t, *cache["c"].shape[:2])).to(x.device)
-    w = writes
-    cn, krn = c_new[w.b, w.c], kr_new[w.b, w.c]           # (n, kvr|rope)
-    at = (w.blk, w.off)
-    if quantized:
-        (cq, cs), (krq, krs) = quantize_kv(cn), quantize_kv(krn)
-        put_rows(cache["c"], at, cq)
-        put_rows(cache["k_rope"], at, krq)
-        put_rows(cache["c_scale"], at, cs)
-        put_rows(cache["kr_scale"], at, krs)
+    if table is None:
+        w = writes if writes is not None else contiguous_writes(
+            t.cpu(), cache["c"].shape[1]).to(x.device)
+        at = (w.blk, w.off)
+        put_rows(cache["c"], at, c_new[w.b, w.c])
+        put_rows(cache["k_rope"], at, kr_new[w.b, w.c])
+        put_rows(cache["pos"], (w.b, w.lw), t[w.b, w.c])
     else:
-        put_rows(cache["c"], at, cn)
-        put_rows(cache["k_rope"], at, krn)
-    put_rows(cache["pos"], (w.b, w.lw), t[w.b, w.c])
+        w = writes if writes is not None else paged_writes(
+            table, t, *cache["c"].shape[:2])
+        cn, krn = c_new.flatten(0, 1), kr_new.flatten(0, 1)  # (B*C, *)
+        rows = ({"c": cn, "k_rope": krn} if not quantized else
+                dict(zip(("c", "c_scale", "k_rope", "kr_scale"),
+                         (*quantize_kv(cn), *quantize_kv(krn)))))
+        for name, r in rows.items():
+            scatter_rows(cache[name], w.blk, w.off, r)
+        scatter_rows(cache["pos"], w.b, w.lw, t.reshape(-1))
 
     cdt = (torch.bfloat16 if cache["c"].dtype.itemsize == 1
            else cache["c"].dtype)

@@ -719,14 +719,16 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
     group: {"k", "v": (n_layers, B, Se, Hkv, hd)}}, the per-slot encoder
     buffers the audio family's runner stages at admission.
 
-    ``tokens``, ``t``, ``logits_at`` and ``tables`` may sit on the host:
-    they move to the parameters' device once per call, and the arena
-    writes (:func:`repro_torch.kernels.paged_attention.paged_writes`)
-    are filtered from the host copies, so a tick from host inputs needs
-    no device synchronisation. Every host input moves before the first
-    layer is enqueued: a copy from pageable host memory waits for the
-    stream, so one between layers would hold the host until the device
-    caught up. Returns (logits (B, C or 1, V), caches).
+    ``tokens``, ``t``, ``logits_at`` and ``tables`` may sit on the host
+    (they move to the parameters' device once per call, every one
+    before the first layer is enqueued: a copy from pageable host memory
+    waits for the stream) or on the device already, as a tick plan
+    stages them. Each paged group's writes
+    (:func:`repro_torch.kernels.paged_attention.paged_writes`) are
+    computed once per call on the device, at the tick's fixed ``(B,
+    C)`` shape with dropped writes marked, as the reference's: nothing
+    is read back, so the step can be captured in a CUDA graph. Returns
+    (logits (B, C or 1, V), caches).
     """
     dev = params["embed"].device
     if layers is None:
@@ -735,13 +737,14 @@ def decode_step_slots(params: Params, caches: Dict, tokens: torch.Tensor,
     tok_dev = tokens.to(dev, non_blocking=True)
     idx = (None if logits_at is None else
            logits_at.to(dev, torch.long, non_blocking=True))
+    tables_dev = {g: tb.to(dev, torch.int32, non_blocking=True)
+                  for g, tb in (tables or {}).items()}
     paged: Dict[str, Tuple[torch.Tensor, Any]] = {}
     for gname, _, _ in group_names(cfg):
-        table = None if tables is None else tables.get(gname)
+        table = tables_dev.get(gname)
         if table is not None:
             Nb, bl = _arena(caches[gname]).shape[1:3]
-            paged[gname] = (table.to(dev, torch.int32, non_blocking=True),
-                            paged_writes(table, t, Nb, bl).to(dev))
+            paged[gname] = (table, paged_writes(table, t_dev, Nb, bl))
     x = embed_tokens(params, tok_dev.clamp(min=0), cfg)
     for gname, kind, n in group_names(cfg):
         table_dev, writes = paged.get(gname, (None, None))

@@ -16,9 +16,13 @@ Layers
              family: the encoder once at admission, cross-attention K/V
              staged per slot) and ``BasecallerRunner`` (squiggle in,
              bases out, halo-padded windows, live streams and
-             read-until). Each runner's step runs the models eagerly on
-             the device; ``plan`` keys the tick buckets, whose
-             ``retraces`` are 0 since nothing is compiled.
+             read-until).
+``plan``     the tick buckets' staged plans: each tick's host inputs
+             copied into static device buffers; on a card each bucket
+             captured once as a CUDA graph at ``warmup()`` and replayed
+             every tick (the reference compiles one program a bucket),
+             eager on the CPU, with ``graphs=False``, and for a runner
+             with a MoE block (its routing is read back to the host).
 ``cache``    :class:`CachePool`, the paged KV pool: one block arena a
              layer group on the device, host block tables, per-slot
              positions; storage ``bf16``, ``fp8``, ``int8`` (with scale
@@ -63,9 +67,11 @@ the tier-1 tests run it so, ``chip_smoke.py`` on the card):
     readback, the CTC merge's) carry a ``# sync: <reason>`` comment in
     ``engine.py`` and ``runner.py``, as the reference's do.
 ``trace-stability``
-    Eager PyTorch compiles no tick; the port's compile is a kernel
-    library's build and load at its first launch. After ``warmup()``,
-    ticking the same bucket again loads nothing and launches the same
+    A tick plan is captured once, at ``warmup()``; a warmed plan staged
+    and captured again is a retrace, as a recompile is in the
+    reference. The port's other compile is a kernel library's build and
+    load at its first launch. After ``warmup()``, ticking the same
+    bucket again loads nothing, captures nothing and launches the same
     kernels on the same routes, and every schedulable tick shape has a
     registered plan.
 """

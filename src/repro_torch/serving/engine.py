@@ -443,9 +443,10 @@ class ServingEngine:
         return tuple(sig)
 
     def warmup(self) -> int:
-        """Pre-compile every tick-plan bucket (runner ``warmup``) so a
-        full traffic run performs zero mid-traffic compiles; returns
-        the number of plans warmed. Call before the first ``step``."""
+        """Stage every tick-plan bucket (runner ``warmup``; on a card,
+        capture each as a CUDA graph) so a full traffic run captures
+        nothing mid-traffic; returns the number of plans warmed. Call
+        before the first ``step``."""
         fn = getattr(self.runner, "warmup", None)
         return int(fn()) if fn is not None else 0
 

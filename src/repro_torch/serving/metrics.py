@@ -256,4 +256,5 @@ class ServingMetrics:
             "bucket_hits": ps.get("bucket_hits", 0),
             "bucket_misses": ps.get("bucket_misses", 0),
             "retraces": ps.get("retraces", 0),
+            "graphs": ps.get("graphs", 0),
         }

@@ -16,8 +16,9 @@ model-shaped lives behind a :class:`ModelRunner`:
                    results still on the device; ``collect`` is the
                    deferred readback (plus host-side merge work).
                    ``step == collect(dispatch(works))`` exactly.
-``warmup``         run every tick plan once at launch; ``plan_stats``
-                   reports the bucket hit/miss counters
+``warmup``         stage every tick plan once at launch (on a card:
+                   capture it as a CUDA graph); ``plan_stats`` reports
+                   the bucket hit/miss, retrace and graph counters
 ``reset_row``      release a slot's per-slot runner state
 ``open_stream``    build the cursor that feeds a live
                    :class:`repro_torch.serving.stream.StreamingRequest`
@@ -33,6 +34,16 @@ slot at admission, decoder tokens as :class:`TokenRunner` schedules
 them) and :class:`TokenRunner` (token-only LMs over the paged KV pool,
 per-request sampling). The vlm family has no runner, as in the
 reference.
+
+Tick plans (:mod:`repro_torch.serving.plan`): each runner stages a
+tick's host inputs into static device buffers its plans own, and on a
+card every plan is captured once as a CUDA graph at ``warmup()`` and
+replayed each tick (``graphs=False`` keeps them eager, for comparison).
+Caches, the previous tick's tokens and the encoder buffers update in
+place and are never rebound, so a graph keeps reading the live tensors.
+A runner whose config has a MoE block keeps eager plans on a card:
+``moe._routed`` reads the routing back to the host and loops over the
+chosen experts, which a graph cannot hold (``plan_stats()`` says so).
 """
 from __future__ import annotations
 
@@ -50,6 +61,11 @@ from repro_torch.models.basecaller import model as bc
 from repro_torch.serving.cache import CachePool
 from repro_torch.serving.plan import PlanCache, chunk_buckets, round_chunk
 from repro_torch.serving.sampling import any_sampled, pack_rows, sample_tokens
+
+
+MOE_EAGER = ("a MoE block reads its routing back to the host and loops over "
+             "the chosen experts (moe._routed), which a CUDA graph cannot "
+             "hold")
 
 
 class Chunk(NamedTuple):
@@ -142,7 +158,7 @@ class ModelRunner:
     def warmup(self) -> int:
         return 0
 
-    def plan_stats(self) -> Dict[str, int]:
+    def plan_stats(self) -> Dict[str, Any]:
         return {}
 
 
@@ -181,8 +197,9 @@ class BasecallerRunner(ModelRunner):
 
     A tick batches EVERY slot's window into one ``(n_slots, W, 1)``
     forward on ``device`` (idle rows are zero windows with
-    ``read_len == 0``). ``dispatch`` moves windows and bounds to the
-    device and enqueues the forward; ``collect`` is the only readback.
+    ``read_len == 0``). ``dispatch`` stages windows and bounds into the
+    plan's buffers and enqueues the forward (a graph replay on a card);
+    ``collect`` is the only readback.
 
     Payload contract: ``(window, f_lo, f_hi, start, read_len,
     classify)`` — the window's core frames ``[f_lo, f_hi)`` feed the
@@ -217,7 +234,7 @@ class BasecallerRunner(ModelRunner):
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int,
                  chunk_samples: int = 1024, beam: int = 0,
                  model_state=None, qos: str = "accuracy", read_until=None,
-                 device=None, **_):
+                 device=None, graphs: bool = True, **_):
         self.params = params
         self.cfg = cfg
         self.device = (torch.device(device) if device is not None
@@ -244,39 +261,37 @@ class BasecallerRunner(ModelRunner):
                           for k, v in read_until.params.items()}
             self.read_until = dataclasses.replace(read_until,
                                                   params=cls_params)
+        dev = self.device
 
-            def fwd(p, s, w, start, read_len):
-                return (bc.forward_window(p, s, w, cfg, start, read_len),
-                        rc.forward(cls_params, w))
-        else:
-            def fwd(p, s, w, start, read_len):
-                return bc.forward_window(p, s, w, cfg, start, read_len)
+        def fwd(w, start, read_len):
+            """(B, W, 1) windows and (B,) bounds -> log-probs (and the
+            classifier's logits), the inputs moved to the device (a
+            no-op for the plan's staged buffers)."""
+            w, start, read_len = (torch.as_tensor(a).to(dev, non_blocking=True)
+                                  for a in (w, start, read_len))
+            with torch.inference_mode():
+                lp = bc.forward_window(self.params, self.state, w, cfg, start,
+                                       read_len)
+                if read_until is None:
+                    return lp
+                return lp, rc.forward(self.read_until.params, w)
         # one window geometry -> one plan
         self._plan_key = ("window", self.core + 2 * self.halo, "fwd")
-        self.plans = PlanCache()
+        self.plans = PlanCache(dev, graphs=graphs)
         self.plans.register(self._plan_key, fwd)
 
-    def plan_stats(self) -> Dict[str, int]:
+    def plan_stats(self) -> Dict[str, Any]:
         return self.plans.stats()
 
-    def _forward(self, fwd, wins, start, read_len):
-        dev = self.device
-        with torch.inference_mode():
-            return fwd(self.params, self.state,
-                       torch.from_numpy(wins).to(dev),
-                       torch.from_numpy(start).to(dev),
-                       torch.from_numpy(read_len).to(dev))
-
     def warmup(self) -> int:
-        """Run the window forward once on an all-idle tick (zero windows,
-        ``read_len == 0``); nothing is fed to a merge."""
+        """Stage the window forward on an all-idle tick (zero windows,
+        ``read_len == 0``; on a card, capture it); nothing is fed to a
+        merge."""
         B, W = self.n_slots, self.core + 2 * self.halo
-        self._forward(self.plans.fn(self._plan_key),
-                      np.zeros((B, W, 1), np.float32),
-                      np.zeros((B,), np.int32), np.zeros((B,), np.int32))
+        self.plans.warm(self._plan_key, np.zeros((B, W, 1), np.float32),
+                        np.zeros((B,), np.int32), np.zeros((B,), np.int32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.plans.mark_warmed(self._plan_key)
         return 1
 
     # ------------------------------------------------------------ intake
@@ -366,8 +381,8 @@ class BasecallerRunner(ModelRunner):
             wins[i] = window
             start[i] = st
             read_len[i] = rl
-        fwd = self.plans.lookup(self._plan_key)
-        return works, self._forward(fwd, wins, start, read_len)
+        return works, self.plans.lookup(self._plan_key)(wins, start,
+                                                        read_len)
 
     def collect(self, handle: Any,
                 discard: frozenset = frozenset()) -> List[List[int]]:
@@ -428,12 +443,15 @@ class TokenRunner(ModelRunner):
     ``attn_backend`` (``auto``/``gather``/``cuda``) picks the attention
     read path (``repro_torch.kernels.ops.decode_gqa``); ``auto`` is the
     CUDA kernels on a card. Inputs are built on the host each tick and
-    move to the device once; the pool's arenas update in place.
+    staged into the plan's device buffers (the block tables too, copied
+    from ``pool.host_tables()``); the pool's arenas update in place.
 
     Async dispatch: ``dispatch`` enqueues the tick and returns with the
     tokens on the device; ``collect`` reads them back. A ``chained``
     decode row's input token is the previous tick's on-device output
-    (``chain``/``prev``), so the pipeline needs no readback in between.
+    (``chain``; ``_prev_tokens``, a device buffer the plans read and
+    each tick fills in place), so the pipeline needs no readback in
+    between.
     """
 
     autoregressive = True
@@ -443,7 +461,8 @@ class TokenRunner(ModelRunner):
                  cache_len: int, prefill_chunk: int, cache_dtype,
                  block_len: int = 0, n_blocks: int = 0,
                  attn_backend: str = "auto", quant_policy=None,
-                 device=None, _check: bool = True, **_):
+                 device=None, graphs: bool = True, _check: bool = True,
+                 **_):
         from repro_torch.models.lm import transformer as tfm
         if _check and not tfm.supports_slot_serving(cfg):
             raise NotImplementedError(
@@ -465,7 +484,9 @@ class TokenRunner(ModelRunner):
         self.attn_backend = self.pool.attn_backend       # resolved
         self.layers = tfm.param_layer_views(params, cfg)
         self.buckets = chunk_buckets(self.chunk_tokens)
-        self.plans = PlanCache()
+        moe = any(kind in tfm.MOE_KINDS for _, kind, _ in tfm.group_names(cfg))
+        self.plans = PlanCache(self.device, graphs=graphs,
+                               eager_reason=MOE_EAGER if moe else None)
         for flavor in ("greedy", "sampled"):
             self.plans.register(("decode", 1, flavor),
                                 self._plan(mixed=False,
@@ -481,38 +502,44 @@ class TokenRunner(ModelRunner):
         self.enc_kv: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
 
     def _plan(self, *, mixed: bool, sampled: bool) -> Callable:
-        """One tick program: (tok, t, chain, fresh, last, sp) host inputs
-        -> (B,) int32 tokens on the device (``fresh``/``last`` are None
-        on decode-only ticks, ``sp`` on greedy ones)."""
-        cfg, tfm, pool = self.cfg, self._tfm, self.pool
+        """One tick program: (tok, t, chain, fresh, last, tables, sp) ->
+        (B,) int32 tokens on the device (``fresh``/``last`` are None on
+        decode-only ticks, ``sp`` on greedy ones; ``tables`` {group: (B,
+        T)}). The inputs move to the device here, a no-op for the plan's
+        staged buffers."""
+        cfg, tfm, pool, dev = self.cfg, self._tfm, self.pool, self.device
 
-        def step(tok, t, chain, fresh, last, sp):
-            dev = self.device
+        def to_dev(a):
+            return torch.as_tensor(a).to(dev, non_blocking=True)
+
+        def step(tok, t, chain, fresh, last, tables, sp):
             with torch.inference_mode():
-                tok_d = tok.to(dev, non_blocking=True)
-                ch = chain.to(dev, non_blocking=True) > 0
-                tok_d[:, 0] = torch.where(ch, self._prev_tokens, tok_d[:, 0])
+                tok_d = to_dev(tok)
+                col0 = torch.where(to_dev(chain) > 0, self._prev_tokens,
+                                   tok_d[:, 0])
+                tok_d = torch.cat([col0[:, None], tok_d[:, 1:]], dim=1)
                 if mixed:
-                    pool.mask_fresh_rows(pool.caches, fresh)
+                    pool.mask_fresh_rows(pool.caches, to_dev(fresh))
                 logits, _ = tfm.decode_step_slots(
-                    self.params, pool.caches, tok_d, t, cfg,
-                    logits_at=last, tables=pool.host_tables(),
+                    self.params, pool.caches, tok_d, to_dev(t), cfg,
+                    logits_at=None if last is None else to_dev(last),
+                    tables={g: to_dev(tb) for g, tb in tables.items()},
                     attn_backend=self.attn_backend, layers=self.layers,
                     enc_kv=self.enc_kv)
                 logits = logits[:, 0, :]
                 if sampled:
-                    spd = {k: torch.from_numpy(v).to(dev, non_blocking=True)
-                           for k, v in sp.items()}
-                    return sample_tokens(logits, spd)
+                    return sample_tokens(logits, {k: to_dev(v)
+                                                  for k, v in sp.items()})
                 return torch.argmax(logits, dim=-1).to(torch.int32)
         return step
 
-    def plan_stats(self) -> Dict[str, int]:
+    def plan_stats(self) -> Dict[str, Any]:
         return self.plans.stats()
 
     def warmup(self) -> int:
-        """Run every plan once over an all-pad tick (``t = -1``: nothing
-        is written, so the pool is unchanged)."""
+        """Stage every plan once over an all-pad tick (``t = -1``:
+        nothing is written, so the pool is unchanged); on a card each is
+        captured as a CUDA graph."""
         B = self.n_slots
         sp = pack_rows([None] * B)
         warmed = 0
@@ -524,10 +551,9 @@ class TokenRunner(ModelRunner):
             t = torch.full((B, w), -1, dtype=torch.int32)
             zeros = torch.zeros((B,), dtype=torch.int32)
             mixed = kind == "mixed"
-            self.plans.fn(key)(tok, t, zeros, zeros if mixed else None,
-                               zeros if mixed else None,
-                               sp if flavor == "sampled" else None)
-            self.plans.mark_warmed(key)
+            self.plans.warm(key, tok, t, zeros, zeros if mixed else None,
+                            zeros if mixed else None, self.pool.host_tables(),
+                            sp if flavor == "sampled" else None)
             warmed += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -618,8 +644,9 @@ class TokenRunner(ModelRunner):
         sampled = any_sampled(rows)
         fn = self.plans.lookup((kind, width,
                                 "sampled" if sampled else "greedy"))
-        toks = fn(*args, pack_rows(rows) if sampled else None)
-        self._prev_tokens = toks
+        toks = fn(*args, self.pool.host_tables(),
+                  pack_rows(rows) if sampled else None)
+        self._prev_tokens.copy_(toks)        # in place: the plans read it
         return toks
 
     def _dispatch_decode_only(self, works) -> Any:
@@ -709,19 +736,23 @@ class EncoderPrefixRunner(TokenRunner):
         self._stage_key = ("stage", 0, "enc")
         self.plans.register(self._stage_key, self._stage)
 
-    def _stage(self, frames: torch.Tensor, slot: int) -> None:
+    def _stage(self, frames: torch.Tensor, slot: torch.Tensor) -> None:
         """Encode one request's frames (F, d) and write every xdec
-        layer's cross K/V into row ``slot`` of the buffer."""
+        layer's cross K/V into row ``slot`` (an int, or (1,) int64 as
+        the staged plan takes it) of the buffer, in place."""
         from repro_torch.models.lm import encdec
         tfm = self._tfm
         with torch.inference_mode():
+            slot = torch.as_tensor(slot).to(self.device,
+                                            non_blocking=True).reshape(-1)
             enc_out = encdec.encode(self.params["encoder"],
                                     frames.to(self.device)[None], self.cfg)
             for gname, bufs in self.enc_kv.items():
                 for i, p in enumerate(self.layers[gname]):
                     kv = tfm.enc_kv_for_layer(p["xattn"], enc_out, self.cfg)
                     for name in ("k", "v"):
-                        bufs[name][i, slot].copy_(kv[name][0])
+                        bufs[name][i].index_copy_(
+                            0, slot, kv[name].to(bufs[name].dtype))
 
     def warmup(self) -> int:
         """Every tick plan once, then the staging plan on zero frames
@@ -729,11 +760,11 @@ class EncoderPrefixRunner(TokenRunner):
         leaks into traffic)."""
         warmed = super().warmup()
         cfg = self.cfg
-        self.plans.fn(self._stage_key)(
-            torch.zeros((cfg.frontend_tokens, cfg.d_model)), 0)
+        self.plans.warm(self._stage_key,
+                        torch.zeros((cfg.frontend_tokens, cfg.d_model)),
+                        torch.zeros((1,), dtype=torch.int64))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.plans.mark_warmed(self._stage_key)
         return warmed + 1
 
     def validate(self, req) -> None:
@@ -750,7 +781,8 @@ class EncoderPrefixRunner(TokenRunner):
 
     def admit(self, slot: int, req) -> None:
         frames = torch.from_numpy(np.asarray(req.frames, np.float32))
-        self.plans.lookup(self._stage_key)(frames, slot)
+        self.plans.lookup(self._stage_key)(
+            frames, torch.full((1,), slot, dtype=torch.int64))
 
 
 # ---------------------------------------------------------------------------

@@ -583,7 +583,8 @@ def test_cli_full_gate_clean_on_repo(capsys):
 @pytest.mark.gpu
 def test_cli_full_gate_clean_on_the_card(capsys):
     """On a card the ``cuda`` targets launch the paged kernels and
-    ``qmatmul``: the gate is clean there too."""
+    ``qmatmul``, and every serving tick its fixed-shape writes
+    (``scatter_rows``): the gate is clean there too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     assert main([]) == 0
@@ -592,4 +593,4 @@ def test_cli_full_gate_clean_on_the_card(capsys):
     launched = {k: v for t in ctx.jaxpr_targets
                 for k, v in t.jaxpr.launches().items()}
     assert set(launched) == {"gqa_paged", "gqa_paged_chunk", "mla_paged",
-                             "mla_paged_chunk", "qmatmul"}
+                             "mla_paged_chunk", "qmatmul", "scatter_rows"}

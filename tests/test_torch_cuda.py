@@ -1107,3 +1107,130 @@ def test_cuda_encoder_prefix_stage_matches_the_cpu():
             got = bufs[1][g][name]
             assert bool((got[:, 0] == 0).all())
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,row", [
+    (torch.bfloat16, (4, 64)), (torch.float8_e4m3fn, (4, 64)),
+    (torch.int8, (4, 64)), (torch.float32, (4,)), (torch.float16, (3, 5)),
+    (torch.int32, ()), (torch.bfloat16, (3,))])
+@pytest.mark.parametrize("n", [4, 64])
+def test_cuda_scatter_rows_matches_its_plain_version(dtype, row, n):
+    """The drop-route scatter against the filtered ``index_put_``, byte
+    for byte: every fourth write carries a sentinel in one index, the
+    others land at distinct rows; rows of 2 to 512 bytes (word widths 2,
+    4, 8 and 16)."""
+    _cuda()
+    from repro_torch.kernels import scatter_rows as sr
+    rs = np.random.RandomState(n + len(row))
+    n0, n1 = 24, 8
+    src = torch.from_numpy(rs.randn(n, *row).astype(np.float32) * 9)
+    dst = torch.from_numpy(rs.randn(n0, n1, *row).astype(np.float32) * 9)
+    dst, src = (a.to(dtype) for a in (dst, src))
+    flat = rs.permutation(n0 * n1)[:n]
+    i0, i1 = flat // n1, flat % n1
+    i0[::4] = n0
+    i1[1::4] = n1 + 3
+    i0, i1 = (torch.from_numpy(a.astype(np.int64)) for a in (i0, i1))
+    want = dst.clone()
+    ref.scatter_rows_ref(want, i0, i1, src)
+    got = dst.cuda()
+    ops.reset_launch_counts()
+    ops.scatter_rows(got, i0.cuda(), i1.cuda(), src.cuda())
+    assert ops.launch_counts(routes=True)["scatter_rows"] == {
+        "tensor_core": 0, "cuda_core": 1}
+    assert torch.equal(pa._bytes_view(got.cpu()), pa._bytes_view(want))
+    assert sr.scatter_rows_cuda.launches == 1
+
+
+def _graph_engines(arch, **kw):
+    """The same smoke weights served through graph and eager plans."""
+    from repro_torch.config import get_config
+    from repro_torch.core.quant.policy import tree_map
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    if cfg.family == "basecaller":
+        params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    else:
+        params = api.init_params(0, cfg, device="cpu")
+    params = tree_map(lambda a: a.cuda(), params)
+    return cfg, [api.make_serving_engine(params, cfg, device="cuda",
+                                         graphs=graphs, **kw)
+                 for graphs in (True, False)]
+
+
+GRAPH_LM_SMOKE = ["qwen1.5-4b-smoke", "hymba-1.5b-smoke",
+                  "whisper-tiny-smoke"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAPH_LM_SMOKE)
+def test_cuda_graph_plans_serve_like_eager_plans(arch, no_tf32):
+    """Every plan of a smoke LM engine captured at warmup and replayed:
+    greedy and sampled tokens equal the eager plans', launches by route
+    equal, no retrace, one graph a plan."""
+    _cuda()
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+    cfg, engines = _graph_engines(arch, n_slots=2, cache_len=32,
+                                  prefill_chunk=4, block_len=4,
+                                  cache_dtype=torch.bfloat16)
+    out = []
+    for eng in engines:
+        eng.warmup()
+        eng.runner.plans.require_warm = True
+        rs = np.random.RandomState(0)
+        ops.reset_launch_counts()
+        for i, (pl, mn) in enumerate([(6, 8), (11, 6), (3, 9)]):
+            sp = (SamplingParams(max_new_tokens=mn, temperature=0.8,
+                                 top_k=20, seed=i) if i == 1
+                  else SamplingParams(max_new_tokens=mn))
+            frames = (rs.randn(cfg.frontend_tokens, cfg.d_model).astype(
+                np.float32) if cfg.family == "audio" else None)
+            eng.submit(Request(rid=i, prompt=rs.randint(
+                1, cfg.vocab_size, pl).tolist(), sampling=sp, frames=frames))
+        done = eng.run()
+        torch.cuda.synchronize()
+        out.append(({i: (r.status, list(r.out_tokens))
+                     for i, r in done.items()},
+                    ops.launch_counts(routes=True), eng.runner.plan_stats()))
+    (tg, rg, sg), (te, re_, se) = out
+    assert tg == te and all(s == "finished" for s, _ in tg.values())
+    assert rg == re_
+    assert sg["graphs"] == sg["plans"] and se["graphs"] == 0
+    assert sg["retraces"] == se["retraces"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_graph_tick_is_bitwise_the_eager_tick():
+    """rubicall-smoke's window plan with the read-until classifier: one
+    tick through the captured graph and through the eager plan, log-probs
+    and logits bit for bit, the same launches by route; tick N's output
+    unchanged after tick N+1's replay."""
+    _cuda()
+    from types import SimpleNamespace
+    from repro_torch.models.basecaller import classifier as rc
+    from repro_torch.serving.stream import ReadUntil
+    ru = ReadUntil(params=rc.init_params(torch.Generator().manual_seed(1)),
+                   eject_after_chunks=2, threshold=0.0)
+    cfg, engines = _graph_engines("rubicall-smoke", n_slots=2,
+                                  chunk_samples=300, read_until=ru)
+    r0 = engines[0].runner
+    W = r0.core + 2 * r0.halo
+    rs = np.random.RandomState(3)
+    ticks = [[SimpleNamespace(final=False, payload=(
+        rs.randn(W, 1).astype(np.float32), 0, 10, -r0.halo, 4 * W, 1))
+        for _ in range(2)] for _ in range(2)]
+    outs = []
+    for eng in engines:
+        eng.runner.warmup()
+        ops.reset_launch_counts()
+        first = eng.runner.dispatch(ticks[0])[1]
+        second = eng.runner.dispatch(ticks[1])[1]
+        torch.cuda.synchronize()
+        outs.append((first, second, ops.launch_counts(routes=True)))
+    (g1, g2, rg), (e1, e2, re_) = outs
+    for got, want in zip((*g1, *g2), (*e1, *e2)):
+        assert torch.equal(got, want)
+    assert rg == re_
+    assert engines[0].runner.plan_stats()["graphs"] == 1

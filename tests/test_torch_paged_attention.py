@@ -61,10 +61,10 @@ def test_paged_indices_equal_the_reference(block_len, n_blocks, T):
 
 
 def test_arena_scatter_drops_like_the_reference():
-    """The filtered scatter (``paged_writes`` + ``put_rows``) leaves the
-    arena and the pos rows exactly as the reference's ``mode="drop"``
-    scatter does: pad tokens and tokens in unassigned blocks write
-    nothing, in lockstep for KV and positions."""
+    """The fixed-shape writes (``paged_writes`` + ``ops.scatter_rows``'s
+    drop route) leave the arena and the pos rows exactly as the
+    reference's ``mode="drop"`` scatter does: pad tokens and tokens in
+    unassigned blocks write nothing, in lockstep for KV and positions."""
     rs = np.random.RandomState(5)
     B, T, bl, Nb, Hkv, hd = 3, 3, 4, 7, 2, 8
     table = np.array([[3, -1, 5], [0, 1, -1], [-1, -1, -1]], np.int32)
@@ -80,11 +80,13 @@ def test_arena_scatter_drops_like_the_reference():
         jnp.asarray(t), mode="drop")
     w = pa.paged_writes(torch.from_numpy(table), torch.from_numpy(t), Nb, bl)
     got_a, got_p = torch.from_numpy(arena.copy()), torch.from_numpy(pos.copy())
-    pa.put_rows(got_a, (w.blk, w.off), torch.from_numpy(new)[w.b, w.c])
-    pa.put_rows(got_p, (w.b, w.lw), torch.from_numpy(t)[w.b, w.c])
+    ops.scatter_rows(got_a, w.blk, w.off, torch.from_numpy(new).flatten(0, 1))
+    ops.scatter_rows(got_p, w.b, w.lw, torch.from_numpy(t).reshape(-1))
     np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
     np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
-    assert len(w.b) == 5              # (0,1) (0,9) (1,2) (1,3) (1,4)
+    assert len(w.b) == B * t.shape[1]             # one write a token
+    # five land: (0,1) (0,9) (1,2) (1,3) (1,4)
+    assert int((w.blk < Nb).sum()) == int((w.lw < T * bl).sum()) == 5
 
 
 @pytest.mark.parametrize("shape", [(5, 3, 16), (2, 7, 4, 8)])
