@@ -77,9 +77,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    mla_paged_chunk on wider ones, 4 a tick; qmatmul per tick counted
    from the projections; every one of the three on the tensor-core
    route), kernel vs plain ticks (bf16 and the fp16 arena on the
-   tensor-core route, fp32 on the CUDA-core one); peak device memory.
-9. trace (MLA) — as phase 6, for the deepseek ticks. The deepseek
-   engine is then freed.
+   tensor-core route, fp32 on the CUDA-core one; the tick is called
+   eagerly, so the plain path can replay the kernel path's routing);
+   peak device memory. The MoE block routes on the device at fixed
+   shapes (``moe._routed``), so every plan of this runner is a CUDA
+   graph as phase 26 checks them.
+9. graphs (MLA) — over phase 8's weights (not drawn again), the same
+   traffic drained through an engine with graph plans and one with
+   eager plans, as phase 26 does (``lm_graphs``): the same tokens and
+   statuses, launches by route, retraces 0, one graph a plan, each
+   graph's kernel nodes equal to its capture's tally, a mixed and a
+   decode tick's logits bit for bit, both plan kinds traced; the peak
+   device memory after warmup and after each drain. The deepseek
+   weights are then freed.
 10. kernel (prefill) — hold flash_attention (qwen1.5-4b's 20 x 128
    heads and a GQA case of group 8; causal and not; S 512 and 2048,
    ragged S 333 and 129 and Sq != Sk; fp32 at 1e-4 on the CUDA-core
@@ -200,13 +210,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    drawn on the card under QuantPolicy(8, 0), a bf16 paged arena (4
    slots, chunk 16, block_len 16, cache_len 1280: window layers ring at
    1024), 8 greedy requests of 32-128 prompt tokens and one of 1100,
-   32 new tokens each. The ``cuda`` drain: every request finishes, 32
+   16 new tokens each. The ``cuda`` drain: every request finishes, 32
    gqa_paged (C == 1) or gqa_paged_chunk (wider) launches a tick on the
    tensor-core route, no qmatmul (no projection meets the reference's
    tiling contract at d_model 1600) and no other kernel, every paged
    call held against its plain version (replayed from a CUDA graph) at
-   phase 4's tolerances; then the ``gather`` drain on the same weights,
-   its greedy tokens read against the ``cuda`` ones under phase 16's
+   phase 4's tolerances; then the ``gather`` drain of the same
+   requests on the same weights (the rings wrap there too), its greedy
+   tokens read against the ``cuda`` ones under phase 16's
    near-tie rule; pool bytes by class, a traced decode and mixed tick,
    peak memory. Then the static path (``--static --wbits 8``, 4 prompts
    of 1536 tokens, 32 new): flash_attention 3 times (the full layers)
@@ -347,13 +358,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode tick's 120 launches beside its byte bound. Then RUBICALL at
    B = 4 with read-until (phase 13's classifier), qwen1.5-4b (6
    requests, 16 new: decode and mixed ticks, greedy and sampled),
-   hymba-1.5b (4 requests, 8 new), mamba2-130m (phase 18's 8 short
-   requests: the SSM-only runner) and whisper-tiny (phase 19's
-   traffic) each drained through an engine with graph plans and one
+   hymba-1.5b (4 requests, 8 new), mamba2-130m (phase 18's traffic:
+   the SSM-only runner) and whisper-tiny (phase 19's traffic) each
+   drained through an engine with graph plans and one
    with eager plans: the same tokens, bases, statuses and ejections,
    the same launches by route, retraces 0, one graph a plan and none;
    so are qwen1.5-4b over an int8 and over an fp8 arena and on the
-   ``gather`` backend (the served paths phase 16 drives eagerly). Each
+   ``gather`` backend (4 requests, 8 new: the served paths phase 16
+   drives eagerly) and granite-moe-1b-a400m (24 layers, 32 experts,
+   int8, its routing on the device; 4 requests, 8 new). Each
    captured graph is read node by node (``cudaGraphDebugDotPrint``):
    the port's kernels in it, by source, equal the launches its capture
    tallied, and the traced tick's graph holds what the same tick
@@ -363,13 +376,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    over one pool state) through a captured graph and eagerly, bit for
    bit or within an eager rerun's spread; each plan kind's tick traced
    (host enqueue, device, wall to readback; for the int8, fp8 and
-   gather paths an all-pad decode tick). Every trace (this phase's and
-   those of phases 3, 6, 9, 11-15 and 17) prints the port's kernels
-   that torch.profiler saw start beside the launches counted (the
-   profiler has lost a few kernels of a long run). Phases that swap or
+   gather paths and granite-moe an all-pad decode tick; the eager plans
+   without the profiler). Every profiled trace (this phase's and those
+   of phases 3, 6, 9, 11-15 and 17; device activity only) prints the
+   port's kernels that torch.profiler saw start beside the launches
+   counted (the profiler has lost a few kernels of a long run). Phases that swap or
    watch a kernel wrapper in Python (16-19) serve through eager plans;
-   the MoE runners (deepseek, phase 8) keep eager plans and say why
-   (``plan_stats()``).
+   every other runner, the MoE ones included, captures every plan.
 
 Prints each phase's seconds, the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -791,7 +804,7 @@ def graph_census(plans, where: str) -> dict:
     replay counts. They must be equal: a launch counted under graphs is
     then a node the device runs at every replay. Returns {plan key:
     {source: nodes}}."""
-    out = {}
+    out, t0 = {}, time.perf_counter()
     for key, st in plans._staged.items():
         if st.graph is None:
             continue
@@ -804,9 +817,10 @@ def graph_census(plans, where: str) -> dict:
                                  f"{nodes} of the port's kernels, its "
                                  f"capture tallied {tallied}")
         out[key] = nodes
-    print(f"[graphs] {where}: {len(out)} graphs read node by node, the "
-          f"port's kernels in each equal to its capture's tally "
-          f"(e.g. {next(iter(out.items()), None)})")
+    print(f"[graphs] {where}: {len(out)} graphs read node by node in "
+          f"{time.perf_counter() - t0:.1f}s, the port's kernels in each "
+          f"equal to its capture's tally (e.g. "
+          f"{next(iter(out.items()), None)})")
     return out
 
 
@@ -817,12 +831,13 @@ def kernel_name(key: str) -> str:
     return m.group(1) if m else key
 
 
-def own_launches(prof, counted: dict) -> dict:
-    """The port's kernels that torch.profiler saw start, by CUDA source,
-    beside the launches the wrappers counted in the same call:
-    ``{source: [counted, profiled]}``, sources with either."""
+def own_launches(averages, counted: dict) -> dict:
+    """The port's kernels that torch.profiler saw start (``averages``:
+    its ``key_averages()``), by CUDA source, beside the launches the
+    wrappers counted in the same call: ``{source: [counted,
+    profiled]}``, sources with either."""
     seen = {}
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = kernel_name(e.key)
             seen[name] = seen.get(name, 0) + e.count
@@ -835,25 +850,29 @@ def own_launches(prof, counted: dict) -> dict:
     return out
 
 
-def trace(label: str, enqueue, share: tuple = (), fetch=None) -> dict:
+def trace(label: str, enqueue, share: tuple = (), fetch=None,
+          profiled: bool = True) -> dict:
     """Where one served tick's time goes. ``enqueue()`` enqueues the
     tick and returns its output on the card; ``fetch(out)`` reads it
     back (default ``out.cpu()``). Without the profiler: host time to
     enqueue, device time from the first enqueue to the last kernel (CUDA
     events), and wall time to the readback. Under torch.profiler
-    (CUPTI): the device time of every kernel, summed and by kernel, the
-    share of the kernels whose names hold one of ``share``, and the
-    port's kernels it saw start beside the launches the wrappers counted
-    in that call (``own_launches``; printed, not a gate: the profiler
-    has lost kernels of a long process, 2 of a graphed tick's 281
-    qmatmul in one whole run; :func:`graph_census` reads a graph's own
-    nodes)."""
+    (CUPTI; skipped where not ``profiled``, and ``own_launches`` then
+    holds the launches counted in the timed call): the device time of
+    every kernel, summed and by kernel, the share of the kernels whose
+    names hold one of ``share``, and the port's kernels it saw start
+    beside the launches the wrappers counted in that call
+    (``own_launches``; printed, not a gate: the profiler has lost
+    kernels of a long process, 2 of a graphed tick's 281 qmatmul in one
+    whole run; :func:`graph_census` reads a graph's own nodes)."""
     from torch.profiler import ProfilerActivity, profile
     fetch = fetch or (lambda out: out.cpu())
+    t_trace = time.perf_counter()
     enqueue()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    before = ops.launch_counts()
     t0 = time.perf_counter()
     a.record()
     out = enqueue()
@@ -864,15 +883,27 @@ def trace(label: str, enqueue, share: tuple = (), fetch=None) -> dict:
     print(f"[trace] {label}: host enqueue {t_host * 1e3:.2f} ms, device "
           f"{a.elapsed_time(b):.2f} ms from first enqueue to last kernel, "
           f"wall to readback {t_wall * 1e3:.2f} ms")
+    if not profiled:
+        counted = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        own = {src: [sum(counted.get(w, 0) for w in wrappers), None]
+               for src, (wrappers, _) in OWN_KERNELS.items()}
+        own = {src: pair for src, pair in own.items() if pair[0]}
+        print(f"[trace] {label}: the port's kernels by source, launches "
+              f"counted { {s: c for s, (c, _) in own.items()} }; traced "
+              f"in {time.perf_counter() - t_trace:.1f}s")
+        return {"host_ms": t_host * 1e3, "device_ms": a.elapsed_time(b),
+                "wall_ms": t_wall * 1e3, "own_launches": own}
     before = ops.launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's op events of an eager tick of
+    # ~10,000 launches took ~10 s a trace to record and sort
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fetch(enqueue())
         t_prof = time.perf_counter() - t0
     counted = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    averages = prof.key_averages()
     rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
@@ -885,12 +916,13 @@ def trace(label: str, enqueue, share: tuple = (), fetch=None) -> dict:
     for i, (us, n, key) in enumerate(rows):
         if i < 8 or kernel_name(key) in own_names:
             print(f"[trace]   {us / 1e3:8.3f} ms  {n:4d}x  {key[:90]}")
-    own = own_launches(prof, counted)
+    own = own_launches(averages, counted)
     parted = any(c != p for c, p in own.values())
     print(f"[trace] {label}: the port's kernels by source, launches "
           f"counted / started under the profiler "
           f"{ {s: f'{c}/{p}' for s, (c, p) in own.items()} }"
-          + (" (the profiler lost or gained events)" if parted else ""))
+          + (" (the profiler lost or gained events)" if parted else "")
+          + f"; traced in {time.perf_counter() - t_trace:.1f}s")
     out = {"host_ms": t_host * 1e3, "device_ms": a.elapsed_time(b),
            "wall_ms": t_wall * 1e3, "busy_ms": busy, "own_launches": own}
     out["launches"] = sum(r[1] for r in rows)
@@ -3454,22 +3486,25 @@ HYMBA_ARCH = "hymba-1.5b"
 HYMBA_CACHE = 1280            # per-request capacity: a window layer rings at
 #                               1024, a full layer holds 80 blocks of 16
 LONG_PROMPT = 1100            # one prompt past the window: every ring wraps
+ENGINE_NEW = 16               # greedy new tokens a request
 HYMBA_PROMPT = 1536           # static prompt tokens per row
 # hymba's whole-prompt prefill, kernels vs plain versions (bounds stated
 # before the first run on the card; 32 residual layers, as qwen's 40)
 HYMBA_PREFILL = {torch.float32: (0.02, 1e-3), torch.bfloat16: (0.25, 0.05)}
 
 
-def engine_requests(cfg):
-    """The served traffic of phases 17 and 18: phase 5's 8 greedy
-    requests (32-128 random prompt tokens, 32 new) and one more whose
-    1100-token prompt passes the 1024-position window."""
+def engine_requests(cfg, long: bool = True):
+    """The served traffic of phases 17 and 18: 8 greedy requests of
+    32-128 random prompt tokens (phase 5's prompts), ``ENGINE_NEW`` new
+    tokens each, and (``long``) one more whose 1100-token prompt passes
+    the 1024-position window."""
     rs = np.random.RandomState(0)
     lens = [int(rs.randint(32, 129)) for _ in range(8)] + [LONG_PROMPT]
-    return [Request(rid=i, prompt=rs.randint(1, cfg.vocab_size,
+    reqs = [Request(rid=i, prompt=rs.randint(1, cfg.vocab_size,
                                              size=n).tolist(),
-                    sampling=SamplingParams(max_new_tokens=32))
+                    sampling=SamplingParams(max_new_tokens=ENGINE_NEW))
             for i, n in enumerate(lens)]
+    return reqs if long else reqs[:-1]
 
 
 HELD_TOPK = 64          # top logits kept a row in phases 17 and 18
@@ -3612,9 +3647,10 @@ def serve_held(params, cfg, backend: str, reqs,
         secs = time.perf_counter() - t0
         watch.on = False
     done = engine.completed
-    if len(done) != len(reqs) or any(r.status != "finished" or
-                                      len(r.out_tokens) != 32
-                                      for r in done.values()):
+    if len(done) != len(reqs) or any(
+            r.status != "finished" or
+            len(r.out_tokens) != r.sampling.max_new_tokens
+            for r in done.values()):
         raise AssertionError(f"{cfg.name} ({backend}): requests not all "
                              f"finished: "
                              f"{[(r.rid, r.status) for r in done.values()]}")
@@ -3731,6 +3767,8 @@ def phase_hybrid_serve() -> dict:
           f" as the reference's tiling contract routes it); pool "
           f"{pool.nbytes()} B = {by}; layout (blocks a slot) "
           f"{pool.layout}")
+    # the plain backend on the same traffic: only the 1100-token prompt
+    # passes the 1024-position window, the one place its mask drops keys
     gather = serve_held(params, cfg, "gather", engine_requests(cfg))
     check_served(cfg, gather, {"qmatmul": (per_tick, per_tick)},
                  f"{cfg.name} gather")
@@ -3817,6 +3855,7 @@ def phase_ssm_serve() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = api.init_params(0, cfg, device="cuda", wbits=8)
+    # the 1100-token prompt carries the SSM state over 69 chunks
     reqs = engine_requests(cfg)
     plen = {r.rid: len(r.prompt) for r in reqs}
     per_tick = qmatmul_per_tick(cfg)
@@ -3833,7 +3872,7 @@ def phase_ssm_serve() -> dict:
     t0 = time.perf_counter()
     static = {}, {}
     for r in reqs:
-        toks, tops = static_tops(params, cfg, r.prompt, 32)
+        toks, tops = static_tops(params, cfg, r.prompt, ENGINE_NEW)
         static[0][r.rid] = toks
         static[1].update({(r.rid, p): v for p, v in tops.items()})
     counts = {k: c for k, c in ops.launch_counts().items() if c}
@@ -5194,6 +5233,7 @@ GRAPH_LM = [(LM_ARCH, 6, 16), (HYMBA_ARCH, 4, 8)]   # (arch, requests, new)
 # qwen1.5-4b's served paths that phases 16-19 drive only through eager
 # plans (they watch Python wrappers), drained here with graph plans too:
 # (label, engine keywords)
+VARIANT_TRAFFIC = (4, 8)   # (requests, new): the variants' and granite's
 GRAPH_VARIANTS = [("int8 arena", {"quant_policy": "int8"}),
                   ("fp8 arena", {"quant_policy": "fp8"}),
                   ("gather backend", {"attn_backend": "gather"})]
@@ -5237,21 +5277,16 @@ def eager_plans():
 
 def check_plan_stats(runner, cfg, summary) -> dict:
     """A served runner's plans: every one warmed, no retrace, and one
-    CUDA graph each when the runner captures; a config with a MoE block
-    keeps eager plans and says why."""
+    CUDA graph each when the runner captures; no runner, a MoE one
+    included, keeps its plans eager for a reason of its own."""
     st = runner.plan_stats()
-    moe = cfg.family != "basecaller" and any(
-        k in tfm.MOE_KINDS for _, k, _ in tfm.group_names(cfg))
     want = st["plans"] if runner.plans.graphed else 0
     if summary["retraces"] or st["warmed"] != st["plans"] or \
-            st["graphs"] != want or (moe and (
-                runner.plans.graphed
-                or st.get("eager_reason") != runner_mod.MOE_EAGER)):
+            st["graphs"] != want or "eager_reason" in st:
         raise AssertionError(f"{cfg.name}: plans {st}, retraces "
                              f"{summary['retraces']}")
     print(f"[graphs] {cfg.name}: {st['plans']} plans, {st['graphs']} CUDA "
-          f"graphs, retraces={summary['retraces']:.0f}"
-          + (f"; eager: {st['eager_reason']}" if moe else ""))
+          f"graphs, retraces={summary['retraces']:.0f}")
     return st
 
 
@@ -5372,12 +5407,14 @@ def graph_drains(make_engine, reqs_fn, cfg, where: str) -> dict:
     (:func:`graph_census`)."""
     runs = {}
     for mode in ("graph", "eager"):
+        torch.cuda.reset_peak_memory_stats()
         with kept_graphs():
             eng = make_engine(graphs=mode == "graph")
             t0 = time.perf_counter()
             eng.warmup()
             torch.cuda.synchronize()
             warm = time.perf_counter() - t0
+        peak_warm = torch.cuda.max_memory_allocated()
         census = (graph_census(eng.runner.plans, where) if mode == "graph"
                   else {})
         eng.runner.plans.require_warm = True
@@ -5389,6 +5426,7 @@ def graph_drains(make_engine, reqs_fn, cfg, where: str) -> dict:
         eng.run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         st = eng.metrics.summary()
         plans = check_plan_stats(eng.runner, cfg, st)
         runs[mode] = {
@@ -5396,13 +5434,15 @@ def graph_drains(make_engine, reqs_fn, cfg, where: str) -> dict:
             "tokens": {rid: (r.status, list(map(int, r.out_tokens)))
                        for rid, r in eng.completed.items()},
             "summary": st, "plans": plans, "warmup_s": warm,
-            "drain_s": secs,
+            "drain_s": secs, "peak_gib": (peak_warm / 2**30, peak / 2**30),
             "census": census}
         print(f"[graphs] {where}, {mode} plans: warmup {warm:.2f}s, drain "
               f"{secs:.2f}s, {st['requests_done']} requests, tick p50 "
               f"{st['tick_latency_p50_s'] * 1e3:.2f} ms p99 "
               f"{st['tick_latency_p99_s'] * 1e3:.2f} ms, ejections "
-              f"{st['ejections']:.0f}")
+              f"{st['ejections']:.0f}; peak device memory "
+              f"{peak_warm / 2**30:.2f} GiB after warmup, "
+              f"{peak / 2**30:.2f} GiB after the drain")
     g, e = runs["graph"], runs["eager"]
     if g["tokens"] != e["tokens"] or len(g["tokens"]) != len(reqs) or \
             g["summary"]["ejections"] != e["summary"]["ejections"]:
@@ -5480,7 +5520,8 @@ def rubicall_graphs(ru) -> dict:
         out[f"trace_{mode}"] = trace(
             f"one read-until tick (rubicall, B={B}), {mode} plan",
             lambda: rn.dispatch(works)[1],
-            fetch=lambda o: runner_mod.readback(*o))
+            fetch=lambda o: runner_mod.readback(*o),
+            profiled=mode == "graph")
     same_kernels("rubicall read-until tick",
                  runs["graph"]["census"][gr._plan_key], out["trace_eager"])
     out["drains"] = {m: graph_figures(r) for m, r in runs.items()}
@@ -5505,7 +5546,7 @@ def graph_figures(run: dict) -> dict:
             "tick_p99_ms": st["tick_latency_p99_s"] * 1e3,
             "warmup_s": run["warmup_s"], "drain_s": run["drain_s"],
             "plans": run["plans"]["plans"], "graphs": run["plans"]["graphs"],
-            "retraces": st["retraces"],
+            "retraces": st["retraces"], "peak_gib": run["peak_gib"],
             "launches": {k: v for k, v in run["routes"].items()
                          if sum(v.values())}}
 
@@ -5546,7 +5587,11 @@ def logits_fn(runner):
 def lm_graphs(cfg, params, reqs_fn, where: str, **kw) -> dict:
     """``cfg`` through the engine with graph and with eager plans; then a
     mixed and a decode tick over the same pool state, captured as a CUDA
-    graph and run eagerly, logits bit for bit; each plan kind traced."""
+    graph and run eagerly, logits bit for bit; each plan kind traced
+    (the eager plans without the profiler: their kernels are the
+    graph's)."""
+    t0 = time.perf_counter()
+
     def make(graphs):
         return api.make_serving_engine(
             params, cfg, device="cuda", n_slots=LM_SLOTS,
@@ -5611,20 +5656,25 @@ def lm_graphs(cfg, params, reqs_fn, where: str, **kw) -> dict:
             out[f"trace_{kind}_{mode}"] = trace(
                 f"one {kind} tick ({cfg.name}, B={LM_SLOTS}, C="
                 f"{t.shape[1]}), {mode} plan",
-                lambda: tick(*args, rn.pool.host_tables(), None))
+                lambda: tick(*args, rn.pool.host_tables(), None),
+                profiled=mode == "graph")
         same_kernels(f"{where} {kind} tick", runs["graph"]["census"][key],
                      out[f"trace_{kind}_eager"])
     for rn in (gr, er):
         for slot in range(rn.n_slots):
             rn.pool.release_slot(slot)
+    print(f"[graphs] {where}: {time.perf_counter() - t0:.1f}s in all")
     return out
 
 
 def variant_graphs(cfg, params, reqs_fn, where: str, **kw) -> dict:
     """``cfg`` served with engine keywords ``kw`` (an int8 or fp8 arena,
-    the gather backend): one drain with graph plans against one with
-    eager plans, then one all-pad decode tick of each traced, the
-    port's kernels that the profiler saw start compared."""
+    the gather backend; none for granite-moe): one drain with graph
+    plans against one with eager plans, then one all-pad decode tick of
+    each traced (the eager one without the profiler), the graph's kernel
+    nodes against the eager tick's launches."""
+    t0 = time.perf_counter()
+
     def make(graphs):
         return api.make_serving_engine(
             params, cfg, device="cuda", n_slots=LM_SLOTS, cache_len=LM_CACHE,
@@ -5640,18 +5690,21 @@ def variant_graphs(cfg, params, reqs_fn, where: str, **kw) -> dict:
         tick = rn.plans.lookup(("decode", 1, "greedy"))
         out[f"trace_decode_{mode}"] = trace(
             f"one all-pad decode tick ({where}), {mode} plan",
-            lambda: tick(*pad, rn.pool.host_tables(), None))
+            lambda: tick(*pad, rn.pool.host_tables(), None),
+            profiled=mode == "graph")
     same_kernels(f"{where} decode tick",
                  runs["graph"]["census"][("decode", 1, "greedy")],
                  out["trace_decode_eager"])
+    print(f"[graphs] {where}: {time.perf_counter() - t0:.1f}s in all")
     return out
 
 
 def phase_graphs(ru, smi: str) -> dict:
     """Phase 26: scatter_rows against its plain version; then RUBICALL
     with read-until, qwen1.5-4b (also over an int8 and an fp8 arena and
-    on the gather backend), hymba-1.5b, mamba2-130m and whisper-tiny
-    through the engine with graph plans and with eager plans."""
+    on the gather backend), hymba-1.5b, granite-moe-1b-a400m,
+    mamba2-130m and whisper-tiny through the engine with graph plans and
+    with eager plans."""
     out = {"scatter_rows": scatter_check()}
     out["rubicall"] = rubicall_graphs(ru)
     for arch, n, new in GRAPH_LM:
@@ -5670,18 +5723,29 @@ def phase_graphs(ru, smi: str) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
             out[f"{arch} {label}"] = variant_graphs(
-                cfg, params, reqs, f"{cfg.name} {label}", **kw)
+                cfg, params, functools.partial(reqs, n=VARIANT_TRAFFIC[0],
+                                               new=VARIANT_TRAFFIC[1]),
+                f"{cfg.name} {label}", **kw)
         del params
+    # the GQA + MoE runner, its routing on the device (phase 9 holds a
+    # MoE tick's logits, graph against eager, for deepseek's)
+    cfg = replace(get_config(MOE_ARCH), quant=QuantPolicy(8, 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = api.init_params(0, cfg, device="cuda", wbits=8)
+    out[MOE_ARCH] = variant_graphs(cfg, params, lambda: [
+        Request(rid=r.rid, prompt=r.prompt, sampling=replace(
+            r.sampling, max_new_tokens=VARIANT_TRAFFIC[1]))
+        for r in lm_requests(cfg)[:VARIANT_TRAFFIC[0]]], cfg.name)
+    del params
     # the SSM-only runner (no block table, no writes) on phase 18's
-    # traffic less its 1100-token prompt, which passes a window that
-    # mamba2 has not (its 69 eager chunk ticks took ~20 s of the phase)
+    # traffic
     cfg = replace(get_config(SSM_ARCH), quant=QuantPolicy(8, 0))
     gc.collect()
     torch.cuda.empty_cache()
     params = api.init_params(0, cfg, device="cuda", wbits=8)
     out[SSM_ARCH] = lm_graphs(
-        cfg, params, lambda: [r for r in engine_requests(cfg)
-                              if len(r.prompt) != LONG_PROMPT],
+        cfg, params, lambda: engine_requests(cfg, long=False),
         cfg.name, cache_len=HYMBA_CACHE)
     del params
     cfg = replace(get_config(AUDIO_ARCH), quant=QuantPolicy(8, 0))
@@ -5705,11 +5769,16 @@ def free_port() -> int:
 
 
 # the phases cut to fit the time limit, and their seconds at the depth
-# they ran before the cut (the same phases on an H100 80GB HBM3 at
-# 700.00 W, whose build phase took 74.1 s)
+# they ran before their last cut (on an H100 80GB HBM3 at 700.00 W: the
+# first six in a run whose build phase took 74.1 s; serve (hybrid),
+# serve (ssm) and graphs, cut again, in a run whose build took 91.6 s:
+# 16 new tokens a request, drains of 4 requests for qwen's arena and
+# backend variants, traces of device activity alone and eager plans'
+# traces without the profiler)
 BEFORE_CUT_S = {"kernel (LM)": 30.2, "kernel (MLA)": 84.8, "train": 92.8,
                 "lm_train": 134.3, "rubicon": 104.5,
-                "serve (hybrid)": 167.4}
+                "serve (hybrid)": 230.4, "serve (ssm)": 61.4,
+                "graphs": 251.4}
 
 
 def main() -> int:
@@ -5725,9 +5794,9 @@ def main() -> int:
     t0 = time.perf_counter()
     laps = {}
 
-    def lap(name, fn, *args):
+    def lap(name, fn, *args, **kw):
         t = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         laps[name] = time.perf_counter() - t
         print(f"[chip_smoke] phase {name}: {laps[name]:.1f}s"
               + (f" (at the previous depth: {BEFORE_CUT_S[name]}s)"
@@ -5754,9 +5823,17 @@ def main() -> int:
     ds = lap("serve (MLA)", phase_lm_serve, ds_cfg,
              ("mla_paged", "mla_paged_chunk"), (DS_TICK_BF16, DS_TICK_FP32),
              ("qmatmul", "mla_paged", "mla_paged_chunk"))
-    lap("trace (MLA)", phase_lm_trace, ds)
     ds_launches, ds_routes = ds["launches"], ds["routes"]
+    ds_params = ds["runner"].params
     ds.clear()                             # free deepseek's engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_graphs = lap("graphs (MLA)", lm_graphs, ds_cfg, ds_params,
+                    lambda: lm_requests(ds_cfg),
+                    f"{DS_ARCH} ({DS_LAYERS} layers)", cache_len=LM_CACHE)
+    del ds_params                          # and its weights
+    gc.collect()
+    torch.cuda.empty_cache()
     pre = lap("kernel (prefill)", phase_prefill_kernel)
     ssm_run = lap("static (mamba2)", phase_static, get_config(SSM_ARCH),
                   SSM_PROMPT, (SSD_SWAP,), SSM_PREFILL, 0, ("ssd_scan",),
@@ -5987,14 +6064,14 @@ def main() -> int:
             **({"p_terms_max_abs_err": pre["err"]["flash_p_terms"]}
                if name == "flash_attention" else {})})
     drains = [run["drains"][m]["launches"].get("scatter_rows", {})
-              for arch, run in graphs.items() if arch != "scatter_rows"
-              for m in ("graph", "eager")]
+              for arch, run in [*graphs.items(), (DS_ARCH, ds_graphs)]
+              if arch != "scatter_rows" for m in ("graph", "eager")]
     sc_phases = {LM_ARCH: lm_routes, DS_ARCH: ds_routes,
                  "rubicon": knob_routes, HYMBA_ARCH: hyb["routes"],
                  SSM_ARCH + " (engine)": ssm_eng["routes"],
                  AUDIO_ARCH: aud["routes"]}
     sc_by_phase = {k: r["scatter_rows"] for k, r in sc_phases.items()}
-    sc_by_phase["graphs (phase 26 drains)"] = {
+    sc_by_phase["graphs (phases 9 and 26 drains)"] = {
         r: sum(d.get(r, 0) for d in drains) for r in sr.ROUTES}
     kernels.append({
         "name": "scatter_rows", "route": "cuda",

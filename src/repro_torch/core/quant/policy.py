@@ -75,7 +75,12 @@ def dequantize(p: PackedTensor, dtype=torch.bfloat16) -> torch.Tensor:
         q = unpack_int4(q)
         if q.shape[-2] != p.orig_shape[-2]:      # drop pad row
             q = q[..., : p.orig_shape[-2], :]
-    return (q.float() * p.scale).to(dtype)
+    # one pass: the integers times the fp32 scale in fp32, rounded once
+    # to ``dtype`` as they are stored, the bits of
+    # ``(q.float() * scale).to(dtype)`` without its two fp32 temporaries
+    out = torch.empty(torch.broadcast_shapes(q.shape, p.scale.shape),
+                      dtype=dtype, device=q.device)
+    return torch.mul(q, p.scale, out=out)
 
 
 def tree_map_with_path(fn: Callable[[str, Any], Any], tree,

@@ -4,14 +4,14 @@
 Routing is the reference's, step for step: softmax gates, iterative
 top-1 x k (ties to the first expert), a per-(group, expert) capacity with
 overflow dropped, pad tokens excluded, combine weights renormalised over
-the chosen experts. The reference then runs every expert densely over a
-(E, G, capacity, d) dispatch tensor, dequantizing all of them; the port
-computes the same function over only the experts that received a token:
-it gathers those experts' rows, dequantizes each expert as ``kernel_of``
-does, and sums the outputs with the same dispatch and combine weights
-(an expert's empty capacity slots add zero in the reference). Fake
-tensors (the dry run's counter) have no routing to read, so there the
-reference's dense form runs (:func:`_routed_dense`).
+the chosen experts. The experts then run in the reference's
+capacity-slot form, every expert's ``capacity`` slots of every group at
+a fixed shape, restricted to at most ``n = min(E, G·S·k)`` experts, the
+most a call can choose (:func:`_routed`). Nothing of the routing is read
+back to the host, so a tick that routes is held by a CUDA graph. Each
+expert is dequantized as ``kernel_of`` does, ``EXPERT_CHUNK`` experts at
+a time. Fake tensors (the dry run's counter) take the reference's
+program as it is, every expert at once (:func:`_routed_dense`).
 
 Expert parallelism (a tensor-parallel training step,
 ``parallel/tensor_parallel``): where the model group's size divides
@@ -137,70 +137,77 @@ def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int,
     return dispatch, combine, aux
 
 
-def _expert(w: PackedTensor, e: int, dtype) -> torch.Tensor:
-    """Expert ``e``'s weight in ``dtype``, dequantized as ``kernel_of``
-    dequantizes a packed stack."""
-    return dequantize(PackedTensor(w.data[e], w.scale[e], w.bits,
-                                   w.orig_shape), dtype)
-
-
 def _routed(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
-            combine: torch.Tensor, split: bool = False) -> torch.Tensor:
+            combine: torch.Tensor, split: bool = False, *,
+            k: int) -> torch.Tensor:
     """sum over the (token, expert) pairs of ``dispatch`` of
     ``combine · expert(x)``, the expert a gated SiLU MLP in x's dtype;
     combine weights rounded to x's dtype, the sum in fp32, rounded once.
     x: (G, S, d). Returns (G, S, d).
 
+    The reference's capacity-slot form over ``n = min(E_local, G·S·k)``
+    expert slots, walked ``EXPERT_CHUNK`` at a time. Where ``n`` is the
+    stack's own expert count the slots are its experts in order; else a
+    table on the device lists the chosen experts first and each chunk
+    gathers its experts' weights by it. A slot's unchosen expert has
+    all-zero dispatch and combine columns and adds exactly zero. A
+    token's output from an expert is read at the one capacity slot it
+    holds there, not summed over every slot. No shape or trip count
+    depends on the routing, so a CUDA graph holds the call.
+
     ``split``: ``p`` holds this rank's experts of a stack split over the
-    model group: the pairs of those experts only, every one of them
-    walked (tokens or none, so that each rank's backward reaches the
-    all-reduces of ``x``'s and the weights' gradients), and the fp32
-    sum reduced over the group before its rounding."""
+    model group: every one of them walked, and the fp32 sum reduced over
+    the group before its rounding."""
     G, S, d = x.shape
+    C = dispatch.shape[-1]
     dt = x.dtype
     n_local = (p["wi"].data if isinstance(p["wi"], PackedTensor)
                else p["wi"]).shape[0]
     lo = tp.rank() * n_local if split else 0
+    n = n_local if split else min(n_local, G * S * k)
     # a token takes a slot of an expert at most once: its pair's weight
     # is the sum over the capacity slots
-    cw = tp.copy_to_model(combine.sum(dim=-1), split)     # (G, S, E)
+    cw = tp.copy_to_model(combine.sum(dim=-1), split)[:, :, lo:lo + n_local]
     x = tp.copy_to_model(x, split)
-    # float stacks are cast once and unbound: the backward stacks the
-    # experts' gradients in one op, where indexing an expert would fill a
-    # zero tensor of the whole stack for each expert's gradient
-    ws = {n: p[n] if isinstance(p[n], PackedTensor)
-          else p[n].to(dt).unbind(0) for n in ("wi", "wg", "wo")}
-
-    def expert(name: str, e: int) -> torch.Tensor:
-        w = ws[name]
-        return _expert(w, e, dt) if isinstance(w, PackedTensor) else w[e]
-    # sync: the loop below runs on the host over the experts that
-    # received a token, so the routing is read back once per layer
-    nz = torch.nonzero(dispatch.any(dim=-1)).cpu()      # (n, 3) g, s, e
-    if split:
-        nz = nz[(nz[:, 2] >= lo) & (nz[:, 2] < lo + n_local)]
-    nz = nz[torch.argsort(nz[:, 2], stable=True)]
-    if split:
-        experts = torch.arange(lo, lo + n_local)
-        counts = torch.bincount(nz[:, 2] - lo, minlength=n_local)
+    disp = dispatch[:, :, lo:lo + n_local]
+    if n == n_local:
+        # views: the backward concatenates a float stack's chunk
+        # gradients instead of filling a zero stack for each chunk
+        def pick(t: torch.Tensor, dim: int):
+            return torch.split(t, EXPERT_CHUNK, dim)
     else:
-        experts, counts = torch.unique_consecutive(nz[:, 2],
-                                                   return_counts=True)
-    idx = nz.to(x.device, non_blocking=True)
-    rows = idx[:, 0] * S + idx[:, 1]
-    w = cw[idx[:, 0], idx[:, 1], idx[:, 2]].to(dt).float()
-    xf = x.reshape(G * S, d)
-    y = torch.zeros((G * S, d), dtype=torch.float32, device=x.device)
-    off = 0
-    for e, n in zip(experts.tolist(), counts.tolist()):
-        r = rows[off:off + n]
-        xe = xf[r]
-        h = (F.silu(xe @ expert("wg", e - lo))
-             * (xe @ expert("wi", e - lo)))
-        ye = h @ expert("wo", e - lo)
-        y.index_add_(0, r, w[off:off + n, None] * ye.float())
-        off += n
-    return tp.reduce_from_model(y, split).to(dt).reshape(G, S, d)
+        chosen = disp.any(dim=-1).any(dim=1).any(dim=0)     # (E_local,)
+        table = torch.argsort((~chosen).to(torch.uint8), stable=True)[:n]
+        ids = torch.split(table, EXPERT_CHUNK)
+
+        def pick(t: torch.Tensor, dim: int):
+            return (t.index_select(dim, i) for i in ids)
+
+    def weights(name: str):
+        w = p[name]
+        if not isinstance(w, PackedTensor):
+            return pick(w.to(dt), 0)
+        return (dequantize(PackedTensor(q, s, w.bits, w.orig_shape), dt)
+                for q, s in zip(pick(w.data, 0), pick(w.scale, 0)))
+    y = torch.zeros((G, S, d), dtype=torch.float32, device=x.device)
+    for dc, wc, wi, wg, wo in zip(pick(disp, 2), pick(cw, 2),
+                                  weights("wi"), weights("wg"),
+                                  weights("wo")):
+        m = dc.shape[2]
+        xe = torch.einsum("gsnc,gsd->ngcd", dc.to(dt), x)
+        h = F.silu(torch.einsum("ngcd,ndf->ngcf", xe, wg)) * torch.einsum(
+            "ngcd,ndf->ngcf", xe, wi)
+        ye = torch.einsum("ngcf,nfd->ngcd", h, wo)
+        # each (token, expert) pair's row of ye: its slot there (0, at
+        # zero weight, where the pair holds none)
+        slot = dc.to(torch.uint8).argmax(dim=-1)                # (G, S, m)
+        row = ((torch.arange(m, device=x.device) * G)[None, None, :]
+               + torch.arange(G, device=x.device)[:, None, None]) * C + slot
+        out = ye.reshape(m * G * C, d).index_select(0, row.reshape(-1))
+        w = wc.to(dt).float() * dc.any(dim=-1)
+        y = y + torch.einsum("gsn,gsnd->gsd", w,
+                             out.reshape(G, S, m, d).float())
+    return tp.reduce_from_model(y, split).to(dt)
 
 
 def _routed_dense(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
@@ -247,7 +254,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         y = _routed_dense(p, x, dispatch, combine)
     else:
         y = _routed(p, x, dispatch, combine, split=tp.size() > 1 and (
-            p["wi"].shape[-3] != E))
+            p["wi"].shape[-3] != E), k=k)
     if "shared" in p:
         y = y + mlp(p["shared"], x, cfg=cfg, tag="moe/shared",
                     d_ff=(cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts)

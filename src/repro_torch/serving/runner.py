@@ -41,9 +41,8 @@ card every plan is captured once as a CUDA graph at ``warmup()`` and
 replayed each tick (``graphs=False`` keeps them eager, for comparison).
 Caches, the previous tick's tokens and the encoder buffers update in
 place and are never rebound, so a graph keeps reading the live tensors.
-A runner whose config has a MoE block keeps eager plans on a card:
-``moe._routed`` reads the routing back to the host and loops over the
-chosen experts, which a graph cannot hold (``plan_stats()`` says so).
+A MoE block's routing stays on the device at fixed shapes
+(``moe._routed``), so MoE runners capture like the others.
 """
 from __future__ import annotations
 
@@ -61,11 +60,6 @@ from repro_torch.models.basecaller import model as bc
 from repro_torch.serving.cache import CachePool
 from repro_torch.serving.plan import PlanCache, chunk_buckets, round_chunk
 from repro_torch.serving.sampling import any_sampled, pack_rows, sample_tokens
-
-
-MOE_EAGER = ("a MoE block reads its routing back to the host and loops over "
-             "the chosen experts (moe._routed), which a CUDA graph cannot "
-             "hold")
 
 
 class Chunk(NamedTuple):
@@ -484,9 +478,7 @@ class TokenRunner(ModelRunner):
         self.attn_backend = self.pool.attn_backend       # resolved
         self.layers = tfm.param_layer_views(params, cfg)
         self.buckets = chunk_buckets(self.chunk_tokens)
-        moe = any(kind in tfm.MOE_KINDS for _, kind, _ in tfm.group_names(cfg))
-        self.plans = PlanCache(self.device, graphs=graphs,
-                               eager_reason=MOE_EAGER if moe else None)
+        self.plans = PlanCache(self.device, graphs=graphs)
         for flavor in ("greedy", "sampled"):
             self.plans.register(("decode", 1, flavor),
                                 self._plan(mixed=False,

@@ -1160,7 +1160,8 @@ def _graph_engines(arch, **kw):
 
 
 GRAPH_LM_SMOKE = ["qwen1.5-4b-smoke", "hymba-1.5b-smoke",
-                  "whisper-tiny-smoke"]
+                  "whisper-tiny-smoke", "deepseek-v3-671b-smoke",
+                  "granite-moe-1b-a400m-smoke"]
 
 
 @pytest.mark.gpu

@@ -416,7 +416,8 @@ def test_fake_tensors_take_the_static_moe_and_ctc_forms():
                           -1)
     dispatch, combine, _ = moe._top_k_dispatch(gates, cfg.experts_per_tok, 4)
     torch.testing.assert_close(moe._routed_dense(p, x, dispatch, combine),
-                               moe._routed(p, x, dispatch, combine),
+                               moe._routed(p, x, dispatch, combine,
+                                           k=cfg.experts_per_tok),
                                rtol=1e-5, atol=1e-5)
     # F.ctc_loss's shapes depend on the lengths' values: a fake batch
     # takes the plain twin, whose value on real tensors is the same

@@ -4,10 +4,15 @@
   the reference's on the same gates, over k, a capacity that overflows,
   exact ties (broken to the first expert) and pad masks.
 - ``moe_ffn``: the same output within 1e-5 in fp32 for float and packed
-  int8 experts (router through the quantized matmul as served), for the
-  decode fold (S == 1: the batch is one dispatch group) and for chunks
-  (S > 1, a group per row), with pad tokens. The port runs only the
-  experts that received a token; the reference runs all of them.
+  int8 and int4 experts (router through the quantized matmul as served),
+  for the decode fold (S == 1: the batch is one dispatch group) and for
+  chunks (S > 1, a group per row), with pad tokens, recording gradients
+  or not. With more experts than a call can choose (``n = G·S·k < E``)
+  the port gathers the chosen experts' weights into ``n`` slots, over
+  several chunks, the last one partial; where ``n == E`` it walks every
+  expert in chunks. The reference runs every expert.
+- ``moe_ffn`` runs on meta tensors: no op of the expert path reads the
+  routing's values (meta raises on ``nonzero``, ``.cpu()``, ``unique``).
 - Packing as the weights are drawn equals packing the drawn tree.
 """
 import dataclasses
@@ -25,7 +30,8 @@ from repro.core.quant.policy import quantize_tree as jquantize_tree
 from repro.models.lm import moe as jmoe
 from repro_torch import bridge
 from repro_torch.config import QuantPolicy, get_config
-from repro_torch.core.quant.policy import PackedTensor, quantize_tree
+from repro_torch.core.quant.policy import (Packer, PackedTensor,
+                                           quantize_tree, tree_map)
 from repro_torch.models import api
 from repro_torch.models.lm import moe
 
@@ -67,13 +73,17 @@ def test_top_k_dispatch_matches_the_reference(G, S, E, k, capacity, masked,
         assert int(td.sum()) < (G * S if mask is None else mask.sum()) * k
 
 
-def _models(arch, packed):
-    jcfg, tcfg = jget_config(arch), get_config(arch)
+def _models(arch, packed, **changes):
+    """Both packages' configs (``changes`` applied to each), the
+    reference's expert params and their bridge; ``packed``: weight bits
+    (0: float)."""
+    jcfg = dataclasses.replace(jget_config(arch), **changes)
+    tcfg = dataclasses.replace(get_config(arch), **changes)
     jp = jmoe.make_moe_params(jax.random.key(1), jcfg)
     if packed:
-        jcfg = dataclasses.replace(jcfg, quant=JQuantPolicy(8, 0))
-        tcfg = dataclasses.replace(tcfg, quant=QuantPolicy(8, 0))
-        jp = jquantize_tree({"ffn": jp}, JQuantPolicy(8, 0),
+        jcfg = dataclasses.replace(jcfg, quant=JQuantPolicy(packed, 0))
+        tcfg = dataclasses.replace(tcfg, quant=QuantPolicy(packed, 0))
+        jp = jquantize_tree({"ffn": jp}, JQuantPolicy(packed, 0),
                             min_size=256)["ffn"]
     tp = bridge.from_numpy_tree(jax.tree.map(np.asarray, jp), device="cpu")
     if packed:
@@ -82,11 +92,7 @@ def _models(arch, packed):
     return jcfg, tcfg, jp, tp
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("B,S,decode", [(4, 1, True), (2, 8, False)])
-def test_moe_ffn_matches_the_reference(arch, packed, B, S, decode):
-    jcfg, tcfg, jp, tp = _models(arch, packed)
+def _check_moe_ffn(jcfg, tcfg, jp, tp, B, S, decode, grad):
     rs = np.random.RandomState(B + S)
     x = rs.randn(B, S, jcfg.d_model).astype(np.float32)
     mask = np.ones((B, S), bool)
@@ -95,12 +101,73 @@ def test_moe_ffn_matches_the_reference(arch, packed, B, S, decode):
         mask[0, 5:] = False                         # a padded chunk
     want, jaux = jmoe.moe_ffn(jp, jnp.asarray(x), jcfg, decode=decode,
                               pad_mask=jnp.asarray(mask))
-    got, taux = moe.moe_ffn(tp, torch.from_numpy(x), tcfg, decode=decode,
-                            pad_mask=torch.from_numpy(mask))
+    tx = torch.from_numpy(x).requires_grad_(grad)
+    with torch.enable_grad() if grad else torch.no_grad():
+        got, taux = moe.moe_ffn(tp, tx, tcfg, decode=decode,
+                                pad_mask=torch.from_numpy(mask))
     assert got.shape == (B, S, jcfg.d_model) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-5)
-    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    assert got.requires_grad == grad
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(taux.detach()), float(jaux), rtol=1e-5)
+    if grad:
+        got.sum().backward()
+        assert tx.grad is not None and torch.isfinite(tx.grad).all()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("packed", [False, True, 4])
+@pytest.mark.parametrize("B,S,decode", [(4, 1, True), (2, 8, False)])
+def test_moe_ffn_matches_the_reference(arch, packed, B, S, decode):
+    """Float (False), int8 (True) or int4 (4) experts, each call under
+    ``no_grad`` and recording gradients."""
+    models = _models(arch, 8 if packed is True else int(packed))
+    for grad in (False, True):
+        _check_moe_ffn(*models, B, S, decode, grad)
+
+
+@pytest.mark.parametrize("E,k,B,S,decode,ff", [
+    (24, 4, 3, 1, True, 64),     # n = 12 < 24: gathered, chunks 8 + 4
+    (24, 4, 3, 1, True, 33),     # the same; int4 stacks with a pad row
+    (20, 4, 2, 8, False, 64),    # n == E = 20: chunks 8 + 8 + 4
+])
+@pytest.mark.parametrize("packed", [0, 8, 4])
+def test_moe_ffn_over_many_experts_matches_the_reference(E, k, B, S, decode,
+                                                         ff, packed):
+    """More experts than the smoke configs' 4, so the slot count
+    ``n = min(E, G·S·k)`` spans several chunks, and on a decode fold
+    falls below ``E``: the chosen experts are gathered into slots by a
+    table on the device, and the slots past them hold unchosen experts
+    that must add nothing."""
+    G, rows = (1, B * S) if decode else (B, S)
+    assert (G * rows * k < E) == decode
+    _check_moe_ffn(*_models("granite-moe-1b-a400m-smoke", packed,
+                            n_experts=E, experts_per_tok=k, d_ff=ff,
+                            moe_d_ff=ff),
+                   B, S, decode, grad=False)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_ffn_runs_on_meta_tensors(arch):
+    """Meta tensors carry shapes and no values, and raise on every op
+    whose result depends on them (``nonzero``, ``.cpu()``, ``.tolist()``,
+    ``unique``, ``bincount``): the whole layer, routing and experts, and
+    its int8 stacks, runs on them at the decode fold's gathered slots
+    and at a chunk's every expert."""
+    tcfg = dataclasses.replace(get_config(arch), n_experts=24,
+                               experts_per_tok=4, quant=QuantPolicy(8, 0))
+    p = moe.make_moe_params(torch.Generator().manual_seed(0), tcfg,
+                            pack=Packer(QuantPolicy(8, 0), min_size=256))
+    assert isinstance(p["wi"], PackedTensor)
+    p = tree_map(lambda t: t.to("meta"), p)
+    for B, S, decode in ((3, 1, True), (2, 8, False)):
+        x = torch.empty((B, S, tcfg.d_model), device="meta")
+        mask = torch.ones((B, S), dtype=torch.bool, device="meta")
+        y, aux = moe.moe_ffn(p, x, tcfg, decode=decode, pad_mask=mask)
+        assert y.device.type == "meta" and y.shape == (B, S, tcfg.d_model)
+        assert aux.shape == ()
+    with pytest.raises(NotImplementedError):
+        torch.nonzero(x)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b-smoke",

@@ -6,8 +6,8 @@ reference's plan contract, and the fixed-shape KV writes they rest on.
   ``graphs``; a warmed key staged again with inputs of another shape is
   a retrace; a staged plan's output of tick N is unchanged after tick
   N+1 (outputs never alias the static buffers); a capture's launches go
-  to its tally and each replay counts them; a MoE runner names why its
-  plans stay eager.
+  to its tally and each replay counts them; MoE runners, like the
+  others, give no reason to keep their plans eager.
 - The tick's KV, int8-scale and position writes keep the fixed ``(B,
   C)`` shape and go through the drop route, and equal the reference's
   ``paged_indices`` + ``.at[wblk, off].set(..., mode="drop")`` exactly:
@@ -36,10 +36,11 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import api
 from repro_torch.serving.engine import Request
 from repro_torch.serving.plan import PlanCache, PlanMissError
-from repro_torch.serving.runner import MOE_EAGER
 from repro_torch.serving.sampling import SamplingParams
 
 KEY = ("decode", 1, "greedy")
+# a reason of the tests' own for a cache to stay eager on a card
+EAGER = "this program cannot be captured"
 
 
 # ------------------------------------------------------------ PlanCache
@@ -76,14 +77,14 @@ def test_warm_stages_and_marks_the_key():
 def test_stats_keys_are_the_reference_s_plus_graphs():
     want = set(JPlanCache().stats())
     assert set(PlanCache().stats()) == want | {"graphs"}
-    eager = PlanCache("cuda", eager_reason=MOE_EAGER)
+    eager = PlanCache("cuda", eager_reason=EAGER)
     assert set(eager.stats()) == want | {"graphs", "eager_reason"}
-    assert eager.stats()["eager_reason"] == MOE_EAGER
+    assert eager.stats()["eager_reason"] == EAGER
 
 
 @pytest.mark.parametrize("device,graphs,reason,graphed", [
     ("cpu", True, None, False), ("cuda", True, None, True),
-    ("cuda", False, None, False), ("cuda", True, MOE_EAGER, False)])
+    ("cuda", False, None, False), ("cuda", True, EAGER, False)])
 def test_plans_capture_only_on_a_card(device, graphs, reason, graphed):
     """Building a cache touches no device: only a CUDA cache with graphs
     on and no stated reason captures."""
@@ -139,19 +140,20 @@ def test_capture_launches_go_to_the_tally_and_replays_count_them():
 
 
 def test_moe_runners_say_why_their_plans_stay_eager():
-    cfg = get_config("granite-moe-1b-a400m-smoke")
-    eng = api.make_serving_engine(api.init_params(0, cfg, device="cpu"), cfg,
-                                  device="cpu", n_slots=2, cache_len=16,
-                                  prefill_chunk=4, block_len=4,
-                                  cache_dtype=torch.float32)
-    s = eng.runner.plan_stats()
-    assert s["eager_reason"] == MOE_EAGER and s["graphs"] == 0
-    qwen = get_config("qwen1.5-4b-smoke")
-    eng = api.make_serving_engine(api.init_params(0, qwen, device="cpu"),
-                                  qwen, device="cpu", n_slots=2,
-                                  cache_len=16, prefill_chunk=4, block_len=4,
-                                  cache_dtype=torch.float32)
-    assert "eager_reason" not in eng.runner.plan_stats()
+    """They no longer do: a MoE block routes on the device at fixed
+    shapes, so the MoE runners register their plans as the dense one
+    does, with no reason to stay eager (on a card they capture:
+    ``tests/test_torch_cuda.py``'s graph-against-eager drains)."""
+    for arch in ("deepseek-v3-671b-smoke", "granite-moe-1b-a400m-smoke",
+                 "qwen1.5-4b-smoke"):
+        cfg = get_config(arch)
+        eng = api.make_serving_engine(api.init_params(0, cfg, device="cpu"),
+                                      cfg, device="cpu", n_slots=2,
+                                      cache_len=16, prefill_chunk=4,
+                                      block_len=4, cache_dtype=torch.float32)
+        s = eng.runner.plan_stats()
+        assert eng.runner.plans.eager_reason is None, arch
+        assert "eager_reason" not in s and s["graphs"] == 0, arch
 
 
 # ---------------------------------------------- fixed-shape drop writes
