@@ -105,9 +105,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 11. static (mamba2) — full-width mamba2-130m (24 layers, no cut),
    seeded bf16 weights drawn on the card, through launch/serve.py's
    static path (run_static): 4 prompts of 2048 tokens, 32 greedy new
-   tokens. Checks ssd_scan launched 24 times in the prefill, all on the
-   tensor-core route, and never in the decode (and nothing else), and
-   that the prefill's
+   tokens, through its two plans captured as CUDA graphs (the prefill,
+   and the decode step with its position staged on the card), then
+   again through eager plans on the same weights and prompts: the same
+   tokens, the prefill's last-position logits and every cache leaf
+   after the last step bit for bit (a leaf one bf16 ulp off at most is
+   listed), the same launches by route, 2 graphs and no retrace; prints
+   each kind's capture s, prefill ms and decode ms a step and tok/s, and
+   the peak memory after the graphed run. Checks ssd_scan launched 24
+   times in the prefill, all on the tensor-core route, and never in the
+   decode (and nothing else), and that the prefill's
    last-position logits and every layer's handed-off h/conv state
    through the kernel agree with the same prefill through the plain
    version, in fp32 and bf16; prints prefill ms, decode tok/s, peak
@@ -220,7 +227,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tokens read against the ``cuda`` ones under phase 16's
    near-tie rule; pool bytes by class, a traced decode and mixed tick,
    peak memory. Then the static path (``--static --wbits 8``, 4 prompts
-   of 1536 tokens, 32 new): flash_attention 3 times (the full layers)
+   of 1536 tokens, 32 new) graphed against eager plans as phase 11
+   runs it: flash_attention 3 times (the full layers)
    and ssd_scan 32 times in the prefill, none in the decode, the
    prefill through the kernels against their plain versions in fp32 and
    bf16, and a traced prefill.
@@ -252,10 +260,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whisper-tiny (4 x 64 tokens over 1500 frames), internvl2-1b whole
    (``--wbits 8`` dequantized to bf16, 4 x (256 patches + 256 tokens)),
    chatglm3-6b whole (2 x 128) and command-r-plus-104b and llama3-405b
-   at published widths cut to 2 layers (2 x 128, 8 new tokens): flash
+   at published widths cut to 2 layers (2 x 128, 8 new tokens), each
+   graphed against eager plans as phase 11 runs it: flash
    once a decoder and an encoder layer in the prefill (whisper 4 not
-   causal and 4 causal), none in the decode, tensor-core; one prefill
-   with every flash call held against its plain version in bf16 and
+   causal and 4 causal), none in the decode, tensor-core; one eager
+   prefill with every flash call held against its plain version in bf16 and
    fp32; prefill ms, decode tok/s, peak memory. Then 10 training steps
    each of whisper-tiny (4 x 448) and internvl2-1b (2 x 1024 after its
    256 patches) as phase 15 trains, on the token stream's first batch
@@ -265,15 +274,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against the dense plain attention at full width.
 21. static (moe) — ``--static --wbits 8`` through ``run_static`` (4
    prompts of 512 tokens, 32 greedy new tokens; weights packed to int8
-   as drawn on the card and dequantized once to bf16) of
+   as drawn on the card and dequantized once to bf16), graphed against
+   eager plans as phase 11 runs it, of
    granite-moe-1b-a400m whole (24 ``moe`` layers, 32 experts, top-8)
    and deepseek-v3-671b at published widths cut to 4 layers (3
    mla_dense + 1 mla_moe, 256 experts, top-8 and the shared expert):
    granite's prefill launches flash_attention 24 times, all on the
-   tensor-core route, and neither decode launches any kernel; deepseek's
-   prefill (MLA: the plain ``blockwise_attn``, as the reference) and
-   decode (the latent rows through ``decode_mla``'s gather route)
-   launch none. granite's prefill with every flash call held against
+   tensor-core route, and its decode none; deepseek's
+   prefill (MLA: the plain ``blockwise_attn``, as the reference)
+   launches none and its decode (the latent rows through
+   ``decode_mla``'s gather route) scatter_rows 3 times a layer and step
+   (the latent row, its rope key and its position, written in the
+   reference's drop form). granite's eager prefill with every flash call held against
    its plain version in bf16 (one bf16 ulp) and on fp32 copies (1e-4),
    and its whole prefill through the kernel against the plain path in
    fp32 (1e-4) and bf16 (last-position logits, every layer's handed-off
@@ -358,8 +370,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode tick's 120 launches beside its byte bound. Then RUBICALL at
    B = 4 with read-until (phase 13's classifier), qwen1.5-4b (6
    requests, 16 new: decode and mixed ticks, greedy and sampled),
-   hymba-1.5b (4 requests, 8 new), mamba2-130m (phase 18's traffic:
-   the SSM-only runner) and whisper-tiny (phase 19's traffic) each
+   hymba-1.5b (2 requests, 8 new), mamba2-130m (4 of phase 18's short
+   requests: the SSM-only runner) and whisper-tiny (phase 19's traffic) each
    drained through an engine with graph plans and one
    with eager plans: the same tokens, bases, statuses and ejections,
    the same launches by route, retraces 0, one graph a plan and none;
@@ -2231,16 +2243,99 @@ def prefill_launches(cfg) -> dict:
     return {k: n for k, n in want.items() if n}
 
 
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units of one bf16 ulp of the larger
+    magnitude of the pair (2^-7 of its power of two); integer leaves
+    count each difference as infinitely many."""
+    if not want.is_floating_point():
+        return 0.0 if torch.equal(got, want) else float("inf")
+    a, b = got.float(), want.float()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return float(((a - b).abs() / ulp).amax())
+
+
+def static_graph_vs_eager(params, cfg, args, where: str, tag: str) -> dict:
+    """``run_static`` at ``args`` through its plans captured as CUDA
+    graphs (as ``--static`` runs on a card), then through eager plans on
+    the same weights and prompts (``graphs=False``), counts from 0 before
+    each. Checks the same greedy tokens; the prefill's last-position
+    logits and every cache leaf after the last step bit for bit (a leaf
+    off by at most one bf16 ulp is held there and listed); the same
+    launches by route in all and by kernel in each half; 2 graphs and no
+    retrace, no graph eager. Returns the graph run's result without its
+    tensors, its launches by route (``routes``), the peak device memory
+    after it (``peak_gib``: the weights, the caches and the graphs'
+    pool), each kind's capture s, prefill ms and decode ms a step and
+    tok/s (``kinds``) and the leaves that were not bit for bit
+    (``ulps``)."""
+    runs = {}
+    for kind in ("graph", "eager"):
+        ops.reset_launch_counts()
+        r = serve.run_static(params, cfg, args, "cuda",
+                             graphs=kind == "graph")
+        torch.cuda.synchronize()
+        r["routes"] = ops.launch_counts(routes=True)
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        runs[kind] = r
+    g, e = runs["graph"], runs["eager"]
+    steps = args.tokens - 1
+    kinds = {k: {"capture_s": r["capture_s"],
+                 "prefill_ms": r["prefill_s"] * 1e3,
+                 "decode_ms_step": r["decode_s"] * 1e3 / max(steps, 1),
+                 "decode_tok_s": args.slots * steps / r["decode_s"],
+                 "plans": r["plans"]} for k, r in runs.items()}
+    pairs = [("logits", g["logits"], e["logits"])]
+    for grp in g["caches"]:
+        want = dict(cache_leaves(e["caches"][grp]))
+        pairs += [("/".join((grp, *path)), a, want[path])
+                  for path, a in cache_leaves(g["caches"][grp])]
+    ulps = {name: bf16_ulps(a, b) for name, a, b in pairs
+            if not torch.equal(a, b)}
+    st_g, st_e = g["plans"], e["plans"]
+    if not torch.equal(g["tokens"], e["tokens"]) or \
+            any(u > 1 for u in ulps.values()) or \
+            g["routes"] != e["routes"] or \
+            g["launches_prefill"] != e["launches_prefill"] or \
+            g["launches_decode"] != e["launches_decode"] or \
+            (st_g["graphs"], st_g["retraces"]) != (2, 0) or \
+            (st_e["graphs"], st_e["retraces"]) != (0, 0):
+        raise AssertionError(
+            f"{where}: graph vs eager plans: tokens equal "
+            f"{torch.equal(g['tokens'], e['tokens'])}, leaves off (bf16 "
+            f"ulps) {ulps}, launches {g['launches_prefill']} / "
+            f"{g['launches_decode']} vs {e['launches_prefill']} / "
+            f"{e['launches_decode']}, plans {st_g} vs {st_e}")
+    print(f"[{tag}] {cfg.name}: static plans graph vs eager: capture "
+          + " / ".join(f"{kinds[k]['capture_s']:.2f}" for k in kinds)
+          + " s, prefill " + " / ".join(f"{kinds[k]['prefill_ms']:.2f}"
+                                       for k in kinds)
+          + " ms, decode " + " / ".join(
+              f"{kinds[k]['decode_ms_step']:.3f} ms a step "
+              f"({kinds[k]['decode_tok_s']:.1f} tok/s)" for k in kinds)
+          + f"; tokens, logits and {len(pairs) - 1} cache leaves "
+          + ("bit for bit" if not ulps else
+             f"equal but {ulps} (bf16 ulps)")
+          + f"; launches by route equal; plans {st_g}; peak device "
+          f"memory after the graphed run {g['peak_gib']:.2f} GiB")
+    out = {k: v for k, v in g.items()
+           if k not in ("tokens", "logits", "caches")}
+    out.update(kinds=kinds, ulps=ulps, tokens=g["tokens"])
+    return out
+
+
 def phase_static(cfg, prompt: int, swaps, bounds, wbits: int = 0,
                  tensor_core: tuple = (), share: tuple = ()) -> dict:
     """The static path at full width through ``launch/serve.py``'s
     ``run_static``: seeded weights drawn on the card (``wbits``: packed
     as drawn and dequantized once up front, as ``--static --wbits``
-    does), 4 prompts of ``prompt`` tokens, 32 greedy new tokens. Checks
-    each prefill kernel launched as often as :func:`prefill_launches`
-    says in the prefill and never in the decode, and no other kernel;
-    then the prefill through the kernels vs their plain versions
-    (``swaps``) in fp32 and bf16; then traces one prefill."""
+    does), 4 prompts of ``prompt`` tokens, 32 greedy new tokens, through
+    the plans captured as CUDA graphs and again through eager plans
+    (:func:`static_graph_vs_eager`). Checks each prefill kernel launched
+    as often as :func:`prefill_launches` says in the prefill and never
+    in the decode, and no other kernel; then the prefill through the
+    kernels vs their plain versions (``swaps``) in fp32 and bf16,
+    eagerly; then traces one prefill."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2256,28 +2351,30 @@ def phase_static(cfg, prompt: int, swaps, bounds, wbits: int = 0,
           f") in {time.perf_counter() - t0:.1f}s")
     args = types.SimpleNamespace(slots=STATIC_SLOTS, prompt_len=prompt,
                                  tokens=STATIC_NEW, seed=0)
-    warm = types.SimpleNamespace(**{**vars(args), "tokens": 2, "seed": 1})
-    serve.run_static(params, cfg, warm, "cuda")
-    ops.reset_launch_counts()
-    r = serve.run_static(params, cfg, args, "cuda")
-    counts = ops.launch_counts()
-    routes = ops.launch_counts(routes=True)
+    r = static_graph_vs_eager(params, cfg, args, cfg.name, "static")
+    routes = r["routes"]
     check_routes(routes, tensor_core, f"{cfg.name} static")
     want = prefill_launches(cfg)
     if r["launches_prefill"] != want or r["launches_decode"] or \
-            {k: c for k, c in counts.items() if c} != want:
+            {k: sum(c.values()) for k, c in routes.items()
+             if sum(c.values())} != {k: 2 * n for k, n in want.items()}:
         raise AssertionError(f"{cfg.name}: launches prefill "
                              f"{r['launches_prefill']}, decode "
-                             f"{r['launches_decode']}, want {want} and none")
+                             f"{r['launches_decode']}, in all {routes}; "
+                             f"want {want} (twice in all: the warm-up's "
+                             f"eager pass and the replay) and none")
     toks = r["tokens"]
     if toks.shape != (STATIC_SLOTS, STATIC_NEW) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"{cfg.name}: tokens {tuple(toks.shape)}")
     n_dec = STATIC_SLOTS * (STATIC_NEW - 1)
-    row = {"prefill_ms": r["prefill_s"] * 1e3,
+    row = {"capture_s": r["capture_s"], "prefill_ms": r["prefill_s"] * 1e3,
            "decode_tok_s": n_dec / r["decode_s"],
-           "launches": want, "routes": {k: routes[k] for k in want}}
-    print(f"[static] {cfg.name}: prefill {STATIC_SLOTS}x{prompt} "
+           "launches": want, "routes": {k: routes[k] for k in want},
+           "graph_vs_eager": r["kinds"], "ulps": r["ulps"],
+           "static_peak_gib": r["peak_gib"]}
+    print(f"[static] {cfg.name}: graphed, capture {row['capture_s']:.2f} s,"
+          f" prefill {STATIC_SLOTS}x{prompt} "
           f"{row['prefill_ms']:.2f} ms, decode {n_dec} tokens "
           f"{row['decode_tok_s']:.1f} tok/s; launches {want} in 1 "
           f"prefill, 0 in {STATIC_NEW - 1} decode steps; routes "
@@ -4122,11 +4219,13 @@ def front_static_one(arch, layers, wbits, prompt, new, rows, smi) -> dict:
     """One config through ``launch/serve.py``'s static path at full width
     (``layers``: cut to that many with ``dataclasses.replace``), seeded
     weights drawn on the card (``wbits``: packed as drawn, dequantized
-    once to bf16): a warm run, a measured run (prefill ms, decode tok/s,
-    launches: flash once per attention layer, encoder layers included,
-    in the prefill, none in the decode; every launch on the tensor-core
-    route), then one prefill with every flash call held against its
-    plain version in bf16 and fp32 (:class:`FlashHold`); peak memory."""
+    once to bf16): a run through the captured plans against one through
+    eager plans (:func:`static_graph_vs_eager`: capture s, prefill ms,
+    decode tok/s, launches: flash once per attention layer, encoder
+    layers included, in the prefill, none in the decode; every launch on
+    the tensor-core route), then one prefill, eagerly, with every flash
+    call held against its plain version in bf16 and fp32
+    (:class:`FlashHold`); peak memory."""
     full = get_config(arch)
     cfg = full if layers is None else replace(full, n_layers=layers)
     cut = ("no cut" if layers is None else
@@ -4151,11 +4250,8 @@ def front_static_one(arch, layers, wbits, prompt, new, rows, smi) -> dict:
           f"{time.perf_counter() - t0:.1f}s")
     args = types.SimpleNamespace(slots=rows, prompt_len=prompt, tokens=new,
                                  seed=0)
-    serve.run_static(params, cfg, types.SimpleNamespace(
-        **{**vars(args), "tokens": 2, "seed": 1}), "cuda")
-    ops.reset_launch_counts()
-    r = serve.run_static(params, cfg, args, "cuda")
-    routes = ops.launch_counts(routes=True)
+    r = static_graph_vs_eager(params, cfg, args, cfg.name, "static-front")
+    routes = r["routes"]
     check_routes(routes, ("flash_attention",), f"{cfg.name} static")
     want = {"flash_attention": cfg.n_layers + cfg.n_enc_layers}
     if r["launches_prefill"] != want or r["launches_decode"]:
@@ -4168,14 +4264,19 @@ def front_static_one(arch, layers, wbits, prompt, new, rows, smi) -> dict:
         raise AssertionError(f"{cfg.name}: tokens {tuple(toks.shape)}")
     n_dec = rows * (new - 1)
     row = {"layers": cfg.n_layers, "cut": cut, "weights_gib": gib,
-           "prefill_ms": r["prefill_s"] * 1e3,
-           "decode_tok_s": n_dec / r["decode_s"], "launches": want}
+           "capture_s": r["capture_s"], "prefill_ms": r["prefill_s"] * 1e3,
+           "decode_tok_s": n_dec / r["decode_s"], "launches": want,
+           "graph_vs_eager": r["kinds"], "ulps": r["ulps"],
+           "static_peak_gib": r["peak_gib"]}
     del r
+    # one prefill, eagerly, with every flash call held against its plain
+    # version
+    batch = api.make_smoke_batch(2, cfg, rows, prompt, device="cuda")
     hold = FlashHold(attn_mod.flash_attention)
-    with mock.patch.object(attn_mod, "flash_attention", hold):
+    with mock.patch.object(attn_mod, "flash_attention", hold), \
+            torch.no_grad():
         ops.reset_launch_counts()
-        serve.run_static(params, cfg, types.SimpleNamespace(
-            **{**vars(args), "tokens": 1, "seed": 2}), "cuda")
+        api.make_prefill_step(cfg)(params, batch)
         torch.cuda.synchronize()
         launched = {k: c for k, c in ops.launch_counts().items() if c}
     held = hold.take()
@@ -4191,7 +4292,8 @@ def front_static_one(arch, layers, wbits, prompt, new, rows, smi) -> dict:
     row.update(held=held, masks=masks,
                shapes=sorted({str(x) for x in hold.shapes}))
     row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[static-front] {cfg.name} ({smi}): prefill {rows}x{prompt} "
+    print(f"[static-front] {cfg.name} ({smi}): graphed, capture "
+          f"{row['capture_s']:.2f} s, prefill {rows}x{prompt} "
           f"{row['prefill_ms']:.2f} ms, decode {n_dec} tokens "
           f"{row['decode_tok_s']:.1f} tok/s; flash {want['flash_attention']}"
           f" a prefill ({masks}), 0 in the decode, tensor-core; held vs "
@@ -4332,12 +4434,16 @@ DP_EARLY, DP_EARLY_RTOL, DP_RTOL = 3, 1e-6, 5e-4
 
 def moe_static_one(arch, layers, smi) -> dict:
     """One moe-family config through ``launch/serve.py``'s static path
-    (``--static --wbits 8``): warm and measured ``run_static``, launches
-    (flash once an attention layer of a ``moe`` block in the prefill, no
-    kernel for MLA, none in the decode), then for a config that launches
-    flash every call held (:class:`FlashHold`), and the whole prefill
+    (``--static --wbits 8``): ``run_static`` through the captured plans
+    against eager plans (:func:`static_graph_vs_eager`), launches (flash
+    once an attention layer of a ``moe`` block in the prefill, no kernel
+    for MLA's prefill; in the decode none for ``moe`` blocks and, for
+    MLA, ``scatter_rows`` for the latent rows, their rope keys and
+    positions), then for a config that launches flash one eager prefill
+    with every call held (:class:`FlashHold`), and the whole prefill
     through the kernel against the plain path (:data:`MOE_PREFILL`): in
-    fp32 and bf16, or bf16 alone where the fp32 weights would not fit."""
+    fp32 and bf16, or bf16 alone where the fp32 weights would not
+    fit."""
     full = get_config(arch)
     cfg = full if layers is None else replace(full, n_layers=layers)
     cut = ("no cut" if layers is None else
@@ -4359,40 +4465,52 @@ def moe_static_one(arch, layers, smi) -> dict:
           f"{time.perf_counter() - t0:.1f}s")
     args = types.SimpleNamespace(slots=STATIC_SLOTS, prompt_len=MOE_PROMPT,
                                  tokens=STATIC_NEW, seed=0)
-    serve.run_static(params, cfg, types.SimpleNamespace(
-        **{**vars(args), "tokens": 2, "seed": 1}), "cuda")
-    ops.reset_launch_counts()
-    r = serve.run_static(params, cfg, args, "cuda")
-    routes = ops.launch_counts(routes=True)
+    r = static_graph_vs_eager(params, cfg, args, cfg.name, "static-moe")
+    routes = r["routes"]
     check_routes(routes, ("flash_attention",), f"{cfg.name} static")
     want = {"flash_attention": n for k, n in tfm.layer_plan(cfg)
             if k == "moe"}
-    counts = {k: c for k, c in ops.launch_counts().items() if c}
-    if r["launches_prefill"] != want or r["launches_decode"] or \
-            counts != want:
+    # MLA writes its latent rows and positions through scatter_rows, three
+    # launches a layer and decode step (the prefill fills them in place)
+    mla_layers = sum(n for k, n in tfm.layer_plan(cfg)
+                     if k in tfm.MLA_KINDS)
+    want_decode = ({"scatter_rows": 3 * mla_layers * (STATIC_NEW - 1)}
+                   if mla_layers else {})
+    if r["launches_prefill"] != want or \
+            r["launches_decode"] != want_decode:
         raise AssertionError(f"{cfg.name}: launches prefill "
                              f"{r['launches_prefill']}, decode "
-                             f"{r['launches_decode']}; want {want}, none")
+                             f"{r['launches_decode']}; want {want}, "
+                             f"{want_decode}")
     toks = r["tokens"]
     if toks.shape != (STATIC_SLOTS, STATIC_NEW) or int(toks.min()) < 0 or \
             int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"{cfg.name}: tokens {tuple(toks.shape)}")
     n_dec = STATIC_SLOTS * (STATIC_NEW - 1)
     row = {"layers": cfg.n_layers, "kinds": kinds, "cut": cut,
-           "weights_gib": gib, "prefill_ms": r["prefill_s"] * 1e3,
+           "weights_gib": gib, "capture_s": r["capture_s"],
+           "prefill_ms": r["prefill_s"] * 1e3,
            "decode_tok_s": n_dec / r["decode_s"], "launches": want,
-           "routes": {k: routes[k] for k in want}}
-    print(f"[static-moe] {cfg.name} ({smi}): prefill {STATIC_SLOTS}x"
+           "launches_decode": want_decode,
+           "routes": {k: routes[k] for k in (*want, *want_decode)},
+           "graph_vs_eager": r["kinds"], "ulps": r["ulps"],
+           "static_peak_gib": r["peak_gib"]}
+    print(f"[static-moe] {cfg.name} ({smi}): graphed, capture "
+          f"{row['capture_s']:.2f} s, prefill {STATIC_SLOTS}x"
           f"{MOE_PROMPT} {row['prefill_ms']:.2f} ms, decode {n_dec} tokens "
           f"{row['decode_tok_s']:.1f} tok/s; launches {want or 'none'} in "
-          f"the prefill, none in {STATIC_NEW - 1} decode steps")
+          f"the prefill, {want_decode or 'none'} in {STATIC_NEW - 1} "
+          f"decode steps")
     del r
+    batch = api.make_smoke_batch(2, cfg, STATIC_SLOTS, MOE_PROMPT,
+                                 device="cuda")
     if want:
+        # one prefill, eagerly, with every flash call held
         hold = FlashHold(attn_mod.flash_attention)
-        with mock.patch.object(attn_mod, "flash_attention", hold):
+        with mock.patch.object(attn_mod, "flash_attention", hold), \
+                torch.no_grad():
             ops.reset_launch_counts()
-            serve.run_static(params, cfg, types.SimpleNamespace(
-                **{**vars(args), "tokens": 1, "seed": 2}), "cuda")
+            api.make_prefill_step(cfg)(params, batch)
             torch.cuda.synchronize()
             launched = {k: c for k, c in ops.launch_counts().items() if c}
         held = hold.take()
@@ -4409,8 +4527,7 @@ def moe_static_one(arch, layers, smi) -> dict:
     # fp32 where the weights' fp32 copy fits beside them (granite's 5
     # GiB, not deepseek's 59); with no kernel in the prefill the kernel
     # path is the plain one
-    tokens = api.make_smoke_batch(2, cfg, STATIC_SLOTS, MOE_PROMPT,
-                                  device="cuda")["tokens"]
+    tokens = batch["tokens"]
     row["prefill_vs_plain"] = {}
     for dtype in ((torch.float32, torch.bfloat16) if want
                   else (torch.bfloat16,)):
@@ -5229,7 +5346,7 @@ def phase_tp_train(smi: str) -> dict:
 # plans, and the tick's fixed-shape writes (scatter_rows) against their
 # plain version
 
-GRAPH_LM = [(LM_ARCH, 6, 16), (HYMBA_ARCH, 4, 8)]   # (arch, requests, new)
+GRAPH_LM = [(LM_ARCH, 6, 16), (HYMBA_ARCH, 2, 8)]   # (arch, requests, new)
 # qwen1.5-4b's served paths that phases 16-19 drive only through eager
 # plans (they watch Python wrappers), drained here with graph plans too:
 # (label, engine keywords)
@@ -5738,14 +5855,15 @@ def phase_graphs(ru, smi: str) -> dict:
             r.sampling, max_new_tokens=VARIANT_TRAFFIC[1]))
         for r in lm_requests(cfg)[:VARIANT_TRAFFIC[0]]], cfg.name)
     del params
-    # the SSM-only runner (no block table, no writes) on phase 18's
-    # traffic
+    # the SSM-only runner (no block table, no writes) on the first 4 of
+    # phase 18's short requests (all 8 until the static phases grew
+    # their eager comparisons)
     cfg = replace(get_config(SSM_ARCH), quant=QuantPolicy(8, 0))
     gc.collect()
     torch.cuda.empty_cache()
     params = api.init_params(0, cfg, device="cuda", wbits=8)
     out[SSM_ARCH] = lm_graphs(
-        cfg, params, lambda: engine_requests(cfg, long=False),
+        cfg, params, lambda: engine_requests(cfg, long=False)[:4],
         cfg.name, cache_len=HYMBA_CACHE)
     del params
     cfg = replace(get_config(AUDIO_ARCH), quant=QuantPolicy(8, 0))
@@ -5770,15 +5888,16 @@ def free_port() -> int:
 
 # the phases cut to fit the time limit, and their seconds at the depth
 # they ran before their last cut (on an H100 80GB HBM3 at 700.00 W: the
-# first six in a run whose build phase took 74.1 s; serve (hybrid),
-# serve (ssm) and graphs, cut again, in a run whose build took 91.6 s:
-# 16 new tokens a request, drains of 4 requests for qwen's arena and
-# backend variants, traces of device activity alone and eager plans'
-# traces without the profiler)
+# first six in a run whose build phase took 74.1 s; serve (hybrid) and
+# serve (ssm), cut again, in a run whose build took 91.6 s: 16 new
+# tokens a request, drains of 4 requests for qwen's arena and backend
+# variants, traces of device activity alone and eager plans' traces
+# without the profiler; graphs, cut again to 4 requests in mamba2-130m's
+# drains and 2 in hymba-1.5b's, in a run whose build took 84.4 s)
 BEFORE_CUT_S = {"kernel (LM)": 30.2, "kernel (MLA)": 84.8, "train": 92.8,
                 "lm_train": 134.3, "rubicon": 104.5,
                 "serve (hybrid)": 230.4, "serve (ssm)": 61.4,
-                "graphs": 251.4}
+                "graphs": 96.4}
 
 
 def main() -> int:
@@ -6071,6 +6190,8 @@ def main() -> int:
                  SSM_ARCH + " (engine)": ssm_eng["routes"],
                  AUDIO_ARCH: aud["routes"]}
     sc_by_phase = {k: r["scatter_rows"] for k, r in sc_phases.items()}
+    sc_by_phase[f"{DS_ARCH} static (decode)"] = moe_static[DS_ARCH][
+        "routes"]["scatter_rows"]
     sc_by_phase["graphs (phases 9 and 26 drains)"] = {
         r: sum(d.get(r, 0) for d in drains) for r in sr.ROUTES}
     kernels.append({

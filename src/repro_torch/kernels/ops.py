@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import is_fake
 from repro_torch.core.quant.policy import PackedTensor
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import flash_attention as fa
@@ -353,12 +354,18 @@ def scatter_rows(dst: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor,
     dst's row shape. A write with an index outside ``[0, n0)`` or ``[0,
     n1)`` is dropped, as the reference's ``mode="drop"`` scatter: the
     tick's fixed-shape KV, scale and position writes
-    (:func:`repro_torch.kernels.paged_attention.paged_writes`)."""
+    (:func:`repro_torch.kernels.paged_attention.paged_writes`). On fake
+    tensors (the dry run's counter), which hold no index to filter by,
+    every write lands at its index clamped into range: the same
+    ``index_put_`` of all n rows."""
     vals = src.to(dst.dtype).reshape(i0.numel(), *dst.shape[2:])
     if dst.is_cuda:
         _no_backward("scatter_rows", vals)
         return sr.scatter_rows_cuda(dst, i0.contiguous(), i1.contiguous(),
                                     vals.contiguous())
+    if is_fake(dst):
+        return pa.put_rows(dst, (i0.clamp(0, dst.shape[0] - 1),
+                                 i1.clamp(0, dst.shape[1] - 1)), vals)
     if dst.device.type == "cpu":
         return ref.scatter_rows_ref(dst, i0, i1, vals)
     raise _no_kernel("scatter_rows", dst.device)

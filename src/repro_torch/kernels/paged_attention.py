@@ -113,32 +113,6 @@ def paged_writes(table: torch.Tensor, t: torch.Tensor, n_blocks: int,
     return PagedWrites(*(a.reshape(-1) for a in (wblk, off, b, lw)))
 
 
-class FilteredWrites(NamedTuple):
-    """The writes of a static decode that land (no dropped ones): the
-    token's batch row ``b`` and column ``c``, its row ``blk`` and offset
-    ``off``, and its pos column ``lw``."""
-    b: torch.Tensor
-    c: torch.Tensor
-    blk: torch.Tensor
-    off: torch.Tensor
-    lw: torch.Tensor
-
-    def to(self, device) -> "FilteredWrites":
-        return FilteredWrites(*(a.to(device, non_blocking=True)
-                                for a in self))
-
-
-def contiguous_writes(t: torch.Tensor, L: int) -> FilteredWrites:
-    """The writes of tokens at positions ``t`` (B, C) (< 0 = pad) into
-    contiguous rows of ``L`` positions, with row b as its own block:
-    ``blk = b`` and ``off = lw = t % L``. Pad tokens write nothing; the
-    filter reads ``t`` where it lies, so a host ``t`` costs no device
-    synchronisation."""
-    b, c = torch.nonzero(t >= 0, as_tuple=True)
-    slot = t[b, c].long() % L
-    return FilteredWrites(b, c, b, slot, slot)
-
-
 def valid_mask(pos: torch.Tensor, t: torch.Tensor,
                window: int = 0) -> torch.Tensor:
     """(B, C, L) participation mask of cached ``pos`` (B, L) for query
@@ -186,6 +160,14 @@ def take_blocks(arena: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def put_rows(arena: torch.Tensor, idx, vals: torch.Tensor) -> None:
     """In place ``arena[idx] = vals`` (cast to the arena's dtype)."""
     _bytes_view(arena).index_put_(idx, _bytes_view(vals.to(arena.dtype)))
+
+
+def put_at(dst: torch.Tensor, dim: int, index: torch.Tensor,
+           vals: torch.Tensor) -> None:
+    """In place ``dst.index_copy_(dim, index, vals)`` (cast to dst's
+    dtype) for any dtype: the index read where it lies, never on the
+    host."""
+    _bytes_view(dst).index_copy_(dim, index, _bytes_view(vals.to(dst.dtype)))
 
 
 def compute_dtype(arena_dtype: torch.dtype) -> torch.dtype:

@@ -92,8 +92,12 @@ internvl2-1b's seeded patch embeddings sit before the prompt), then
 ``--tokens`` - 1 lockstep greedy decode steps (MLA over contiguous
 latent rows, MoE with the batch as one dispatch group). ``--wbits`` packs the
 weights as they are drawn and dequantizes them once, up front, as the
-reference's static path does. It prints the prefill time, decode tok/s
-and the kernel launches of each half.
+reference's static path does. As the reference jits its prefill and its
+decode step, the loop runs two staged plans (:class:`StaticPlans`): on
+a card each is captured once as a CUDA graph and replayed, the decode
+step's position staged as a device scalar. It prints the capture
+seconds, the prefill time, decode tok/s, the kernel launches of each
+half and the plans' graphs and retraces.
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions on the
 CPU instead. Without a card and without ``--device cpu`` it raises.
@@ -101,6 +105,7 @@ CPU instead. Without a card and without ``--device cpu`` it raises.
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from dataclasses import replace
 
@@ -451,9 +456,90 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _static_prefill(params, cfg, caches, tokens, patch_embeds, frames):
+    """The static prefill plan: (first token (B, 1), last-position
+    logits (B, 1, V)), ``caches`` filled in place."""
+    from repro_torch.models.lm import encdec
+    from repro_torch.models.lm import transformer as tfm
+    with torch.no_grad():
+        enc_out = (encdec.encode(params["encoder"], frames, cfg)
+                   if frames is not None else None)
+        logits, _ = tfm.prefill(params, tokens, cfg, patch_embeds=patch_embeds,
+                                enc_out=enc_out, caches=caches)
+        return logits.argmax(-1).to(torch.int32), logits
+
+
+def _static_decode(params, cfg, caches, tok, t):
+    """The static decode plan: the next token (B, 1) after ``tok`` at
+    the 0-d position ``t``, ``caches`` updated in place."""
+    from repro_torch.models.lm import transformer as tfm
+    with torch.no_grad():
+        logits, _ = tfm.decode_step(params, caches, tok, t, cfg)
+        return logits.argmax(-1).to(torch.int32)
+
+
+class StaticPlans:
+    """The static loop's two staged plans over one set of caches: the
+    reference's two jitted programs (the prefill, and the decode step
+    with its position traced), through :class:`PlanCache`.
+
+    ``("static_prefill", S, "greedy")``: the prompt tokens (B, S), a vlm
+    prompt's ``patch_embeds`` and an audio prompt's ``frames`` in; the
+    encoder, the prefill into the caches (reset first:
+    ``transformer.reset_caches``) and the argmax inside; the first token
+    (B, 1) int32 and the last-position logits (B, 1, V) out.
+    ``("static_decode", 1, "greedy")``: the token (B, 1) and the
+    position ``t`` (0-d int32) in; ``decode_step`` and the argmax
+    inside; the next token out. The caches are allocated once by
+    ``init_caches``, outside both plans, which close over them and fill
+    them in place; only the small outputs are cloned. On a card the
+    plans are CUDA graphs, captured at :meth:`warm`; ``graphs=False``
+    keeps them eager, for comparison only. On the CPU they run eagerly.
+    A plan that fails to capture raises."""
+
+    def __init__(self, params, cfg, batch: int, prompt: int,
+                 cache_len: int, *, cache_dtype=torch.bfloat16,
+                 device=None, enc_len: int = 0, graphs: bool = True):
+        from repro_torch.models.lm import transformer as tfm
+        from repro_torch.serving.plan import PlanCache
+        self.caches = tfm.init_caches(
+            cfg, batch, cache_len, cache_dtype, device=device,
+            state_dtype=getattr(torch, cfg.dtype), enc_len=enc_len)
+        self.plans = PlanCache(device, graphs=graphs)
+        self.prefill_key = ("static_prefill", prompt, "greedy")
+        self.decode_key = ("static_decode", 1, "greedy")
+        # the plans hold no reference back to this object, so its graphs
+        # are freed when it is, never by a cyclic collection (which may
+        # run inside another capture)
+        closure = (params, cfg, self.caches)
+        self.plans.register(self.prefill_key,
+                            functools.partial(_static_prefill, *closure))
+        self.plans.register(self.decode_key,
+                            functools.partial(_static_decode, *closure))
+
+    def warm(self, tokens, patch_embeds, frames, t) -> None:
+        """Stage and run both plans once (capturing them on a card), as
+        the reference's first jitted calls compile: the prefill on these
+        inputs, then one decode step at ``t``. What they leave in the
+        caches the next prefill resets."""
+        tok, _ = self.plans.warm(self.prefill_key, tokens, patch_embeds,
+                                 frames)
+        self.plans.warm(self.decode_key, tok, t)
+
+    def prefill(self, tokens, patch_embeds=None, frames=None):
+        """(first token (B, 1), last-position logits (B, 1, V))."""
+        return self.plans.lookup(self.prefill_key)(tokens, patch_embeds,
+                                                   frames)
+
+    def decode(self, tok, t):
+        """The next token (B, 1) after ``tok`` at position ``t``."""
+        return self.plans.lookup(self.decode_key)(tok, t)
+
+
 def static_generate(params, cfg, tokens, n_new: int, *, cache_len=None,
                     cache_dtype=torch.bfloat16, patch_embeds=None,
-                    frames=None) -> dict:
+                    frames=None, graphs: bool = True,
+                    plans=None) -> dict:
     """The static loop over prompts ``tokens`` (B, S): whole-prompt
     prefill, then ``n_new`` - 1 lockstep greedy decode steps (every row
     at the same position, from the prefilled length). ``patch_embeds``
@@ -462,66 +548,79 @@ def static_generate(params, cfg, tokens, n_new: int, *, cache_len=None,
     loop starts it (its prompt length counts the patches, and it adds
     them again; the positions between stay empty). ``frames`` (B, F,
     d): an audio prompt's, through the encoder inside the prefill.
-    Returns the greedy tokens (B, n_new), the prefill and decode
-    seconds (host clock around work that ends in a device
-    synchronisation) and the kernel launches of each half."""
-    from repro_torch.models.lm import encdec
-    from repro_torch.models.lm import transformer as tfm
+
+    It runs through :class:`StaticPlans` (``plans``: staged plans of
+    this shape to run again, else new ones; ``graphs=False``: eager
+    plans on a card, for comparison only): both plans are warmed first
+    (on a card, captured), then one prefill and ``n_new`` - 1 decode
+    steps are replayed, the positions staged from one device vector.
+    Returns the greedy tokens (B, n_new), the prefill's last-position
+    logits, the caches, the warm-up, prefill and decode seconds (host
+    clock around work that ends in a device synchronisation), the
+    kernel launches of each half (counted through the captures' tallies
+    under graphs) and the plans' ``stats()``."""
     dev = tokens.device
-    B, start = tokens.shape
-    if patch_embeds is not None:
-        start += 2 * patch_embeds.shape[1]
-    cache_len = cache_len or start + n_new
-    before = ops.launch_counts()
+    B, S = tokens.shape
+    start = S + (2 * patch_embeds.shape[1] if patch_embeds is not None
+                 else 0)
+    if plans is None:
+        plans = StaticPlans(params, cfg, B, S, cache_len or start + n_new,
+                            cache_dtype=cache_dtype, device=dev,
+                            enc_len=0 if frames is None else frames.shape[1],
+                            graphs=graphs)
+    steps = torch.arange(start, start + max(n_new, 1), dtype=torch.int32,
+                         device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    with torch.no_grad():      # the caches stay writable for the caller
-        enc_out = (encdec.encode(params["encoder"], frames, cfg)
-                   if frames is not None else None)
-        logits, caches = tfm.prefill(params, tokens, cfg,
-                                     cache_len=cache_len,
-                                     cache_dtype=cache_dtype,
-                                     patch_embeds=patch_embeds,
-                                     enc_out=enc_out)
-        tok = logits[:, -1:].argmax(-1).to(torch.int32)
-        _sync(dev)
-        t_prefill = time.perf_counter() - t0
-        mid = ops.launch_counts()
-        out = [tok]
-        t0 = time.perf_counter()
-        for i in range(n_new - 1):
-            logits, caches = tfm.decode_step(params, caches, tok, start + i,
-                                             cfg)
-            tok = logits[:, -1:].argmax(-1).to(torch.int32)
-            out.append(tok)
-        _sync(dev)
-        t_decode = time.perf_counter() - t0
+    plans.warm(tokens, patch_embeds, frames, steps[0])
+    _sync(dev)
+    t_capture = time.perf_counter() - t0
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    tok, logits = plans.prefill(tokens, patch_embeds, frames)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    mid = ops.launch_counts()
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(n_new - 1):
+        tok = plans.decode(tok, steps[i])
+        out.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
     after = ops.launch_counts()
-    return {"tokens": torch.cat(out, dim=1), "prefill_s": t_prefill,
-            "decode_s": t_decode, "caches": caches,
+    return {"tokens": torch.cat(out, dim=1), "logits": logits,
+            "caches": plans.caches, "capture_s": t_capture,
+            "prefill_s": t_prefill, "decode_s": t_decode,
             "launches_prefill": {k: mid[k] - before[k] for k in mid
                                  if mid[k] - before[k]},
             "launches_decode": {k: after[k] - mid[k] for k in after
-                                if after[k] - mid[k]}}
+                                if after[k] - mid[k]},
+            "plans": plans.plans.stats()}
 
 
-def run_static(params, cfg, args, device) -> dict:
+def run_static(params, cfg, args, device, graphs: bool = True) -> dict:
     """The reference's legacy single-shot loop: ``--slots`` random
     prompts of ``--prompt-len`` tokens (seeded by ``--seed``), ``--tokens``
-    greedy new tokens each; prints the prefill time, decode tok/s and
-    each half's kernel launches. A vlm batch's prompts keep ``--prompt-len
+    greedy new tokens each; prints the capture seconds, the prefill
+    time, decode tok/s, each half's kernel launches and the plans'
+    graphs and retraces. A vlm batch's prompts keep ``--prompt-len
     - frontend_tokens`` tokens after its patches, as the reference's
     smoke batch, so its decode starts at ``--prompt-len +
     frontend_tokens`` (:func:`static_generate`); the caches hold
-    ``prompt + tokens + frontend_tokens`` positions. Returns
-    :func:`static_generate`'s result."""
+    ``prompt + tokens + frontend_tokens`` positions. ``graphs=False``
+    keeps the plans eager on a card, for comparison only (the launcher
+    has no flag for it). Returns :func:`static_generate`'s result."""
     batch = api.make_smoke_batch(args.seed, cfg, args.slots,
                                  args.prompt_len, device=device)
     r = static_generate(params, cfg, batch["tokens"], args.tokens,
                         cache_len=(args.prompt_len + args.tokens
                                    + cfg.frontend_tokens),
                         patch_embeds=batch.get("patch_embeds"),
-                        frames=batch.get("frames"))
+                        frames=batch.get("frames"), graphs=graphs)
+    st = r["plans"]
+    print(f"[serve] static plans: {st['plans']} ({st['graphs']} graphs, "
+          f"retraces={st['retraces']}), capture {r['capture_s']:.2f} s")
     print(f"[serve] prefill {args.slots}x{args.prompt_len} in "
           f"{r['prefill_s'] * 1e3:.2f} ms; kernel launches "
           f"{r['launches_prefill'] or 'none'}")

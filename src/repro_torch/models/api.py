@@ -352,7 +352,10 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, caches, tokens (B, 1), t) -> (logits,
-    caches)``, every row at position ``t``; the caches update in place."""
+    caches)``, every row at position ``t``: a 0-d int32 tensor (the
+    reference's traced scalar) or an int, made such a tensor on the
+    tokens' device once (``transformer.decode_step``); the caches update
+    in place."""
     from repro_torch.models.lm import transformer as tfm
 
     def decode_step(params, caches, tokens, t):

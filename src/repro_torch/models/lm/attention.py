@@ -36,7 +36,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.ops import decode_gqa, flash_attention, scatter_rows
 from repro_torch.kernels.paged_attention import (EMPTY_POS, NEG_INF,
                                                  PagedWrites, compute_dtype,
-                                                 paged_writes, quantize_kv)
+                                                 paged_writes, put_at,
+                                                 quantize_kv)
 from repro_torch.models.lm.common import Params, dense, make_dense_params
 from repro_torch.models.lm.rope import apply_rope
 from repro_torch.parallel import tensor_parallel as tp
@@ -326,22 +327,24 @@ def fill_cache_from_prefill(cache: Dict, kv: Dict) -> Dict:
     return cache
 
 
-def attn_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
+def attn_decode(p: Params, x: torch.Tensor, cache: Dict, t: torch.Tensor,
                 cfg: ModelConfig, *, window: int = 0
                 ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode over a contiguous cache, updated in place. x: (B,
-    1, d); t: the token's position (every row's); ``window > 0``: only
-    cached positions above ``t - window`` take part. The cache is read
-    in its storage dtype (bf16 compute for 1-byte caches), fp32 scores
-    and products, as the reference."""
+    1, d); t: the token's position (every row's), a 0-d int32 tensor on
+    x's device, as the reference's traced scalar: K, V and the position
+    are written at ``t % L`` by ``index_copy_`` (:func:`put_at`, the
+    reference's ``dynamic_update_slice``), so no Python index is taken
+    from ``t``; ``window > 0``: only cached positions above ``t -
+    window`` take part. The cache is read in its storage dtype (bf16 compute for
+    1-byte caches), fp32 scores and products, as the reference."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    pos_t = torch.full((1, 1), t, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, pos_t, cfg)
-    slot = t % cache["k"].shape[1]
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    cache["pos"][slot] = t
+    q, k_new, v_new = _project_qkv(p, x, t.reshape(1, 1), cfg)
+    slot = (t % cache["k"].shape[1]).reshape(1).long()
+    put_at(cache["k"], 1, slot, k_new)
+    put_at(cache["v"], 1, slot, v_new)
+    put_at(cache["pos"], 0, slot, t.reshape(1))
     cdt = compute_dtype(cache["k"].dtype)
     qg = q.reshape(B, Hkv, H // Hkv, hd).to(cdt).float()
     s = torch.einsum("bkgd,blkd->bkgl", qg,

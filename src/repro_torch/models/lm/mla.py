@@ -28,9 +28,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ops import decode_mla, scatter_rows
 from repro_torch.models.lm.attention import blockwise_attn
-from repro_torch.kernels.paged_attention import (EMPTY_POS, FilteredWrites,
-                                                 contiguous_writes,
-                                                 paged_writes, put_rows,
+from repro_torch.kernels.paged_attention import (EMPTY_POS, paged_writes,
                                                  quantize_kv)
 from repro_torch.models.lm.common import (Params, dense, kernel_of,
                                           make_dense_params,
@@ -208,25 +206,18 @@ def mla_cache_slot_axes(quantized: bool = False) -> Dict[str, bool]:
     return axes
 
 
-def mla_decode(p: Params, x: torch.Tensor, cache: Dict, t,
+def mla_decode(p: Params, x: torch.Tensor, cache: Dict, t: torch.Tensor,
                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """Absorbed-form decode over the contiguous latent cache, updated in
-    place. x: (B, 1, d); t: an int (every row's position, the lockstep
-    static decode), or a tensor of one position, (B,) or (B, 1). Runs
-    :func:`mla_decode_slots` with no table, as the reference's. An int
-    ``t`` writes every row at ``t % L`` with no device synchronisation."""
+    place. x: (B, 1, d); t: one position, 0-d (every row's, the
+    lockstep static decode: the reference's traced scalar), or one a
+    row, (B,) or (B, 1); made (B, 1) int32 on x's device, where a
+    tensor stays. Runs :func:`mla_decode_slots` with no table, as the
+    reference's."""
     B = x.shape[0]
-    writes = None
-    if isinstance(t, int):
-        rows = torch.arange(B)
-        slot = torch.full((B,), t % cache["c"].shape[1], dtype=torch.long)
-        writes = FilteredWrites(rows, torch.zeros_like(rows), rows, slot,
-                                slot).to(x.device)
-        t = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
-    else:
-        t = torch.as_tensor(t).to(x.device, torch.int32).reshape(
-            -1, 1).expand(B, 1)
-    return mla_decode_slots(p, x, cache, t, cfg, table=None, writes=writes)
+    t = torch.as_tensor(t).to(x.device, torch.int32).reshape(-1, 1).expand(
+        B, 1)
+    return mla_decode_slots(p, x, cache, t, cfg, table=None)
 
 
 def mla_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
@@ -245,14 +236,13 @@ def mla_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
     The tokens' latents (int8 arenas: quantized per token, the scale
     written at the same index) and positions are written into ``cache``
     in place before the read, so a chunk attends causally within itself.
-    Paged, the writes keep the tick's fixed ``B * C`` shape, as the
-    reference's ``mode="drop"`` scatter: pad tokens and tokens whose
-    block is unassigned carry the sentinel index and are dropped on the
-    device (``writes``: :class:`PagedWrites`, as
-    ``attention.attn_decode_slots`` takes them). Contiguous (the static
-    decode), the writes that land are filtered from ``t`` on the host
-    (``writes``: :class:`FilteredWrites`). The read is ``decode_mla``
-    with ``attn_backend``: ``q_abs = q_nope · W_uk``
+    The writes keep the fixed ``B * C`` shape, as the reference's
+    ``mode="drop"`` scatter (:func:`scatter_rows`), and nothing is read
+    on the host: paged, pad tokens and tokens whose block is unassigned
+    carry the sentinel index (``writes``: :class:`PagedWrites`, as
+    ``attention.attn_decode_slots`` takes them); contiguous, token b's
+    row is b and its column ``t % L``, or L for a pad token. The read
+    is ``decode_mla`` with ``attn_backend``: ``q_abs = q_nope · W_uk``
     scores against the latent, ``o = o_lat · W_uv`` then ``wo``, with
     ``wukv`` dequantized in fp32 and cast to the compute dtype (bf16 for
     1-byte arenas). Returns (out (B, C, d), cache)."""
@@ -265,17 +255,19 @@ def mla_decode_slots(p: Params, x: torch.Tensor, cache: Dict,
     tq = t.clamp(min=0)
     q_nope, q_rope = _project_q(p, x, tq, cfg)            # (B, C, H, *)
     c_new, kr_new = _project_kv_latent(p, x, tq, cfg)     # (B, C, *)
+    cn, krn = c_new.flatten(0, 1), kr_new.flatten(0, 1)  # (B*C, *)
     if table is None:
-        w = writes if writes is not None else contiguous_writes(
-            t.cpu(), cache["c"].shape[1]).to(x.device)
-        at = (w.blk, w.off)
-        put_rows(cache["c"], at, c_new[w.b, w.c])
-        put_rows(cache["k_rope"], at, kr_new[w.b, w.c])
-        put_rows(cache["pos"], (w.b, w.lw), t[w.b, w.c])
+        L = cache["c"].shape[1]
+        b = torch.arange(B, device=x.device)[:, None].expand(B, C).reshape(-1)
+        tl = t.long()
+        col = torch.where(tl >= 0, tl % L, torch.full_like(tl, L))
+        at = (b, col.reshape(-1))
+        scatter_rows(cache["c"], *at, cn)
+        scatter_rows(cache["k_rope"], *at, krn)
+        scatter_rows(cache["pos"], *at, t.reshape(-1))
     else:
         w = writes if writes is not None else paged_writes(
             table, t, *cache["c"].shape[:2])
-        cn, krn = c_new.flatten(0, 1), kr_new.flatten(0, 1)  # (B*C, *)
         rows = ({"c": cn, "k_rope": krn} if not quantized else
                 dict(zip(("c", "c_scale", "k_rope", "kr_scale"),
                          (*quantize_kv(cn), *quantize_kv(krn)))))

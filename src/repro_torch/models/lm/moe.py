@@ -109,13 +109,15 @@ def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int,
                           device=dev)
     dispatch = torch.zeros((G, S, E, capacity), dtype=torch.bool, device=dev)
     slots = torch.arange(capacity, device=dev)
+    experts = torch.arange(E, device=dev)
     remaining = gates
     counts = torch.zeros((G, E), dtype=torch.int32, device=dev)
     me = gates.mean(dim=1)                              # (G, E) mean prob
     ce = torch.zeros((G, E), dtype=torch.float32, device=dev)
     for _ in range(k):
         idx = torch.argmax(remaining, dim=-1)           # ties: first index
-        onehot = F.one_hot(idx, E).float()
+        # F.one_hot's bounds check reads idx on the host on the CPU
+        onehot = (idx[..., None] == experts).float()
         if mask is not None:
             onehot = onehot * mask.to(onehot.dtype)[..., None]
         prob = (gates * onehot).sum(dim=-1)             # (G, S)

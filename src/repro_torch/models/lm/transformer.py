@@ -47,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant.policy import Packer, PackedTensor
 from repro_torch.kernels.ops import decode_gqa
-from repro_torch.kernels.paged_attention import paged_writes
+from repro_torch.kernels.paged_attention import EMPTY_POS, paged_writes
 from repro_torch.models.lm import attention as attn_mod
 from repro_torch.models.lm import mla as mla_mod
 from repro_torch.models.lm import moe as moe_mod
@@ -538,52 +538,60 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             cache_len: Optional[int] = None,
             cache_dtype=torch.bfloat16,
             patch_embeds: Optional[torch.Tensor] = None,
-            enc_out: Optional[torch.Tensor] = None
+            enc_out: Optional[torch.Tensor] = None,
+            caches: Optional[Dict] = None
             ) -> Tuple[torch.Tensor, Dict]:
-    """Run the prompt (B, S) and build per-group contiguous caches for
+    """Run the prompt (B, S) and fill per-group contiguous caches, each
+    layer's as the layer runs: :func:`init_caches`' trees of
     ``cache_len`` positions (default S, patches included), attention K/V
-    in ``cache_dtype``, each layer's filled as the layer runs (SSM state
-    as handed off: h fp32, conv in the activation dtype, as the
-    reference returns it). ``patch_embeds``/``enc_out`` as
-    :func:`forward`; an xdec group's encoder K/V is kept in
-    ``cache_dtype`` under ``gname + "/enc_kv"`` (stacked over its
-    layers), where :func:`decode_step` reads it. Returns (last-position
-    logits (B, 1, V), caches)."""
+    in ``cache_dtype``, the SSM state as handed off (h fp32, conv in the
+    activation dtype, as the reference returns it). ``patch_embeds``/
+    ``enc_out`` as :func:`forward`; an xdec group's encoder K/V is kept
+    in ``cache_dtype`` under ``gname + "/enc_kv"`` (stacked over its
+    layers), where :func:`decode_step` reads it.
+
+    ``caches``: trees laid out as :func:`init_caches` lays them out
+    (``state_dtype`` the activation dtype), allocated by the caller and
+    filled in place, ``cache_len`` and ``cache_dtype`` then theirs; they
+    are first reset (:func:`reset_caches`), so nothing an earlier pass
+    left in them is seen. The static plans allocate theirs once, outside
+    any CUDA graph. Returns (last-position logits (B, 1, V), caches)."""
     x = embed_inputs(params, tokens, cfg, patch_embeds)
     B, S, _ = x.shape
-    cache_len = cache_len or S
+    if caches is None:
+        caches = init_caches(cfg, B, cache_len or S, cache_dtype,
+                             device=x.device, state_dtype=x.dtype,
+                             enc_len=0 if enc_out is None
+                             else enc_out.shape[1])
+    else:
+        reset_caches(cfg, caches)
     positions = _positions(x)
-    caches: Dict[str, Any] = {}
     for gname, kind, n in group_names(cfg):
-        cstack = init_block_cache(cfg, kind, B, cache_len, dtype=cache_dtype,
-                                  lead=(n,), device=x.device,
-                                  state_dtype=x.dtype)
-        ekvs = []
-        for p, c in zip(layer_views(params["groups"][gname], n),
-                        layer_views(cstack, n)):
+        ekvs = (layer_views(caches[gname + "/enc_kv"], n)
+                if kind == "xdec" and enc_out is not None else [None] * n)
+        for p, c, stored in zip(layer_views(params["groups"][gname], n),
+                                layer_views(caches[gname], n), ekvs):
             ekv = None
-            if kind == "xdec" and enc_out is not None:
+            if stored is not None:
                 ekv = enc_kv_for_layer(p["xattn"], enc_out, cfg)
-                ekvs.append(ekv)
+                for name in ("k", "v"):
+                    stored[name].copy_(ekv[name])
             x, _, kv = block_forward(p, x, positions, cfg, kind, enc_kv=ekv)
             fill_block_cache(cfg, kind, c, kv)
-        caches[gname] = cstack
-        if ekvs:
-            caches[gname + "/enc_kv"] = {
-                name: torch.stack([e[name] for e in ekvs]).to(cache_dtype)
-                for name in ("k", "v")}
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return unembed(params, x, cfg), caches
 
 
-def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
+def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: torch.Tensor,
                  cfg: ModelConfig, kind: str, enc_kv: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, Dict]:
-    """One block of the lockstep decode; x: (B, 1, d); t: the position;
-    ``enc_kv``: an xdec layer's encoder K/V (read by the dense einsum,
-    as the reference's static decode reads it). MLA reads its latent
-    rows through ``decode_mla``'s gather route, as the reference's; MoE
-    routes the batch as one dispatch group."""
+    """One block of the lockstep decode; x: (B, 1, d); t: the position,
+    a 0-d int32 tensor on x's device (the reference's traced scalar: no
+    Python index is taken from it, so a CUDA graph replays the block at
+    any position); ``enc_kv``: an xdec layer's encoder K/V (read by the
+    dense einsum, as the reference's static decode reads it). MLA reads
+    its latent rows through ``decode_mla``'s gather route, as the
+    reference's; MoE routes the batch as one dispatch group."""
     _check_kind(kind, STATIC_KINDS, "static")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssm":
@@ -609,12 +617,15 @@ def block_decode(p: Params, x: torch.Tensor, cache: Dict, t: int,
     return x + y, nc
 
 
-def decode_step(params: Params, caches: Dict, tokens: torch.Tensor, t: int,
+def decode_step(params: Params, caches: Dict, tokens: torch.Tensor, t,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """One token for the whole stack, every row at position ``t``.
-    tokens: (B, 1). The caches are updated in place and returned (an
-    xdec group's ``/enc_kv`` entry is read, never written). Returns
-    (logits (B, 1, V), caches)."""
+    """One token for the whole stack, every row at position ``t``: a 0-d
+    int32 tensor, or an int, which becomes one on the tokens' device
+    here, once (everything below takes the tensor). tokens: (B, 1). The
+    caches are updated in place and returned (an xdec group's
+    ``/enc_kv`` entry is read, never written). Returns (logits (B, 1,
+    V), caches)."""
+    t = torch.as_tensor(t, dtype=torch.int32, device=tokens.device)
     x = embed_tokens(params, tokens, cfg)
     for gname, kind, n in group_names(cfg):
         ekv = caches.get(gname + "/enc_kv")
@@ -638,22 +649,47 @@ def _copy_back(cache: Dict, new: Dict) -> None:
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
-                cache_dtype=torch.bfloat16, device=None) -> Dict:
+                cache_dtype=torch.bfloat16, device=None, *,
+                state_dtype=torch.float32,
+                enc_len: Optional[int] = None) -> Dict:
     """Empty contiguous caches of the static path, per group stacked
     over its layers (:func:`init_block_cache`: MLA groups hold latent
-    rows with per-row positions); an xdec group's encoder K/V
-    (``frontend_tokens`` positions) zero beside it."""
+    rows with per-row positions; SSM conv state in ``state_dtype``); an
+    xdec group's encoder K/V (``enc_len`` positions, default
+    ``frontend_tokens``; 0: none) zero beside it."""
+    enc_len = cfg.frontend_tokens if enc_len is None else enc_len
     caches: Dict[str, Any] = {}
     for gname, kind, n in group_names(cfg):
         caches[gname] = init_block_cache(cfg, kind, batch, cache_len,
                                          dtype=cache_dtype, lead=(n,),
-                                         device=device)
-        if kind == "xdec":
-            shape = (n, batch, cfg.frontend_tokens, cfg.n_kv_heads,
+                                         device=device,
+                                         state_dtype=state_dtype)
+        if kind == "xdec" and enc_len:
+            shape = (n, batch, enc_len, cfg.n_kv_heads,
                      cfg.resolved_head_dim)
             caches[gname + "/enc_kv"] = {
                 name: torch.zeros(shape, dtype=cache_dtype, device=device)
                 for name in ("k", "v")}
+    return caches
+
+
+def reset_caches(cfg: ModelConfig, caches: Dict) -> Dict:
+    """Reset :func:`init_caches`' trees in place wherever a stale value
+    could be read: every position empty and the SSM state zero, as
+    :func:`caches_reset_specs` says for the paged pool. K/V and latent
+    rows are ``keep``, masked by their positions; an xdec group's
+    encoder K/V is overwritten whole by the prefill."""
+    def reset(tree: Dict, spec: Dict) -> None:
+        for name, leaf in tree.items():
+            action = spec.get(name, "keep")
+            if isinstance(leaf, dict):
+                reset(leaf, action)
+            elif action == "empty":
+                leaf.fill_(EMPTY_POS)
+            elif action == "zero":
+                leaf.zero_()
+    for gname, spec in caches_reset_specs(cfg).items():
+        reset(caches[gname], spec)
     return caches
 
 

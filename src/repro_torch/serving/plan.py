@@ -59,6 +59,7 @@ to a registered bucket (the trace-stability rule audits this closure).
 from __future__ import annotations
 
 import functools
+import gc
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -265,9 +266,17 @@ class PlanCache:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with _build.tally() as launched:
-            with torch.cuda.graph(graph, pool=self._pool):
-                st.outs = fn(*st.bufs)
+        # a cyclic collection inside the capture could destroy another
+        # graph, a CUDA call that invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.tally() as launched:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    st.outs = fn(*st.bufs)
+        finally:
+            if collecting:
+                gc.enable()
         st.graph, st.tally = graph, launched
         return out
 

@@ -594,7 +594,7 @@ def test_cuda_static_prefill_matches_the_cpu_path(arch):
     their padded head dims) against the same prefill and decode steps on
     the CPU (plain versions), fp32: logits and every cache leaf at 1e-4;
     the prefill launches the slice's kernel once per layer (MLA's
-    prefill and every decode step launch none)."""
+    prefill launches none)."""
     _cuda()
     from repro_torch.config import get_config
     from repro_torch.core.quant.policy import tree_map
@@ -625,6 +625,57 @@ def test_cuda_static_prefill_matches_the_cpu_path(arch):
         for name, want in tree.items():
             torch.testing.assert_close(cg[g][name].cpu(), want, rtol=1e-4,
                                        atol=1e-4)
+
+
+STATIC_GRAPH_SMOKE = ["qwen1.5-4b-smoke", "mamba2-130m-smoke",
+                      "hymba-1.5b-smoke", "whisper-tiny-smoke",
+                      "granite-moe-1b-a400m-smoke", "deepseek-v3-671b-smoke"]
+
+
+def _cache_leaves(tree, path=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _cache_leaves(v, f"{path}{k}/")
+        else:
+            yield f"{path}{k}", v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", STATIC_GRAPH_SMOKE)
+def test_cuda_static_graphs_match_eager_plans(arch, no_tf32):
+    """``serve.static_generate`` through its plans captured as CUDA
+    graphs and through eager plans, on the same weights and prompts:
+    the same greedy tokens; the prefill's last-position logits and every
+    cache leaf after the last step bit for bit; the same launches by
+    route in each half; 2 graphs and no retrace."""
+    _cuda()
+    from repro_torch.config import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    cfg = get_config(arch)
+    params = api.init_params(0, cfg, device="cuda")
+    batch = api.make_smoke_batch(0, cfg, 2, 40, device="cuda")
+    out = []
+    for graphs in (True, False):
+        ops.reset_launch_counts()
+        r = serve.static_generate(params, cfg, batch["tokens"], 8,
+                                  patch_embeds=batch.get("patch_embeds"),
+                                  frames=batch.get("frames"), graphs=graphs)
+        torch.cuda.synchronize()
+        out.append((r, ops.launch_counts(routes=True)))
+    (g, rg), (e, re_) = out
+    assert torch.equal(g["tokens"], e["tokens"])
+    assert torch.equal(g["logits"], e["logits"])
+    got, want = (dict(_cache_leaves(r["caches"])) for r in (g, e))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert torch.equal(got[path], leaf), path
+    assert rg == re_
+    for half in ("launches_prefill", "launches_decode"):
+        assert g[half] == e[half]
+    assert g["plans"]["graphs"] == 2 and e["plans"]["graphs"] == 0
+    assert g["plans"]["retraces"] == e["plans"]["retraces"] == 0
 
 
 @pytest.fixture

@@ -175,6 +175,50 @@ def test_mla_decode_matches_reference_on_a_cache_with_holes(t_form):
     assert gc["c"] is tcache["c"]            # in place
 
 
+@pytest.mark.parametrize("fill", ["live", "pads", "all pads"])
+def test_mla_contiguous_writes_keep_a_fixed_count(fill):
+    """``mla_decode_slots(table=None)`` writes ``c``, ``k_rope`` and
+    ``pos`` through ``ops.scatter_rows`` at the fixed ``B * C`` count,
+    whatever ``t`` holds: row b's column ``t % L``, or L (dropped on the
+    device) for a pad token, as the reference's ``mode="drop"`` scatter.
+    The rows that land are the reference's; the rest stay as they
+    were."""
+    from unittest import mock
+    jcfg, tcfg, jp, tp = models("deepseek-v3-671b-smoke")
+    B, C, L = 3, 4, 13
+    rs = np.random.RandomState(7)
+    kvr, rd = tcfg.mla_kv_lora_rank, tcfg.mla_qk_rope_dim
+    c, kr, pos = _contiguous_latent(rs, B, L, kvr, rd, (5, 9, 2), ())
+    t = np.stack([np.arange(f, f + C) for f in (5, 9, 11)]).astype(np.int32)
+    if fill == "pads":
+        t[1, 2:] = -1
+        t[2] = -1
+    elif fill == "all pads":
+        t[:] = -1
+    x = rs.randn(B, C, tcfg.d_model).astype(np.float32)
+    tpl = tfm.layer_views(tp["groups"]["g0_mla_dense"], 1)[0]["attn"]
+    jpl = jax.tree.map(lambda a: a[0], jp["groups"]["g0_mla_dense"]["attn"])
+    tcache = {"c": torch.from_numpy(c.copy()),
+              "k_rope": torch.from_numpy(kr.copy()),
+              "pos": torch.from_numpy(pos.copy())}
+    seen = []
+
+    def counted(dst, i0, i1, src):
+        seen.append((i0.numel(), i1.numel(), src.shape[0]))
+        return ops.scatter_rows(dst, i0, i1, src)
+    with mock.patch.object(mla, "scatter_rows", counted):
+        mla.mla_decode_slots(tpl, torch.from_numpy(x), tcache,
+                             torch.from_numpy(t), tcfg)
+    assert seen == [(B * C,) * 3] * 3
+    _, wc = jmla.mla_decode_slots(
+        jpl, jnp.asarray(x), {"c": jnp.asarray(c), "k_rope": jnp.asarray(kr),
+                              "pos": jnp.asarray(pos)}, jnp.asarray(t), jcfg)
+    np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                  np.asarray(wc["pos"]))
+    for name in ("c", "k_rope"):
+        _close(tcache[name], wc[name], 1e-5)
+
+
 @pytest.mark.parametrize("L,C", [(13, 1), (13, 3), (24, 1), (24, 4)])
 def test_decode_mla_contiguous_matches_jax_routes(L, C):
     """``ops.decode_mla(table=None)``: the gather route against JAX's

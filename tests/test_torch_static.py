@@ -13,6 +13,10 @@ their plain versions; the JAX package runs its model's own XLA paths
   ``prompt + tokens`` capacity): greedy tokens identical.
 - mamba2 through the port's engine serves the static path's greedy
   tokens.
+- The staged static plans (``serve.StaticPlans``) run a second prompt
+  batch as a fresh run does, exactly, and ``decode_step`` at a 0-d
+  device position reads nothing on the host and matches an int one bit
+  for bit (six block families, port-only smoke models).
 """
 import functools
 
@@ -168,3 +172,134 @@ def test_static_cli_runs_on_the_cpu_and_refuses_without_a_card(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", arch, "--smoke", "--static"])
+
+
+# ------------------------------------------------- the staged static plans
+
+def _leaves(tree, path=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{path}{k}/")
+        else:
+            yield f"{path}{k}", v
+
+
+def _smoke(arch):
+    """A port-only smoke model (``hymba-1.5b-smoke-ring``: 4 layers with
+    hybrid_swa ones at window 8, so a prompt of 12 wraps the rings)."""
+    from dataclasses import replace
+    if arch == "hymba-1.5b-smoke-ring":
+        cfg = replace(get_config("hymba-1.5b-smoke"), n_layers=4,
+                      sliding_window=8)
+    else:
+        cfg = get_config(arch)
+    return cfg, api.init_params(0, cfg, device="cpu")
+
+
+RESET_ARCHS = ["qwen1.5-4b-smoke", "mamba2-130m-smoke",
+               "hymba-1.5b-smoke-ring", "deepseek-v3-671b-smoke"]
+
+
+@pytest.mark.parametrize("arch", RESET_ARCHS)
+def test_static_plans_serve_a_second_batch_as_a_fresh_run(arch):
+    """One set of staged plans (``serve.StaticPlans``) runs two prompt
+    batches of one shape: the second's tokens and every cache leaf equal
+    a fresh run's exactly, and the plans were not staged again. A prefill
+    through the plans then leaves every position and SSM leaf, and the
+    K/V rows it wrote, as a prefill into new caches (``init_caches``'
+    layout and dtypes) does: nothing a decode step left is seen."""
+    cfg, params = _smoke(arch)
+    B, S, n_new = 2, 12, 6
+    a, b = (torch.from_numpy(_tokens(B, S, seed)) for seed in (5, 6))
+    plans = serve.StaticPlans(params, cfg, B, S, S + n_new)
+    first = serve.static_generate(params, cfg, a, n_new, plans=plans)
+    again = serve.static_generate(params, cfg, b, n_new, plans=plans)
+    fresh = serve.static_generate(params, cfg, b, n_new)
+    assert not torch.equal(first["tokens"], again["tokens"])
+    assert torch.equal(again["tokens"], fresh["tokens"])
+    assert torch.equal(again["logits"], fresh["logits"])
+    got, want = dict(_leaves(again["caches"])), dict(_leaves(fresh["caches"]))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert torch.equal(got[path], leaf), path
+    assert again["plans"]["retraces"] == 0
+    assert again["plans"]["plans"] == 2 and again["plans"]["graphs"] == 0
+    plans.prefill(b)
+    with torch.no_grad():
+        _, own = tfm.prefill(params, b, cfg, cache_len=S + n_new)
+    got, want = dict(_leaves(plans.caches)), dict(_leaves(own))
+    assert got.keys() == want.keys()
+    for path, leaf in want.items():
+        assert got[path].dtype == leaf.dtype, path
+        rows = (leaf if path.rsplit("/", 1)[-1] not in
+                ("k", "v", "c", "k_rope") else leaf[:, :, :S])
+        assert torch.equal(got[path][tuple(slice(n) for n in rows.shape)],
+                           rows), path
+
+
+class _NoHostRead(torch.utils._python_dispatch.TorchDispatchMode):
+    """Raises where a tensor's value would be read on the host
+    (``.item()``, ``int(t)``, ``bool(t)`` all reach this op)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise AssertionError("a tensor was read on the host")
+        return func(*args, **(kwargs or {}))
+
+
+DEVICE_T_ARCHS = ["qwen1.5-4b-smoke", "mamba2-130m-smoke",
+                  "hymba-1.5b-smoke-ring", "deepseek-v3-671b-smoke",
+                  "whisper-tiny-smoke", "internvl2-1b-smoke"]
+
+
+@pytest.mark.parametrize("arch", DEVICE_T_ARCHS)
+def test_decode_step_at_a_device_position_reads_nothing_on_the_host(arch):
+    """``decode_step`` with ``t`` a 0-d int32 tensor gives the logits and
+    caches of an int ``t``, bit for bit, and neither form reads a tensor
+    on the host (dense, ssm, hybrid with rings, mla + moe, xdec, vlm)."""
+    cfg, params = _smoke(arch)
+    B, S = 2, 12 + cfg.frontend_tokens
+    batch = api.make_smoke_batch(3, cfg, B, S, device="cpu")
+    t = S + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    with torch.no_grad():
+        logits, caches = api.make_prefill_step(cfg)(params, batch)
+        tok = logits.argmax(-1).to(torch.int32)
+        twin = {g: {k: v.clone() for k, v in _leaves(c)}
+                for g, c in caches.items()}
+        out = []
+        for pos in (t, torch.tensor(t, dtype=torch.int32)):
+            for g, c in caches.items():
+                for k, v in _leaves(c):
+                    v.copy_(twin[g][k])
+            with _NoHostRead():
+                step, after = tfm.decode_step(params, caches, tok, pos, cfg)
+            out.append((step, {(g, k): v.clone() for g, c in after.items()
+                               for k, v in _leaves(c)}))
+    (l_int, c_int), (l_dev, c_dev) = out
+    assert torch.equal(l_int, l_dev)
+    assert c_int.keys() == c_dev.keys()
+    for key, leaf in c_int.items():
+        assert torch.equal(c_dev[key], leaf), key
+
+
+def test_static_plans_are_freed_without_the_cyclic_collector():
+    """Dropping a ``StaticPlans`` frees its plan cache (on a card, its
+    graphs) at once: its plans hold no reference back to it, so no
+    cyclic collection, which may run inside another plan's capture, has
+    to free them."""
+    import gc
+    import weakref
+    cfg, params = _smoke("qwen1.5-4b-smoke")
+    tok = torch.from_numpy(_tokens(2, 8, seed=7))
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        plans = serve.StaticPlans(params, cfg, 2, 8, 12)
+        serve.static_generate(params, cfg, tok, 3, plans=plans)
+        cache = weakref.ref(plans.plans)
+        del plans
+        assert cache() is None
+    finally:
+        if collecting:
+            gc.enable()
